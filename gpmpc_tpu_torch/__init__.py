@@ -1,0 +1,25 @@
+"""gpmpc_tpu_torch: the PyTorch and CUDA port of gpmpc_tpu.
+
+Risk-sensitive Gaussian-Process MPC on an NVIDIA GPU. The package mirrors
+`gpmpc_tpu/` path for path; `gpmpc_tpu/` stays the reference the port is
+checked against, and this package imports none of it (nor JAX).
+
+Ported so far: the batched solve on the headline problem (`solve_batch`,
+fused branch) with its chain: the padded exact GP and its f64 fit, the
+diagonal-covariance moment-matched rollout, the risk-sensitive cost and the
+lockstep projected L-BFGS. The variance trace runs through a hand-written
+CUDA kernel (ops/kernels/csrc). Entry points run on CUDA unless the caller
+passes device='cpu'.
+"""
+
+from gpmpc_tpu_torch.device import resolve_device
+from gpmpc_tpu_torch.gp.state import GPConfig, GPState, make_gp
+from gpmpc_tpu_torch.gp.exact import predict, log_marginal_likelihood
+from gpmpc_tpu_torch.dynamics import (RolloutCache, build_rollout_cache,
+                                      rollout_batched)
+from gpmpc_tpu_torch.mpc.cost import CostParams, risk_sensitive_cost
+from gpmpc_tpu_torch.mpc.solver import SolverConfig, solve_trajectory_batched
+from gpmpc_tpu_torch.parallel.batch import solve_batch
+from gpmpc_tpu_torch.problems import make_headline_problem
+
+__version__ = "0.1.0"

@@ -1,0 +1,209 @@
+"""Lockstep projected L-BFGS over B independent box-constrained solves
+(port of `solve_trajectory_batched`, gpmpc_tpu/mpc/solver.py).
+
+Every lane has its own acceptance, step size, history and convergence; lanes
+that are done freeze while the loop runs on until all are done or the
+iteration cap. The JAX `lax.while_loop` is a host loop here; it reads
+`all(done)` once per iteration, so the iteration count is the JAX one.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, NamedTuple
+
+import torch
+
+
+@dataclass(frozen=True)
+class SolverConfig:
+    max_iters: int = 300
+    tol: float = 1e-4
+    # L-BFGS history length.
+    history: int = 8
+    # Nonmonotone Armijo window (accept against the max of the last
+    # `nonmonotone` accepted values); 0 = monotone.
+    nonmonotone: int = 0
+    # Relative objective noise for the noise-tolerant Armijo test; with
+    # noise_rel > 0 a lane is done after `progress_window` iterations without
+    # improvement beyond the noise, and the best iterate is returned.
+    noise_rel: float = 0.0
+    progress_window: int = 12
+
+
+class SolveResult(NamedTuple):
+    u: torch.Tensor          # (B, H, da)
+    cost: torch.Tensor       # (B,)
+    iters: torch.Tensor      # (B,) iterations each lane took
+    pg_norm: torch.Tensor    # (B,) projected-gradient residual (inf-norm)
+    converged: torch.Tensor  # (B,) done before the cap
+
+
+def _value_and_grad(objective_b, u_flat, shape):
+    """f (B,) and its per-lane gradient (B, n): lanes are independent, so the
+    gradient of the sum is the stack of the per-lane gradients."""
+    u_var = u_flat.detach().requires_grad_(True)
+    with torch.enable_grad():
+        f = objective_b(u_var.reshape(shape))
+        (g,) = torch.autograd.grad(f.sum(), u_var)
+    return f.detach(), g
+
+
+def _bdot(x, y):
+    return torch.einsum('bn,bn->b', x, y)
+
+
+def solve_trajectory_batched(objective_b: Callable[[torch.Tensor], torch.Tensor],
+                             u_init: torch.Tensor, lb, ub,
+                             config: SolverConfig = SolverConfig()
+                             ) -> SolveResult:
+    """objective_b: (B, H, da) -> (B,) independent per-lane objectives,
+    differentiable by autograd. lb/ub broadcast against u_init."""
+    dt = u_init.dtype
+    dev = u_init.device
+    b = u_init.shape[0]
+    shape = u_init.shape
+    n = u_init[0].numel()
+    mem = config.history
+    lb_f = torch.as_tensor(lb, dtype=dt, device=dev).broadcast_to(shape).reshape(b, n)
+    ub_f = torch.as_tensor(ub, dtype=dt, device=dev).broadcast_to(shape).reshape(b, n)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    eps = torch.finfo(dt).eps
+
+    def val_and_grad(u):
+        return _value_and_grad(objective_b, u, shape)
+
+    def proj(u):
+        return torch.minimum(torch.maximum(u, lb_f), ub_f)
+
+    def pg_res(u, g):                                  # (B,)
+        return torch.amax(torch.abs(u - proj(u - g)), dim=1)
+
+    def two_loop(g, s_h, y_h, rho_h, hlen):
+        q = g
+        alphas = [None] * mem
+        for k in range(mem - 1, -1, -1):
+            valid = k >= mem - hlen                    # (B,)
+            a = torch.where(valid, rho_h[:, k] * _bdot(s_h[:, k], q), zero)
+            alphas[k] = a
+            q = q - a[:, None] * y_h[:, k]
+        sy = _bdot(s_h[:, mem - 1], y_h[:, mem - 1])
+        yy = _bdot(y_h[:, mem - 1], y_h[:, mem - 1])
+        scale = torch.where((hlen > 0) & (yy > 0.0),
+                            sy / torch.clamp(yy, min=1e-30),
+                            torch.ones_like(sy))
+        r = scale[:, None] * q
+        for k in range(mem):
+            valid = k >= mem - hlen
+            bk = torch.where(valid, rho_h[:, k] * _bdot(y_h[:, k], r), zero)
+            r = r + (alphas[k] - bk)[:, None] * s_h[:, k]
+        return r
+
+    nm = config.nonmonotone
+    noise = config.noise_rel
+    eps_scale = (2.0 * noise) if noise > 0.0 else 16.0 * eps
+
+    u = proj(u_init.reshape(b, n))
+    f, g = val_and_grad(u)
+    g = torch.where(torch.isfinite(g), g, zero)
+    fhist = f[:, None].expand(b, max(nm, 1)).clone()
+    t_ls = torch.ones((b,), dtype=dt, device=dev)
+    s_h = torch.zeros((b, mem, n), dtype=dt, device=dev)
+    y_h = torch.zeros_like(s_h)
+    rho_h = torch.zeros((b, mem), dtype=dt, device=dev)
+    hlen = torch.zeros((b,), dtype=torch.long, device=dev)
+    resets = torch.zeros_like(hlen)
+    f_best, u_best = f, u
+    no_prog = torch.zeros_like(hlen)
+    iters_b = torch.zeros_like(hlen)
+    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+
+    t = 0
+    while t < config.max_iters and not bool(done.all()):
+        live = ~done
+        # Two-metric projection: the quasi-Newton direction sees only the
+        # FREE gradient; bound-active coordinates take plain gradient steps.
+        eps_act = 1e-6 * (1.0 + torch.abs(u))
+        act = (((u <= lb_f + eps_act) & (g > 0.0))
+               | ((u >= ub_f - eps_act) & (g < 0.0)))
+        d = -two_loop(torch.where(act, zero, g), s_h, y_h, rho_h, hlen)
+        d = torch.where(act, -g, d)
+        d = torch.where((_bdot(g, d) < -1e-16)[:, None], d, -g)
+
+        # ONE value_and_grad per iteration, at the candidate: on acceptance its
+        # gradient is the next iterate's; on rejection the carried (u, f, g)
+        # stay valid.
+        c1 = 1e-4
+        u_try = proj(u + t_ls[:, None] * d)
+        f_try, g_try = val_and_grad(u_try)
+        dec = _bdot(g, u_try - u)
+        f_acc = f if nm == 0 else torch.amax(fhist, dim=1)
+        eps_f = eps_scale * (1.0 + torch.abs(f))
+        accepted = ((f_try <= f_acc + c1 * dec + eps_f) & (dec < 0.0)
+                    & torch.isfinite(f_try) & live)
+        u_new = torch.where(accepted[:, None], u_try, u)
+        f_new = torch.where(accepted, f_try, f)
+        if nm > 0:
+            fhist = torch.where(accepted[:, None],
+                                torch.cat([fhist[:, 1:], f_new[:, None]], 1),
+                                fhist)
+        # Step size: growth capped at 4; rejection backtracks by quadratic
+        # interpolation of phi(t) = f(proj(u + t d)), clamped to [0.1, 0.5] t.
+        denom = f_try - f - dec
+        pos = denom > 0.0
+        t_q = torch.where(pos, t_ls * (-0.5 * dec)
+                          / torch.where(pos, denom, torch.ones_like(denom)),
+                          0.5 * t_ls)
+        t_down = torch.minimum(torch.maximum(t_q, 0.1 * t_ls), 0.5 * t_ls)
+        t_ls = torch.where(done, t_ls,
+                           torch.where(accepted,
+                                       torch.clamp(2.0 * t_ls, max=4.0),
+                                       t_down))
+
+        g_try = torch.where(torch.isfinite(g_try), g_try, zero)
+        g_new = torch.where(accepted[:, None], g_try, g)
+
+        s = u_new - u
+        y = g_new - g
+        sy = _bdot(s, y)
+        # Cosine curvature gate: noise-dominated (s, y) pairs stay out.
+        sy_ok = sy > torch.clamp(
+            1e-8 * torch.linalg.vector_norm(s, dim=1)
+            * torch.linalg.vector_norm(y, dim=1), min=1e-12)
+        keep = accepted & sy_ok
+        s_h = torch.where(keep[:, None, None],
+                          torch.cat([s_h[:, 1:], s[:, None]], 1), s_h)
+        y_h = torch.where(keep[:, None, None],
+                          torch.cat([y_h[:, 1:], y[:, None]], 1), y_h)
+        rho_h = torch.where(
+            keep[:, None],
+            torch.cat([rho_h[:, 1:], (1.0 / torch.clamp(sy, min=1e-30))[:, None]],
+                      1), rho_h)
+        hlen = torch.where(keep, torch.clamp(hlen + 1, max=mem), hlen)
+
+        # Step underflow: restart from steepest descent (at most twice); a
+        # repeated underflow declares the lane stationary.
+        underflow = t_ls < 1e-10
+        restart = live & underflow & (resets < 2)
+        hlen = torch.where(restart, torch.zeros_like(hlen), hlen)
+        t_ls = torch.where(restart, torch.ones_like(t_ls), t_ls)
+        resets = torch.where(restart, resets + 1, resets)
+        newly_done = (pg_res(u_new, g_new) < config.tol) | (underflow & ~restart)
+        if noise > 0.0:
+            improved = f_new < f_best - noise * (1.0 + torch.abs(f_best))
+            u_best = torch.where((f_new < f_best)[:, None], u_new, u_best)
+            f_best = torch.minimum(f_best, f_new)
+            no_prog = torch.where(improved, torch.zeros_like(no_prog),
+                                  no_prog + 1)
+            newly_done = newly_done | (no_prog >= config.progress_window)
+        iters_b = torch.where(done, iters_b, torch.full_like(iters_b, t + 1))
+        done = done | (newly_done & live)
+        u, f, g = u_new, f_new, g_new
+        t += 1
+
+    if noise > 0.0:
+        # Best-seen iterate; pg_norm belongs to the last iterate.
+        return SolveResult(u=u_best.reshape(shape), cost=f_best, iters=iters_b,
+                           pg_norm=pg_res(u, g), converged=done)
+    return SolveResult(u=u.reshape(shape), cost=f, iters=iters_b,
+                       pg_norm=pg_res(u, g), converged=done)

@@ -1,0 +1,94 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each `csrc/<name>.cu` is compiled by `nvcc` into its own shared library with a
+plain C interface and loaded with `ctypes` (no PyTorch headers, so a build
+takes seconds). Builds happen at first use, only from the sources in this
+package, into `gpmpc_tpu_torch/_build/`; the library's file name carries a
+hash of its source and flags, so an edited source is rebuilt. Nothing here
+runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / 'csrc'
+BUILD_DIR = Path(__file__).resolve().parents[2] / '_build'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '-shared', '-Xcompiler', '-fPIC')
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def find_nvcc() -> str:
+    """Path of `nvcc`: $CUDA_HOME/bin, then /usr/local/cuda/bin, then PATH."""
+    candidates = []
+    if os.environ.get('CUDA_HOME'):
+        candidates.append(Path(os.environ['CUDA_HOME']) / 'bin' / 'nvcc')
+    candidates.append(Path('/usr/local/cuda/bin/nvcc'))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    found = shutil.which('nvcc')
+    if found is None:
+        raise RuntimeError('nvcc not found: the CUDA kernels are built from '
+                           'source at first use and need the CUDA toolkit')
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f'{name}.cu').read_bytes()
+    digest = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f'lib{name}-{digest[:16]}.so'
+
+
+def _start_build(name: str, nvcc: str):
+    """Start nvcc for one source; returns (process, tmp path, final path)."""
+    out = library_path(name)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f'.{os.getpid()}.tmp')
+    cmd = [nvcc, *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish_build(name: str, started) -> None:
+    proc, tmp, out = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f'nvcc failed on csrc/{name}.cu '
+                           f'(exit {proc.returncode}):\n{log}')
+    os.replace(tmp, out)      # atomic: a concurrent build sees all or none
+
+
+def build_all() -> float:
+    """Build every `csrc/*.cu` that is not built yet, one nvcc per source, all
+    started together. Returns the wall seconds taken."""
+    t0 = time.perf_counter()
+    todo = sorted(p.stem for p in CSRC.glob('*.cu')
+                  if not library_path(p.stem).is_file())
+    if todo:
+        nvcc = find_nvcc()
+        started = [(name, _start_build(name, nvcc)) for name in todo]
+        for name, s in started:
+            _finish_build(name, s)
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library built from `csrc/<name>.cu`, building it if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        if not library_path(name).is_file():
+            _finish_build(name, _start_build(name, find_nvcc()))
+        lib = ctypes.CDLL(str(library_path(name)))
+        _loaded[name] = lib
+    return lib

@@ -1,0 +1,60 @@
+"""The headline problem (port of `make_headline_problem`,
+benchmarks/problems.py).
+
+B independent risk-sensitive GP-MPC solves against a shared exact-GP
+pendulum-dimension posterior (ds = 2, da = 1): N = 200 training points in
+capacity 256, tied lengthscales 4, sigma_n = 0.1, horizon 20, a gamma sweep
+over [-0.5, 0.5] and bounds +-5. The data come from numpy with the same seed
+and draw order as the JAX package, so both build the same GP.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from gpmpc_tpu_torch.device import resolve_device
+from gpmpc_tpu_torch.gp.state import GPConfig, GPState, make_gp
+from gpmpc_tpu_torch.mpc.cost import CostParams
+
+
+class HeadlineProblem(NamedTuple):
+    gp: GPState
+    state_dim: int
+    action_dim: int
+    x0s: torch.Tensor         # (B, ds)
+    params: CostParams        # gamma is a (B,) sweep
+    horizon: int
+    lb: float
+    ub: float
+
+
+def make_headline_problem(b: int = 256, dtype=torch.float32, seed: int = 0,
+                          n_train: int = 200, capacity: int = 256,
+                          horizon: int = 20, device=None) -> HeadlineProblem:
+    """The headline workload; dtype float32 is the production precision,
+    float64 the reference objective. `device` defaults to CUDA."""
+    dev = resolve_device(device)
+    ds, da = 2, 1
+    rng = np.random.default_rng(seed)
+    states = rng.uniform(-np.pi, np.pi, (n_train, ds))
+    actions = rng.uniform(-5, 5, (n_train, da))
+    next_states = states + 0.05 * np.concatenate(
+        [states[:, 1:], 15 * np.sin(states[:, :1]) + 3 * actions], axis=1)
+    x = np.concatenate([states, actions], axis=1)
+    cfg = GPConfig(capacity=capacity, x_dim=ds + da, out_dim=ds)
+    gp = make_gp(cfg, x, next_states, log_lambdas=np.log([4.0] * (ds + da)),
+                 log_sigma_f=0.0, log_sigma_n=np.log(0.1), dtype=dtype,
+                 device=dev)
+
+    def t(v):
+        return torch.as_tensor(v, dtype=dtype, device=dev)
+
+    x0s = t(rng.uniform(-1, 1, (b, ds)))
+    params = CostParams(Q=t(2.0 * np.eye(ds)), R=t(0.01 * np.eye(da)),
+                        gamma=t(np.linspace(-0.5, 0.5, b)),
+                        x_ref=t(np.zeros(ds)), u_ref=t(np.zeros(da)))
+    return HeadlineProblem(gp=gp, state_dim=ds, action_dim=da, x0s=x0s,
+                           params=params, horizon=horizon, lb=-5.0, ub=5.0)

@@ -1,0 +1,69 @@
+"""Shared helpers for the tests that hold gpmpc_tpu_torch against gpmpc_tpu.
+
+Inputs are made with numpy from a seed and handed to both packages; arrays
+cross between them as numpy. The JAX side runs on the CPU with x64 on
+(tests/conftest.py), the port with device='cpu'.
+"""
+
+import numpy as np
+import torch
+
+import jax.numpy as jnp
+
+from gpmpc_tpu.gp import state as gs
+from gpmpc_tpu_torch.convert import FIELDS, gp_state_from_numpy
+
+F64 = torch.float64
+
+
+def t64(a):
+    """numpy / JAX array -> float64 CPU tensor."""
+    return torch.tensor(np.asarray(a), dtype=F64)
+
+
+def np_(t):
+    return t.detach().cpu().numpy()
+
+
+def port_gp(jgp, dtype=F64):
+    """The port's GPState carrying a JAX GPState's posterior (no refit)."""
+    return gp_state_from_numpy({k: np.asarray(getattr(jgp, k)) for k in FIELDS},
+                               tied_lambdas=bool(jgp.config.tied_lambdas),
+                               device='cpu', dtype=dtype)
+
+
+def gp_data(n=24, ds=2, da=1, seed=0):
+    """Small pendulum-like transition data: x (n, ds+da), next states (n, ds)."""
+    rng = np.random.default_rng(seed)
+    states = rng.uniform(-1, 1, (n, ds))
+    actions = rng.uniform(-1, 1, (n, da))
+    next_states = states + 0.1 * actions + 0.05 * np.sin(states)
+    return np.concatenate([states, actions], axis=1), next_states
+
+
+def jax_gp(n=24, cap=32, ds=2, da=1, seed=0, log_lambdas=None, sigma_n=1e-2,
+           dtype=jnp.float64):
+    """A JAX GPState on gp_data; tied lengthscales 2 unless given."""
+    x, y = gp_data(n, ds, da, seed)
+    if log_lambdas is None:
+        log_lambdas = np.log([2.0] * (ds + da))
+    cfg = gs.GPConfig(capacity=cap, x_dim=ds + da, out_dim=ds)
+    return gs.make_gp(cfg, x, y, log_lambdas=log_lambdas, log_sigma_f=0.0,
+                      log_sigma_n=np.log(sigma_n), dtype=dtype)
+
+
+def untied_log_lambdas(ds=2, da=1):
+    """Per-output lengthscales that differ (the untied K2 path)."""
+    return np.log(np.array([[2.0, 1.5, 3.0], [1.2, 2.5, 1.8]])[:ds, :ds + da])
+
+
+def spd(rng, shape, d, scale=0.1):
+    """Random SPD matrices of shape (*shape, d, d)."""
+    m = rng.normal(size=tuple(shape) + (d, d))
+    return m @ np.swapaxes(m, -1, -2) * scale + np.eye(d)
+
+
+def sym(rng, e, n, scale=0.003):
+    """Random symmetric (E, N, N) stand-in for b_lam."""
+    br = rng.normal(size=(e, n, n)) * scale
+    return br + np.swapaxes(br, -1, -2)
