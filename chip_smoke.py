@@ -7,26 +7,49 @@ Run from the repository root: python3 chip_smoke.py [--out DIR]
 Phases (each one fails the script with a non-zero exit; nothing is caught):
   1. device     CUDA present; the card's name and power limit.
   2. build      every CUDA source under gpmpc_tpu_torch/ops/kernels/csrc is
-                compiled by nvcc into gpmpc_tpu_torch/_build/.
-  3. kernels    K1 (tied) and K2 (untied) in f32 against their plain PyTorch
-                versions in f64 on the card, at the headline shape and a
-                ragged one, on the JAX kernel test's inputs: forward rtol
-                5e-5 (atol 5e-5), backward rtol 2e-3 (atol 2e-4), that
-                test's bars. On the headline GP's own x and b_lam, whose
-                trace cancels, the kernels in f32 and in f64 against the
-                plain f64 version: rtol 5e-5 (f32) or 1e-12 (f64) of |t| plus
-                16 ulps of the terms' magnitude sum. Each kernel is timed
-                with CUDA events beside its plain version and its bound.
-  4. objective  the port's f64 objective on the card (the f64 kernel instance)
-                at the reference controls and at 0 against the JAX package's
-                values in gpmpc_tpu_torch/data/headline_ref.npz, rtol 1e-8.
+                compiled by nvcc into gpmpc_tpu_torch/_build/, one nvcc per
+                source, all started together.
+  3. kernels    Each kernel in f32 against its plain PyTorch version in f64
+                on the card, at the headline shape and a ragged one, on the
+                JAX kernel test's inputs: forward rtol 5e-5 (atol 5e-5),
+                backward rtol 2e-3 (atol 2e-4), that test's bars. On the
+                headline GP's own x and b_lam, whose trace cancels, the
+                kernels in f32 and in f64 against the plain f64 version:
+                rtol 5e-5 (f32) or 1e-12 (f64) of |t| plus 16 ulps of the
+                terms' magnitude sum. K1 (tied) and K2 (untied); K3 (the row
+                block) as its partial traces summed over n_m = 1, 2 and 4 row
+                blocks, also against K1 in f32; K4 (the symmetric pairs,
+                GPMPC_SYM_KERNEL=1) tied and per-output, also against K1 and
+                K2 in f32. Each kernel is timed with CUDA events beside its
+                plain version and its bound; K3 at the (1, 1) sharded solve's
+                shape (Nl = N), whose launches the `kernels` line counts, and
+                at one rank's half of a (1, 2) mesh (Nl = N / 2).
+  4. objective  the port's f64 objective on the card (the f64 kernel
+                instances) at the reference controls and at 0 against the
+                JAX package's values in gpmpc_tpu_torch/data/headline_ref.npz,
+                rtol 1e-8: through K1, and with the K4 opt-in on.
   5. solve      the main path: solve_batch on the headline problem (B=256,
                 H=20, f32, 40 iterations): finite costs, no lane worse than
                 its start, and exactly H * (1 + iterations) K1 launches.
                 Solves/s over fresh x0s, and the cost excess against the f64
                 reference controls. Then the untied path (K2) on the same
-                problem with per-output lengthscales, and a profiler pass.
-  6. output     the card line, one `kernels` JSON line and the result line.
+                problem with per-output lengthscales, and a profiler pass
+                (of a 10-iteration solve, as every profiler pass here).
+                Then both again with the K4 opt-in on: the headline solve
+                with exactly H * (1 + iterations) K4 launches and no K1 one,
+                scored, timed and profiled the same way, and the untied solve
+                with one K4 launch a trace for all outputs.
+  6. sharded    solve_batch_2d at the headline width: (a) a (1, 1) mesh on
+                NCCL in this process: finite costs, none above its start,
+                exactly H * (1 + iterations) K3 launches, solves/s, cost
+                excess and a profiler pass; (b) a (1, 2) mesh on gloo, two processes on the same
+                card started from here with a timeout: their f64 objective at
+                the reference controls against headline_ref.npz (rtol 1e-8)
+                and their gradient against this process's unsharded f64
+                gradient (rtol 1e-10, atol 1e-10 of its largest entry, so it
+                is not counted twice), both ranks equal to the bit, and
+                exactly H K3 launches on each rank (one forward rollout).
+  7. output     the card line, one `kernels` JSON line and the result line.
 
 Times, rates and bounds printed here are measured in this run on this card.
 """
@@ -34,6 +57,7 @@ Times, rates and bounds printed here are measured in this run on this card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -45,6 +69,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 REF = os.path.join(ROOT, 'gpmpc_tpu_torch', 'data', 'headline_ref.npz')
 SOURCE = 'gpmpc_tpu_torch/ops/kernels/csrc/variance_trace_tied.cu'
+SYM_SOURCE = 'gpmpc_tpu_torch/ops/kernels/csrc/variance_trace_sym.cu'
 TPU_FILE = 'gpmpc_tpu/ops/pallas/variance_trace.py'
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): float32
@@ -55,14 +80,27 @@ PEAK_BYTES_PER_S = 3.35e12
 FWD_TOL = dict(rtol=5e-5, atol=5e-5)
 BWD_TOL = dict(rtol=2e-3, atol=2e-4)
 OBJ_RTOL = 1e-8
+GRAD_RTOL = 1e-10
 ITERS = 40
 UNTIED_ITERS = 10
+# The profiled solves are cut to 10 iterations: the profiler's own
+# processing of a 40-iteration solve (~120k device kernels) takes ~100 s.
+PROFILE_ITERS = 10
+WORKER_TIMEOUT_S = 600
+PG_TIMEOUT_S = 300.0
 # The headline inputs' range: (theta, omega, action) in [-pi, pi]^2 x [-5, 5].
 DATA_SCALE = np.array([np.pi, np.pi, 5.0])
+# Each kernel's launch counter in ops/kernels/variance_trace.py.
+COUNTER = {'K1': 'LAUNCHES', 'K2': 'LAUNCHES_UNTIED', 'K3': 'LAUNCHES_BLOCK',
+           'K4': 'LAUNCHES_SYM'}
+
+
+_T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the run, prefixed with the seconds since the start."""
+    print(f'{time.perf_counter() - _T0:7.1f}s {msg}', flush=True)
 
 
 def card_line() -> str:
@@ -76,6 +114,27 @@ def sync(dev) -> None:
     import torch
     if dev.type == 'cuda':
         torch.cuda.synchronize(dev)
+
+
+def reset_counts() -> None:
+    from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
+    for name in COUNTER.values():
+        setattr(vt, name, 0)
+
+
+def read_counts() -> dict:
+    from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
+    return {k: getattr(vt, name) for k, name in COUNTER.items()}
+
+
+@contextlib.contextmanager
+def sym_opt_in():
+    """The K4 opt-in of the JAX package, GPMPC_SYM_KERNEL=1, for a block."""
+    os.environ['GPMPC_SYM_KERNEL'] = '1'
+    try:
+        yield
+    finally:
+        os.environ.pop('GPMPC_SYM_KERNEL', None)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -100,20 +159,39 @@ def assert_close(name, got, want, rtol, atol) -> float:
     return float(np.max(np.abs(got - want)))
 
 
+def _bound(flops, nbytes):
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ('operations' if t_ops >= t_bytes
+                                       else 'bytes')
+
+
 def bound_ms(b, n_out, n_c, d, e, chains):
-    """Least time for the rw function on this card: the larger of its f32
-    operations over the f32 peak and its bytes (each input read once, each
-    output written once) over the memory rate. Per (i, j) pair and exp chain:
-    d multiply-adds and one scale for the exponent, one exp, and per output
-    one blam multiply and (1 + d) multiply-adds."""
+    """Least time for the rw function (K1, K2, K3) on this card: the larger
+    of its f32 operations over the f32 peak and its bytes (each input read
+    once, each output written once) over the memory rate. Per (i, j) pair
+    and exp chain: d multiply-adds and one scale for the exponent, one exp,
+    and per output one blam multiply and (1 + d) multiply-adds."""
     w1 = d + 1
     e_per_chain = e // chains
     flops = b * n_out * n_c * chains * (2 * d + 2 + e_per_chain * (1 + 2 * w1))
     nbytes = 4 * (b * n_out * (d + 1) * chains + b * n_c * (d + w1) * chains
                   + e * n_c * n_out + b * e * n_out * w1)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ('operations' if t_ops >= t_bytes
-                                       else 'bytes')
+    return _bound(flops, nbytes)
+
+
+def sym_bound_ms(b, n, d, e, chains):
+    """K4's least time: the exponent (d multiply-adds, a scale, one exp) and
+    per output one blam multiply on each of the n (n + 1) / 2 unordered
+    pairs (W and blam are symmetric), and per output the (1 + d)
+    multiply-adds of each of the n^2 ordered pairs. Bytes: z and dv per
+    chain, ao, blam and rw, each once."""
+    w1 = d + 1
+    e_pc = e // chains
+    pairs = n * (n + 1) // 2
+    flops = b * chains * (pairs * (2 * d + 2 + e_pc) + n * n * e_pc * 2 * w1)
+    nbytes = 4 * (b * n * (d + 1) * chains + b * n * w1 + e * n * n
+                  + b * e * n * w1)
+    return _bound(flops, nbytes)
 
 
 def instr_bound_ms(b, n, d, e, props, clock_mhz):
@@ -163,12 +241,35 @@ def trace_fns(tied):
     return vt.variance_trace_batched, vt.variance_trace_batched_reference
 
 
-def check_trace(name, tied, u, m2, x, blam, ct):
-    """The f32 wrapper (the kernel, on CUDA) against the plain version in f64:
-    value and the analytic (du, dm2) against autograd of the plain version.
-    Returns the max abs forward error."""
+def block_fn(n_m):
+    """The tied trace as K3's partials over n_m row blocks, summed: the
+    model-sharded path's arithmetic on one device."""
+    from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
+
+    def fn(u, m2, x, blam):
+        n_loc = x.shape[0] // n_m
+        return sum(vt.variance_trace_tied_block(
+            u, m2, x, x[k:k + n_loc], blam[:, k:k + n_loc].transpose(1, 2))
+            for k in range(0, x.shape[0], n_loc))
+    return fn
+
+
+def sym_fn(tied):
+    """The trace with the K4 opt-in on (the backward needs no opt-in)."""
+    base = trace_fns(tied)[0]
+
+    def fn(*args):
+        with sym_opt_in():
+            return base(*args)
+    return fn
+
+
+def check_trace(name, fn, ref, u, m2, x, blam, ct, also=None):
+    """The f32 `fn` (a kernel, on CUDA) against the plain `ref` in f64: value
+    and the analytic (du, dm2) against autograd of the plain version; and
+    against `also` in f32 (another kernel on the same inputs) at the same
+    bars. Returns the max abs forward error against the plain version."""
     import torch
-    fn, ref = trace_fns(tied)
 
     def run(f, dtype):
         uu = u.to(dtype).requires_grad_()
@@ -178,15 +279,20 @@ def check_trace(name, tied, u, m2, x, blam, ct):
                                           (uu, mm)))
 
     k_out, k_du, k_dm2 = run(fn, torch.float32)
-    r_out, r_du, r_dm2 = run(ref, torch.float64)
-    err = assert_close(f'{name} forward', k_out, r_out, **FWD_TOL)
-    assert_close(f'{name} du', k_du, r_du, **BWD_TOL)
-    assert_close(f'{name} dm2', k_dm2, r_dm2, **BWD_TOL)
+    wants = [('plain f64', run(ref, torch.float64))]
+    if also is not None:
+        wants.append(('other kernel f32', run(also, torch.float32)))
+    err = None
+    for what, (r_out, r_du, r_dm2) in wants:
+        e = assert_close(f'{name} forward vs {what}', k_out, r_out, **FWD_TOL)
+        assert_close(f'{name} du vs {what}', k_du, r_du, **BWD_TOL)
+        assert_close(f'{name} dm2 vs {what}', k_dm2, r_dm2, **BWD_TOL)
+        err = e if err is None else err
     return err
 
 
-def check_conditioned(name, tied, u, m2, x, blam, dtype, rtol):
-    """The kernel in `dtype` against the plain version in f64 on the headline
+def check_conditioned(name, fn, ref, u, m2, x, blam, dtype, rtol):
+    """`fn` in `dtype` against the plain `ref` in f64 on the headline
     operands. On the headline b_lam the trace cancels: the magnitudes of its
     terms, mag = sum_ij |blam_ij| w_ij dv_i dv_j, reach 1e3-1e6 times the
     result, so no evaluation in `dtype` (the plain version's included) meets
@@ -196,7 +302,6 @@ def check_conditioned(name, tied, u, m2, x, blam, dtype, rtol):
     kernel and of the plain version in `dtype`, both against f64, and the
     kernel's largest |k - r64| / mag."""
     import torch
-    fn, ref = trace_fns(tied)
     cast = lambda t: t.to(dtype)
     r64 = ref(u, m2, x, blam)
     mag = ref(u, m2, x, blam.abs())
@@ -211,41 +316,58 @@ def check_conditioned(name, tied, u, m2, x, blam, dtype, rtol):
     return float(err.max()), float((p - r64).abs().max()), float((err / mag).max())
 
 
-def phase_kernels(dev, b, n_ragged, cache):
-    """Phase 3: each kernel against its plain version. At the headline shape
-    and at a ragged one (N not a multiple of the 128-row block), with the JAX
-    kernel test's inputs and bars; then on the headline GP's own operands.
-    Returns {kernel: max abs forward error at the JAX test's bar}."""
+def check_kernel(key, fn, ref, tied, dev, b, n_ragged, cache, rng, also=None):
+    """One kernel's checks at the headline and a ragged shape on the JAX
+    kernel test's inputs, then on the headline operands in f32 and f64.
+    Returns the max abs forward error at the JAX test's bar."""
     import torch
-    rng = np.random.default_rng(0)
     n, d = cache.x.shape
     e = cache.b_lam.shape[0]
+    err = check_trace(f'{key} headline shape', fn, ref,
+                      *kernel_test_inputs(rng, b, n, d, e, tied, dev), also=also)
+    err_r = check_trace(f'{key} ragged B=7 N={n_ragged}', fn, ref,
+                        *kernel_test_inputs(rng, 7, n_ragged, d, e, tied, dev),
+                        also=also)
+    log(f'[kernels] {key} f32 vs plain f64{" and vs the column sweep" if also else ""}'
+        f', B={b} N={n} and B=7 N={n_ragged}: max abs err {err:.3e} / '
+        f'{err_r:.3e} (fwd rtol 5e-5 atol 5e-5, bwd rtol 2e-3 atol 2e-4) ok')
+    # The f64 instance serves the reference objective on the card.
+    for dtype, rtol in ((torch.float32, 5e-5), (torch.float64, 1e-12)):
+        k_max, p_max, k_mag = check_conditioned(
+            f'{key} headline operands {dtype}', fn, ref,
+            *headline_inputs(rng, b, cache, dev, tied), dtype, rtol)
+        log(f'[kernels] {key} in {dtype} on the headline x and b_lam vs '
+            f'plain f64: max abs err {k_max:.3e} (at most {k_mag:.3e} of '
+            f'the terms\' magnitude sum; the plain version in {dtype}: '
+            f'{p_max:.3e}); bar {rtol} |t| + 16 eps mag ok')
+    return max(err, err_r)
+
+
+def phase_kernels(dev, b, n_ragged, cache):
+    """Phase 3: each kernel against its plain version. Returns
+    {kernel: max abs forward error at the JAX test's bar}."""
+    rng = np.random.default_rng(0)
     out = {}
     for tied, key in ((True, 'K1'), (False, 'K2')):
-        err = check_trace(f'{key} headline shape', tied,
-                          *kernel_test_inputs(rng, b, n, d, e, tied, dev))
-        err_r = check_trace(f'{key} ragged B=7 N={n_ragged}', tied,
-                            *kernel_test_inputs(rng, 7, n_ragged, d, e, tied,
-                                                dev))
-        out[key] = max(err, err_r)
-        log(f'[kernels] {key} f32 vs plain f64, B={b} N={n} and B=7 '
-            f'N={n_ragged}: max abs err {err:.3e} / {err_r:.3e} (fwd rtol '
-            f'5e-5 atol 5e-5, bwd rtol 2e-3 atol 2e-4) ok')
-        # The f64 instance serves the reference objective on the card.
-        for dtype, rtol in ((torch.float32, 5e-5), (torch.float64, 1e-12)):
-            k_max, p_max, k_mag = check_conditioned(
-                f'{key} headline operands {dtype}', tied,
-                *headline_inputs(rng, b, cache, dev, tied), dtype, rtol)
-            log(f'[kernels] {key} in {dtype} on the headline x and b_lam vs '
-                f'plain f64: max abs err {k_max:.3e} (at most {k_mag:.3e} of '
-                f'the terms\' magnitude sum; the plain version in {dtype}: '
-                f'{p_max:.3e}); bar {rtol} |t| + 16 eps mag ok')
+        out[key] = check_kernel(key, *trace_fns(tied), tied, dev, b, n_ragged,
+                                cache, rng)
+    k1, k1_ref = trace_fns(True)
+    out['K3'] = max(check_kernel(f'K3 summed over n_m={n_m} row blocks',
+                                 block_fn(n_m), k1_ref, True, dev, b, n_ragged,
+                                 cache, rng, also=k1)
+                    for n_m in (1, 2, 4))
+    for tied, key in ((True, 'K4 tied'), (False, 'K4 per-output')):
+        base, ref = trace_fns(tied)
+        out[key] = check_kernel(key, sym_fn(tied), ref, tied, dev, b,
+                                n_ragged, cache, rng, also=base)
     return out
 
 
 def time_kernels(dev, b, cache, reps):
     """Phase 3, timing at the headline shape: each wrapper (CUDA kernel)
-    beside its plain PyTorch version on the same f32 inputs."""
+    beside its plain PyTorch version on the same f32 inputs. K3 at n_m = 1
+    (all N rows, the (1, 1) sharded solve's launches) and, as 'K3 Nl=N/2',
+    at n_m = 2 (one rank's half of the rows against all N)."""
     import torch
     from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
     rng = np.random.default_rng(1)
@@ -255,9 +377,18 @@ def time_kernels(dev, b, cache, reps):
     a, g, dv = vt._prep_tied(f32(u), f32(m2), f32(x))
     aod = vt._aug(a) * dv[..., None]
     k1 = [f32(t) for t in (g, dv, a, aod, cache.b_lam)]
+    k3 = {}
+    for n_loc in (n, n // 2):
+        _, g_b, dv_b = vt._prep_tied(f32(u), f32(m2), f32(x[:n_loc]))
+        k3[n_loc] = [f32(t) for t in (g_b, dv_b, a, aod,
+                                      cache.b_lam[:, :n_loc].transpose(1, 2))]
     uu, m2u, xu, _ = headline_inputs(rng, b, cache, dev, False)
     au, gu, dvu = vt._prep_batched(f32(uu), f32(m2u), f32(xu))
     k2 = [f32(t) for t in (gu, dvu, au, vt._aug(au), cache.b_lam)]
+    a4, z4, dv4 = vt._prep_sym(f32(u), f32(m2), f32(x), 1)
+    k4t = [f32(t) for t in (z4, a4, dv4, vt._aug(a4), cache.b_lam)]
+    a4u, z4u, dv4u = vt._prep_sym(f32(uu), f32(m2u), f32(xu), 2)
+    k4u = [f32(t) for t in (z4u, a4u, dv4u, vt._aug(a4u), cache.b_lam)]
     res = {
         'K1': dict(ms=cuda_ms(lambda: vt.rw_tied(*k1), reps),
                    plain_ms=cuda_ms(lambda: vt.rw_tied_reference(*k1), reps),
@@ -265,24 +396,46 @@ def time_kernels(dev, b, cache, reps):
         'K2': dict(ms=cuda_ms(lambda: vt.rw_untied(*k2), reps),
                    plain_ms=cuda_ms(lambda: vt.rw_untied_reference(*k2), reps),
                    bound=bound_ms(b, n, n, d, e, chains=e)),
+        **{key: dict(
+            ms=cuda_ms(lambda: vt.rw_tied_block(*k3[n_loc]), reps),
+            plain_ms=cuda_ms(lambda: vt.rw_tied_block_reference(*k3[n_loc]),
+                             reps),
+            bound=bound_ms(b, n_loc, n, d, e, chains=1), n_loc=n_loc)
+           for key, n_loc in (('K3', n), ('K3 Nl=N/2', n // 2))},
+        'K4 tied': dict(
+            ms=cuda_ms(lambda: vt.rw_sym(*k4t, shared_chain=True), reps),
+            plain_ms=cuda_ms(lambda: vt.rw_sym_reference(*k4t, True), reps),
+            bound=sym_bound_ms(b, n, d, e, chains=1)),
+        'K4 per-output': dict(
+            ms=cuda_ms(lambda: vt.rw_sym(*k4u, shared_chain=False), reps),
+            plain_ms=cuda_ms(lambda: vt.rw_sym_reference(*k4u, False), reps),
+            bound=sym_bound_ms(b, n, d, e, chains=e)),
     }
     for key, r in res.items():
-        log(f'[kernels] {key} at B={b} N={n} d={d} E={e}: {r["ms"]:.4f} ms, '
+        log(f'[kernels] {key} at B={b} N={n} d={d} E={e}'
+            f'{" Nl=" + str(r["n_loc"]) if "n_loc" in r else ""}: '
+            f'{r["ms"]:.4f} ms, '
             f'plain {r["plain_ms"]:.4f} ms, bound {r["bound"][0]:.4f} ms '
             f'({r["bound"][1]})')
     return res
 
 
-def phase_objective(dev, ref, b):
-    """Phase 4: the port's f64 objective vs the JAX package's. Returns the
-    f64 objective and its values at u_ref."""
+def headline_j64(dev, b):
+    """The f64 headline objective J64 (K1's f64 instance) on `dev`."""
     import torch
     from gpmpc_tpu_torch.dynamics import build_rollout_cache
     from gpmpc_tpu_torch.parallel.batch import batch_objective
     from gpmpc_tpu_torch.problems import make_headline_problem
+    p64 = make_headline_problem(b=b, dtype=torch.float64, device=dev)
+    return batch_objective(build_rollout_cache(p64.gp, 2, 1), p64.x0s,
+                           p64.params)
+
+
+def check_objective(tag, j64, ref, b, dev):
+    """J64 at u_ref and at 0, and dJ64/du at 0, against the stored JAX
+    values (rtol 1e-8). Returns (J64(u_ref), max rel errs)."""
+    import torch
     f64 = torch.float64
-    p64 = make_headline_problem(b=b, dtype=f64, device=dev)
-    j64 = batch_objective(build_rollout_cache(p64.gp, 2, 1), p64.x0s, p64.params)
     u_ref = torch.tensor(ref['u_ref'][:b], dtype=f64, device=dev)
     with torch.no_grad():
         j_uref = j64(u_ref)
@@ -290,72 +443,94 @@ def phase_objective(dev, ref, b):
     j_zero = j64(u0)
     n_grad = min(b, ref['grad_zero'].shape[0])
     (g_zero,) = torch.autograd.grad(j_zero[:n_grad].sum(), u0)
-    assert_close('J64(u_ref)', j_uref, torch.tensor(ref['j_uref'][:b]),
+    assert_close(f'{tag} J64(u_ref)', j_uref, torch.tensor(ref['j_uref'][:b]),
                  rtol=OBJ_RTOL, atol=0.0)
-    assert_close('J64(0)', j_zero, torch.tensor(ref['j_zero'][:b]),
+    assert_close(f'{tag} J64(0)', j_zero, torch.tensor(ref['j_zero'][:b]),
                  rtol=OBJ_RTOL, atol=0.0)
-    assert_close('dJ64/du at 0', g_zero[:n_grad],
+    assert_close(f'{tag} dJ64/du at 0', g_zero[:n_grad],
                  torch.tensor(ref['grad_zero'][:n_grad]), rtol=OBJ_RTOL,
                  atol=1e-10)
     rel_uref = np.max(np.abs(j_uref.cpu().numpy() / ref['j_uref'][:b] - 1))
-    rel_zero = np.max(np.abs(j_zero.detach().cpu().numpy() / ref['j_zero'][:b] - 1))
-    log(f'[objective] f64 J at u_ref and 0, B={b}: max rel err vs JAX '
+    rel_zero = np.max(np.abs(j_zero.detach().cpu().numpy() / ref['j_zero'][:b]
+                             - 1))
+    log(f'[objective] {tag}: f64 J at u_ref and 0, B={b}: max rel err vs JAX '
         f'{rel_uref:.2e} / {rel_zero:.2e} (rtol {OBJ_RTOL}) ok')
+    return j_uref, dict(rel_uref=float(rel_uref), rel_zero=float(rel_zero))
+
+
+def phase_objective(dev, ref, b):
+    """Phase 4: the port's f64 objective vs the JAX package's, through K1
+    and through K4. Returns the f64 objective, its values at u_ref and a
+    summary."""
+    import torch
+    from gpmpc_tpu_torch.dynamics import build_rollout_cache
+    from gpmpc_tpu_torch.parallel.batch import batch_objective
+    from gpmpc_tpu_torch.problems import make_headline_problem
+    j64 = headline_j64(dev, b)
+    reset_counts()
+    j_uref, rel_k1 = check_objective('K1 path', j64, ref, b, dev)
+    if read_counts()['K1'] == 0:
+        raise AssertionError('objective: the f64 objective launched no K1')
+    reset_counts()
+    with sym_opt_in():
+        _, rel_k4 = check_objective('K4 path', j64, ref, b, dev)
+    counts = read_counts()
+    if counts['K4'] == 0 or counts['K1'] != 0:
+        raise AssertionError(f'objective with the K4 opt-in: launches {counts}')
 
     p32 = make_headline_problem(b=b, dtype=torch.float32, device=dev)
     j32 = batch_objective(build_rollout_cache(p32.gp, 2, 1), p32.x0s, p32.params)
+    u_ref = torch.tensor(ref['u_ref'][:b], dtype=torch.float32, device=dev)
     with torch.no_grad():
-        rel = (j32(u_ref.float()).double() - j_uref).abs() / j_uref.abs()
+        rel = (j32(u_ref).double() - j_uref).abs() / j_uref.abs()
     rel = rel.cpu().numpy()
     log(f'[objective] f32 J at u_ref vs f64: rel err p50 '
         f'{np.median(rel):.3e}, max {rel.max():.3e}')
-    return j64, j_uref, dict(f32_rel_err_p50=float(np.median(rel)),
+    return j64, j_uref, dict(k1_path=rel_k1, k4_path=rel_k4,
+                             f32_rel_err_p50=float(np.median(rel)),
                              f32_rel_err_max=float(rel.max()))
 
 
-def phase_solve(dev, b, j64, j_uref, reps):
-    """Phase 5: the main path, counted, then timed and scored."""
+def solve_checked(tag, desc, solve, x0s, key, per_trace, horizon,
+                  cost0=None):
+    """One counted solve: finite costs, exactly per_trace * H * (1 + iters)
+    launches of `key` and none of any other kernel, and (given cost0) no
+    lane above its start. Returns (result, launches, loop iterations)."""
     import torch
-    from gpmpc_tpu_torch.dynamics import build_rollout_cache
-    from gpmpc_tpu_torch.mpc.solver import SolverConfig
-    from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
-    from gpmpc_tpu_torch.parallel.batch import batch_objective, solve_batch
-    from gpmpc_tpu_torch.problems import make_headline_problem
-    p = make_headline_problem(b=b, dtype=torch.float32, device=dev)
-    cfg = SolverConfig(max_iters=ITERS, tol=1e-4)
-    j32 = batch_objective(build_rollout_cache(p.gp, 2, 1), p.x0s, p.params)
-    u_init = torch.zeros((b, p.horizon, 1), dtype=torch.float32, device=dev)
-    with torch.no_grad():
-        cost0 = j32(u_init)
-
-    def solve(x0s):
-        return solve_batch(p.gp, 2, 1, x0s, p.params, p.horizon, p.lb, p.ub,
-                           cfg)
-
-    vt.LAUNCHES = vt.LAUNCHES_UNTIED = 0
-    res = solve(p.x0s)
-    sync(dev)
-    launches, launches_untied = vt.LAUNCHES, vt.LAUNCHES_UNTIED
+    reset_counts()
+    res = solve(x0s)
+    sync(x0s.device)
+    counts = read_counts()
     loop_iters = int(res.iters.max())
-    cost = res.cost
-    if not bool(torch.isfinite(cost).all()):
-        raise AssertionError('solve: non-finite costs')
-    # The Armijo test admits f_try <= f + eps_f with eps_f = 16 eps (1 + |f|),
-    # so a lane may end up to iters * eps_f above its start and no further.
-    slack = loop_iters * 16 * torch.finfo(torch.float32).eps * (1 + cost0.abs())
-    worse = int((cost > cost0 + slack).sum())
-    if worse:
-        raise AssertionError(f'solve: {worse} lanes end above their start')
-    expect = p.horizon * (1 + loop_iters)
-    if launches != expect or launches_untied != 0:
-        raise AssertionError(f'solve: {launches} K1 launches '
-                             f'({launches_untied} K2), expected H*(1+iters) = '
-                             f'{expect}')
-    log(f'[solve] B={b} H={p.horizon} max_iters={ITERS}: loop iterations '
-        f'{loop_iters}, K1 launches {launches} = H*(1+iters) ok; costs finite, '
-        f'none above its start ok; mean cost {float(cost.mean()):.4f} vs '
-        f'{float(cost0.mean()):.4f} at u=0')
+    expect = per_trace * horizon * (1 + loop_iters)
+    others = {k: v for k, v in counts.items() if k != key and v}
+    if counts[key] != expect or others:
+        raise AssertionError(f'{tag}: launches {counts}, expected {expect} '
+                             f'{key} = {per_trace} * H * (1 + iters) and no '
+                             f'other')
+    if not bool(torch.isfinite(res.cost).all()):
+        raise AssertionError(f'{tag}: non-finite costs')
+    msg = ''
+    if cost0 is not None:
+        # The Armijo test admits f_try <= f + eps_f with eps_f = 16 eps
+        # (1 + |f|), so a lane may end up to iters * eps_f above its start.
+        slack = (loop_iters * 16 * torch.finfo(cost0.dtype).eps
+                 * (1 + cost0.abs()))
+        worse = int((res.cost > cost0 + slack).sum())
+        if worse:
+            raise AssertionError(f'{tag}: {worse} lanes end above their start')
+        msg = (f'; costs finite, none above its start ok; mean cost '
+               f'{float(res.cost.mean()):.4f} vs {float(cost0.mean()):.4f} '
+               f'at u=0')
+    log(f'[{tag}] {desc}: loop iterations {loop_iters}, {key} launches '
+        f'{counts[key]} = {per_trace}*H*(1+iters) ok, no other kernel{msg}')
+    return res, counts[key], loop_iters
 
+
+def score_and_time(tag, b, solve, res, j64, j_uref, reps, dev):
+    """Cost excess of `res` against the f64 reference controls, then
+    solves/s over fresh x0s."""
+    import torch
     with torch.no_grad():
         j_sol = j64(res.u.double())
     excess = ((j_sol - j_uref) / (1 + j_uref.abs())).cpu().numpy()
@@ -363,10 +538,9 @@ def phase_solve(dev, b, j64, j_uref, reps):
                    p90=float(np.percentile(excess, 90)),
                    max=float(excess.max()),
                    lanes_above_1pct=int((excess > 0.01).sum()))
-    log(f'[solve] cost excess vs f64 u_ref (J64): p50 {quality["p50"]:.4%} '
+    log(f'[{tag}] cost excess vs f64 u_ref (J64): p50 {quality["p50"]:.4%} '
         f'p90 {quality["p90"]:.4%} max {quality["max"]:.4%}, lanes >1% '
         f'{quality["lanes_above_1pct"]}/{b}')
-
     rng = np.random.default_rng(123)
     walls, iters = [], []
     for _ in range(reps):
@@ -379,82 +553,251 @@ def phase_solve(dev, b, j64, j_uref, reps):
         walls.append(time.perf_counter() - t0)
         iters.append(int(r.iters.max()))
     rate = [b / w for w in walls]
-    log(f'[solve] wall s per batch {[round(w, 4) for w in walls]}, loop '
+    log(f'[{tag}] wall s per batch {[round(w, 4) for w in walls]}, loop '
         f'iterations {iters}; solves/s median {float(np.median(rate)):.2f}')
-    return dict(launches=launches, loop_iters=loop_iters, quality=quality,
-                walls=walls, solves_per_s=float(np.median(rate)),
-                iters_timed=iters)
+    return dict(quality=quality, walls=walls,
+                solves_per_s=float(np.median(rate)), iters_timed=iters)
 
 
-def phase_untied(dev, b):
-    """Phase 5b: the untied path (per-output lengthscales) runs K2."""
+def headline_solve_setup(dev, b):
+    import torch
+    from gpmpc_tpu_torch.dynamics import build_rollout_cache
+    from gpmpc_tpu_torch.mpc.solver import SolverConfig
+    from gpmpc_tpu_torch.parallel.batch import batch_objective
+    from gpmpc_tpu_torch.problems import make_headline_problem
+    p = make_headline_problem(b=b, dtype=torch.float32, device=dev)
+    j32 = batch_objective(build_rollout_cache(p.gp, 2, 1), p.x0s, p.params)
+    with torch.no_grad():
+        cost0 = j32(torch.zeros((b, p.horizon, 1), dtype=torch.float32,
+                                device=dev))
+    return p, SolverConfig(max_iters=ITERS, tol=1e-4), cost0
+
+
+def phase_solve(dev, b, j64, j_uref, reps, tag='solve', key='K1'):
+    """Phase 5: the main path (K1), or with the K4 opt-in on (key 'K4'),
+    counted, then scored and timed."""
+    from gpmpc_tpu_torch.parallel.batch import solve_batch
+    p, cfg, cost0 = headline_solve_setup(dev, b)
+
+    def solve(x0s):
+        return solve_batch(p.gp, 2, 1, x0s, p.params, p.horizon, p.lb, p.ub,
+                           cfg)
+
+    res, launches, loop_iters = solve_checked(
+        tag, f'B={b} H={p.horizon} max_iters={ITERS}', solve, p.x0s, key, 1,
+        p.horizon, cost0)
+    return dict(launches=launches, loop_iters=loop_iters,
+                **score_and_time(tag, b, solve, res, j64, j_uref, reps, dev))
+
+
+def untied_gp(dev):
+    """The headline data with per-output lengthscales (the untied path)."""
     import torch
     from gpmpc_tpu_torch.gp.state import make_gp
-    from gpmpc_tpu_torch.mpc.solver import SolverConfig
-    from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
-    from gpmpc_tpu_torch.parallel.batch import solve_batch
     from gpmpc_tpu_torch.problems import make_headline_problem
-    p = make_headline_problem(b=b, dtype=torch.float32, device=dev)
-    gp = p.gp
-    n = int(gp.count)
-    ll = np.log([[4.0, 4.0, 4.0], [3.0, 5.0, 4.0]])
-    gp = make_gp(gp.config, gp.x[:n].cpu().numpy(), gp.y[:, :n].T.cpu().numpy(),
-                 log_lambdas=ll, log_sigma_f=0.0, log_sigma_n=np.log(0.1),
+    p = make_headline_problem(b=2, dtype=torch.float32, device=dev)
+    n = int(p.gp.count)
+    gp = make_gp(p.gp.config, p.gp.x[:n].cpu().numpy(),
+                 p.gp.y[:, :n].T.cpu().numpy(),
+                 log_lambdas=np.log([[4.0, 4.0, 4.0], [3.0, 5.0, 4.0]]),
+                 log_sigma_f=0.0, log_sigma_n=np.log(0.1),
                  dtype=torch.float32, device=dev)
     assert not gp.config.tied_lambdas
-    vt.LAUNCHES = vt.LAUNCHES_UNTIED = 0
-    res = solve_batch(gp, 2, 1, p.x0s, p.params, p.horizon, p.lb, p.ub,
-                      SolverConfig(max_iters=UNTIED_ITERS, tol=1e-4))
-    sync(dev)
-    loop_iters = int(res.iters.max())
-    expect = 2 * p.horizon * (1 + loop_iters)
-    if vt.LAUNCHES_UNTIED != expect or vt.LAUNCHES != 0:
-        raise AssertionError(f'untied solve: {vt.LAUNCHES_UNTIED} K2 launches, '
-                             f'{vt.LAUNCHES} K1, expected E*H*(1+iters) = '
-                             f'{expect}')
-    if not bool(torch.isfinite(res.cost).all()):
-        raise AssertionError('untied solve: non-finite costs')
-    log(f'[untied] B={b} max_iters={UNTIED_ITERS}: loop iterations '
-        f'{loop_iters}, K2 launches {vt.LAUNCHES_UNTIED} = E*H*(1+iters) ok')
-    return vt.LAUNCHES_UNTIED
+    return gp
 
 
-def phase_profile(dev, b, out_dir):
-    """One headline solve under torch.profiler: device busy time, K1's share,
-    and the number of device kernels. The table goes to `out_dir`."""
+def phase_untied(dev, b, key='K2'):
+    """Phase 5b: the untied path (per-output lengthscales): K2, E launches a
+    trace, or with the K4 opt-in on (key 'K4') one launch a trace."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from gpmpc_tpu_torch.mpc.solver import SolverConfig
     from gpmpc_tpu_torch.parallel.batch import solve_batch
     from gpmpc_tpu_torch.problems import make_headline_problem
     p = make_headline_problem(b=b, dtype=torch.float32, device=dev)
-    cfg = SolverConfig(max_iters=ITERS, tol=1e-4)
-    solve_batch(p.gp, 2, 1, p.x0s, p.params, p.horizon, p.lb, p.ub, cfg)
+    gp = untied_gp(dev)
+    per_trace = gp.config.out_dim if key == 'K2' else 1
+
+    def solve(x0s):
+        return solve_batch(gp, 2, 1, x0s, p.params, p.horizon, p.lb, p.ub,
+                           SolverConfig(max_iters=UNTIED_ITERS, tol=1e-4))
+
+    _, launches, _ = solve_checked(
+        'untied', f'{key} B={b} max_iters={UNTIED_ITERS}', solve, p.x0s, key,
+        per_trace, p.horizon)
+    return launches
+
+
+def profile_solve(tag, solve, x0s, kernel, out_dir):
+    """One solve (after a warm one) under torch.profiler: wall, device busy
+    time, the share of the kernels whose name holds `kernel`, the number of
+    device kernels, and the host time of the collectives, each also per
+    value-and-grad (1 + iterations of them a solve). The table goes to
+    out_dir/chip_smoke_profile_<tag>.txt."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    dev = x0s.device
+    solve(x0s)
     sync(dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solve_batch(p.gp, 2, 1, p.x0s, p.params, p.horizon, p.lb, p.ub, cfg)
+        res = solve(x0s)
         sync(dev)
         wall = time.perf_counter() - t0
+    evals = 1 + int(res.iters.max())
     events = [e for e in prof.events() if e.device_type.name == 'CUDA']
     busy_us = sum(e.time_range.elapsed_us() for e in events)
-    k1_us = sum(e.time_range.elapsed_us() for e in events
-                if 'rw_tied_kernel' in e.name)
+    k_us = sum(e.time_range.elapsed_us() for e in events if kernel in e.name)
+    averages = prof.key_averages()
+    coll = [e for e in averages if 'allreduce' in e.key.lower()
+            or 'all_reduce' in e.key.lower()]
+    coll_host_us = max((e.cpu_time_total for e in coll), default=0.0)
+    coll_calls = max((e.count for e in coll), default=0)
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, 'chip_smoke_profile.txt'), 'w') as f:
-        f.write(prof.key_averages().table(sort_by='self_device_time_total',
-                                          row_limit=40))
+    name = tag.replace(' ', '_')
+    with open(os.path.join(out_dir, f'chip_smoke_profile_{name}.txt'), 'w') as f:
+        f.write(averages.table(sort_by='self_device_time_total', row_limit=40))
     if busy_us == 0:
-        log('[profile] device time: not measured (the profiler saw no '
-            'device events)')
+        log(f'[profile] {tag}: device time: not measured (the profiler saw '
+            'no device events)')
         return None
-    prof_d = dict(wall_s=wall, device_busy_s=busy_us / 1e6,
-                  device_kernels=len(events), k1_s=k1_us / 1e6)
-    log(f'[profile] one solve under the profiler: wall {wall:.4f} s, device '
-        f'busy {busy_us / 1e6:.4f} s ({100 * busy_us / 1e6 / wall:.1f}%), '
-        f'{len(events)} device kernels, K1 {k1_us / 1e6:.4f} s '
-        f'({100 * k1_us / max(busy_us, 1):.1f}% of busy)')
-    return prof_d
+    out = dict(evaluations=evals, wall_s=wall, device_busy_s=busy_us / 1e6,
+               device_kernels=len(events), kernel_s=k_us / 1e6,
+               collective_calls=coll_calls,
+               collective_host_s=coll_host_us / 1e6)
+    log(f'[profile] {tag}, one solve of {evals} value-and-grads under the '
+        f'profiler: wall {wall:.4f} s, device busy {busy_us / 1e6:.4f} s '
+        f'({100 * busy_us / 1e6 / wall:.1f}%), {len(events)} device kernels '
+        f'({len(events) / evals:.0f} a value-and-grad), {kernel} '
+        f'{k_us / 1e6:.4f} s ({100 * k_us / max(busy_us, 1):.1f}% of busy); '
+        f'all_reduce calls {coll_calls}, host time {coll_host_us / 1e6:.4f} s')
+    return out
+
+
+def phase_profile(dev, b, out_dir, tag='K1 solve', kernel='rw_tied_kernel'):
+    """One headline solve_batch under the profiler (the K4 opt-in, when on,
+    makes it the sym solve)."""
+    import torch
+    from gpmpc_tpu_torch.mpc.solver import SolverConfig
+    from gpmpc_tpu_torch.parallel.batch import solve_batch
+    from gpmpc_tpu_torch.problems import make_headline_problem
+    p = make_headline_problem(b=b, dtype=torch.float32, device=dev)
+    cfg = SolverConfig(max_iters=PROFILE_ITERS, tol=1e-4)
+
+    def solve(x0s):
+        return solve_batch(p.gp, 2, 1, x0s, p.params, p.horizon, p.lb, p.ub,
+                           cfg)
+
+    return profile_solve(tag, solve, p.x0s, kernel, out_dir)
+
+
+def phase_sharded_11(dev, b, j64, j_uref, reps, out_dir):
+    """Phase 6a: solve_batch_2d on a (1, 1) mesh in this process (NCCL on the
+    card), counted (K3), scored and timed."""
+    import torch.distributed as dist
+    from gpmpc_tpu_torch.mpc.solver import SolverConfig
+    from gpmpc_tpu_torch.parallel.distributed import free_port, initialize
+    from gpmpc_tpu_torch.parallel.mesh import make_mesh
+    from gpmpc_tpu_torch.parallel.model_sharded import solve_batch_2d
+    initialize(f'tcp://localhost:{free_port()}', world_size=1, rank=0,
+               device=dev, timeout_s=PG_TIMEOUT_S)
+    backend = dist.get_backend()
+    mesh = make_mesh(1, 1, device=dev)
+    p, cfg, cost0 = headline_solve_setup(dev, b)
+
+    def solve(x0s):
+        return solve_batch_2d(mesh, p.gp, 2, 1, x0s, p.params, p.horizon,
+                              p.lb, p.ub, cfg)
+
+    tag = 'sharded 1x1'
+    res, launches, loop_iters = solve_checked(
+        tag, f'{backend} B={b} max_iters={ITERS}', solve, p.x0s, 'K3', 1,
+        p.horizon, cost0)
+    out = dict(backend=backend, launches=launches, loop_iters=loop_iters,
+               **score_and_time(tag, b, solve, res, j64, j_uref, reps, dev))
+    cfg_prof = SolverConfig(max_iters=PROFILE_ITERS, tol=1e-4)
+    out['profile'] = profile_solve(
+        tag, lambda x0s: solve_batch_2d(mesh, p.gp, 2, 1, x0s, p.params,
+                                        p.horizon, p.lb, p.ub, cfg_prof),
+        p.x0s, 'rw_tied_kernel', out_dir)
+    dist.destroy_process_group()
+    return out
+
+
+def shard_worker(out_dir):
+    """One rank of phase 6b, started by launch_ranks: the (1, world) mesh on
+    gloo on the card, the f64 headline objective and gradient at the
+    reference controls through K3; writes sharded_rank<r>.npz to out_dir."""
+    import torch
+    import torch.distributed as dist
+    from gpmpc_tpu_torch.parallel.distributed import finish_rank, initialize
+    from gpmpc_tpu_torch.parallel.mesh import make_mesh
+    from gpmpc_tpu_torch.parallel.model_sharded import (sharded_value_and_grad,
+                                                        shard_problem)
+    from gpmpc_tpu_torch.problems import make_headline_problem
+    initialize(backend='gloo', device='cuda', timeout_s=PG_TIMEOUT_S)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = torch.device('cuda', torch.cuda.current_device())
+    mesh = make_mesh(1, world, device=dev)
+    ref = np.load(REF)
+    b = ref['u_ref'].shape[0]
+    p = make_headline_problem(b=b, dtype=torch.float64, device=dev)
+    parts = shard_problem(mesh, p.gp, 2, 1, p.x0s, p.params)
+    reset_counts()
+    f, g = sharded_value_and_grad(mesh, *parts)(
+        torch.tensor(ref['u_ref'], dtype=torch.float64, device=dev))
+    sync(dev)
+    np.savez(os.path.join(out_dir, f'sharded_rank{rank}.npz'),
+             f=f.cpu().numpy(), g=g.cpu().numpy(),
+             n_loc=parts[1].shape[2], k3=read_counts()['K3'])
+    finish_rank()
+
+
+def phase_sharded_12(dev, b, ref, out_dir, world=2):
+    """Phase 6b: solve_batch_2d's value-and-grad on a (1, 2) mesh in two
+    processes on gloo on the same card; their f64 J against the JAX values
+    and their gradient against the unsharded one here."""
+    import torch
+    from gpmpc_tpu_torch.parallel.distributed import launch_ranks
+    env = dict(os.environ)
+    env.setdefault('GLOO_SOCKET_IFNAME', 'lo')
+    launch_ranks([sys.executable, os.path.abspath(__file__), '--out', out_dir,
+                  '--shard-worker'], world, WORKER_TIMEOUT_S, env=env,
+                 cwd=ROOT)
+    outs = [np.load(os.path.join(out_dir, f'sharded_rank{r}.npz'))
+            for r in range(world)]
+    horizon = ref['u_ref'].shape[1]
+    for r in range(world):
+        if int(outs[r]['k3']) != horizon:
+            raise AssertionError(f'sharded 1x{world}: rank {r} launched K3 '
+                                 f'{int(outs[r]["k3"])} times, expected H = '
+                                 f'{horizon} (one forward rollout)')
+    for r in range(1, world):
+        for k in ('f', 'g'):
+            if not np.array_equal(outs[r][k], outs[0][k]):
+                raise AssertionError(f'sharded 1x{world}: rank {r} {k} '
+                                     'differs from rank 0')
+    f, g = outs[0]['f'], outs[0]['g']
+    np.testing.assert_allclose(f, ref['j_uref'][:b], rtol=OBJ_RTOL,
+                               err_msg='sharded J64(u_ref) vs JAX')
+    u = torch.tensor(ref['u_ref'][:b], dtype=torch.float64, device=dev,
+                     requires_grad=True)
+    (g_full,) = torch.autograd.grad(headline_j64(dev, b)(u).sum(), u)
+    g_full = g_full.cpu().numpy()
+    # u_ref is the optimum, where dJ/du cancels to ~1e-7 of its largest
+    # entries: those entries are held to the same rtol of max |g|.
+    atol = GRAD_RTOL * np.abs(g_full).max()
+    np.testing.assert_allclose(g, g_full, rtol=GRAD_RTOL, atol=atol,
+                               err_msg='sharded dJ64/du vs unsharded')
+    rel_f = float(np.max(np.abs(f / ref['j_uref'][:b] - 1)))
+    rel_g = float(np.max(np.abs(g - g_full)) / np.abs(g_full).max())
+    log(f'[sharded 1x{world}] gloo, {world} processes on one card, '
+        f'{int(outs[0]["n_loc"])} b_lam rows each, {int(outs[0]["k3"])} K3 '
+        f'launches a rank (= H) ok: f64 J at u_ref max rel err vs JAX {rel_f:.2e} '
+        f'(rtol {OBJ_RTOL}); dJ/du vs unsharded: max abs err {rel_g:.2e} of '
+        f'max |g| '
+        f'(rtol {GRAD_RTOL}, atol {GRAD_RTOL} max|g|); ranks equal to the bit '
+        f'ok')
+    return dict(rel_f=rel_f, rel_g=rel_g, k3_per_rank=int(outs[0]['k3']))
 
 
 def main() -> int:
@@ -462,12 +805,19 @@ def main() -> int:
     ap.add_argument('--out', default=os.path.join(ROOT, 'chip_smoke_out'),
                     help='directory for the run summary and the profiler '
                          'table')
-    out_dir = ap.parse_args().out
+    # One rank of phase 6b (chip_smoke starts these itself).
+    ap.add_argument('--shard-worker', action='store_true',
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    out_dir = args.out
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this script '
               'needs an NVIDIA GPU', file=sys.stderr)
         return 2
+    if args.shard_worker:
+        shard_worker(out_dir)
+        return 0
     from gpmpc_tpu_torch.device import resolve_device
     from gpmpc_tpu_torch.dynamics import build_rollout_cache
     from gpmpc_tpu_torch.ops.kernels import _build
@@ -501,22 +851,39 @@ def main() -> int:
     solve = phase_solve(dev, b, j64, j_uref, reps=3)
     untied_launches = phase_untied(dev, b)
     prof = phase_profile(dev, b, out_dir)
+    with sym_opt_in():
+        sym_solve = phase_solve(dev, b, j64, j_uref, reps=3, tag='sym solve',
+                                key='K4')
+        sym_untied_launches = phase_untied(dev, b, key='K4')
+        sym_solve['profile'] = phase_profile(dev, b, out_dir, 'sym solve',
+                                             'rw_sym')
+    os.makedirs(out_dir, exist_ok=True)
+    sharded_11 = phase_sharded_11(dev, b, j64, j_uref, reps=3, out_dir=out_dir)
+    sharded_12 = phase_sharded_12(dev, b, ref, out_dir)
 
     kernels = []
-    for key, fn, line, launches in (
-            ('K1', 'rw_tied (variance_trace_batched_tied)', 638,
+    for key, fn, src, line, launches in (
+            ('K1', 'rw_tied (variance_trace_batched_tied)', SOURCE, 638,
              solve['launches']),
-            ('K2', 'rw_untied (variance_trace_batched)', 214, untied_launches)):
+            ('K2', 'rw_untied (variance_trace_batched)', SOURCE, 214,
+             untied_launches),
+            ('K3', 'rw_tied_block (variance_trace_tied_block)', SOURCE, 598,
+             sharded_11['launches']),
+            ('K4 tied', 'rw_sym shared chain (GPMPC_SYM_KERNEL=1)',
+             SYM_SOURCE, 527, sym_solve['launches']),
+            ('K4 per-output', 'rw_sym per output (GPMPC_SYM_KERNEL=1)',
+             SYM_SOURCE, 527, sym_untied_launches)):
         t = times[key]
         kernels.append(dict(
-            name=f'{key} {fn}', route='cuda', source=SOURCE,
+            name=f'{key} {fn}', route='cuda', source=src,
             replaces=f'{TPU_FILE}:{line}', launches=launches,
             max_abs_err=checks[key], ms=t['ms'], plain_ms=t['plain_ms'],
             bound_ms=t['bound'][0], bound_by=t['bound'][1], library_ms=None))
-    detail = dict(objective=obj, solve=solve, profile=prof,
-                  k1_instr_bound_ms=k1_instr,
+    detail = dict(objective=obj, solve=solve, sym_solve=sym_solve,
+                  sharded_1x1=sharded_11, sharded_1x2=sharded_12,
+                  profile=prof, k1_instr_bound_ms=k1_instr,
+                  k3_half_rows=times['K3 Nl=N/2'],
                   total_s=time.perf_counter() - t_start)
-    os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, 'chip_smoke.json'), 'w') as f:
         json.dump(dict(card=card, kernels=kernels, **detail), f, indent=1)
     log(f'[output] total {detail["total_s"]:.1f} s')

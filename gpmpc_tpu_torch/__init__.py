@@ -7,8 +7,12 @@ checked against, and this package imports none of it (nor JAX).
 Ported so far: the batched solve on the headline problem (`solve_batch`,
 fused branch) with its chain: the padded exact GP and its f64 fit, the
 diagonal-covariance moment-matched rollout, the risk-sensitive cost and the
-lockstep projected L-BFGS. The variance trace runs through a hand-written
-CUDA kernel (ops/kernels/csrc). Entry points run on CUDA unless the caller
+lockstep projected L-BFGS; the fan-out over torch.distributed
+(parallel/mesh, parallel/distributed, `solve_batch_sharded`) and the
+model-sharded solve `parallel.model_sharded.solve_batch_2d`. The variance
+trace runs through hand-written CUDA kernels (ops/kernels/csrc): the column
+sweep, its row block for model sharding, and the symmetric-pair kernel behind
+the GPMPC_SYM_KERNEL=1 opt-in. Entry points run on CUDA unless the caller
 passes device='cpu'.
 """
 

@@ -36,15 +36,23 @@ class CostParams(NamedTuple):
     u_prev: Optional[torch.Tensor] = None   # (da,) or (B, da)
 
 
+def is_lane_leaf(name: str, v) -> bool:
+    """Whether cost leaf `name` with value v carries a leading (B,) lane axis.
+    By its RANK, one above the shared rank, never by comparing its first dim
+    to B (ambiguous when B = 1 or da == B): the rank rule of the JAX
+    package's `_params_axes`. R and R_delta are always shared."""
+    return (name in _SHARED_RANK and v is not None
+            and torch.as_tensor(v).ndim == _SHARED_RANK[name] + 1)
+
+
 def lane_params(params: CostParams, b: int) -> CostParams:
-    """Give every per-lane leaf a leading (B,) axis. A leaf is per-lane by its
-    RANK, never by comparing its first dim to B (ambiguous when B = 1 or
-    da == B): the rank rule of the JAX package's `_params_axes`."""
+    """Give every leaf that may be per-lane a leading (B,) axis, broadcasting
+    the shared ones (`is_lane_leaf`)."""
     out = {}
     for name, v in params._asdict().items():
         if name in _SHARED_RANK and v is not None:
             v = torch.as_tensor(v)
-            if v.ndim == _SHARED_RANK[name]:
+            if not is_lane_leaf(name, v):
                 v = v.expand(b, *v.shape)
         out[name] = v
     return CostParams(**out)

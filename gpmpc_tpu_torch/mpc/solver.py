@@ -10,7 +10,7 @@ iteration cap. The JAX `lax.while_loop` is a host loop here; it reads
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -53,12 +53,19 @@ def _bdot(x, y):
     return torch.einsum('bn,bn->b', x, y)
 
 
-def solve_trajectory_batched(objective_b: Callable[[torch.Tensor], torch.Tensor],
+def solve_trajectory_batched(objective_b: Optional[Callable[[torch.Tensor],
+                                                             torch.Tensor]],
                              u_init: torch.Tensor, lb, ub,
-                             config: SolverConfig = SolverConfig()
+                             config: SolverConfig = SolverConfig(),
+                             val_and_grad: Optional[Callable] = None
                              ) -> SolveResult:
     """objective_b: (B, H, da) -> (B,) independent per-lane objectives,
-    differentiable by autograd. lb/ub broadcast against u_init."""
+    differentiable by autograd. lb/ub broadcast against u_init.
+
+    val_and_grad, if given, replaces autograd of objective_b (which may then
+    be None): an external (f, g) oracle taking u (B, H, da) and returning
+    f (B,) and g (B, H, da), e.g. the collective program of
+    parallel/model_sharded.py."""
     dt = u_init.dtype
     dev = u_init.device
     b = u_init.shape[0]
@@ -70,8 +77,15 @@ def solve_trajectory_batched(objective_b: Callable[[torch.Tensor], torch.Tensor]
     zero = torch.zeros((), dtype=dt, device=dev)
     eps = torch.finfo(dt).eps
 
-    def val_and_grad(u):
-        return _value_and_grad(objective_b, u, shape)
+    if val_and_grad is None:
+        def val_and_grad(u):
+            return _value_and_grad(objective_b, u, shape)
+    else:
+        vg_ext = val_and_grad
+
+        def val_and_grad(u):
+            f, g = vg_ext(u.reshape(shape))
+            return f.detach(), g.detach().reshape(b, n)
 
     def proj(u):
         return torch.minimum(torch.maximum(u, lb_f), ub_f)

@@ -1,4 +1,4 @@
-"""The uncertain-input variance trace and its CUDA kernel (K1).
+"""The uncertain-input variance trace and its CUDA kernels (K1-K4).
 
 Port of gpmpc_tpu/ops/pallas/variance_trace.py. The per-rollout-step hot tile
 is, for each scenario b with a = u_b - x (N, d), g = a M2_b, q_i = g_i . a_i and
@@ -20,21 +20,37 @@ work (derived for SYMMETRIC blam and M2, always true here):
 (csrc/variance_trace_tied.cu) for CUDA tensors and takes the plain PyTorch
 version `rw_tied_reference` only for CPU tensors; there is no fallback from
 one to the other. The untied form (K2) is the same kernel launched once per
-output at E = 1, as the JAX package dispatches it.
+output at E = 1, as the JAX package dispatches it. The row block of the
+model-sharded path (K3, `rw_tied_block`) is the same kernel again on a
+rectangle: this shard's rows against all N contraction rows.
+
+The symmetric-pair kernel (K4, csrc/variance_trace_sym.cu, `rw_sym`) is the
+JAX package's opt-in GPMPC_SYM_KERNEL=1: the exponent in the whitened form
+z = a chol(M2), so that W is bit-symmetric, and only the tile pairs I <= J
+visited. With the opt-in on, tied traces take its shared-chain variant and
+untied traces its per-output variant (one launch for all E); the backward is
+unchanged, since it needs only rw. A shape K4 cannot take raises; it never
+falls back to K1.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
+import numpy as np
 import torch
 
 from gpmpc_tpu_torch.ops.kernels import _build
+from gpmpc_tpu_torch.utils.smallchol import chol_small
 
-# Kernel launches, counted where they happen (tied K1 and untied K2), so a
-# run can show that it went through the kernel.
+# Kernel launches, counted where they happen (tied K1, untied K2, the row
+# block K3, the symmetric pairs K4), so a run can show that it went through
+# the kernel.
 LAUNCHES = 0
 LAUNCHES_UNTIED = 0
+LAUNCHES_BLOCK = 0
+LAUNCHES_SYM = 0
 
 MAX_D = 8
 MAX_E = 8
@@ -145,6 +161,190 @@ def rw_untied(g, dv, a, ao, blam):
     return torch.cat(outs, dim=1)
 
 
+# ------------------------------------------------------- K3: the row block --
+def rw_tied_block_reference(g_blk, dv_blk, a, aod, blam_t_blk):
+    """Plain version of K3: g_blk (B, Nl, d); dv_blk (B, Nl) on this shard's
+    rows; a (B, N, d); aod (B, N, 1+d) on all rows; blam_t_blk (E, N, Nl),
+    the shard's blam row block transposed -> rw (B, E, Nl, 1+d)."""
+    return rw_tied_reference(g_blk, dv_blk, a, aod, blam_t_blk)
+
+
+def rw_tied_block(g_blk, dv_blk, a, aod, blam_t_blk):
+    """K3: K1 on a rectangle, this shard's Nl output rows contracted over all
+    N rows (Nl <= N). CUDA tensors launch the kernel; CPU tensors take
+    `rw_tied_block_reference`."""
+    global LAUNCHES_BLOCK
+    if g_blk.shape[1] > a.shape[1]:
+        raise ValueError(f'row block of {g_blk.shape[1]} rows exceeds the '
+                         f'{a.shape[1]} contraction rows')
+    if g_blk.device.type == 'cpu':
+        return rw_tied_block_reference(g_blk, dv_blk, a, aod, blam_t_blk)
+    rw, launched = _launch(g_blk, dv_blk, a, aod, blam_t_blk)
+    LAUNCHES_BLOCK += launched
+    return rw
+
+
+# ------------------------------------------------ K4: the symmetric pairs --
+SYM_TILE = 64           # kT of csrc/variance_trace_sym.cu
+_SYM_LIB = 'variance_trace_sym'
+_SYM_FN = {torch.float32: 'gpmpc_rw_sym_f32', torch.float64: 'gpmpc_rw_sym_f64'}
+_pair_cache: dict = {}
+
+
+def _use_sym() -> bool:
+    """The JAX package's opt-in (GPMPC_SYM_KERNEL=1), read at every call."""
+    return os.environ.get('GPMPC_SYM_KERNEL') == '1'
+
+
+def _pair_indices(nt: int):
+    """Upper-triangle tile pairs (I <= J), diagonal first: numpy int32."""
+    pairs = [(i, i) for i in range(nt)]
+    pairs += [(i, j) for i in range(nt) for j in range(i + 1, nt)]
+    idx = np.asarray(pairs, np.int32)
+    return idx[:, 0], idx[:, 1]
+
+
+def _device_pairs(nt: int, device):
+    key = (nt, str(device))
+    if key not in _pair_cache:
+        _pair_cache[key] = tuple(torch.tensor(v, device=device)
+                                 for v in _pair_indices(nt))
+    return _pair_cache[key]
+
+
+def _small_mm(a, m):
+    """a (..., N, d) @ m (..., d, k) for tiny d, k, unrolled in a fixed order.
+    m carries a singleton where a has its N axis, so m[..., j, kk] broadcasts
+    against a[..., j]."""
+    d, k = m.shape[-2], m.shape[-1]
+    cols = []
+    for kk in range(k):
+        acc = a[..., 0] * m[..., 0, kk]
+        for j in range(1, d):
+            acc = acc + a[..., j] * m[..., j, kk]
+        cols.append(acc)
+    return torch.stack(cols, dim=-1)
+
+
+def _prep_sym(u, m2, x, batched_m2_axes: int):
+    """K4's prep: z = a L with M2 = L L^T (the unrolled small Cholesky, which
+    never syncs with the host), so that p_ij = z_i . z_j is bit-symmetric.
+    m2 (B, d, d) tied (batched_m2_axes 1) or (B, E, d, d) untied (2).
+    Returns (a (B, N, d), z (B, N, d) | (B, E, N, d), dv (B, N) | (B, E, N))."""
+    a = u[:, None, :] - x[None]                        # (B, N, d)
+    low = chol_small(m2)
+    if batched_m2_axes == 1:
+        z = _small_mm(a, low[:, None])                 # (B, N, d)
+    else:
+        z = _small_mm(a[:, None], low[:, :, None])     # (B, E, N, d)
+    return a, z, torch.exp(-0.125 * torch.sum(z * z, dim=-1))
+
+
+def _sym_exponent(z):
+    """p[..., j, i] = sum_k z_j,k z_i,k in the kernel's k order."""
+    p = z[..., :, None, 0] * z[..., None, :, 0]
+    for k in range(1, z.shape[-1]):
+        p = p + z[..., :, None, k] * z[..., None, :, k]
+    return p
+
+
+def rw_sym_reference(z, a, dv, ao, blam, shared_chain: bool):
+    """Plain version of K4: materialises W from z as the kernel defines it.
+    shared_chain: z (B, N, d), dv (B, N); per-output: z (B, E, N, d),
+    dv (B, E, N). a (B, N, d); ao (B, N, 1+d); blam (E, N, N)
+    -> rw (B, E, N, 1+d)."""
+    w = torch.exp(-0.25 * _sym_exponent(z))
+    if shared_chain:
+        aod = ao * dv[..., None]
+        rw = torch.einsum('eji,bji,bjc->beic', blam, w, aod)
+        return dv[:, None, :, None] * rw
+    aod = ao[:, None] * dv[..., None]                   # (B, E, N, 1+d)
+    rw = torch.einsum('eji,beji,bejc->beic', blam, w, aod)
+    return dv[..., None] * rw
+
+
+def _check_sym(z, a, dv, ao, blam, shared_chain):
+    b, n, d = a.shape
+    e = blam.shape[0]
+    lead = (b, n) if shared_chain else (b, e, n)
+    want = {'z': lead + (d,), 'dv': lead, 'ao': (b, n, d + 1),
+            'blam': (e, n, n)}
+    got = {'z': z.shape, 'dv': dv.shape, 'ao': ao.shape, 'blam': blam.shape}
+    for k, shape in want.items():
+        if tuple(got[k]) != shape:
+            raise ValueError(f'rw_sym: {k} has shape {tuple(got[k])}, '
+                             f'expected {shape}')
+    if not (1 <= d <= MAX_D and 1 <= e <= MAX_E and 1 <= b <= _MAX_B
+            and n >= 1):
+        raise ValueError(f'rw_sym supports d <= {MAX_D}, E <= {MAX_E} and '
+                         f'B <= {_MAX_B}; got d={d}, E={e}, B={b}')
+    ts = (z, a, dv, ao, blam)
+    if z.dtype not in _SYM_FN or any(t.dtype != z.dtype for t in ts):
+        raise TypeError('rw_sym takes float32 or float64 tensors of one '
+                        f'dtype; got {[t.dtype for t in ts]}')
+    if any(t.device != z.device for t in ts):
+        raise ValueError('rw_sym: tensors lie on different devices')
+
+
+def _sym_kernel_fn(dtype):
+    lib = _build.load(_SYM_LIB)
+    fn = getattr(lib, _SYM_FN[dtype])
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.gpmpc_sym_error_string.argtypes = [ctypes.c_int]
+        lib.gpmpc_sym_error_string.restype = ctypes.c_char_p
+        lib.gpmpc_rw_sym_tile.restype = ctypes.c_int
+        if lib.gpmpc_rw_sym_tile() != SYM_TILE:
+            raise RuntimeError('csrc/variance_trace_sym.cu tiles by '
+                               f'{lib.gpmpc_rw_sym_tile()} rows, the wrapper '
+                               f'by {SYM_TILE}')
+    return lib, fn
+
+
+def _launch_sym(z, a, dv, ao, blam, shared_chain):
+    """Launch K4 (pair kernel, then the fixed-order sum) on the current
+    stream; returns (rw, launched)."""
+    _check_sym(z, a, dv, ao, blam, shared_chain)
+    if z.device.type != 'cuda':
+        raise ValueError(f'rw_sym runs on CUDA tensors, got {z.device}')
+    b, n, d = a.shape
+    e = blam.shape[0]
+    nt = -(-n // SYM_TILE)
+    iidx, jidx = _device_pairs(nt, z.device)
+    aod = (ao * dv[..., None] if shared_chain
+           else ao[:, None] * dv[..., None]).contiguous()
+    z, dv, blam = z.contiguous(), dv.contiguous(), blam.contiguous()
+    part = torch.empty((b, nt, nt, e, SYM_TILE, d + 1), dtype=z.dtype,
+                       device=z.device)
+    rw = torch.empty((b, e, n, d + 1), dtype=z.dtype, device=z.device)
+    lib, fn = _sym_kernel_fn(z.dtype)
+    with torch.cuda.device(z.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(z.data_ptr(), aod.data_ptr(), dv.data_ptr(), blam.data_ptr(),
+                 part.data_ptr(), rw.data_ptr(), iidx.data_ptr(),
+                 jidx.data_ptr(), b, n, d, e, nt, iidx.numel(),
+                 int(shared_chain), stream)
+    if err != 0:
+        msg = lib.gpmpc_sym_error_string(err).decode()
+        raise RuntimeError(f'rw_sym launch failed: cudaError {err} ({msg})')
+    return rw, True
+
+
+def rw_sym(z, a, dv, ao, blam, shared_chain: bool):
+    """K4: rw (B, E, N, 1+d) over the tile pairs I <= J, one exp tile per
+    pair (per output when not shared_chain), shapes as `rw_sym_reference`.
+    CUDA tensors launch the kernel; CPU tensors take `rw_sym_reference`."""
+    global LAUNCHES_SYM
+    if z.device.type == 'cpu':
+        _check_sym(z, a, dv, ao, blam, shared_chain)
+        return rw_sym_reference(z, a, dv, ao, blam, shared_chain)
+    rw, launched = _launch_sym(z, a, dv, ao, blam, shared_chain)
+    LAUNCHES_SYM += launched
+    return rw
+
+
 # ------------------------------------------------------------- public entry --
 def _aug(a):
     """AO = [1 | A]: the augmented reduction matrix (a: (B, N, d))."""
@@ -165,34 +365,72 @@ def _prep_batched(u, m2, x):
     return a, g, torch.exp(-0.125 * q)
 
 
+def _rw_dispatch(u, m2, x, blam, tied: bool):
+    """Prep and kernel, shared by the tied and untied forwards: K4 when the
+    opt-in is on, else the column sweep (K1 tied, K2 untied)."""
+    if _use_sym():
+        a, z, dv = _prep_sym(u, m2, x, 1 if tied else 2)
+        return rw_sym(z.contiguous(), a, dv.contiguous(), _aug(a),
+                      blam.contiguous(), shared_chain=tied)
+    if tied:
+        a, g, dv = _prep_tied(u, m2, x)
+        return rw_tied(g.contiguous(), dv.contiguous(), a.contiguous(),
+                       (_aug(a) * dv[..., None]).contiguous(),
+                       blam.contiguous())
+    a, g, dv = _prep_batched(u, m2, x)
+    return rw_untied(g, dv, a.contiguous(), _aug(a), blam.contiguous())
+
+
+def _tied_backward(u, m2, x_rows, rw, ct):
+    """(du, dm2) of the tied trace from rw on the rows x_rows: all rows for
+    the full trace, the shard's rows for the row block (whose value is exact
+    only after the sum over the model ranks)."""
+    a = u[:, None, :] - x_rows[None]                   # (B, Nr, d)
+    r = rw[..., 0]                                     # (B, E, Nr)
+    wa = rw[..., 1:]                                   # (B, E, Nr, d)
+    # The untied cotangents summed over e, because m2 is shared.
+    z0c = torch.einsum('bnd,ben,be->bd', a, r, ct)
+    du = -torch.einsum('bdk,bk->bd', m2, z0c)
+    warc = torch.einsum('be,benk->bnk', ct, wa + a[:, None] * r[..., None])
+    dm2 = -0.25 * torch.einsum('bnd,bnk->bdk', a, warc)
+    return du, dm2
+
+
 class _VarianceTraceTied(torch.autograd.Function):
     @staticmethod
     def forward(ctx, u, m2, x, blam):
-        a, g, dv = _prep_tied(u, m2, x)
-        rw = rw_tied(g.contiguous(), dv.contiguous(), a.contiguous(),
-                     (_aug(a) * dv[..., None]).contiguous(), blam.contiguous())
+        rw = _rw_dispatch(u, m2, x, blam, tied=True)
         ctx.save_for_backward(u, m2, x, rw)
         return rw[..., 0].sum(dim=-1)
 
     @staticmethod
     def backward(ctx, ct):
         u, m2, x, rw = ctx.saved_tensors
-        a = u[:, None, :] - x[None]                    # (B, N, d)
-        r = rw[..., 0]                                 # (B, E, N)
-        wa = rw[..., 1:]                               # (B, E, N, d)
-        # The untied cotangents summed over e, because m2 is shared.
-        z0c = torch.einsum('bnd,ben,be->bd', a, r, ct)
-        du = -torch.einsum('bdk,bk->bd', m2, z0c)
-        warc = torch.einsum('be,benk->bnk', ct, wa + a[:, None] * r[..., None])
-        dm2 = -0.25 * torch.einsum('bnd,bnk->bdk', a, warc)
-        return du, dm2, None, None
+        return (*_tied_backward(u, m2, x, rw, ct), None, None)
+
+
+class _VarianceTraceTiedBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, u, m2, x, x_blk, blam_t_blk):
+        a, _, dv = _prep_tied(u, m2, x)
+        _, g_blk, dv_blk = _prep_tied(u, m2, x_blk)
+        rw = rw_tied_block(g_blk.contiguous(), dv_blk.contiguous(),
+                           a.contiguous(),
+                           (_aug(a) * dv[..., None]).contiguous(),
+                           blam_t_blk.contiguous())
+        ctx.save_for_backward(u, m2, x_blk, rw)
+        return rw[..., 0].sum(dim=-1)
+
+    @staticmethod
+    def backward(ctx, ct):
+        u, m2, x_blk, rw = ctx.saved_tensors
+        return (*_tied_backward(u, m2, x_blk, rw, ct), None, None, None)
 
 
 class _VarianceTraceUntied(torch.autograd.Function):
     @staticmethod
     def forward(ctx, u, m2, x, blam):
-        a, g, dv = _prep_batched(u, m2, x)
-        rw = rw_untied(g, dv, a.contiguous(), _aug(a), blam.contiguous())
+        rw = _rw_dispatch(u, m2, x, blam, tied=False)
         ctx.save_for_backward(u, m2, x, rw)
         return rw[..., 0].sum(dim=-1)
 
@@ -221,6 +459,20 @@ def variance_trace_batched(u, m2, x, blam):
     """Untied batched trace: u (B, d); m2 (B, E, d, d); x (N, d);
     blam (E, N, N) -> (B, E). Gradients as variance_trace_batched_tied."""
     return _VarianceTraceUntied.apply(u, m2, x, blam)
+
+
+def variance_trace_tied_block(u, m2, x, x_blk, blam_t_blk):
+    """Per-shard partial of the tied trace: u (B, d); m2 (B, d, d); x (N, d)
+    all training inputs; x_blk (Nl, d) this shard's rows; blam_t_blk
+    (E, N, Nl) the shard's blam row block transposed -> (B, E) partial
+    traces, whose sum over the shards is the full trace.
+
+    The backward returns the symmetry-collapsed cotangents restricted to the
+    block: a shard's (du, dm2) is not the gradient of its partial alone, but
+    the sum over the shards is the exact full gradient. Use it only where the
+    caller sums the cotangents of u and m2 over the model ranks
+    (parallel/model_sharded.py)."""
+    return _VarianceTraceTiedBlock.apply(u, m2, x, x_blk, blam_t_blk)
 
 
 def variance_trace_batched_reference(u, m2, x, blam):

@@ -99,3 +99,19 @@ def test_lane_params_rank_rule():
     assert lp.x_ref.shape == (1, 1) and lp.R.shape == (1, 1)
     lp2 = tc.lane_params(lp, 1)
     assert lp2.Q.shape == (1, 1, 1) and lp2.x_ref.shape == (1, 1)
+
+
+def test_shard_params_cuts_only_lane_leaves():
+    """shard_params follows the same rank rule (cost.is_lane_leaf): a (B,)
+    gamma and a (B, ds) x_ref are cut, a (ds, ds) Q with ds == B and R are
+    not."""
+    from gpmpc_tpu_torch.parallel.batch import shard_params
+    p = tc.CostParams(Q=torch.eye(2), R=torch.eye(2),
+                      gamma=torch.arange(2.0), x_ref=torch.ones(2, 2),
+                      u_ref=torch.zeros(1))
+    assert [tc.is_lane_leaf(k, v) for k, v in p._asdict().items()] == [
+        False, False, True, True, False, False, False]
+    sp = shard_params(p, slice(1, 2), 2)
+    assert sp.Q.shape == (2, 2) and sp.R.shape == (2, 2)
+    assert sp.gamma.tolist() == [1.0] and sp.x_ref.shape == (1, 2)
+    assert sp.u_ref.shape == (1,)

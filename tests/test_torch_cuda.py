@@ -97,3 +97,120 @@ def test_cuda_launch_raises_instead_of_falling_back(case):
     with pytest.raises(ValueError):
         tvt.rw_tied(*args)
     assert tvt.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n_blocks', [2, 4])
+def test_cuda_block_kernel_matches_plain_version(n_blocks):
+    """K3: the f32 row-block partials on the card, summed over n_blocks,
+    against the plain full trace in f64 (fwd rtol 5e-5 atol 5e-5, bwd rtol
+    2e-3 atol 2e-4); the f64 instance per block against the plain block,
+    rtol 1e-12."""
+    dev = _cuda()
+    b, e, n, d = 256, 2, 256, 3
+    u, m2, x, blam, ct = _problem(True, b, e, n, d, seed=7)
+    n_loc = n // n_blocks
+
+    def run(dtype):
+        f = lambda v: torch.tensor(v, dtype=dtype, device=dev)
+        ut, mt = f(u).requires_grad_(), f(m2).requires_grad_()
+        parts = [tvt.variance_trace_tied_block(
+            ut, mt, f(x), f(x[k:k + n_loc]),
+            f(np.ascontiguousarray(np.swapaxes(blam[:, k:k + n_loc], 1, 2))))
+            for k in range(0, n, n_loc)]
+        out = sum(parts)
+        grads = torch.autograd.grad(torch.sum(out * f(ct)), (ut, mt))
+        return [v.detach().cpu().double().numpy() for v in (out, *grads)]
+
+    before = tvt.LAUNCHES_BLOCK
+    k_out, k_gu, k_gm = run(torch.float32)
+    torch.cuda.synchronize()
+    assert tvt.LAUNCHES_BLOCK == before + n_blocks
+    r_out, r_gu, r_gm = run_reference(u, m2, x, blam, ct, dev)
+    np.testing.assert_allclose(k_out, r_out, rtol=5e-5, atol=5e-5)
+    np.testing.assert_allclose(k_gu, r_gu, rtol=2e-3, atol=2e-4)
+    np.testing.assert_allclose(k_gm, r_gm, rtol=2e-3, atol=2e-4)
+
+    f64 = lambda v: torch.tensor(v, dtype=torch.float64, device=dev)
+    a, _, dv = tvt._prep_tied(f64(u), f64(m2), f64(x))
+    aod = tvt._aug(a) * dv[..., None]
+    for k in range(0, n, n_loc):
+        _, g_b, dv_b = tvt._prep_tied(f64(u), f64(m2), f64(x[k:k + n_loc]))
+        blk = f64(np.ascontiguousarray(np.swapaxes(blam[:, k:k + n_loc], 1, 2)))
+        np.testing.assert_allclose(
+            tvt.rw_tied_block(g_b, dv_b, a, aod, blk).cpu().numpy(),
+            tvt.rw_tied_block_reference(g_b, dv_b, a, aod, blk).cpu().numpy(),
+            rtol=1e-12, atol=1e-15)
+
+
+def run_reference(u, m2, x, blam, ct, dev):
+    """The plain tied trace in f64 and its autograd gradient."""
+    f = lambda v: torch.tensor(v, dtype=torch.float64, device=dev)
+    ut, mt = f(u).requires_grad_(), f(m2).requires_grad_()
+    out = tvt.variance_trace_batched_tied_reference(ut, mt, f(x), f(blam))
+    grads = torch.autograd.grad(torch.sum(out * f(ct)), (ut, mt))
+    return [v.detach().cpu().double().numpy() for v in (out, *grads)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('tied', [True, False])
+@pytest.mark.parametrize('shape', [(7, 2, 200, 3), (256, 2, 256, 3),
+                                   (3, 8, 130, 8)])
+def test_cuda_sym_kernel_matches_plain_version(monkeypatch, tied, shape):
+    """K4 (GPMPC_SYM_KERNEL=1) in f32 on the card against the plain column
+    sweep in f64, at the bars of the K1 test above; one launch a trace for
+    all E."""
+    dev = _cuda()
+    monkeypatch.setenv('GPMPC_SYM_KERNEL', '1')
+    b, e, n, d = shape
+    u, m2, x, blam, ct = _problem(tied, b, e, n, d, seed=8)
+    tfn = tvt.variance_trace_batched_tied if tied else tvt.variance_trace_batched
+    rfn = (tvt.variance_trace_batched_tied_reference if tied
+           else tvt.variance_trace_batched_reference)
+
+    def run(fn, dtype):
+        f = lambda v: torch.tensor(v, dtype=dtype, device=dev)
+        ut, mt = f(u).requires_grad_(), f(m2).requires_grad_()
+        out = fn(ut, mt, f(x), f(blam))
+        grads = torch.autograd.grad(torch.sum(out * f(ct)), (ut, mt))
+        return [v.detach().cpu().double().numpy() for v in (out, *grads)]
+
+    before = (tvt.LAUNCHES, tvt.LAUNCHES_UNTIED, tvt.LAUNCHES_SYM)
+    k_out, k_gu, k_gm = run(tfn, torch.float32)
+    torch.cuda.synchronize()
+    assert (tvt.LAUNCHES, tvt.LAUNCHES_UNTIED, tvt.LAUNCHES_SYM) == (
+        before[0], before[1], before[2] + 1)
+    r_out, r_gu, r_gm = run(rfn, torch.float64)
+    np.testing.assert_allclose(k_out, r_out, rtol=5e-5, atol=5e-5)
+    np.testing.assert_allclose(k_gu, r_gu, rtol=2e-3, atol=2e-4)
+    np.testing.assert_allclose(k_gm, r_gm, rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('tied', [True, False])
+def test_cuda_sym_f64_instance_matches_plain_version(tied):
+    """K4's f64 instance against its plain version in f64, rtol 1e-12."""
+    dev = _cuda()
+    u, m2, x, blam, _ = _problem(tied, 5, 2, 200, 3, seed=9)
+    f = lambda v: torch.tensor(v, dtype=torch.float64, device=dev)
+    a, z, dv = tvt._prep_sym(f(u), f(m2), f(x), 1 if tied else 2)
+    args = (z.contiguous(), a, dv.contiguous(), tvt._aug(a), f(blam))
+    np.testing.assert_allclose(
+        tvt.rw_sym(*args, shared_chain=tied).cpu().numpy(),
+        tvt.rw_sym_reference(*args, shared_chain=tied).cpu().numpy(),
+        rtol=1e-12, atol=1e-15)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['d9', 'mixed_devices'])
+def test_cuda_sym_launch_raises_instead_of_falling_back(case):
+    dev = _cuda()
+    b, e, n, d = 2, 2, 8, 9 if case == 'd9' else 3
+    z = lambda *s: torch.zeros(*s, device=dev)
+    args = [z(b, n, d), z(b, n, d), z(b, n), z(b, n, d + 1), z(e, n, n)]
+    if case == 'mixed_devices':
+        args[4] = args[4].cpu()
+    before = (tvt.LAUNCHES, tvt.LAUNCHES_SYM)
+    with pytest.raises(ValueError):
+        tvt.rw_sym(*args, shared_chain=True)
+    assert (tvt.LAUNCHES, tvt.LAUNCHES_SYM) == before

@@ -1,7 +1,8 @@
 """The port's slice as a whole: make_headline_problem builds the same problem
 as the JAX package, the port's f64 objective matches the JAX f64 objective
 stored in gpmpc_tpu_torch/data/headline_ref.npz (rtol 1e-8, 8 lanes), and the
-package stays apart from JAX."""
+package (its sharded modules and chip_smoke.py included) stays apart from
+JAX."""
 
 import os
 import subprocess
@@ -64,6 +65,10 @@ import importlib, pkgutil, sys, torch
 import gpmpc_tpu_torch
 for m in pkgutil.walk_packages(gpmpc_tpu_torch.__path__, 'gpmpc_tpu_torch.'):
     importlib.import_module(m.name)
+for name in ('parallel.mesh', 'parallel.model_sharded', 'parallel.distributed',
+             'parallel.batch', 'ops.kernels.variance_trace'):
+    importlib.import_module('gpmpc_tpu_torch.' + name)
+import chip_smoke
 bad = sorted(k for k in sys.modules
              if k.split('.')[0] in ('jax', 'jaxlib', 'gpmpc_tpu', 'flax'))
 print('LEAKED', bad)
