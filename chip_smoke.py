@@ -23,7 +23,27 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 K2 in f32. Each kernel is timed with CUDA events beside its
                 plain version and its bound; K3 at the (1, 1) sharded solve's
                 shape (Nl = N), whose launches the `kernels` line counts, and
-                at one rank's half of a (1, 2) mesh (Nl = N / 2).
+                at one rank's half of a (1, 2) mesh (Nl = N / 2). Each is
+                timed twice: by CUDA events around 50 calls enqueued from the
+                host (`ms`), and as the slope of CUDA-graph replays of 24 and
+                96 captured calls (`graph_ms`, gpmpc_tpu_torch/benchmarks/
+                chain.py), which leaves the host's enqueue out.
+  3b. probes    P1 and P2, the probe kernel (csrc/variance_trace_probe.cu, K1's
+                body under its variants). Each variant against its plain
+                version on the JAX kernel test's inputs at the headline and
+                a ragged shape, at the bars of ops/kernels/probe.checks
+                (scalar variants rtol 5e-5 atol 5e-5; hwexp at those plus
+                __expf's documented error; the tensor-core variants against
+                their TF32-emulating plain versions at 2 N eps a pass of the
+                terms' magnitude sum plus the operands' rounding slack, and
+                red_3xtf32 and tc_p also at 5e-5 against the plain f64 full);
+                `full` equal to K1 (`rw_tied`) to the bit on those inputs and
+                on the headline operands. Then both probes at the headline
+                shape (gpmpc_tpu_torch/benchmarks: kernel_ablate.run and
+                kernel_probe.run), each
+                with the counts set to 0 just before and read just after: the
+                probe kernel launched, no other kernel, every variant within
+                its bars on the probes' own inputs.
   4. objective  the port's f64 objective on the card (the f64 kernel
                 instances) at the reference controls and at 0 against the
                 JAX package's values in gpmpc_tpu_torch/data/headline_ref.npz,
@@ -70,6 +90,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 REF = os.path.join(ROOT, 'gpmpc_tpu_torch', 'data', 'headline_ref.npz')
 SOURCE = 'gpmpc_tpu_torch/ops/kernels/csrc/variance_trace_tied.cu'
 SYM_SOURCE = 'gpmpc_tpu_torch/ops/kernels/csrc/variance_trace_sym.cu'
+PROBE_SOURCE = 'gpmpc_tpu_torch/ops/kernels/csrc/variance_trace_probe.cu'
 TPU_FILE = 'gpmpc_tpu/ops/pallas/variance_trace.py'
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): float32
@@ -88,8 +109,6 @@ UNTIED_ITERS = 10
 PROFILE_ITERS = 10
 WORKER_TIMEOUT_S = 600
 PG_TIMEOUT_S = 300.0
-# The headline inputs' range: (theta, omega, action) in [-pi, pi]^2 x [-5, 5].
-DATA_SCALE = np.array([np.pi, np.pi, 5.0])
 # Each kernel's launch counter in ops/kernels/variance_trace.py.
 COUNTER = {'K1': 'LAUNCHES', 'K2': 'LAUNCHES_UNTIED', 'K3': 'LAUNCHES_BLOCK',
            'K4': 'LAUNCHES_SYM'}
@@ -103,13 +122,6 @@ def log(msg: str) -> None:
     print(f'{time.perf_counter() - _T0:7.1f}s {msg}', flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True,
-                         text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
 def sync(dev) -> None:
     import torch
     if dev.type == 'cuda':
@@ -117,14 +129,19 @@ def sync(dev) -> None:
 
 
 def reset_counts() -> None:
+    from gpmpc_tpu_torch.ops.kernels import probe
     from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
     for name in COUNTER.values():
         setattr(vt, name, 0)
+    probe.LAUNCHES_PROBE = 0
 
 
 def read_counts() -> dict:
+    """Launches since reset_counts: K1-K4, and 'P' of the probe kernel."""
+    from gpmpc_tpu_torch.ops.kernels import probe
     from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
-    return {k: getattr(vt, name) for k, name in COUNTER.items()}
+    return {**{k: getattr(vt, name) for k, name in COUNTER.items()},
+            'P': probe.LAUNCHES_PROBE}
 
 
 @contextlib.contextmanager
@@ -149,6 +166,15 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fns: dict, dev) -> dict:
+    """Device milliseconds per call of each zero-arg fn, as the slope of
+    CUDA-graph replays of 24 and 96 captured calls (benchmarks/chain.py's
+    kernel-only mode)."""
+    from gpmpc_tpu_torch.benchmarks.chain import kernel_slopes
+    res = kernel_slopes(fns, dev)['results']
+    return {key: r['us'] / 1e3 for key, r in res.items()}
 
 
 def assert_close(name, got, want, rtol, atol) -> float:
@@ -219,18 +245,6 @@ def kernel_test_inputs(rng, b, n, d, e, tied, dev):
     ct = rng.normal(size=(b, e))
     return tuple(as64(v, dev) for v in (u, m2, x, br + np.swapaxes(br, -1, -2),
                                         ct))
-
-
-def headline_inputs(rng, b, cache, dev, tied):
-    """The headline GP's own x (N, d) and b_lam (E, N, N) beside random u in
-    the data's range and random SPD M2 (numpy seed); f64 on `dev`."""
-    import torch
-    d, e = cache.x.shape[1], cache.b_lam.shape[0]
-    u = rng.uniform(-1.0, 1.0, (b, d)) * DATA_SCALE
-    m = rng.normal(size=(b, d, d) if tied else (b, e, d, d))
-    m2 = 0.5 * (m @ np.swapaxes(m, -1, -2) * 0.1 + np.eye(d))
-    return (as64(u, dev), as64(m2, dev), cache.x.to(dev, torch.float64),
-            cache.b_lam.to(dev, torch.float64))
 
 
 def trace_fns(tied):
@@ -321,6 +335,7 @@ def check_kernel(key, fn, ref, tied, dev, b, n_ragged, cache, rng, also=None):
     kernel test's inputs, then on the headline operands in f32 and f64.
     Returns the max abs forward error at the JAX test's bar."""
     import torch
+    from gpmpc_tpu_torch.problems import headline_operands
     n, d = cache.x.shape
     e = cache.b_lam.shape[0]
     err = check_trace(f'{key} headline shape', fn, ref,
@@ -335,7 +350,7 @@ def check_kernel(key, fn, ref, tied, dev, b, n_ragged, cache, rng, also=None):
     for dtype, rtol in ((torch.float32, 5e-5), (torch.float64, 1e-12)):
         k_max, p_max, k_mag = check_conditioned(
             f'{key} headline operands {dtype}', fn, ref,
-            *headline_inputs(rng, b, cache, dev, tied), dtype, rtol)
+            *headline_operands(rng, b, cache, tied), dtype, rtol)
         log(f'[kernels] {key} in {dtype} on the headline x and b_lam vs '
             f'plain f64: max abs err {k_max:.3e} (at most {k_mag:.3e} of '
             f'the terms\' magnitude sum; the plain version in {dtype}: '
@@ -370,10 +385,11 @@ def time_kernels(dev, b, cache, reps):
     at n_m = 2 (one rank's half of the rows against all N)."""
     import torch
     from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
+    from gpmpc_tpu_torch.problems import headline_operands
     rng = np.random.default_rng(1)
     e, n, d = cache.b_lam.shape[0], cache.x.shape[0], cache.x.shape[1]
     f32 = lambda t: t.to(torch.float32).contiguous()
-    u, m2, x, _ = headline_inputs(rng, b, cache, dev, True)
+    u, m2, x, _ = headline_operands(rng, b, cache, True)
     a, g, dv = vt._prep_tied(f32(u), f32(m2), f32(x))
     aod = vt._aug(a) * dv[..., None]
     k1 = [f32(t) for t in (g, dv, a, aod, cache.b_lam)]
@@ -382,7 +398,7 @@ def time_kernels(dev, b, cache, reps):
         _, g_b, dv_b = vt._prep_tied(f32(u), f32(m2), f32(x[:n_loc]))
         k3[n_loc] = [f32(t) for t in (g_b, dv_b, a, aod,
                                       cache.b_lam[:, :n_loc].transpose(1, 2))]
-    uu, m2u, xu, _ = headline_inputs(rng, b, cache, dev, False)
+    uu, m2u, xu, _ = headline_operands(rng, b, cache, False)
     au, gu, dvu = vt._prep_batched(f32(uu), f32(m2u), f32(xu))
     k2 = [f32(t) for t in (gu, dvu, au, vt._aug(au), cache.b_lam)]
     a4, z4, dv4 = vt._prep_sym(f32(u), f32(m2), f32(x), 1)
@@ -411,13 +427,112 @@ def time_kernels(dev, b, cache, reps):
             plain_ms=cuda_ms(lambda: vt.rw_sym_reference(*k4u, False), reps),
             bound=sym_bound_ms(b, n, d, e, chains=e)),
     }
+    graphed = graph_ms({
+        'K1': lambda: vt.rw_tied(*k1), 'K2': lambda: vt.rw_untied(*k2),
+        'K3': lambda: vt.rw_tied_block(*k3[n]),
+        'K3 Nl=N/2': lambda: vt.rw_tied_block(*k3[n // 2]),
+        'K4 tied': lambda: vt.rw_sym(*k4t, shared_chain=True),
+        'K4 per-output': lambda: vt.rw_sym(*k4u, shared_chain=False)}, dev)
     for key, r in res.items():
+        r['graph_ms'] = graphed[key]
         log(f'[kernels] {key} at B={b} N={n} d={d} E={e}'
             f'{" Nl=" + str(r["n_loc"]) if "n_loc" in r else ""}: '
-            f'{r["ms"]:.4f} ms, '
+            f'{r["ms"]:.4f} ms by events over host-enqueued calls, '
+            f'{r["graph_ms"]:.4f} ms by graph slope, '
             f'plain {r["plain_ms"]:.4f} ms, bound {r["bound"][0]:.4f} ms '
             f'({r["bound"][1]})')
     return res
+
+
+def probe_args(inputs):
+    """K1's f32 arguments (g, dv, a, aod, blam) from tied (u, m2, x, blam)."""
+    import torch
+    from gpmpc_tpu_torch.benchmarks.chain import kernel_args
+    return kernel_args(*(t.to(torch.float32) for t in inputs[:4]))
+
+
+def check_probe_variants(dev, b, n, n_ragged, cache):
+    """Every probe variant against its plain versions (probe.checks) on the
+    JAX kernel test's inputs at (b, n) and (7, n_ragged); `full` equal to
+    K1 to the bit there and on the headline operands. Returns {variant:
+    (max abs err against its first plain version, largest err / bar)}."""
+    import torch
+    from gpmpc_tpu_torch.ops.kernels import probe
+    from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
+    from gpmpc_tpu_torch.problems import headline_operands
+    rng = np.random.default_rng(2)
+    d, e = cache.x.shape[1], cache.b_lam.shape[0]
+    shapes = {f'B={b} N={n}': probe_args(kernel_test_inputs(
+                  rng, b, n, d, e, True, dev)),
+              f'B=7 N={n_ragged}': probe_args(kernel_test_inputs(
+                  rng, 7, n_ragged, d, e, True, dev))}
+    out = {v: (0.0, 0.0) for v in probe.VARIANTS}
+    for shape, args in shapes.items():
+        for v in probe.VARIANTS:
+            got = probe.rw_probe(v, *args).double()
+            for i, (label, want, bar) in enumerate(probe.checks(v, *args)):
+                err = (got - want).abs()
+                ratio = float((err / bar).max())
+                if not ratio <= 1.0:
+                    raise AssertionError(f'probe {v} at {shape} vs {label}: '
+                                         f'|err| exceeds the bar {ratio:.3f}x')
+                e_max = float(err.max()) if i == 0 else out[v][0]
+                out[v] = (max(out[v][0], e_max), max(out[v][1], ratio))
+        if not torch.equal(probe.rw_probe('full', *args), vt.rw_tied(*args)):
+            raise AssertionError(f'probe full differs from K1 at {shape}')
+    head = probe_args(headline_operands(rng, b, cache, True))
+    if not torch.equal(probe.rw_probe('full', *head), vt.rw_tied(*head)):
+        raise AssertionError('probe full differs from K1 on the headline '
+                             'operands')
+    for v, (err, ratio) in out.items():
+        log(f'[probes] {v} vs its plain version(s), {" and ".join(shapes)}: '
+            f'max abs err {err:.3e}, at most {ratio:.3e} of its bar ok')
+    log('[probes] full equal to K1 (rw_tied) to the bit on both shapes and '
+        'on the headline operands ok')
+    return out
+
+
+def phase_probes(dev, b, n_ragged, cache, reps):
+    """Phase 3b: the probe kernel's checks, then P1 and P2 at the headline
+    shape, each counted. Returns (checks, ablate, probe results, launches,
+    plain ms of full and tc_p)."""
+    from gpmpc_tpu_torch.benchmarks import kernel_ablate, kernel_probe
+    from gpmpc_tpu_torch.ops.kernels import probe
+    n = cache.x.shape[0]
+    checks = check_probe_variants(dev, b, n, n_ragged, cache)
+    runs, launches = {}, {}
+    for key, mod in (('P1', kernel_ablate), ('P2', kernel_probe)):
+        reset_counts()
+        runs[key] = mod.run(device=dev, b=b, n=n)
+        counts = read_counts()
+        if counts['P'] == 0 or any(v for k, v in counts.items() if k != 'P'):
+            raise AssertionError(f'{key}: launches {counts}, expected the '
+                                 'probe kernel and no other')
+        launches[key] = counts['P']
+        for name, row in runs[key]['variants'].items():
+            if not row['bar_ratio'] <= 1.0:
+                raise AssertionError(f'{key} {name} on the probes\' inputs: '
+                                     f'error {row["bar_ratio"]:.3f}x its bar')
+    x, m2, blam, rng = kernel_ablate.probe_inputs(n, dev)
+    args = probe_args((kernel_ablate.draw_u(rng, (b, 3), dev), m2, x, blam))
+    plain = {v: cuda_ms(lambda v=v: probe.rw_probe_reference(v, *args), reps)
+             for v in ('full', 'tc_p')}
+    log(f'[probes] P1 (kernel_ablate) at B={b} N={n}, microseconds: '
+        'kernel-only graph slope / chain-step graph slope / max abs err vs '
+        f'plain; {launches["P1"]} probe wrapper calls')
+    for name, r in runs['P1']['variants'].items():
+        log(f'[probes]   {name:13s} ({r["tpu_variant"]}): {r["kernel_us"]:8.3f}'
+            f' / {r["chain_us"]:8.3f} / {r["max_abs_err_vs_plain"]:.3e}')
+    log(f'[probes] P2 (kernel_probe) at B={b} N={n}, microseconds: '
+        'kernel-only / chain-step; max rel err of t vs f64 on the probes\' '
+        f'inputs / on the headline GP; {launches["P2"]} probe wrapper calls')
+    for name, r in runs['P2']['variants'].items():
+        log(f'[probes]   {name:8s} ({r["variant"]}): {r["kernel_us"]:8.3f} / '
+            f'{r["chain_us"]:8.3f}; {r["t_rel_err_probe_inputs"]:.3e} / '
+            f'{r["t_rel_err_headline"]:.3e}')
+    log(f'[probes] plain versions by events: full {plain["full"]:.4f} ms, '
+        f'tc_p {plain["tc_p"]:.4f} ms')
+    return checks, runs, launches, plain
 
 
 def headline_j64(dev, b):
@@ -818,6 +933,7 @@ def main() -> int:
     if args.shard_worker:
         shard_worker(out_dir)
         return 0
+    from gpmpc_tpu_torch.benchmarks.chain import card_line
     from gpmpc_tpu_torch.device import resolve_device
     from gpmpc_tpu_torch.dynamics import build_rollout_cache
     from gpmpc_tpu_torch.ops.kernels import _build
@@ -845,6 +961,8 @@ def main() -> int:
                               props, float(clock))
     log(f'[kernels] K1 instruction-rate estimate from {props.multi_processor_count}'
         f' SMs x 128 lanes at {clock} MHz: {k1_instr:.4f} ms')
+    probe_checks, probes, probe_launches, probe_plain = phase_probes(
+        dev, b, 200, cache, reps=50)
 
     ref = np.load(REF)
     j64, j_uref, obj = phase_objective(dev, ref, b)
@@ -879,10 +997,29 @@ def main() -> int:
             replaces=f'{TPU_FILE}:{line}', launches=launches,
             max_abs_err=checks[key], ms=t['ms'], plain_ms=t['plain_ms'],
             bound_ms=t['bound'][0], bound_by=t['bound'][1], library_ms=None))
+    # The probes' rows: `ms` is the kernel-only graph slope of P1's `full`
+    # (K1's body) and of P2's `base` counterpart `tc_p`; `launches` counts the
+    # probe's own wrapper calls in its run, not the solve's.
+    for key, mode, variant, src in (
+            ('P1', 'full', 'full', 'benchmarks/kernel_ablate.py:131'),
+            ('P2', 'base', 'tc_p', 'benchmarks/kernel_probe.py:83')):
+        run = probes[key]
+        modes = ([r['variant'] for r in run['variants'].values()]
+                 if key == 'P2' else list(run['variants']))
+        kernels.append(dict(
+            name=f'{key} rw_probe ({run["probe"]}; launches are the probe\'s '
+                 f'wrapper calls, not the solve\'s)', route='cuda',
+            source=PROBE_SOURCE, replaces=src, launches=probe_launches[key],
+            max_abs_err=max(probe_checks[v][0] for v in modes),
+            ms=run['variants'][mode]['kernel_us'] / 1e3,
+            plain_ms=probe_plain[variant], bound_ms=times['K1']['bound'][0],
+            bound_by=times['K1']['bound'][1], library_ms=None))
     detail = dict(objective=obj, solve=solve, sym_solve=sym_solve,
                   sharded_1x1=sharded_11, sharded_1x2=sharded_12,
                   profile=prof, k1_instr_bound_ms=k1_instr,
-                  k3_half_rows=times['K3 Nl=N/2'],
+                  k3_half_rows=times['K3 Nl=N/2'], kernel_times=times,
+                  probes=dict(checks=probe_checks, launches=probe_launches,
+                              plain_ms=probe_plain, **probes),
                   total_s=time.perf_counter() - t_start)
     with open(os.path.join(out_dir, 'chip_smoke.json'), 'w') as f:
         json.dump(dict(card=card, kernels=kernels, **detail), f, indent=1)

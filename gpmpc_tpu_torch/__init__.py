@@ -12,8 +12,10 @@ lockstep projected L-BFGS; the fan-out over torch.distributed
 model-sharded solve `parallel.model_sharded.solve_batch_2d`. The variance
 trace runs through hand-written CUDA kernels (ops/kernels/csrc): the column
 sweep, its row block for model sharding, and the symmetric-pair kernel behind
-the GPMPC_SYM_KERNEL=1 opt-in. Entry points run on CUDA unless the caller
-passes device='cpu'.
+the GPMPC_SYM_KERNEL=1 opt-in. The probes of the column sweep's time
+(ops/kernels/probe.py, run by benchmarks/kernel_ablate and kernel_probe)
+instantiate its body under variants. Entry points run on CUDA unless the
+caller passes device='cpu'.
 """
 
 from gpmpc_tpu_torch.device import resolve_device

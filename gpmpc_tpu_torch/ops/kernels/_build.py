@@ -4,7 +4,8 @@ Each `csrc/<name>.cu` is compiled by `nvcc` into its own shared library with a
 plain C interface and loaded with `ctypes` (no PyTorch headers, so a build
 takes seconds). Builds happen at first use, only from the sources in this
 package, into `gpmpc_tpu_torch/_build/`; the library's file name carries a
-hash of its source and flags, so an edited source is rebuilt. Nothing here
+hash of its source, the shared headers and the flags, so an edited source or
+header is rebuilt. Nothing here
 runs at import time.
 """
 
@@ -43,9 +44,14 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f'{name}.cu').read_bytes()
-    digest = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f'lib{name}-{digest[:16]}.so'
+    """The library built from `csrc/<name>.cu`. Its name hashes the source,
+    every `csrc/*.cuh` (a shared header edits every library that includes
+    it) and the flags."""
+    h = hashlib.sha256((CSRC / f'{name}.cu').read_bytes())
+    for header in sorted(CSRC.glob('*.cuh')):
+        h.update(header.name.encode() + b'\0' + header.read_bytes())
+    h.update(' '.join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f'lib{name}-{h.hexdigest()[:16]}.so'
 
 
 def _start_build(name: str, nvcc: str):

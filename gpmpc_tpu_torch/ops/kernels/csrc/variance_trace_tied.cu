@@ -28,103 +28,15 @@
 // reduction is exact f32 FMAs; four columns are too narrow for tensor cores.
 // The double instance serves the f64 reference objective on the card.
 
+// The kernel itself is K1's body in rw_tied_body.cuh, instantiated here as
+// Variant::kFull with 128 contraction rows staged per step; the probe
+// (variance_trace_probe.cu) instantiates the same body under its variants.
+
 #include <cuda_runtime.h>
 
+#include "rw_tied_body.cuh"
+
 namespace {
-
-constexpr int kRows = 128;  // threads per block = output rows per block
-constexpr int kTile = 128;  // contraction rows staged in shared memory per step
-
-__device__ __forceinline__ float accurate_exp(float x) { return expf(x); }
-__device__ __forceinline__ double accurate_exp(double x) { return exp(x); }
-
-template <typename T>
-struct RwArgs {
-  const T* g;     // (B, n_out, d)   g = a M2 on the output rows
-  const T* dv;    // (B, n_out)      exp(-q / 8) on the output rows
-  const T* a;     // (B, n_c, d)     u - x on the contraction rows
-  const T* aod;   // (B, n_c, 1+d)   dv o [1 | a] on the contraction rows
-  const T* blam;  // (E, n_c, n_out)
-  T* rw;          // (B, E, n_out, 1+d)
-  int b;
-  int n_out;
-  int n_c;
-  cudaStream_t stream;
-};
-
-template <typename T, int D, int E>
-__global__ void __launch_bounds__(kRows)
-rw_tied_kernel(const T* __restrict__ g, const T* __restrict__ dv,
-               const T* __restrict__ a, const T* __restrict__ aod,
-               const T* __restrict__ blam, T* __restrict__ rw, int n_out,
-               int n_c) {
-  constexpr int W1 = D + 1;
-  __shared__ T s_a[kTile * D];
-  __shared__ T s_aod[kTile * W1];
-
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * kRows + threadIdx.x;
-  const bool row_ok = i < n_out;
-
-  T gi[D];
-#pragma unroll
-  for (int k = 0; k < D; ++k)
-    gi[k] = row_ok ? g[(static_cast<size_t>(b) * n_out + i) * D + k] : T(0);
-
-  T acc[E][W1];
-#pragma unroll
-  for (int e = 0; e < E; ++e)
-#pragma unroll
-    for (int c = 0; c < W1; ++c) acc[e][c] = T(0);
-
-  const T* a_b = a + static_cast<size_t>(b) * n_c * D;
-  const T* aod_b = aod + static_cast<size_t>(b) * n_c * W1;
-
-  for (int j0 = 0; j0 < n_c; j0 += kTile) {
-    const int jn = min(kTile, n_c - j0);
-    __syncthreads();  // the previous tile is consumed
-    for (int t = threadIdx.x; t < jn * D; t += kRows)
-      s_a[t] = a_b[static_cast<size_t>(j0) * D + t];
-    for (int t = threadIdx.x; t < jn * W1; t += kRows)
-      s_aod[t] = aod_b[static_cast<size_t>(j0) * W1 + t];
-    __syncthreads();
-    if (row_ok) {
-      const T* blam_j = blam + static_cast<size_t>(j0) * n_out + i;
-#pragma unroll 2
-      for (int jj = 0; jj < jn; ++jj) {
-        T p = T(0);
-#pragma unroll
-        for (int k = 0; k < D; ++k) p = fma(s_a[jj * D + k], gi[k], p);
-        const T w = accurate_exp(T(-0.25) * p);
-#pragma unroll
-        for (int e = 0; e < E; ++e) {
-          const T bw =
-              blam_j[(static_cast<size_t>(e) * n_c + jj) * n_out] * w;
-#pragma unroll
-          for (int c = 0; c < W1; ++c)
-            acc[e][c] = fma(bw, s_aod[jj * W1 + c], acc[e][c]);
-        }
-      }
-    }
-  }
-
-  if (!row_ok) return;
-  const T dvi = dv[static_cast<size_t>(b) * n_out + i];
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    T* out = rw + ((static_cast<size_t>(b) * E + e) * n_out + i) * W1;
-#pragma unroll
-    for (int c = 0; c < W1; ++c) out[c] = dvi * acc[e][c];
-  }
-}
-
-template <typename T, int D, int E>
-cudaError_t launch(const RwArgs<T>& p) {
-  const dim3 grid((p.n_out + kRows - 1) / kRows, p.b);
-  rw_tied_kernel<T, D, E><<<grid, kRows, 0, p.stream>>>(
-      p.g, p.dv, p.a, p.aod, p.blam, p.rw, p.n_out, p.n_c);
-  return cudaGetLastError();
-}
 
 template <typename T, int D>
 cudaError_t dispatch_e(int e, const RwArgs<T>& p) {

@@ -12,12 +12,18 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import functools
+
 import numpy as np
 import torch
 
 from gpmpc_tpu_torch.device import resolve_device
 from gpmpc_tpu_torch.gp.state import GPConfig, GPState, make_gp
 from gpmpc_tpu_torch.mpc.cost import CostParams
+
+
+# The headline inputs' range: (theta, omega, action) in [-pi, pi]^2 x [-5, 5].
+DATA_SCALE = np.array([np.pi, np.pi, 5.0])
 
 
 class HeadlineProblem(NamedTuple):
@@ -58,3 +64,18 @@ def make_headline_problem(b: int = 256, dtype=torch.float32, seed: int = 0,
                         x_ref=t(np.zeros(ds)), u_ref=t(np.zeros(da)))
     return HeadlineProblem(gp=gp, state_dim=ds, action_dim=da, x0s=x0s,
                            params=params, horizon=horizon, lb=-5.0, ub=5.0)
+
+
+def headline_operands(rng, b, cache, tied=True):
+    """Operands of the variance trace on the headline GP's own x (N, d) and
+    b_lam (E, N, N), taken from `cache`: u ~ U(-1, 1) x DATA_SCALE (B, d)
+    and random SPD M2 = (0.1 m m^T + I) / 2, (B, d, d), or (B, E, d, d)
+    untied, drawn from `rng`; f64 on the cache's device."""
+    d, e = cache.x.shape[1], cache.b_lam.shape[0]
+    u = rng.uniform(-1.0, 1.0, (b, d)) * DATA_SCALE
+    m = rng.normal(size=(b, d, d) if tied else (b, e, d, d))
+    m2 = 0.5 * (m @ np.swapaxes(m, -1, -2) * 0.1 + np.eye(d))
+    f64 = functools.partial(torch.tensor, dtype=torch.float64,
+                            device=cache.x.device)
+    return (f64(u), f64(m2), cache.x.to(torch.float64),
+            cache.b_lam.to(torch.float64))

@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+from gpmpc_tpu_torch.benchmarks.chain import kernel_args
+from gpmpc_tpu_torch.ops.kernels import probe
 from gpmpc_tpu_torch.ops.kernels import variance_trace as tvt
 
 torch.set_num_threads(1)
@@ -214,3 +216,41 @@ def test_cuda_sym_launch_raises_instead_of_falling_back(case):
     with pytest.raises(ValueError):
         tvt.rw_sym(*args, shared_chain=True)
     assert (tvt.LAUNCHES, tvt.LAUNCHES_SYM) == before
+
+
+def _probe_args(b, n, seed, dev):
+    """K1's f32 arguments on the JAX kernel test's inputs."""
+    u, m2, x, blam, _ = _problem(True, b, 2, n, 3, seed)
+    f = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+    return kernel_args(f(u), f(m2), f(x), f(blam))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('variant', probe.VARIANTS)
+@pytest.mark.parametrize('shape', [(256, 256), (7, 200)])
+def test_cuda_probe_variant_matches_plain_versions(variant, shape):
+    """The probe kernel's variant against each plain version of
+    probe.checks, elementwise within its bar: scalar variants rtol 5e-5 atol
+    5e-5 against their f64 plain version; hwexp at those bars plus __expf's
+    documented 2 + 1.173 |x| ulp; the tensor-core variants against their
+    TF32-emulating plain version at 2 N eps a pass of the terms' magnitude
+    sum plus the operands' rounding slack, and red_3xtf32 and tc_p also
+    against the plain f64 full at 5e-5. One launch, counted."""
+    dev = _cuda()
+    args = _probe_args(*shape, seed=10, dev=dev)
+    before = probe.LAUNCHES_PROBE
+    out = probe.rw_probe(variant, *args).double()
+    torch.cuda.synchronize()
+    assert probe.LAUNCHES_PROBE == before + 1
+    for label, want, bar in probe.checks(variant, *args):
+        ratio = float(((out - want).abs() / bar).max())
+        assert ratio <= 1.0, f'{variant} vs {label}: {ratio:.3f}x its bar'
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(256, 256), (7, 200), (3, 130)])
+def test_cuda_probe_full_equals_k1_to_the_bit(shape):
+    """`full` is K1's body instantiated as K1 is: the same rw bits."""
+    dev = _cuda()
+    args = _probe_args(*shape, seed=11, dev=dev)
+    assert torch.equal(probe.rw_probe('full', *args), tvt.rw_tied(*args))

@@ -1,8 +1,8 @@
 """The port's slice as a whole: make_headline_problem builds the same problem
 as the JAX package, the port's f64 objective matches the JAX f64 objective
 stored in gpmpc_tpu_torch/data/headline_ref.npz (rtol 1e-8, 8 lanes), and the
-package (its sharded modules and chip_smoke.py included) stays apart from
-JAX."""
+package (its sharded modules, its probes and chip_smoke.py included) stays
+apart from JAX and from the JAX package's top-level `benchmarks`."""
 
 import os
 import subprocess
@@ -66,11 +66,14 @@ import gpmpc_tpu_torch
 for m in pkgutil.walk_packages(gpmpc_tpu_torch.__path__, 'gpmpc_tpu_torch.'):
     importlib.import_module(m.name)
 for name in ('parallel.mesh', 'parallel.model_sharded', 'parallel.distributed',
-             'parallel.batch', 'ops.kernels.variance_trace'):
+             'parallel.batch', 'ops.kernels.variance_trace', 'ops.kernels.probe',
+             'benchmarks.chain', 'benchmarks.kernel_ablate',
+             'benchmarks.kernel_probe'):
     importlib.import_module('gpmpc_tpu_torch.' + name)
 import chip_smoke
 bad = sorted(k for k in sys.modules
-             if k.split('.')[0] in ('jax', 'jaxlib', 'gpmpc_tpu', 'flax'))
+             if k.split('.')[0] in ('jax', 'jaxlib', 'gpmpc_tpu', 'flax',
+                                    'benchmarks'))
 print('LEAKED', bad)
 try:
     p = gpmpc_tpu_torch.make_headline_problem(b=2)
