@@ -8,7 +8,8 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
   1. device     CUDA present; the card's name and power limit.
   2. build      every CUDA source under gpmpc_tpu_torch/ops/kernels/csrc is
                 compiled by nvcc into gpmpc_tpu_torch/_build/, one nvcc per
-                source, all started together.
+                source, all started together (each kernel's f32 and f64
+                instances are two sources); each source's seconds.
   3. kernels    Each kernel in f32 against its plain PyTorch version in f64
                 on the card, at the headline shape and a ragged one, on the
                 JAX kernel test's inputs: forward rtol 5e-5 (atol 5e-5),
@@ -27,9 +28,15 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 timed twice: by CUDA events around 50 calls enqueued from the
                 host (`ms`), and as the slope of CUDA-graph replays of 24 and
                 96 captured calls (`graph_ms`, gpmpc_tpu_torch/benchmarks/
-                chain.py), which leaves the host's enqueue out.
+                chain.py), which leaves the host's enqueue out. Before the
+                times, each kernel's launch plan at the headline shape
+                (variance_trace.rw_tied_plan, rw_sym_plan: rows, slices,
+                scenarios a block, threads, shared bytes, grid, and the
+                blocks an SM holds by cudaOccupancyMaxActiveBlocksPerMultiprocessor).
   3b. probes    P1 and P2, the probe kernel (csrc/variance_trace_probe.cu, K1's
-                body under its variants). Each variant against its plain
+                body under its variants, full_s1 among them: K1 with scenario
+                sharing off; and plan_*: K1 at other block shapes). Each
+                variant against its plain
                 version on the JAX kernel test's inputs at the headline and
                 a ragged shape, at the bars of ops/kernels/probe.checks
                 (scalar variants rtol 5e-5 atol 5e-5; hwexp at those plus
@@ -378,6 +385,28 @@ def phase_kernels(dev, b, n_ragged, cache):
     return out
 
 
+def launch_plans(b, n, d, e) -> dict:
+    """Each kernel's launch plan at the headline shape, f32, with the
+    blocks an SM holds (CUDA occupancy), logged and returned."""
+    import torch
+    from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
+    f32 = torch.float32
+    plans = {}
+    for key, n_out, e_k in (('K1', n, e), ('K2', n, 1), ('K3', n, e),
+                            ('K3 Nl=N/2', n // 2, e)):
+        plan = vt.rw_tied_plan(b, n_out, n, d, e_k, f32)._asdict()
+        plan['blocks_per_sm'] = vt.rw_tied_blocks_per_sm(d, e_k, f32)
+        plans[key] = plan
+    for key, tied in (('K4 tied', True), ('K4 per-output', False)):
+        plan = vt.rw_sym_plan(b, n, d, e, f32, tied)._asdict()
+        plan['blocks_per_sm'] = vt.rw_sym_blocks_per_sm(d, e, f32, tied)
+        plans[key] = plan
+    for key, plan in plans.items():
+        log(f'[kernels] plan {key}: ' + ', '.join(f'{k} {v}'
+                                                 for k, v in plan.items()))
+    return plans
+
+
 def time_kernels(dev, b, cache, reps):
     """Phase 3, timing at the headline shape: each wrapper (CUDA kernel)
     beside its plain PyTorch version on the same f32 inputs. K3 at n_m = 1
@@ -433,8 +462,10 @@ def time_kernels(dev, b, cache, reps):
         'K3 Nl=N/2': lambda: vt.rw_tied_block(*k3[n // 2]),
         'K4 tied': lambda: vt.rw_sym(*k4t, shared_chain=True),
         'K4 per-output': lambda: vt.rw_sym(*k4u, shared_chain=False)}, dev)
+    plans = launch_plans(b, n, d, e)
     for key, r in res.items():
         r['graph_ms'] = graphed[key]
+        r['plan'] = plans[key]
         log(f'[kernels] {key} at B={b} N={n} d={d} E={e}'
             f'{" Nl=" + str(r["n_loc"]) if "n_loc" in r else ""}: '
             f'{r["ms"]:.4f} ms by events over host-enqueued calls, '
@@ -950,7 +981,9 @@ def main() -> int:
     log(f'[device] {card}; {props.multi_processor_count} SMs, max SM clock '
         f'{clock} MHz; torch {torch.__version__}, CUDA {torch.version.cuda}')
 
-    log(f'[build] nvcc built the kernels in {_build.build_all():.1f} s')
+    build_s, each_s = _build.build_all()
+    log(f'[build] nvcc built the kernels in {build_s:.1f} s ('
+        + ', '.join(f'{k} {v:.1f} s' for k, v in each_s.items()) + ')')
 
     b = 256
     cache = build_rollout_cache(

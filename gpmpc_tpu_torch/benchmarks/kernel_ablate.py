@@ -2,7 +2,8 @@
 
 Port of benchmarks/kernel_ablate.py. Each variant of K1's body
 (ops/kernels/probe.py, csrc/variance_trace_probe.cu) drops or swaps one
-stage; its time beside `full`'s (K1 itself) locates the stage's share. Each
+stage; its time beside `full`'s (K1 itself) locates the stage's share, and
+the plan_* variants time K1 at other block shapes than its own. Each
 variant is timed twice by `chain`: alone on fixed inputs (kernel-only, the
 device time of one launch) and inside the probes' chain step (prep
 included). On the TPU's inputs (kernel_ablate.py:160-164): x ~ U(-3, 3),
@@ -31,15 +32,17 @@ from gpmpc_tpu_torch.device import resolve_device
 from gpmpc_tpu_torch.ops.kernels import probe
 
 D, E = probe.D, probe.E
-ABLATE = ('full', 'full_tile256', 'hwexp', 'noexp', 'nop', 'nodots', 'nomul',
-          'empty', 'red_tf32')
+ABLATE = ('full', 'full_tile256', 'full_s1', 'hwexp', 'noexp', 'nop',
+          'nodots', 'nomul', 'empty', 'red_tf32') + probe.PLANS
 # The TPU variant (benchmarks/kernel_ablate.py) each card variant stands for.
 # `vpured` reduced with f32 multiply-adds on the TPU's vector unit, which is
 # what K1 already does on the card, so `full` stands for it too.
 TPU_VARIANT = {'full': 'full, vpured', 'full_tile256': 'full_tj256, '
-               'vpured_tj256', 'hwexp': 'hwexp', 'noexp': 'noexp',
+               'vpured_tj256', 'full_s1': 'none (scenario sharing off)',
+               'hwexp': 'hwexp', 'noexp': 'noexp',
                'nop': 'nop', 'nodots': 'nodots', 'nomul': 'nomul',
-               'empty': 'empty', 'red_tf32': 'dott'}
+               'empty': 'empty', 'red_tf32': 'dott',
+               **{v: f'none (launch plan {v[5:]})' for v in probe.PLANS}}
 
 
 def probe_inputs(n, device):

@@ -21,8 +21,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / '_build'
+# --split-compile=4 optimizes a source's many template instances on 4
+# threads: K4's float source took 135 s without it and 87 s with it, five
+# sources side by side on an 8-core host of an H100 (PERF.md).
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC')
+              '--split-compile=4', '-shared', '-Xcompiler', '-fPIC')
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -55,38 +58,49 @@ def library_path(name: str) -> Path:
 
 
 def _start_build(name: str, nvcc: str):
-    """Start nvcc for one source; returns (process, tmp path, final path)."""
+    """Start nvcc for one source, its output to a log file beside the
+    library (a pipe could fill and stall it); returns (process, tmp path,
+    final path, log path)."""
     out = library_path(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f'.{os.getpid()}.tmp')
+    log = out.with_suffix(f'.{os.getpid()}.log')
     cmd = [nvcc, *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
+    with open(log, 'w') as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+    return proc, tmp, out, log
 
 
-def _finish_build(name: str, started) -> None:
-    proc, tmp, out = started
-    log, _ = proc.communicate()
+def _finish_build(name: str, started) -> float:
+    """Wait for one source's nvcc and install its library; returns the
+    wall-clock time (time.time()) at which nvcc wrote it."""
+    proc, tmp, out, log = started
+    proc.wait()
+    text = log.read_text()
+    log.unlink(missing_ok=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f'nvcc failed on csrc/{name}.cu '
-                           f'(exit {proc.returncode}):\n{log}')
+                           f'(exit {proc.returncode}):\n{text}')
+    written = tmp.stat().st_mtime
     os.replace(tmp, out)      # atomic: a concurrent build sees all or none
+    return written
 
 
-def build_all() -> float:
+def build_all() -> tuple[float, dict[str, float]]:
     """Build every `csrc/*.cu` that is not built yet, one nvcc per source, all
-    started together. Returns the wall seconds taken."""
-    t0 = time.perf_counter()
+    started together. Returns the wall seconds taken and each built
+    source's seconds from the start until nvcc wrote its library."""
+    t0, wall0 = time.perf_counter(), time.time()
     todo = sorted(p.stem for p in CSRC.glob('*.cu')
                   if not library_path(p.stem).is_file())
-    if todo:
-        nvcc = find_nvcc()
-        started = [(name, _start_build(name, nvcc)) for name in todo]
-        for name, s in started:
-            _finish_build(name, s)
-    return time.perf_counter() - t0
+    if not todo:
+        return time.perf_counter() - t0, {}
+    nvcc = find_nvcc()
+    running = {name: _start_build(name, nvcc) for name in todo}
+    each = {name: _finish_build(name, started) - wall0
+            for name, started in running.items()}
+    return time.perf_counter() - t0, each
 
 
 def load(name: str) -> ctypes.CDLL:

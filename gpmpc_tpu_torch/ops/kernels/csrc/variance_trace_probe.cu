@@ -10,7 +10,8 @@
 //
 // Variants (ids as in ops/kernels/probe.py; all f32, d = 3, E = 2, any B, N):
 //   0 full          K1 (P1 full and vpured, P2 vpu_p).
-//   1 full_tile256  K1 with 256 contraction rows staged per step (P1 *_tj256).
+//   1 full_tile256  K1 with twice the contraction rows staged per step, each
+//                   slice taking 2 kSubRows of a tile (P1 *_tj256).
 //   2 hwexp         __expf in place of expf (P1 hwexp).
 //   3 noexp         w = -p / 4 (P1 noexp).
 //   4 nop           w = g_i[0] (P1 nop).
@@ -24,11 +25,18 @@
 //                   vpu_3p).
 //  10 tc_p          p = G A^T on the tensor cores at 3xTF32 (K = d padded to
 //                   8), then K1's exp and FMA reduction (P2 base).
+//  11 full_s1       K1 with scenario sharing off (S = 1 a block): what the
+//                   sharing alone buys (no TPU counterpart).
+//  12 plan_32x8     K1 at another block shape, rows x slices (K1's is
+//  13 plan_128x2    64 x 4): the launch plans K1's was chosen from (no TPU
+//  14 plan_64x2     counterpart).
+//  15 plan_32x4
 //
 // Bound on an H100: K1's, operations (see variance_trace_tied.cu); each
-// variant does that work or less. The tensor-core variants are a probe of the
-// route a redesign of K1 would weigh, not a path: nothing in the solve calls
-// them. Their operands are rounded with wmma::__float_to_tf32 (round to
+// variant does that work or less. The tensor-core variants, kept from the
+// first design (a thread an output row, 128 rows a block, one scenario a
+// block), are a probe of a route K1's redesign weighed and left, not a path:
+// nothing in the solve calls them. Their operands are rounded with wmma::__float_to_tf32 (round to
 // nearest, ties away from zero), never truncated by the load. Each warp owns
 // 32 output rows as two 16-row MMA tiles; the (blam o W) and p tiles are
 // staged column-major in shared memory, so that each thread writes and reads
@@ -46,9 +54,10 @@ using namespace nvcuda;
 constexpr int kD = 3;
 constexpr int kE = 2;
 constexpr int kW1 = kD + 1;
-constexpr int kNumVariants = 11;
+constexpr int kNumVariants = 16;
 constexpr int kChunk = 32;      // contraction rows per tensor-core step
-constexpr int kLd = kRows + 4;  // stride of the column-major (row i, *) tiles
+constexpr int kTcRows = 128;    // threads a tensor-core block = its output rows
+constexpr int kLd = kTcRows + 4;  // stride of the column-major (row i, *) tiles
 constexpr int kNPad = 16;       // aod's 1 + d columns padded to the MMA width
 constexpr int kKPad = 8;        // the exponent's d padded to the MMA depth
 
@@ -106,7 +115,7 @@ __device__ __forceinline__ void mma_tf32(FragC& c, const FragA& a,
 // blam_e o W for kChunk contraction rows into s_bw; then each warp contracts
 // its 32 rows against aod on the tensor cores.
 template <int Passes>
-__global__ void __launch_bounds__(kRows)
+__global__ void __launch_bounds__(kTcRows)
 rw_red_tc_kernel(const float* __restrict__ g, const float* __restrict__ dv,
                  const float* __restrict__ a, const float* __restrict__ aod,
                  const float* __restrict__ blam, float* __restrict__ rw,
@@ -118,7 +127,7 @@ rw_red_tc_kernel(const float* __restrict__ g, const float* __restrict__ dv,
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
-  const int i = blockIdx.x * kRows + tid;
+  const int i = blockIdx.x * kTcRows + tid;
   const bool row_ok = i < n_out;
 
   float gi[kD];
@@ -138,9 +147,9 @@ rw_red_tc_kernel(const float* __restrict__ g, const float* __restrict__ dv,
   for (int j0 = 0; j0 < n_c; j0 += kChunk) {
     const int jn = min(kChunk, n_c - j0);
     __syncthreads();  // the previous chunk is consumed
-    for (int t = tid; t < jn * kD; t += kRows)
+    for (int t = tid; t < jn * kD; t += kTcRows)
       s_a[t] = a_b[static_cast<size_t>(j0) * kD + t];
-    for (int t = tid; t < kChunk * kNPad; t += kRows) {
+    for (int t = tid; t < kChunk * kNPad; t += kTcRows) {
       const int jj = t / kNPad;
       const int c = t % kNPad;
       s_aod[t] = (jj < jn && c < kW1)
@@ -201,12 +210,12 @@ rw_red_tc_kernel(const float* __restrict__ g, const float* __restrict__ dv,
 // tc_p: each warp computes p for its 32 rows against kChunk contraction rows
 // at 3xTF32 into s_p; then each thread runs K1's exp and FMA reduction on
 // its row.
-__global__ void __launch_bounds__(kRows)
+__global__ void __launch_bounds__(kTcRows)
 rw_tc_p_kernel(const float* __restrict__ g, const float* __restrict__ dv,
                const float* __restrict__ a, const float* __restrict__ aod,
                const float* __restrict__ blam, float* __restrict__ rw,
                int n_out, int n_c) {
-  __shared__ __align__(32) float s_g[kRows * kKPad];    // (i, k) row-major
+  __shared__ __align__(32) float s_g[kTcRows * kKPad];  // (i, k) row-major
   __shared__ __align__(32) float s_a8[kChunk * kKPad];  // (k, j) col-major
   __shared__ float s_aod[kChunk * kW1];
   __shared__ __align__(32) float s_p[kChunk * kLd];     // (i, j) col-major
@@ -214,7 +223,7 @@ rw_tc_p_kernel(const float* __restrict__ g, const float* __restrict__ dv,
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
-  const int i = blockIdx.x * kRows + tid;
+  const int i = blockIdx.x * kTcRows + tid;
   const bool row_ok = i < n_out;
 
 #pragma unroll
@@ -235,14 +244,14 @@ rw_tc_p_kernel(const float* __restrict__ g, const float* __restrict__ dv,
   for (int j0 = 0; j0 < n_c; j0 += kChunk) {
     const int jn = min(kChunk, n_c - j0);
     __syncthreads();  // the previous chunk is consumed (and s_g is written)
-    for (int t = tid; t < kChunk * kKPad; t += kRows) {
+    for (int t = tid; t < kChunk * kKPad; t += kTcRows) {
       const int jj = t / kKPad;
       const int k = t % kKPad;
       s_a8[t] = (jj < jn && k < kD)
                     ? a_b[static_cast<size_t>(j0 + jj) * kD + k]
                     : 0.f;
     }
-    for (int t = tid; t < jn * kW1; t += kRows)
+    for (int t = tid; t < jn * kW1; t += kTcRows)
       s_aod[t] = aod_b[static_cast<size_t>(j0) * kW1 + t];
     __syncthreads();
 #pragma unroll
@@ -289,25 +298,38 @@ rw_tc_p_kernel(const float* __restrict__ g, const float* __restrict__ dv,
 
 template <typename Kernel>
 cudaError_t launch_tc(Kernel kernel, const RwArgs<float>& p) {
-  const dim3 grid((p.n_out + kRows - 1) / kRows, p.b);
-  kernel<<<grid, kRows, 0, p.stream>>>(p.g, p.dv, p.a, p.aod, p.blam, p.rw,
+  const dim3 grid((p.n_out + kTcRows - 1) / kTcRows, p.b);
+  kernel<<<grid, kTcRows, 0, p.stream>>>(p.g, p.dv, p.a, p.aod, p.blam, p.rw,
                                        p.n_out, p.n_c);
   return cudaGetLastError();
 }
 
+// K1 at a block of Rows output rows x Slices contraction slices.
+template <int Rows, int Slices>
+cudaError_t launch_plan(const RwArgs<float>& p) {
+  return launch<float, kD, kE, Variant::kFull, scenarios<float, kD, kE>(),
+                kSubRows, Rows, Slices>(p);
+}
+
 cudaError_t launch_variant(int variant, const RwArgs<float>& p) {
   switch (variant) {
-    case 0: return launch<float, kD, kE, Variant::kFull, 128>(p);
-    case 1: return launch<float, kD, kE, Variant::kFull, 256>(p);
-    case 2: return launch<float, kD, kE, Variant::kHwExp, 128>(p);
-    case 3: return launch<float, kD, kE, Variant::kNoExp, 128>(p);
-    case 4: return launch<float, kD, kE, Variant::kNoP, 128>(p);
-    case 5: return launch<float, kD, kE, Variant::kNoDots, 128>(p);
-    case 6: return launch<float, kD, kE, Variant::kNoMul, 128>(p);
-    case 7: return launch<float, kD, kE, Variant::kEmpty, 128>(p);
+    case 0: return launch<float, kD, kE, Variant::kFull>(p);
+    case 1: return launch<float, kD, kE, Variant::kFull,
+                          scenarios<float, kD, kE>(), 2 * kSubRows>(p);
+    case 2: return launch<float, kD, kE, Variant::kHwExp>(p);
+    case 3: return launch<float, kD, kE, Variant::kNoExp>(p);
+    case 4: return launch<float, kD, kE, Variant::kNoP>(p);
+    case 5: return launch<float, kD, kE, Variant::kNoDots>(p);
+    case 6: return launch<float, kD, kE, Variant::kNoMul>(p);
+    case 7: return launch<float, kD, kE, Variant::kEmpty>(p);
     case 8: return launch_tc(rw_red_tc_kernel<1>, p);
     case 9: return launch_tc(rw_red_tc_kernel<3>, p);
     case 10: return launch_tc(rw_tc_p_kernel, p);
+    case 11: return launch<float, kD, kE, Variant::kFull, 1>(p);
+    case 12: return launch_plan<32, 8>(p);
+    case 13: return launch_plan<128, 2>(p);
+    case 14: return launch_plan<64, 2>(p);
+    case 15: return launch_plan<32, 4>(p);
     default: return cudaErrorInvalidValue;
   }
 }

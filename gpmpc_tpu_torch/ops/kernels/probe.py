@@ -10,14 +10,18 @@ launches. Each variant computes a defined function of K1's arguments
 
     full          K1: rw[b,e,i,c] = dv_i sum_j blam[e,j,i] exp(-p_ji / 4)
                   aod[j,c], p_ji = a_j . g_i
-    full_tile256  the same, 256 contraction rows staged per step
+    full_tile256  the same, twice K1's contraction rows staged per step
+                  (256 at K1's plan)
+    full_s1       the same with scenario sharing off (S = 1 a block)
+    plan_RxK      the same at a block of R output rows x K contraction
+                  slices (K1's is ROWS x SLICES = 64 x 4)
     hwexp         the same with __expf (plain version: torch.exp)
     noexp         w = -p / 4 in place of exp(-p / 4)
     nop           w = g_i[0]
     nodots        column 0 only: dv_i sum_j blam w; columns 1..d are 0
     nomul         bw = w (no blam): every output gets dv_i sum_j w aod
     empty         column 0 only: dv_i sum over tiles of blam[e, j0, i], one
-                  j0 every EMPTY_TILE rows
+                  j0 every EMPTY_TILE rows (K1's staged tile)
     red_tf32      the reduction on the tensor cores, TF32 operands, one pass
     red_3xtf32    the same at 3xTF32 (hi.hi + hi.lo + lo.hi)
     tc_p          p at 3xTF32 on the tensor cores, then K1's exp and sums
@@ -37,10 +41,14 @@ import torch
 from gpmpc_tpu_torch.ops.kernels import _build
 from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
 
+# In the order of the source's variant ids.
 VARIANTS = ('full', 'full_tile256', 'hwexp', 'noexp', 'nop', 'nodots',
-            'nomul', 'empty', 'red_tf32', 'red_3xtf32', 'tc_p')
+            'nomul', 'empty', 'red_tf32', 'red_3xtf32', 'tc_p', 'full_s1',
+            'plan_32x8', 'plan_128x2', 'plan_64x2', 'plan_32x4')
+# K1's function at other launch plans than K1's own.
+PLANS = tuple(v for v in VARIANTS if v.startswith('plan_'))
 TENSOR_CORE = ('red_tf32', 'red_3xtf32', 'tc_p')
-EMPTY_TILE = 128        # kTile of the `empty` instance
+EMPTY_TILE = vt.SLICES * vt.SUB_ROWS   # the tile K1's plan stages a step
 D, E = 3, 2             # the only shape the probe source instantiates
 
 # Launches of the probe kernel, counted where they happen.
@@ -116,7 +124,7 @@ def rw_probe_reference(variant, g, dv, a, aod, blam):
     the scalar variants' oracle; the tensor-core variants emulate TF32 and
     take f32 only). Shapes as `variance_trace.rw_tied_reference`."""
     _check_variant(variant)
-    if variant in ('full', 'full_tile256', 'hwexp'):
+    if variant in ('full', 'full_tile256', 'full_s1', 'hwexp') + PLANS:
         return vt.rw_tied_reference(g, dv, a, aod, blam)
     if variant in TENSOR_CORE and g.dtype != torch.float32:
         raise TypeError(f'{variant} emulates TF32 and takes float32')
@@ -245,6 +253,7 @@ def rw_probe(variant, g, dv, a, aod, blam):
         raise ValueError(f'the probe runs on CUDA tensors, got {g.device}')
     b, n_out, d = g.shape
     e, n_c, _ = blam.shape
+    vt.rw_tied_plan(b, n_out, n_c, d, e, g.dtype)     # raises past the grid
     rw = torch.empty((b, e, n_out, d + 1), dtype=g.dtype, device=g.device)
     lib, fn = _kernel_fn()
     with torch.cuda.device(g.device):

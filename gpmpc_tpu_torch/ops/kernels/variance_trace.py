@@ -22,7 +22,11 @@ version `rw_tied_reference` only for CPU tensors; there is no fallback from
 one to the other. The untied form (K2) is the same kernel launched once per
 output at E = 1, as the JAX package dispatches it. The row block of the
 model-sharded path (K3, `rw_tied_block`) is the same kernel again on a
-rectangle: this shard's rows against all N contraction rows.
+rectangle: this shard's rows against all N contraction rows. Each launch
+follows `rw_tied_plan`: blocks of ROWS output rows for S scenarios, the
+contraction split over SLICES warp rows (csrc/rw_tied_body.cuh, where the
+block shape is a constexpr); the library's own block shape, S and shared
+bytes are checked against the plan's when it is loaded.
 
 The symmetric-pair kernel (K4, csrc/variance_trace_sym.cu, `rw_sym`) is the
 JAX package's opt-in GPMPC_SYM_KERNEL=1: the exponent in the whitened form
@@ -30,13 +34,15 @@ z = a chol(M2), so that W is bit-symmetric, and only the tile pairs I <= J
 visited. With the opt-in on, tied traces take its shared-chain variant and
 untied traces its per-output variant (one launch for all E); the backward is
 unchanged, since it needs only rw. A shape K4 cannot take raises; it never
-falls back to K1.
+falls back to K1. Its launch follows `rw_sym_plan` (S scenarios a block of
+SYM_THREADS threads), checked against the library's at load as K1's.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -54,20 +60,116 @@ LAUNCHES_SYM = 0
 
 MAX_D = 8
 MAX_E = 8
-_MAX_B = 65535          # grid.y of the launch
-_LIB = 'variance_trace_tied'
-_FN = {torch.float32: 'gpmpc_rw_tied_f32', torch.float64: 'gpmpc_rw_tied_f64'}
+_MAX_GRID_Y = 65535     # grid.y of a launch: ceil(B / S)
+# Each dtype's instances are a library of their own (csrc/<name>.cu), built
+# side by side; its C functions end in the suffix.
+_LIB = {torch.float32: 'variance_trace_tied',
+        torch.float64: 'variance_trace_tied_f64'}
+_FN = {torch.float32: 'f32', torch.float64: 'f64'}
+
+# ------------------------------------------------------ K1's launch plan --
+# The constexprs of csrc/rw_tied_body.cuh, checked against its exports.
+ROWS = 64               # kRows: output rows a block (blockDim.x)
+SLICES = 4              # kSlices: contraction slices a block (blockDim.y)
+SUB_ROWS = 32           # kSubRows: contraction rows a slice takes from each
+                        # staged tile
+MAX_SMEM = 232448       # dynamic shared memory a block may have (227 KB)
+
+
+class RwPlan(NamedTuple):
+    rows: int           # output rows a block
+    slices: int         # contraction slices a block
+    scenarios: int      # S: scenarios a block, sharing each blam load
+    threads: int        # rows * slices
+    tile: int           # contraction rows staged a step: slices * SUB_ROWS
+    smem_bytes: int     # dynamic shared memory of a block
+    grid: tuple         # (ceil(n_out / rows), ceil(B / S))
+
+
+def _itemsize(dtype) -> int:
+    return 8 if dtype == torch.float64 else 4
+
+
+def _pad4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _scenarios(words: int) -> int:
+    """Scenarios a block whose accumulators take `words` 32-bit registers
+    per scenario: as many as stay within ~48 registers, 1 to 4."""
+    return max(1, min(4, 48 // words))
+
+
+def rw_scenarios(d: int, e: int, dtype) -> int:
+    """S of K1's body (`scenarios<T, D, E>()`): g (d) and the accumulators
+    (E (1+d)) of one scenario, in 32-bit words."""
+    return _scenarios(_itemsize(dtype) // 4 * (d + e * (d + 1)))
+
+
+def _rw_smem(d, e, dtype, s) -> int:
+    """`smem_bytes` of csrc/rw_tied_body.cuh: two staging buffers of a tile
+    of a and aod (rows padded to 4) or the slices' partials, whichever is
+    larger."""
+    stage = 2 * s * SLICES * SUB_ROWS * (_pad4(d) + _pad4(d + 1))
+    red = SLICES * s * e * (d + 1) * (ROWS + 1)
+    return _itemsize(dtype) * max(stage, red)
+
+
+def rw_tied_plan(b, n_out, n_c, d, e, dtype) -> RwPlan:
+    """The launch of K1's body (K1, K2, K3) for B scenarios, n_out output
+    rows and n_c contraction rows: every (scenario, row) falls in exactly
+    one block's (S scenarios) x (rows rows), the ragged edges masked.
+    Raises on what the kernel cannot take, never adjusts."""
+    if not (1 <= d <= MAX_D and 1 <= e <= MAX_E):
+        raise ValueError(f'rw kernel supports d <= {MAX_D}, E <= {MAX_E}; '
+                         f'got d={d}, E={e}')
+    if dtype not in _FN:
+        raise TypeError(f'rw kernel takes float32 or float64, got {dtype}')
+    s = rw_scenarios(d, e, dtype)
+    smem = _rw_smem(d, e, dtype, s)
+    grid = (-(-n_out // ROWS), -(-b // s))
+    if smem > MAX_SMEM or grid[1] > _MAX_GRID_Y:
+        raise ValueError(f'rw kernel: B={b} at {s} scenarios a block needs '
+                         f'grid.y {grid[1]} (at most {_MAX_GRID_Y}) and '
+                         f'{smem} shared bytes (at most {MAX_SMEM})')
+    return RwPlan(ROWS, SLICES, s, ROWS * SLICES, SLICES * SUB_ROWS, smem,
+                  grid)
+
+
+def _check_plan(lib, prefix, want):
+    """Raise unless the library's compiled plan equals the wrapper's: `want`
+    maps an exported function's name and arguments to the wrapper's
+    value."""
+    for (name, *args), value in want.items():
+        fn = getattr(lib, f'{prefix}_{name}')
+        fn.restype = ctypes.c_longlong
+        got = fn(*args)
+        if got != value:
+            raise RuntimeError(f'{prefix}_{name}{tuple(args)} is {got} in the '
+                               f'compiled kernel, {value} in the wrapper')
 
 
 def _kernel_fn(dtype):
-    lib = _build.load(_LIB)
-    fn = getattr(lib, _FN[dtype])
+    """(launch, error string) of `dtype`'s library, whose compiled plan is
+    checked against this module's when it is first loaded."""
+    sfx = _FN[dtype]
+    lib = _build.load(_LIB[dtype])
+    fn = getattr(lib, f'gpmpc_rw_tied_{sfx}')
     if fn.argtypes is None:
+        want = {(f'rows_{sfx}',): ROWS, (f'slices_{sfx}',): SLICES,
+                (f'sub_rows_{sfx}',): SUB_ROWS}
+        for d in range(1, MAX_D + 1):
+            for e in range(1, MAX_E + 1):
+                s = rw_scenarios(d, e, dtype)
+                want[(f'scenarios_{sfx}', d, e)] = s
+                want[(f'smem_{sfx}', d, e)] = _rw_smem(d, e, dtype, s)
+        _check_plan(lib, 'gpmpc_rw_tied', want)
+        err_fn = getattr(lib, f'gpmpc_rw_tied_error_string_{sfx}')
+        err_fn.argtypes = [ctypes.c_int]
+        err_fn.restype = ctypes.c_char_p
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.gpmpc_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.gpmpc_cuda_error_string.restype = ctypes.c_char_p
-    return lib, fn
+    return fn, getattr(lib, f'gpmpc_rw_tied_error_string_{sfx}')
 
 
 def rw_tied_reference(g_out, dv_out, a, aod, blam):
@@ -77,6 +179,22 @@ def rw_tied_reference(g_out, dv_out, a, aod, blam):
     w = torch.exp(-0.25 * torch.einsum('bjk,bik->bji', a, g_out))
     rw = torch.einsum('eji,bji,bjc->beic', blam, w, aod)
     return dv_out[:, None, :, None] * rw
+
+
+def _blocks_per_sm(lib_name, fn_name, *args) -> int:
+    fn = getattr(_build.load(lib_name), fn_name)
+    fn.restype = ctypes.c_longlong
+    n = fn(*args)
+    if n < 0:
+        raise RuntimeError(f'{fn_name}{args}: the occupancy query failed')
+    return n
+
+
+def rw_tied_blocks_per_sm(d, e, dtype) -> int:
+    """Blocks of K1 an SM holds at once, as the CUDA runtime reports it
+    (needs the card)."""
+    return _blocks_per_sm(_LIB[dtype], f'gpmpc_rw_tied_blocks_per_sm_'
+                          f'{_FN[dtype]}', d, e)
 
 
 def _check(g_out, dv_out, a, aod, blam):
@@ -90,9 +208,9 @@ def _check(g_out, dv_out, a, aod, blam):
         if tuple(got[k]) != shape:
             raise ValueError(f'rw kernel: {k} has shape {tuple(got[k])}, '
                              f'expected {shape}')
-    if not (1 <= d <= MAX_D and 1 <= e <= MAX_E and b <= _MAX_B):
-        raise ValueError(f'rw kernel supports d <= {MAX_D}, E <= {MAX_E} and '
-                         f'B <= {_MAX_B}; got d={d}, E={e}, B={b}')
+    if not (1 <= d <= MAX_D and 1 <= e <= MAX_E):
+        raise ValueError(f'rw kernel supports d <= {MAX_D} and E <= {MAX_E}; '
+                         f'got d={d}, E={e}')
     ts = (g_out, dv_out, a, aod, blam)
     if g_out.dtype not in _FN or any(t.dtype != g_out.dtype for t in ts):
         raise TypeError('rw kernel takes float32 or float64 tensors of one '
@@ -104,25 +222,27 @@ def _check(g_out, dv_out, a, aod, blam):
 
 
 def _launch(g_out, dv_out, a, aod, blam):
-    """Launch the CUDA kernel on the current stream; returns (rw, launched)."""
+    """Launch the CUDA kernel on the current stream, the plan of
+    `rw_tied_plan`; returns (rw, launched)."""
     _check(g_out, dv_out, a, aod, blam)
-    if g_out.device.type != 'cuda':
-        raise ValueError(f'rw kernel runs on CUDA tensors, got {g_out.device}')
     b, n_out, d = g_out.shape
     e, n_c, _ = blam.shape
+    rw_tied_plan(b, n_out, n_c, d, e, g_out.dtype)    # raises past the grid
+    if g_out.device.type != 'cuda':
+        raise ValueError(f'rw kernel runs on CUDA tensors, got {g_out.device}')
     rw = torch.empty((b, e, n_out, d + 1), dtype=g_out.dtype,
                      device=g_out.device)
     if rw.numel() == 0:
         return rw, False
-    lib, fn = _kernel_fn(g_out.dtype)
+    fn, err_str = _kernel_fn(g_out.dtype)
     with torch.cuda.device(g_out.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(g_out.data_ptr(), dv_out.data_ptr(), a.data_ptr(),
                  aod.data_ptr(), blam.data_ptr(), rw.data_ptr(),
                  b, n_out, n_c, d, e, stream)
     if err != 0:
-        msg = lib.gpmpc_cuda_error_string(err).decode()
-        raise RuntimeError(f'rw kernel launch failed: cudaError {err} ({msg})')
+        raise RuntimeError(f'rw kernel launch failed: cudaError {err} '
+                           f'({err_str(err).decode()})')
     return rw, True
 
 
@@ -185,9 +305,11 @@ def rw_tied_block(g_blk, dv_blk, a, aod, blam_t_blk):
 
 
 # ------------------------------------------------ K4: the symmetric pairs --
-SYM_TILE = 64           # kT of csrc/variance_trace_sym.cu
-_SYM_LIB = 'variance_trace_sym'
-_SYM_FN = {torch.float32: 'gpmpc_rw_sym_f32', torch.float64: 'gpmpc_rw_sym_f64'}
+SYM_TILE = 64           # kT of csrc/rw_sym_body.cuh
+SYM_THREADS = 128       # kThreads: a pair block's 64 columns x 2 parities
+SYM_CHUNK = 16          # kChunk: rows of tile J a phase-2 round
+_SYM_LIB = {torch.float32: 'variance_trace_sym',
+            torch.float64: 'variance_trace_sym_f64'}
 _pair_cache: dict = {}
 
 
@@ -274,44 +396,108 @@ def _check_sym(z, a, dv, ao, blam, shared_chain):
         if tuple(got[k]) != shape:
             raise ValueError(f'rw_sym: {k} has shape {tuple(got[k])}, '
                              f'expected {shape}')
-    if not (1 <= d <= MAX_D and 1 <= e <= MAX_E and 1 <= b <= _MAX_B
-            and n >= 1):
-        raise ValueError(f'rw_sym supports d <= {MAX_D}, E <= {MAX_E} and '
-                         f'B <= {_MAX_B}; got d={d}, E={e}, B={b}')
+    if not (1 <= d <= MAX_D and 1 <= e <= MAX_E and b >= 1 and n >= 1):
+        raise ValueError(f'rw_sym supports d <= {MAX_D} and E <= {MAX_E}; '
+                         f'got d={d}, E={e}, B={b}, N={n}')
     ts = (z, a, dv, ao, blam)
-    if z.dtype not in _SYM_FN or any(t.dtype != z.dtype for t in ts):
+    if z.dtype not in _FN or any(t.dtype != z.dtype for t in ts):
         raise TypeError('rw_sym takes float32 or float64 tensors of one '
                         f'dtype; got {[t.dtype for t in ts]}')
     if any(t.device != z.device for t in ts):
         raise ValueError('rw_sym: tensors lie on different devices')
 
 
+class SymPlan(NamedTuple):
+    scenarios: int      # S: scenarios a pair block, sharing each blam load
+    threads: int        # SYM_THREADS
+    n_tiles: int        # nt = ceil(N / SYM_TILE)
+    smem_bytes: int     # dynamic shared memory of a pair block
+    grid: tuple         # (tile pairs I <= J, ceil(B / S)) of the pair kernel
+    sum_grid: tuple     # (ceil(N / 128), B) of the fixed-order sum
+
+
+def rw_sym_scenarios(d: int, e: int, dtype, shared_chain: bool) -> int:
+    """S of K4's pair kernel (`sym_scenarios<T, D, E, SHARED>()`): the
+    column sums (E (1+d)) and the column's z (d a chain) of one scenario."""
+    chains = 1 if shared_chain else e
+    return _scenarios(_itemsize(dtype) // 4 * (e * (d + 1) + chains * d))
+
+
+def _sym_smem(d, e, dtype, shared_chain) -> int:
+    """`sym_smem_bytes` of csrc/rw_sym_body.cuh: blam o W of a chunk
+    per (scenario, output), and per chain aod of tiles J and I and z of
+    tile J, rows padded to 4."""
+    s = rw_sym_scenarios(d, e, dtype, shared_chain)
+    chains = s if shared_chain else s * e
+    elems = (s * e * SYM_CHUNK * (SYM_TILE + 1)
+             + chains * SYM_TILE * (2 * _pad4(d + 1) + _pad4(d)))
+    return _itemsize(dtype) * elems
+
+
+def rw_sym_plan(b, n, d, e, dtype, shared_chain: bool) -> SymPlan:
+    """K4's launches for B scenarios of N rows: every (scenario, tile pair)
+    falls in exactly one pair block, the ragged edges masked. Raises on what
+    the kernel cannot take."""
+    if not (1 <= d <= MAX_D and 1 <= e <= MAX_E):
+        raise ValueError(f'rw_sym supports d <= {MAX_D}, E <= {MAX_E}; got '
+                         f'd={d}, E={e}')
+    if dtype not in _FN:
+        raise TypeError(f'rw_sym takes float32 or float64, got {dtype}')
+    s = rw_sym_scenarios(d, e, dtype, shared_chain)
+    nt = -(-n // SYM_TILE)
+    smem = _sym_smem(d, e, dtype, shared_chain)
+    plan = SymPlan(s, SYM_THREADS, nt, smem, (nt * (nt + 1) // 2, -(-b // s)),
+                   (-(-n // 128), b))
+    if not (b >= 1 and n >= 1 and smem <= MAX_SMEM
+            and max(plan.grid[1], plan.sum_grid[1]) <= _MAX_GRID_Y):
+        raise ValueError(f'rw_sym: B={b}, N={n} needs grid.y '
+                         f'{plan.sum_grid[1]} (at most {_MAX_GRID_Y}) and '
+                         f'{smem} shared bytes (at most {MAX_SMEM})')
+    return plan
+
+
 def _sym_kernel_fn(dtype):
-    lib = _build.load(_SYM_LIB)
-    fn = getattr(lib, _SYM_FN[dtype])
+    """(launch, error string) of `dtype`'s K4 library, checked against this
+    module's plan when it is first loaded."""
+    sfx = _FN[dtype]
+    lib = _build.load(_SYM_LIB[dtype])
+    fn = getattr(lib, f'gpmpc_rw_sym_{sfx}')
     if fn.argtypes is None:
+        want = {(f'tile_{sfx}',): SYM_TILE, (f'threads_{sfx}',): SYM_THREADS,
+                (f'chunk_{sfx}',): SYM_CHUNK}
+        for d in range(1, MAX_D + 1):
+            for e in range(1, MAX_E + 1):
+                for shared in (0, 1):
+                    want[(f'scenarios_{sfx}', d, e, shared)] = \
+                        rw_sym_scenarios(d, e, dtype, bool(shared))
+                    want[(f'smem_{sfx}', d, e, shared)] = _sym_smem(
+                        d, e, dtype, bool(shared))
+        _check_plan(lib, 'gpmpc_rw_sym', want)
+        err_fn = getattr(lib, f'gpmpc_rw_sym_error_string_{sfx}')
+        err_fn.argtypes = [ctypes.c_int]
+        err_fn.restype = ctypes.c_char_p
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.gpmpc_sym_error_string.argtypes = [ctypes.c_int]
-        lib.gpmpc_sym_error_string.restype = ctypes.c_char_p
-        lib.gpmpc_rw_sym_tile.restype = ctypes.c_int
-        if lib.gpmpc_rw_sym_tile() != SYM_TILE:
-            raise RuntimeError('csrc/variance_trace_sym.cu tiles by '
-                               f'{lib.gpmpc_rw_sym_tile()} rows, the wrapper '
-                               f'by {SYM_TILE}')
-    return lib, fn
+    return fn, getattr(lib, f'gpmpc_rw_sym_error_string_{sfx}')
+
+
+def rw_sym_blocks_per_sm(d, e, dtype, shared_chain: bool) -> int:
+    """K4's pair blocks an SM holds at once, as the CUDA runtime reports it
+    (needs the card)."""
+    return _blocks_per_sm(_SYM_LIB[dtype], 'gpmpc_rw_sym_blocks_per_sm_'
+                          f'{_FN[dtype]}', d, e, int(shared_chain))
 
 
 def _launch_sym(z, a, dv, ao, blam, shared_chain):
     """Launch K4 (pair kernel, then the fixed-order sum) on the current
     stream; returns (rw, launched)."""
     _check_sym(z, a, dv, ao, blam, shared_chain)
-    if z.device.type != 'cuda':
-        raise ValueError(f'rw_sym runs on CUDA tensors, got {z.device}')
     b, n, d = a.shape
     e = blam.shape[0]
-    nt = -(-n // SYM_TILE)
+    nt = rw_sym_plan(b, n, d, e, z.dtype, shared_chain).n_tiles
+    if z.device.type != 'cuda':
+        raise ValueError(f'rw_sym runs on CUDA tensors, got {z.device}')
     iidx, jidx = _device_pairs(nt, z.device)
     aod = (ao * dv[..., None] if shared_chain
            else ao[:, None] * dv[..., None]).contiguous()
@@ -319,7 +505,7 @@ def _launch_sym(z, a, dv, ao, blam, shared_chain):
     part = torch.empty((b, nt, nt, e, SYM_TILE, d + 1), dtype=z.dtype,
                        device=z.device)
     rw = torch.empty((b, e, n, d + 1), dtype=z.dtype, device=z.device)
-    lib, fn = _sym_kernel_fn(z.dtype)
+    fn, err_str = _sym_kernel_fn(z.dtype)
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(z.data_ptr(), aod.data_ptr(), dv.data_ptr(), blam.data_ptr(),
@@ -327,8 +513,8 @@ def _launch_sym(z, a, dv, ao, blam, shared_chain):
                  jidx.data_ptr(), b, n, d, e, nt, iidx.numel(),
                  int(shared_chain), stream)
     if err != 0:
-        msg = lib.gpmpc_sym_error_string(err).decode()
-        raise RuntimeError(f'rw_sym launch failed: cudaError {err} ({msg})')
+        raise RuntimeError(f'rw_sym launch failed: cudaError {err} '
+                           f'({err_str(err).decode()})')
     return rw, True
 
 

@@ -248,9 +248,60 @@ def test_cuda_probe_variant_matches_plain_versions(variant, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('shape', [(256, 256), (7, 200), (3, 130)])
+@pytest.mark.parametrize('shape', [(256, 256), (7, 200), (3, 130), (1, 1),
+                                   (257, 257)])
 def test_cuda_probe_full_equals_k1_to_the_bit(shape):
     """`full` is K1's body instantiated as K1 is: the same rw bits."""
     dev = _cuda()
     args = _probe_args(*shape, seed=11, dev=dev)
     assert torch.equal(probe.rw_probe('full', *args), tvt.rw_tied(*args))
+
+
+def _rw_args(kernel, b, n, d, e, dtype, dev):
+    """The wrapper's arguments for `kernel` on the JAX kernel test's inputs
+    (prepared in f64, then cast), and its plain version."""
+    u, m2, x, blam, _ = _problem(kernel != 'K4 per-output', b, e, n, d,
+                                 seed=12)
+    f = lambda v: torch.tensor(v, dtype=torch.float64, device=dev)
+    cast = lambda ts: [t.to(dtype).contiguous() for t in ts]
+    if kernel in ('K1', 'K3'):
+        a, g, dv = tvt._prep_tied(f(u), f(m2), f(x))
+        aod = tvt._aug(a) * dv[..., None]
+        if kernel == 'K1':
+            return (cast((g, dv, a, aod, f(blam))), tvt.rw_tied,
+                    tvt.rw_tied_reference, 'LAUNCHES')
+        n_loc = max(1, n // 2 + 1) if n > 1 else 1
+        _, g_b, dv_b = tvt._prep_tied(f(u), f(m2), f(x[:n_loc]))
+        blk = f(np.ascontiguousarray(np.swapaxes(blam[:, :n_loc], 1, 2)))
+        return (cast((g_b, dv_b, a, aod, blk)), tvt.rw_tied_block,
+                tvt.rw_tied_block_reference, 'LAUNCHES_BLOCK')
+    tied = kernel == 'K4 tied'
+    a, z, dv = tvt._prep_sym(f(u), f(m2), f(x), 1 if tied else 2)
+    args = cast((z, a, dv, tvt._aug(a), f(blam)))
+    return (args, lambda *t: tvt.rw_sym(*t, shared_chain=tied),
+            lambda *t: tvt.rw_sym_reference(*t, tied), 'LAUNCHES_SYM')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('de', [(1, 1), (3, 2), (8, 8)])
+@pytest.mark.parametrize('n', [1, 130, 200, 257])
+@pytest.mark.parametrize('b', [1, 3, 7, 257])
+@pytest.mark.parametrize('kernel', ['K1', 'K3', 'K4 tied', 'K4 per-output'])
+def test_cuda_rw_ragged_plans_match_plain_version(kernel, b, n, de, dtype):
+    """K1's body (K1, and K3 on n // 2 + 1 of n rows) and K4 at B not a
+    multiple of S, N not a multiple of a block's rows or tile, and the (d, E)
+    corners: rw against the plain version in f64 on the same inputs, f32 at
+    rtol 5e-5 atol 5e-5 (the JAX kernel test's bar), f64 at rtol 1e-12. One
+    counted launch."""
+    dev = _cuda()
+    d, e = de
+    args, fn, ref, counter = _rw_args(kernel, b, n, d, e, dtype, dev)
+    before = getattr(tvt, counter)
+    got = fn(*args).double()
+    torch.cuda.synchronize()
+    assert getattr(tvt, counter) == before + 1
+    want = ref(*(t.double() for t in args))
+    tol = (dict(rtol=5e-5, atol=5e-5) if dtype == torch.float32
+           else dict(rtol=1e-12, atol=1e-15))
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **tol)

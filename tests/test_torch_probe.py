@@ -109,17 +109,22 @@ def test_plain_full_matches_interpreted_tpu_kernel():
                                atol=5e-5 * np.abs(rw_j).max())
 
 
-@pytest.mark.parametrize('variant', ['full', 'full_tile256', 'hwexp', 'noexp',
-                                     'nop', 'nodots', 'nomul', 'empty'])
+@pytest.mark.parametrize('variant', ['full', 'full_tile256', 'full_s1',
+                                     'hwexp', 'noexp', 'nop', 'nodots',
+                                     'nomul', 'empty', *probe.PLANS])
 def test_ablated_plain_variant_matches_transcribed_tpu_probe(variant):
     """Each ablated plain variant in f64 against the numpy transcription of
     the JAX probe's body for it (hwexp: the exact exp; full_tile256: TJ =
-    256, kernel_ablate.py:183-189), at N = 200 (a ragged tile): rtol 1e-12,
-    with entries that cancel held to 1e-12 of the largest."""
+    256, kernel_ablate.py:183-189; full_s1 and plan_*, the card's K1
+    without scenario sharing or at another block shape, have no TPU
+    counterpart and are held to `full`'s), at N = 200 (a ragged tile):
+    rtol 1e-12, with entries that cancel held to 1e-12 of the largest."""
     arrays, args = _probe_problem(3, 200, seed=1)
-    want = _ablate_np(variant, arrays['g'], arrays['a'], arrays['dv'],
-                      arrays['ao'], arrays['blam'],
-                      tj=256 if variant == 'full_tile256' else 128)
+    same_as_full = variant == 'full_s1' or variant in probe.PLANS
+    want = _ablate_np('full' if same_as_full else variant,
+                      arrays['g'], arrays['a'], arrays['dv'], arrays['ao'],
+                      arrays['blam'],
+                      tj=256 if variant == 'full_tile256' else probe.EMPTY_TILE)
     got = np_(probe.rw_probe_reference(variant, *args))
     np.testing.assert_allclose(got, want, rtol=1e-12,
                                atol=1e-12 * np.abs(want).max())
@@ -290,3 +295,42 @@ def test_library_path_hashes_the_shared_headers(tmp_path, monkeypatch):
     assert _build.library_path('k') == first
     (tmp_path / 'other.cuh').write_text('\n')
     assert _build.library_path('k') != first
+
+
+def _fake_nvcc(tmp_path, monkeypatch, body):
+    """A CUDA_HOME whose bin/nvcc runs `body` (sh) with the library path
+    after -o as $out; csrc and the build directory under tmp_path."""
+    nvcc = tmp_path / 'cuda' / 'bin' / 'nvcc'
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n'
+                    f'out="$2"\n{body}\n')
+    nvcc.chmod(0o755)
+    csrc = tmp_path / 'csrc'
+    csrc.mkdir()
+    for name in ('a', 'b'):
+        (csrc / f'{name}.cu').write_text(f'// {name}\n')
+    monkeypatch.setenv('CUDA_HOME', str(tmp_path / 'cuda'))
+    monkeypatch.setattr(_build, 'CSRC', csrc)
+    monkeypatch.setattr(_build, 'BUILD_DIR', tmp_path / 'build')
+
+
+def test_build_all_builds_each_source_once_and_times_it(tmp_path,
+                                                        monkeypatch):
+    """Every source is built side by side into its hashed library, with
+    each one's seconds; a second call finds them built and builds none."""
+    _fake_nvcc(tmp_path, monkeypatch, 'sleep 0.2; echo built > "$out"')
+    total, each = _build.build_all()
+    assert set(each) == {'a', 'b'}
+    assert all(0.0 <= s <= total + 1.0 for s in each.values())
+    for name in ('a', 'b'):
+        assert _build.library_path(name).read_text() == 'built\n'
+    assert sorted(p.name for p in (tmp_path / 'build').iterdir()) == sorted(
+        _build.library_path(name).name for name in ('a', 'b'))
+    assert _build.build_all()[1] == {}
+
+
+def test_build_all_raises_with_nvcc_output(tmp_path, monkeypatch):
+    _fake_nvcc(tmp_path, monkeypatch, 'echo "error: bad kernel"; exit 2')
+    with pytest.raises(RuntimeError, match='bad kernel'):
+        _build.build_all()
+    assert not any(_build.library_path(n).exists() for n in ('a', 'b'))
