@@ -17,7 +17,9 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 headline GP's own x and b_lam, whose trace cancels, the
                 kernels in f32 and in f64 against the plain f64 version:
                 rtol 5e-5 (f32) or 1e-12 (f64) of |t| plus 16 ulps of the
-                terms' magnitude sum. K1 (tied) and K2 (untied); K3 (the row
+                terms' magnitude sum; K1 also at every lane count of the
+                recipe there (RECIPE_WIDTHS: B = 64 to 3,584). K1 (tied)
+                and K2 (untied); K3 (the row
                 block) as its partial traces summed over n_m = 1, 2 and 4 row
                 blocks, also against K1 in f32; K4 (the symmetric pairs,
                 GPMPC_SYM_KERNEL=1) tied and per-output, also against K1 and
@@ -55,14 +57,25 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 instances) at the reference controls and at 0 against the
                 JAX package's values in gpmpc_tpu_torch/data/headline_ref.npz,
                 rtol 1e-8: through K1, and with the K4 opt-in on.
-  5. solve      the main path: solve_batch on the headline problem (B=256,
-                H=20, f32, 40 iterations): finite costs, no lane worse than
-                its start, and exactly H * (1 + iterations) K1 launches.
-                Solves/s over fresh x0s, and the cost excess against the f64
-                reference controls. Then the untied path (K2) on the same
-                problem with per-output lengthscales, and a profiler pass
-                (of a 10-iteration solve, as every profiler pass here).
-                Then both again with the K4 opt-in on: the headline solve
+  5. solve      the plain path: solve_batch on the headline problem
+                (B=256, H=20, f32, 40 iterations): finite costs, no lane
+                worse than its start, and exactly H * (1 + iterations) K1
+                launches. Solves/s over fresh x0s, and the cost excess
+                against the f64 reference controls. Then the untied path
+                (K2) on the same problem with per-output lengthscales, and a
+                profiler pass (of a 10-iteration solve, as every profiler
+                pass here).
+  5c. recipe    the main path: the production recipe
+                (solve_batch_multistart_retired with problems.RECIPE and
+                REFINE, ret_prod_nopre) on the same problem, counted: finite
+                costs, exactly H K1 launches a full-covariance rollout of
+                the recipe (counted by wrapping parallel.batch.rollout_batched)
+                and no other kernel, each rollout at a lane count that
+                phase 3 checked K1 at, its diag counters; its cost excess
+                against the f64 reference controls beside the JAX recipe's
+                bar (fails at p90 >= 2 %); quality-paired solves/s, the
+                median over 2 fresh-x0 batches.
+  5d. sym       phase 5 again with the K4 opt-in on: the headline solve
                 with exactly H * (1 + iterations) K4 launches and no K1 one,
                 scored, timed and profiled the same way, and the untied solve
                 with one K4 launch a trace for all outputs.
@@ -94,7 +107,6 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-REF = os.path.join(ROOT, 'gpmpc_tpu_torch', 'data', 'headline_ref.npz')
 SOURCE = 'gpmpc_tpu_torch/ops/kernels/csrc/variance_trace_tied.cu'
 SYM_SOURCE = 'gpmpc_tpu_torch/ops/kernels/csrc/variance_trace_sym.cu'
 PROBE_SOURCE = 'gpmpc_tpu_torch/ops/kernels/csrc/variance_trace_probe.cu'
@@ -116,6 +128,22 @@ UNTIED_ITERS = 10
 PROFILE_ITERS = 10
 WORKER_TIMEOUT_S = 600
 PG_TIMEOUT_S = 300.0
+# The lane counts at which the recipe (problems.RECIPE at B = 256) launches
+# K1: 64, the polish chunks (polish_lanes); 128, the shift refinement's
+# chunks (shift_lanes_per_chunk 64 x shift_top 2); 256, phase A and the
+# scores at B; 1,024, phase 0 after prune_to = 4; 2,048, phase 0's first
+# frozen round (n_starts 8 x B); 3,584, the exchange rounds' scoring of 1 +
+# 4 shifts + 6 neighbours + 2 shifted neighbours + 1 smoothed = 14
+# candidates a lane. Phase 3 holds K1 at each on the headline operands, and
+# phase 5c fails if the recipe's rollouts run at any other.
+RECIPE_WIDTHS = (64, 128, 256, 1024, 2048, 14 * 256)
+# The recipe's quality gate: the plain solve's p90 cost excess is ~34 % (one
+# H100 80GB HBM3 at 700 W, PERF.md), the JAX recipe's on a TPU v5e 0.58 %
+# (BENCH_r05.json), so a broken gate or scatter fails here; falling short of
+# the JAX bar is recorded, not failed.
+RECIPE_P90_MAX = 0.02
+JAX_RECIPE_BAR = dict(p90=0.0058, lanes_above_1pct=17, max=0.033)
+RECIPE_REPS = 2
 # Each kernel's launch counter in ops/kernels/variance_trace.py.
 COUNTER = {'K1': 'LAUNCHES', 'K2': 'LAUNCHES_UNTIED', 'K3': 'LAUNCHES_BLOCK',
            'K4': 'LAUNCHES_SYM'}
@@ -365,6 +393,23 @@ def check_kernel(key, fn, ref, tied, dev, b, n_ragged, cache, rng, also=None):
     return max(err, err_r)
 
 
+def check_k1_wide(cache, rng, b):
+    """K1 in f32 at one of the recipe's lane counts (RECIPE_WIDTHS) on the
+    headline operands, against the plain f64 version at the bar of
+    check_conditioned."""
+    import torch
+    from gpmpc_tpu_torch.problems import headline_operands
+    k1, k1_ref = trace_fns(True)
+    k_max, p_max, k_mag = check_conditioned(
+        f'K1 B={b} headline operands', k1, k1_ref,
+        *headline_operands(rng, b, cache, True), torch.float32, 5e-5)
+    log(f'[kernels] K1 in f32 at B={b} on the headline x and b_lam vs plain '
+        f'f64: max abs err {k_max:.3e} (at most {k_mag:.3e} of the terms\' '
+        f'magnitude sum; the plain version in f32: {p_max:.3e}); bar 5e-5 '
+        f'|t| + 16 eps mag ok')
+    return k_max
+
+
 def phase_kernels(dev, b, n_ragged, cache):
     """Phase 3: each kernel against its plain version. Returns
     {kernel: max abs forward error at the JAX test's bar}."""
@@ -373,6 +418,8 @@ def phase_kernels(dev, b, n_ragged, cache):
     for tied, key in ((True, 'K1'), (False, 'K2')):
         out[key] = check_kernel(key, *trace_fns(tied), tied, dev, b, n_ragged,
                                 cache, rng)
+    for width in RECIPE_WIDTHS:
+        check_k1_wide(cache, rng, width)
     k1, k1_ref = trace_fns(True)
     out['K3'] = max(check_kernel(f'K3 summed over n_m={n_m} row blocks',
                                  block_fn(n_m), k1_ref, True, dev, b, n_ragged,
@@ -566,17 +613,6 @@ def phase_probes(dev, b, n_ragged, cache, reps):
     return checks, runs, launches, plain
 
 
-def headline_j64(dev, b):
-    """The f64 headline objective J64 (K1's f64 instance) on `dev`."""
-    import torch
-    from gpmpc_tpu_torch.dynamics import build_rollout_cache
-    from gpmpc_tpu_torch.parallel.batch import batch_objective
-    from gpmpc_tpu_torch.problems import make_headline_problem
-    p64 = make_headline_problem(b=b, dtype=torch.float64, device=dev)
-    return batch_objective(build_rollout_cache(p64.gp, 2, 1), p64.x0s,
-                           p64.params)
-
-
 def check_objective(tag, j64, ref, b, dev):
     """J64 at u_ref and at 0, and dJ64/du at 0, against the stored JAX
     values (rtol 1e-8). Returns (J64(u_ref), max rel errs)."""
@@ -611,8 +647,8 @@ def phase_objective(dev, ref, b):
     import torch
     from gpmpc_tpu_torch.dynamics import build_rollout_cache
     from gpmpc_tpu_torch.parallel.batch import batch_objective
-    from gpmpc_tpu_torch.problems import make_headline_problem
-    j64 = headline_j64(dev, b)
+    from gpmpc_tpu_torch.problems import headline_j64, make_headline_problem
+    j64 = headline_j64(b, dev)
     reset_counts()
     j_uref, rel_k1 = check_objective('K1 path', j64, ref, b, dev)
     if read_counts()['K1'] == 0:
@@ -677,13 +713,8 @@ def score_and_time(tag, b, solve, res, j64, j_uref, reps, dev):
     """Cost excess of `res` against the f64 reference controls, then
     solves/s over fresh x0s."""
     import torch
-    with torch.no_grad():
-        j_sol = j64(res.u.double())
-    excess = ((j_sol - j_uref) / (1 + j_uref.abs())).cpu().numpy()
-    quality = dict(p50=float(np.percentile(excess, 50)),
-                   p90=float(np.percentile(excess, 90)),
-                   max=float(excess.max()),
-                   lanes_above_1pct=int((excess > 0.01).sum()))
+    from gpmpc_tpu_torch.problems import cost_excess
+    quality = cost_excess(j64, res.u, j_uref)
     log(f'[{tag}] cost excess vs f64 u_ref (J64): p50 {quality["p50"]:.4%} '
         f'p90 {quality["p90"]:.4%} max {quality["max"]:.4%}, lanes >1% '
         f'{quality["lanes_above_1pct"]}/{b}')
@@ -771,6 +802,92 @@ def phase_untied(dev, b, key='K2'):
         'untied', f'{key} B={b} max_iters={UNTIED_ITERS}', solve, p.x0s, key,
         per_trace, p.horizon)
     return launches
+
+
+@contextlib.contextmanager
+def count_full_rollouts():
+    """Count the full-covariance rollouts of parallel.batch (those with
+    neither frozen_cov_diag nor mean_only) in a block; yields a one-item
+    list holding the count and a dict {lanes: rollouts}."""
+    from gpmpc_tpu_torch.parallel import batch
+    orig, count, widths = batch.rollout_batched, [0], {}
+
+    def counted(cache, x0s, actions, *args, **kw):
+        if kw.get('frozen_cov_diag') is None and not kw.get('mean_only'):
+            count[0] += 1
+            lanes = int(actions.shape[0])
+            widths[lanes] = widths.get(lanes, 0) + 1
+        return orig(cache, x0s, actions, *args, **kw)
+
+    batch.rollout_batched = counted
+    try:
+        yield count, widths
+    finally:
+        batch.rollout_batched = orig
+
+
+def phase_recipe(dev, b, j64, j_uref, card, lane_counts=RECIPE_WIDTHS):
+    """Phase 5c: the production recipe (solve_batch_multistart_retired with
+    problems.RECIPE and REFINE) on the f32 headline problem, counted: finite
+    costs, exactly H K1 launches a full-covariance rollout and no other
+    kernel, each rollout at one of `lane_counts` (the B = 256 ones phase 3
+    checked; None, at another B, skips that check); its diag counters, its
+    cost excess against the f64 reference controls (fails at p90 >=
+    RECIPE_P90_MAX) and its solves/s over fresh x0s."""
+    import torch
+    from gpmpc_tpu_torch.mpc.solver import SolverConfig
+    from gpmpc_tpu_torch.parallel.batch import solve_batch_multistart_retired
+    from gpmpc_tpu_torch.problems import (RECIPE, RECIPE_NAME, REFINE,
+                                          make_headline_problem)
+    p = make_headline_problem(b=b, dtype=torch.float32, device=dev)
+    refine = SolverConfig(**REFINE)
+
+    def solve(x0s, diag=None):
+        return solve_batch_multistart_retired(
+            p.gp, 2, 1, x0s, p.params, p.horizon, p.lb, p.ub, refine,
+            diag=diag, **RECIPE)
+
+    diag = {}
+    with count_full_rollouts() as (rollouts, widths):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = solve(p.x0s, diag)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    expect = p.horizon * rollouts[0]
+    others = {k: v for k, v in counts.items() if k != 'K1' and v}
+    if counts['K1'] != expect or others:
+        raise AssertionError(f'recipe: launches {counts}, expected {expect} '
+                             f'K1 = H * {rollouts[0]} full-covariance '
+                             'rollouts and no other')
+    widths = dict(sorted(widths.items()))
+    if lane_counts is not None and not set(widths) <= set(lane_counts):
+        raise AssertionError(f'recipe: full-covariance rollouts at lane '
+                             f'counts {widths}, phase 3 checked K1 only at '
+                             f'{lane_counts}')
+    if not bool(torch.isfinite(res.cost).all()):
+        raise AssertionError('recipe: non-finite costs')
+    log(f'[recipe] {RECIPE_NAME} B={b} H={p.horizon} f32: {rollouts[0]} '
+        f'full-covariance rollouts ({{lanes: rollouts}} {widths}, each lane '
+        f'count checked in phase 3 ok), K1 launches {counts["K1"]} = H * '
+        f'rollouts ok, no other kernel; costs finite ok; max iters '
+        f'{int(res.iters.max())}; diag {diag}; wall {wall:.2f} s (the first '
+        f'solve)')
+    out = score_and_time('recipe', b, solve, res, j64, j_uref, RECIPE_REPS,
+                         dev)
+    q = out['quality']
+    log(f'[recipe] beside the JAX recipe on a TPU (BENCH_r05.json): p90 '
+        f'{q["p90"]:.4%} (JAX {JAX_RECIPE_BAR["p90"]:.2%}), lanes >1% '
+        f'{q["lanes_above_1pct"]}/{b} (JAX {JAX_RECIPE_BAR["lanes_above_1pct"]}'
+        f'), max {q["max"]:.4%} (JAX {JAX_RECIPE_BAR["max"]:.1%}); '
+        f'quality-paired solves/s {out["solves_per_s"]:.3f} over '
+        f'{RECIPE_REPS} fresh batches on {card}')
+    if not q['p90'] < RECIPE_P90_MAX:
+        raise AssertionError(f'recipe: p90 cost excess {q["p90"]:.4%} is not '
+                             f'below {RECIPE_P90_MAX:.0%}')
+    return dict(launches=counts['K1'], full_rollouts=rollouts[0],
+                rollout_lanes=widths, diag=diag, first_wall_s=wall, **out)
 
 
 def profile_solve(tag, solve, x0s, kernel, out_dir):
@@ -879,12 +996,12 @@ def shard_worker(out_dir):
     from gpmpc_tpu_torch.parallel.mesh import make_mesh
     from gpmpc_tpu_torch.parallel.model_sharded import (sharded_value_and_grad,
                                                         shard_problem)
-    from gpmpc_tpu_torch.problems import make_headline_problem
+    from gpmpc_tpu_torch.problems import REF_FILE, make_headline_problem
     initialize(backend='gloo', device='cuda', timeout_s=PG_TIMEOUT_S)
     rank, world = dist.get_rank(), dist.get_world_size()
     dev = torch.device('cuda', torch.cuda.current_device())
     mesh = make_mesh(1, world, device=dev)
-    ref = np.load(REF)
+    ref = np.load(REF_FILE)
     b = ref['u_ref'].shape[0]
     p = make_headline_problem(b=b, dtype=torch.float64, device=dev)
     parts = shard_problem(mesh, p.gp, 2, 1, p.x0s, p.params)
@@ -904,6 +1021,7 @@ def phase_sharded_12(dev, b, ref, out_dir, world=2):
     and their gradient against the unsharded one here."""
     import torch
     from gpmpc_tpu_torch.parallel.distributed import launch_ranks
+    from gpmpc_tpu_torch.problems import headline_j64
     env = dict(os.environ)
     env.setdefault('GLOO_SOCKET_IFNAME', 'lo')
     launch_ranks([sys.executable, os.path.abspath(__file__), '--out', out_dir,
@@ -927,7 +1045,7 @@ def phase_sharded_12(dev, b, ref, out_dir, world=2):
                                err_msg='sharded J64(u_ref) vs JAX')
     u = torch.tensor(ref['u_ref'][:b], dtype=torch.float64, device=dev,
                      requires_grad=True)
-    (g_full,) = torch.autograd.grad(headline_j64(dev, b)(u).sum(), u)
+    (g_full,) = torch.autograd.grad(headline_j64(b, dev)(u).sum(), u)
     g_full = g_full.cpu().numpy()
     # u_ref is the optimum, where dJ/du cancels to ~1e-7 of its largest
     # entries: those entries are held to the same rtol of max |g|.
@@ -968,7 +1086,7 @@ def main() -> int:
     from gpmpc_tpu_torch.device import resolve_device
     from gpmpc_tpu_torch.dynamics import build_rollout_cache
     from gpmpc_tpu_torch.ops.kernels import _build
-    from gpmpc_tpu_torch.problems import make_headline_problem
+    from gpmpc_tpu_torch.problems import REF_FILE, make_headline_problem
 
     t_start = time.perf_counter()
     dev = resolve_device('cuda')
@@ -997,11 +1115,12 @@ def main() -> int:
     probe_checks, probes, probe_launches, probe_plain = phase_probes(
         dev, b, 200, cache, reps=50)
 
-    ref = np.load(REF)
+    ref = np.load(REF_FILE)
     j64, j_uref, obj = phase_objective(dev, ref, b)
     solve = phase_solve(dev, b, j64, j_uref, reps=3)
     untied_launches = phase_untied(dev, b)
     prof = phase_profile(dev, b, out_dir)
+    recipe = phase_recipe(dev, b, j64, j_uref, card)
     with sym_opt_in():
         sym_solve = phase_solve(dev, b, j64, j_uref, reps=3, tag='sym solve',
                                 key='K4')
@@ -1014,8 +1133,8 @@ def main() -> int:
 
     kernels = []
     for key, fn, src, line, launches in (
-            ('K1', 'rw_tied (variance_trace_batched_tied)', SOURCE, 638,
-             solve['launches']),
+            ('K1', 'rw_tied (variance_trace_batched_tied; launches: the '
+             'recipe solve)', SOURCE, 638, recipe['launches']),
             ('K2', 'rw_untied (variance_trace_batched)', SOURCE, 214,
              untied_launches),
             ('K3', 'rw_tied_block (variance_trace_tied_block)', SOURCE, 598,
@@ -1047,7 +1166,8 @@ def main() -> int:
             ms=run['variants'][mode]['kernel_us'] / 1e3,
             plain_ms=probe_plain[variant], bound_ms=times['K1']['bound'][0],
             bound_by=times['K1']['bound'][1], library_ms=None))
-    detail = dict(objective=obj, solve=solve, sym_solve=sym_solve,
+    detail = dict(objective=obj, solve=solve, recipe=recipe,
+                  sym_solve=sym_solve,
                   sharded_1x1=sharded_11, sharded_1x2=sharded_12,
                   profile=prof, k1_instr_bound_ms=k1_instr,
                   k3_half_rows=times['K3 Nl=N/2'], kernel_times=times,

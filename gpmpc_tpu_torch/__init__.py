@@ -7,7 +7,9 @@ checked against, and this package imports none of it (nor JAX).
 Ported so far: the batched solve on the headline problem (`solve_batch`,
 fused branch) with its chain: the padded exact GP and its f64 fit, the
 diagonal-covariance moment-matched rollout, the risk-sensitive cost and the
-lockstep projected L-BFGS; the fan-out over torch.distributed
+lockstep projected L-BFGS; the multistart recipes on top of it
+(`solve_batch_multistart`, the production `solve_batch_multistart_retired`
+with `problems.RECIPE` and `REFINE`) and `solve_batch_staged`; the fan-out over torch.distributed
 (parallel/mesh, parallel/distributed, `solve_batch_sharded`) and the
 model-sharded solve `parallel.model_sharded.solve_batch_2d`. The variance
 trace runs through hand-written CUDA kernels (ops/kernels/csrc): the column
@@ -25,7 +27,10 @@ from gpmpc_tpu_torch.dynamics import (RolloutCache, build_rollout_cache,
                                       rollout_batched)
 from gpmpc_tpu_torch.mpc.cost import CostParams, risk_sensitive_cost
 from gpmpc_tpu_torch.mpc.solver import SolverConfig, solve_trajectory_batched
-from gpmpc_tpu_torch.parallel.batch import solve_batch
-from gpmpc_tpu_torch.problems import make_headline_problem
+from gpmpc_tpu_torch.parallel.batch import (solve_batch,
+                                             solve_batch_multistart,
+                                             solve_batch_multistart_retired,
+                                             solve_batch_staged)
+from gpmpc_tpu_torch.problems import RECIPE, REFINE, make_headline_problem
 
 __version__ = "0.1.0"

@@ -9,6 +9,7 @@ iteration cap. The JAX `lax.while_loop` is a host loop here; it reads
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional
 
@@ -29,6 +30,10 @@ class SolverConfig:
     # improvement beyond the noise, and the best iterate is returned.
     noise_rel: float = 0.0
     progress_window: int = 12
+
+    def replace(self, **changes) -> 'SolverConfig':
+        """A copy with `changes` applied (the JAX struct's `.replace`)."""
+        return dataclasses.replace(self, **changes)
 
 
 class SolveResult(NamedTuple):

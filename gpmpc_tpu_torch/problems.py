@@ -13,17 +13,38 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import functools
+import os
 
 import numpy as np
 import torch
 
 from gpmpc_tpu_torch.device import resolve_device
+from gpmpc_tpu_torch.dynamics import build_rollout_cache
 from gpmpc_tpu_torch.gp.state import GPConfig, GPState, make_gp
 from gpmpc_tpu_torch.mpc.cost import CostParams
+from gpmpc_tpu_torch.parallel.batch import batch_objective
+
+# The JAX package's f64 objective at the committed f64 reference controls
+# (tests/make_torch_headline_ref.py): u_ref, j_uref, j_zero, grad_zero.
+REF_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'data',
+                        'headline_ref.npz')
 
 
 # The headline inputs' range: (theta, omega, action) in [-pi, pi]^2 x [-5, 5].
 DATA_SCALE = np.array([np.pi, np.pi, 5.0])
+
+# The production recipe on this problem, `ret_prod_nopre`: the keyword
+# arguments of parallel.batch.solve_batch_multistart_retired (RECIPE) and its
+# refinement solver (REFINE, a SolverConfig). A copy of bench.py's RECIPE and
+# REFINE in the JAX package's repository; keep the two in step.
+RECIPE_NAME = 'ret_prod_nopre'
+RECIPE = dict(n_starts=8, prune_to=4, budget1=60, tail_divisor=4,
+              shift_set=(1, -1, 2, -2), shift_iters=48, shift_top=2,
+              shift_smooth_iters=8, shift_margin=0.005,
+              shift_lanes_per_chunk=64, shift_rounds=2, shift_max_lanes=64,
+              neighbor_set=6, neighbor_shifted=1, propose_smoothed=True,
+              polish_lanes=64, polish_iters=96, pregate=False)
+REFINE = dict(max_iters=60, tol=1e-4, noise_rel=3e-4, progress_window=24)
 
 
 class HeadlineProblem(NamedTuple):
@@ -79,3 +100,25 @@ def headline_operands(rng, b, cache, tied=True):
                             device=cache.x.device)
     return (f64(u), f64(m2), cache.x.to(torch.float64),
             cache.b_lam.to(torch.float64))
+
+
+def headline_j64(b: int = 256, device=None):
+    """The f64 headline objective J64: (B, H, 1) -> (B,), the yardstick of
+    solution quality (through the f64 kernel instances on the card)."""
+    p64 = make_headline_problem(b=b, dtype=torch.float64, device=device)
+    return batch_objective(build_rollout_cache(p64.gp, 2, 1), p64.x0s,
+                           p64.params)
+
+
+def cost_excess(j64, u: torch.Tensor, j_ref: torch.Tensor) -> dict:
+    """Solution quality of controls u (B, H, 1) on the headline problem: the
+    per-lane excess (J64(u) - J64(u_ref)) / (1 + |J64(u_ref)|) against the
+    reference costs j_ref, summarised as p50, p90, max and the lanes above
+    1 % (as benchmarks/quality_retired.py scores the JAX recipe)."""
+    with torch.no_grad():
+        j_sol = j64(u.to(torch.float64))
+    excess = ((j_sol - j_ref) / (1 + j_ref.abs())).cpu().numpy()
+    return dict(p50=float(np.percentile(excess, 50)),
+                p90=float(np.percentile(excess, 90)),
+                max=float(excess.max()),
+                lanes_above_1pct=int((excess > 0.01).sum()))

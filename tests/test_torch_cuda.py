@@ -73,6 +73,40 @@ def test_cuda_kernel_matches_plain_version(tied, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('n', [200, 256])
+@pytest.mark.parametrize('b', [64, 128, 1024, 2048, 3584])
+def test_cuda_k1_at_recipe_widths(b, n, dtype):
+    """K1 at the lane counts of the multistart recipe (polish and refinement
+    chunks, pruned and full phase-0 rounds, the exchange rounds' 14
+    candidates of 256 lanes): value and analytic gradients in `dtype`
+    against the plain version in f64 at the JAX kernel test's bars (forward
+    rtol 5e-5 atol 5e-5, backward rtol 2e-3 atol 2e-4); the f64 instance's
+    value also at rtol 1e-12. One counted launch."""
+    dev = _cuda()
+    u, m2, x, blam, ct = _problem(True, b, 2, n, 3, seed=13)
+
+    def run(fn, dt):
+        f = lambda v: torch.tensor(v, dtype=dt, device=dev)
+        ut, mt = f(u).requires_grad_(), f(m2).requires_grad_()
+        out = fn(ut, mt, f(x), f(blam))
+        grads = torch.autograd.grad(torch.sum(out * f(ct)), (ut, mt))
+        return [v.detach().cpu().double().numpy() for v in (out, *grads)]
+
+    before = tvt.LAUNCHES
+    k_out, k_gu, k_gm = run(tvt.variance_trace_batched_tied, dtype)
+    torch.cuda.synchronize()
+    assert tvt.LAUNCHES == before + 1
+    r_out, r_gu, r_gm = run(tvt.variance_trace_batched_tied_reference,
+                            torch.float64)
+    np.testing.assert_allclose(k_out, r_out, rtol=5e-5, atol=5e-5)
+    np.testing.assert_allclose(k_gu, r_gu, rtol=2e-3, atol=2e-4)
+    np.testing.assert_allclose(k_gm, r_gm, rtol=2e-3, atol=2e-4)
+    if dtype == torch.float64:
+        np.testing.assert_allclose(k_out, r_out, rtol=1e-12, atol=1e-15)
+
+
+@pytest.mark.cuda
 def test_cuda_f64_instance_matches_plain_version():
     """The f64 instance (the reference objective on the card): the same sums
     in another order, rtol 1e-12."""

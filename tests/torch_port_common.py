@@ -52,6 +52,24 @@ def jax_gp(n=24, cap=32, ds=2, da=1, seed=0, log_lambdas=None, sigma_n=1e-2,
                       log_sigma_n=np.log(sigma_n), dtype=dtype)
 
 
+def mpc_problem(b, seed=0):
+    """A small MPC problem on gp_data's GP (ds = 2, da = 1), as numpy: x0s
+    (b, 2) and the cost leaves with a (b,) gamma sweep over [-0.5, 0.5]."""
+    rng = np.random.default_rng(seed)
+    return dict(x0s=rng.uniform(-1, 1, (b, 2)),
+                params=dict(Q=2.0 * np.eye(2), R=0.01 * np.eye(1),
+                            gamma=np.linspace(-0.5, 0.5, b),
+                            x_ref=np.zeros(2), u_ref=np.zeros(1)))
+
+
+def cost_params_pair(leaves):
+    """(gpmpc_tpu CostParams, gpmpc_tpu_torch CostParams) of numpy leaves."""
+    from gpmpc_tpu.mpc.cost import CostParams as JCostParams
+    from gpmpc_tpu_torch.mpc.cost import CostParams as TCostParams
+    return (JCostParams(**{k: jnp.asarray(v) for k, v in leaves.items()}),
+            TCostParams(**{k: t64(v) for k, v in leaves.items()}))
+
+
 def untied_log_lambdas(ds=2, da=1):
     """Per-output lengthscales that differ (the untied K2 path)."""
     return np.log(np.array([[2.0, 1.5, 3.0], [1.2, 2.5, 1.8]])[:ds, :ds + da])
