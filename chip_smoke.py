@@ -10,27 +10,39 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 compiled by nvcc into gpmpc_tpu_torch/_build/, one nvcc per
                 source, all started together (each kernel's f32 and f64
                 instances are two sources); each source's seconds.
-  3. kernels    Each kernel in f32 against its plain PyTorch version in f64
-                on the card, at the headline shape and a ragged one, on the
-                JAX kernel test's inputs: forward rtol 5e-5 (atol 5e-5),
+  3. kernels    Each kernel's f32 instance, evaluated natively in f32
+                (native=True: the trace's precision policy would run the f64
+                instance), against its plain PyTorch version in f64 on the
+                card, at the headline shape and a ragged one, on the JAX
+                kernel test's inputs: forward rtol 5e-5 (atol 5e-5),
                 backward rtol 2e-3 (atol 2e-4), that test's bars. On the
                 headline GP's own x and b_lam, whose trace cancels, the
-                kernels in f32 and in f64 against the plain f64 version:
+                kernels' f32 and f64 instances against the plain f64 version:
                 rtol 5e-5 (f32) or 1e-12 (f64) of |t| plus 16 ulps of the
                 terms' magnitude sum; K1 also at every lane count of the
-                recipe there (RECIPE_WIDTHS: B = 64 to 3,584). K1 (tied)
+                recipe there (RECIPE_WIDTHS: B = 64 to 3,584), and the p50
+                relative error of its f32 t against f64 beside the JAX
+                kernel's on a TPU. K1 (tied)
                 and K2 (untied); K3 (the row
                 block) as its partial traces summed over n_m = 1, 2 and 4 row
                 blocks, also against K1 in f32; K4 (the symmetric pairs,
                 GPMPC_SYM_KERNEL=1) tied and per-output, also against K1 and
-                K2 in f32. Each kernel is timed with CUDA events beside its
-                plain version and its bound; K3 at the (1, 1) sharded solve's
+                K2 in f32. Then the precision policy, every path (K1-K4) from
+                f32 operands against the plain f64 trace of the same
+                operands: within one f32 ulp of |t| plus 16 f64 ulps of the
+                magnitude sum. Then K1's f32 and f64 instances and the policy
+                on the non-diagonal M2 of the full-covariance rollout (the
+                f64 headline rollout at the reference controls, its traces'
+                operands captured at four steps). Each kernel's f32 and f64
+                instances are timed with CUDA events beside their plain
+                versions and their bounds; K3 at the (1, 1) sharded solve's
                 shape (Nl = N), whose launches the `kernels` line counts, and
                 at one rank's half of a (1, 2) mesh (Nl = N / 2). Each is
                 timed twice: by CUDA events around 50 calls enqueued from the
                 host (`ms`), and as the slope of CUDA-graph replays of 24 and
                 96 captured calls (`graph_ms`, gpmpc_tpu_torch/benchmarks/
-                chain.py), which leaves the host's enqueue out. Before the
+                chain.py), which leaves the host's enqueue out; K1's f64
+                instance also at B = 3,584 by graph slope. Before the
                 times, each kernel's launch plan at the headline shape
                 (variance_trace.rw_tied_plan, rw_sym_plan: rows, slices,
                 scenarios a block, threads, shared bytes, grid, and the
@@ -59,22 +71,37 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 rtol 1e-8: through K1, and with the K4 opt-in on.
   5. solve      the plain path: solve_batch on the headline problem
                 (B=256, H=20, f32, 40 iterations): finite costs, no lane
-                worse than its start, and exactly H * (1 + iterations) K1
-                launches. Solves/s over fresh x0s, and the cost excess
-                against the f64 reference controls. Then the untied path
+                worse than its start, and exactly H * (1 + iterations)
+                launches of K1's f64 instance (the precision policy) and no
+                other. Solves/s over fresh x0s, and the cost excess
+                against the f64 reference controls. The same solve with the
+                trace forced to K1's f32 instance in f32 (k1_f32, as
+                benchmarks/recipe_quality.py's row), counted and scored the
+                same way: the path whose launches the `kernels` line gives
+                K1's f32 instance. Then the untied path
                 (K2) on the same problem with per-output lengthscales, and a
                 profiler pass (of a 10-iteration solve, as every profiler
                 pass here).
   5c. recipe    the main path: the production recipe
                 (solve_batch_multistart_retired with problems.RECIPE and
                 REFINE, ret_prod_nopre) on the same problem, counted: finite
-                costs, exactly H K1 launches a full-covariance rollout of
-                the recipe (counted by wrapping parallel.batch.rollout_batched)
-                and no other kernel, each rollout at a lane count that
-                phase 3 checked K1 at, its diag counters; its cost excess
-                against the f64 reference controls beside the JAX recipe's
-                bar (fails at p90 >= 2 %); quality-paired solves/s, the
-                median over 2 fresh-x0 batches.
+                costs, exactly H K1 launches (its f64 instance) a
+                propagated-variance rollout of the recipe (counted by
+                wrapping parallel.batch.rollout_batched) and no other kernel,
+                each rollout at a lane count that phase 3 checked K1 at, its
+                diag counters; its cost excess against the f64 reference
+                controls beside the JAX recipe's bar (fails at p90 >= 1 %);
+                quality-paired solves/s, the median over 2 fresh-x0 batches.
+  5e. full cov  solve_batch(full_cov=True) on the same problem (B=256, H=20,
+                f32, 40 iterations): finite costs, no lane worse than its
+                start, exactly H * (1 + iterations) launches of K1's f64
+                instance and no other kernel; solves/s over 3 fresh-x0
+                batches and a profiler pass. Its f64 objective at the
+                reference controls (all lanes) and its gradient (the
+                reference file's eight grad_full_lanes) against JAX's
+                rollout_batched(full_cov=True) values in headline_ref.npz,
+                rtol 1e-8. No f64 reference solve exists for this
+                objective, so no cost excess is recorded.
   5d. sym       phase 5 again with the K4 opt-in on: the headline solve
                 with exactly H * (1 + iterations) K4 launches and no K1 one,
                 scored, timed and profiled the same way, and the untied solve
@@ -108,14 +135,23 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCE = 'gpmpc_tpu_torch/ops/kernels/csrc/variance_trace_tied.cu'
-SYM_SOURCE = 'gpmpc_tpu_torch/ops/kernels/csrc/variance_trace_sym.cu'
+SOURCE_F64 = 'gpmpc_tpu_torch/ops/kernels/csrc/variance_trace_tied_f64.cu'
+SYM_SOURCE_F64 = 'gpmpc_tpu_torch/ops/kernels/csrc/variance_trace_sym_f64.cu'
 PROBE_SOURCE = 'gpmpc_tpu_torch/ops/kernels/csrc/variance_trace_probe.cu'
 TPU_FILE = 'gpmpc_tpu/ops/pallas/variance_trace.py'
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): float32
-# outside the tensor cores and HBM3 bandwidth.
+# Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): float32 and
+# float64 outside the tensor cores, and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_F64_FLOPS = 34e12
 PEAK_BYTES_PER_S = 3.35e12
+# The JAX kernel's p50 relative error of t against f64 on the headline b_lam,
+# on a TPU v5e (benchmarks/quality_retired.py:245-246).
+JAX_TPU_T_REL_ERR_P50 = 7.8e-6
+# The operand sets of the full-covariance rollout phase 3 checks K1 on: the
+# traces of these steps of the f64 headline rollout at the reference
+# controls, 256 lanes each.
+FULL_COV_STEPS = (1, 5, 10, 19)
 
 FWD_TOL = dict(rtol=5e-5, atol=5e-5)
 BWD_TOL = dict(rtol=2e-3, atol=2e-4)
@@ -137,15 +173,19 @@ PG_TIMEOUT_S = 300.0
 # candidates a lane. Phase 3 holds K1 at each on the headline operands, and
 # phase 5c fails if the recipe's rollouts run at any other.
 RECIPE_WIDTHS = (64, 128, 256, 1024, 2048, 14 * 256)
-# The recipe's quality gate: the plain solve's p90 cost excess is ~34 % (one
-# H100 80GB HBM3 at 700 W, PERF.md), the JAX recipe's on a TPU v5e 0.58 %
-# (BENCH_r05.json), so a broken gate or scatter fails here; falling short of
-# the JAX bar is recorded, not failed.
-RECIPE_P90_MAX = 0.02
+# The recipe's quality gate: with every trace evaluated in f64 (the precision
+# policy) seed 0 reads p90 ~0.1 % on the card, with K1's f32 arithmetic
+# 1.77 % and the plain 40-iteration solve ~34 % (one H100 80GB HBM3 at 700 W,
+# PERF.md); the JAX recipe's bar on a TPU v5e is 0.58 % (BENCH_r05.json). A
+# return to f32 arithmetic in the trace, a broken gate or scatter fails
+# here; the JAX bar itself is recorded beside it.
+RECIPE_P90_MAX = 0.01
 JAX_RECIPE_BAR = dict(p90=0.0058, lanes_above_1pct=17, max=0.033)
 RECIPE_REPS = 2
-# Each kernel's launch counter in ops/kernels/variance_trace.py.
-COUNTER = {'K1': 'LAUNCHES', 'K2': 'LAUNCHES_UNTIED', 'K3': 'LAUNCHES_BLOCK',
+FULL_COV_REPS = 3
+# Each kernel's launch counter in ops/kernels/variance_trace.py; K1's are
+# split by instance: LAUNCHES counts both, LAUNCHES_F64 the f64 ones.
+COUNTER = {'K2': 'LAUNCHES_UNTIED', 'K3': 'LAUNCHES_BLOCK',
            'K4': 'LAUNCHES_SYM'}
 
 
@@ -166,16 +206,19 @@ def sync(dev) -> None:
 def reset_counts() -> None:
     from gpmpc_tpu_torch.ops.kernels import probe
     from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
-    for name in COUNTER.values():
+    for name in ('LAUNCHES', 'LAUNCHES_F64', *COUNTER.values()):
         setattr(vt, name, 0)
     probe.LAUNCHES_PROBE = 0
 
 
 def read_counts() -> dict:
-    """Launches since reset_counts: K1-K4, and 'P' of the probe kernel."""
+    """Launches since reset_counts: K1's f32 and f64 instances, K2-K4, and
+    'P' of the probe kernel."""
     from gpmpc_tpu_torch.ops.kernels import probe
     from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
-    return {**{k: getattr(vt, name) for k, name in COUNTER.items()},
+    return {'K1 f32': vt.LAUNCHES - vt.LAUNCHES_F64,
+            'K1 f64': vt.LAUNCHES_F64,
+            **{k: getattr(vt, name) for k, name in COUNTER.items()},
             'P': probe.LAUNCHES_PROBE}
 
 
@@ -220,27 +263,32 @@ def assert_close(name, got, want, rtol, atol) -> float:
     return float(np.max(np.abs(got - want)))
 
 
-def _bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+def _bound(flops, elems, f64=False):
+    """(ms, what bounds it): the larger of the operations over the card's
+    peak for their type and the bytes (elems of 8 or 4 bytes) over its
+    memory rate."""
+    t_ops = flops / (PEAK_F64_FLOPS if f64 else PEAK_F32_FLOPS)
+    t_bytes = elems * (8 if f64 else 4) / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ('operations' if t_ops >= t_bytes
                                        else 'bytes')
 
 
-def bound_ms(b, n_out, n_c, d, e, chains):
+def bound_ms(b, n_out, n_c, d, e, chains, f64=False):
     """Least time for the rw function (K1, K2, K3) on this card: the larger
-    of its f32 operations over the f32 peak and its bytes (each input read
-    once, each output written once) over the memory rate. Per (i, j) pair
-    and exp chain: d multiply-adds and one scale for the exponent, one exp,
-    and per output one blam multiply and (1 + d) multiply-adds."""
+    of its operations over the peak for their type (f32 or f64) and its
+    bytes (each input read once, each output written once) over the memory
+    rate. Per (i, j) pair and exp chain: d multiply-adds and one scale for
+    the exponent, one exp, and per output one blam multiply and (1 + d)
+    multiply-adds."""
     w1 = d + 1
     e_per_chain = e // chains
     flops = b * n_out * n_c * chains * (2 * d + 2 + e_per_chain * (1 + 2 * w1))
-    nbytes = 4 * (b * n_out * (d + 1) * chains + b * n_c * (d + w1) * chains
-                  + e * n_c * n_out + b * e * n_out * w1)
-    return _bound(flops, nbytes)
+    elems = (b * n_out * (d + 1) * chains + b * n_c * (d + w1) * chains
+             + e * n_c * n_out + b * e * n_out * w1)
+    return _bound(flops, elems, f64)
 
 
-def sym_bound_ms(b, n, d, e, chains):
+def sym_bound_ms(b, n, d, e, chains, f64=False):
     """K4's least time: the exponent (d multiply-adds, a scale, one exp) and
     per output one blam multiply on each of the n (n + 1) / 2 unordered
     pairs (W and blam are symmetric), and per output the (1 + d)
@@ -250,9 +298,9 @@ def sym_bound_ms(b, n, d, e, chains):
     e_pc = e // chains
     pairs = n * (n + 1) // 2
     flops = b * chains * (pairs * (2 * d + 2 + e_pc) + n * n * e_pc * 2 * w1)
-    nbytes = 4 * (b * n * (d + 1) * chains + b * n * w1 + e * n * n
-                  + b * e * n * w1)
-    return _bound(flops, nbytes)
+    elems = (b * n * (d + 1) * chains + b * n * w1 + e * n * n
+             + b * e * n * w1)
+    return _bound(flops, elems, f64)
 
 
 def instr_bound_ms(b, n, d, e, props, clock_mhz):
@@ -282,30 +330,40 @@ def kernel_test_inputs(rng, b, n, d, e, tied, dev):
                                         ct))
 
 
-def trace_fns(tied):
+def trace_fns(tied, native=True):
+    """(trace, its plain version). native=True evaluates the trace in its
+    operands' dtype, so f32 operands run a kernel's f32 instance; False
+    takes the precision policy (the f64 instance, t rounded)."""
+    import functools
     from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
     if tied:
-        return (vt.variance_trace_batched_tied,
+        return (functools.partial(vt.variance_trace_batched_tied,
+                                  native=native),
                 vt.variance_trace_batched_tied_reference)
-    return vt.variance_trace_batched, vt.variance_trace_batched_reference
+    return (functools.partial(vt.variance_trace_batched, native=native),
+            vt.variance_trace_batched_reference)
 
 
-def block_fn(n_m):
+def block_fn(n_m, native=True):
     """The tied trace as K3's partials over n_m row blocks, summed: the
-    model-sharded path's arithmetic on one device."""
+    model-sharded path's arithmetic on one device. Under the policy
+    (native=False) u and M2 enter the blocks in f64 and only the sum of the
+    f64 partials is rounded, as parallel/model_sharded.py does it."""
     from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
 
     def fn(u, m2, x, blam):
         n_loc = x.shape[0] // n_m
+        dt = u.dtype if native else vt.TRACE_DTYPE
+        u_w, m2_w = u.to(dt), m2.to(dt)
         return sum(vt.variance_trace_tied_block(
-            u, m2, x, x[k:k + n_loc], blam[:, k:k + n_loc].transpose(1, 2))
-            for k in range(0, x.shape[0], n_loc))
+            u_w, m2_w, x, x[k:k + n_loc], blam[:, k:k + n_loc].transpose(1, 2),
+            native=native) for k in range(0, x.shape[0], n_loc)).to(u.dtype)
     return fn
 
 
-def sym_fn(tied):
+def sym_fn(tied, native=True):
     """The trace with the K4 opt-in on (the backward needs no opt-in)."""
-    base = trace_fns(tied)[0]
+    base = trace_fns(tied, native)[0]
 
     def fn(*args):
         with sym_opt_in():
@@ -348,8 +406,8 @@ def check_conditioned(name, fn, ref, u, m2, x, blam, dtype, rtol):
     a plain rtol everywhere. The bar adds 16 ulps of mag, the forward-error
     bound of a sum whose terms each carry a few ulps:
     |k - r64| <= rtol |r64| + 16 eps mag. Returns the max abs errors of the
-    kernel and of the plain version in `dtype`, both against f64, and the
-    kernel's largest |k - r64| / mag."""
+    kernel and of the plain version in `dtype`, both against f64, the
+    kernel's largest |k - r64| / mag and its p50 |k - r64| / |r64|."""
     import torch
     cast = lambda t: t.to(dtype)
     r64 = ref(u, m2, x, blam)
@@ -362,13 +420,38 @@ def check_conditioned(name, fn, ref, u, m2, x, blam, dtype, rtol):
     if not bool((err <= bound).all()):
         raise AssertionError(f'{name}: |k - r64| exceeds {rtol} |r64| + 16 eps '
                              f'mag by up to {float((err / bound).max()):.3f}x')
-    return float(err.max()), float((p - r64).abs().max()), float((err / mag).max())
+    return (float(err.max()), float((p - r64).abs().max()),
+            float((err / mag).max()), float((err / r64.abs()).median()))
+
+
+def check_policy(name, fn, ref, u, m2, x, blam):
+    """The trace under the precision policy from f32 operands against the
+    plain f64 trace of the same operands: t is f32 and within one f32 ulp of
+    |r64| plus 16 f64 ulps of the terms' magnitude sum (the f64 instance's
+    own sum). Returns the max abs error and the largest err / bar."""
+    import torch
+    ops = [t.to(torch.float32) for t in (u, m2, x, blam)]
+    r64 = ref(*(t.double() for t in ops))
+    mag = ref(*(t.double() for t in ops[:3]), ops[3].double().abs())
+    t = fn(*ops)
+    if t.dtype != torch.float32:
+        raise AssertionError(f'{name}: policy trace of f32 operands is {t.dtype}')
+    err = (t.double() - r64).abs()
+    bar = (torch.finfo(torch.float32).eps * r64.abs()
+           + 16 * torch.finfo(torch.float64).eps * mag)
+    ratio = float((err / bar).max())
+    if not ratio <= 1.0:
+        raise AssertionError(f'{name}: policy trace off the f64 trace by '
+                             f'{ratio:.3f}x its bar')
+    return float(err.max()), ratio
 
 
 def check_kernel(key, fn, ref, tied, dev, b, n_ragged, cache, rng, also=None):
     """One kernel's checks at the headline and a ragged shape on the JAX
     kernel test's inputs, then on the headline operands in f32 and f64.
-    Returns the max abs forward error at the JAX test's bar."""
+    Returns the f32 instance's max abs forward error at the JAX test's bar,
+    the f64 instance's on the headline operands, and the f32 instance's p50
+    relative error of t there."""
     import torch
     from gpmpc_tpu_torch.problems import headline_operands
     n, d = cache.x.shape
@@ -381,16 +464,19 @@ def check_kernel(key, fn, ref, tied, dev, b, n_ragged, cache, rng, also=None):
     log(f'[kernels] {key} f32 vs plain f64{" and vs the column sweep" if also else ""}'
         f', B={b} N={n} and B=7 N={n_ragged}: max abs err {err:.3e} / '
         f'{err_r:.3e} (fwd rtol 5e-5 atol 5e-5, bwd rtol 2e-3 atol 2e-4) ok')
-    # The f64 instance serves the reference objective on the card.
+    # The f64 instance serves every solver path (the precision policy) and
+    # the reference objective.
+    p50, k_err = {}, {}
     for dtype, rtol in ((torch.float32, 5e-5), (torch.float64, 1e-12)):
-        k_max, p_max, k_mag = check_conditioned(
+        k_err[dtype], p_max, k_mag, p50[dtype] = check_conditioned(
             f'{key} headline operands {dtype}', fn, ref,
             *headline_operands(rng, b, cache, tied), dtype, rtol)
         log(f'[kernels] {key} in {dtype} on the headline x and b_lam vs '
-            f'plain f64: max abs err {k_max:.3e} (at most {k_mag:.3e} of '
-            f'the terms\' magnitude sum; the plain version in {dtype}: '
-            f'{p_max:.3e}); bar {rtol} |t| + 16 eps mag ok')
-    return max(err, err_r)
+            f'plain f64: max abs err {k_err[dtype]:.3e} (at most '
+            f'{k_mag:.3e} of the terms\' magnitude sum; the plain version in '
+            f'{dtype}: {p_max:.3e}); p50 |t - t64| / |t64| '
+            f'{p50[dtype]:.3e}; bar {rtol} |t| + 16 eps mag ok')
+    return max(err, err_r), k_err[torch.float64], p50[torch.float32]
 
 
 def check_k1_wide(cache, rng, b):
@@ -400,7 +486,7 @@ def check_k1_wide(cache, rng, b):
     import torch
     from gpmpc_tpu_torch.problems import headline_operands
     k1, k1_ref = trace_fns(True)
-    k_max, p_max, k_mag = check_conditioned(
+    k_max, p_max, k_mag, _ = check_conditioned(
         f'K1 B={b} headline operands', k1, k1_ref,
         *headline_operands(rng, b, cache, True), torch.float32, 5e-5)
     log(f'[kernels] K1 in f32 at B={b} on the headline x and b_lam vs plain '
@@ -410,98 +496,173 @@ def check_k1_wide(cache, rng, b):
     return k_max
 
 
+def full_cov_operands(dev, steps=FULL_COV_STEPS):
+    """(u, M2, x, b_lam), f64, of the tied traces of the full-covariance
+    rollout: the f64 headline problem (B = 256) rolled out at the reference
+    controls with full_cov=True, each trace's operands captured at `steps`
+    and stacked (B = 256 len(steps)). M2 = (Lambda/2 + S)^{-1} of a joint
+    covariance S with its cross-output terms: non-diagonal and SPD."""
+    import torch
+    from gpmpc_tpu_torch.dynamics import build_rollout_cache, rollout_batched
+    from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
+    from gpmpc_tpu_torch.problems import REF_FILE, make_headline_problem
+    p = make_headline_problem(b=256, dtype=torch.float64, device=dev)
+    cache = build_rollout_cache(p.gp, 2, 1)
+    orig, seen = vt.variance_trace_batched_tied, []
+
+    def capture(u, m2, x, blam, **kw):
+        seen.append((u, m2))
+        return orig(u, m2, x, blam, **kw)
+
+    vt.variance_trace_batched_tied = capture
+    try:
+        with torch.no_grad():
+            rollout_batched(cache, p.x0s, as64(np.load(REF_FILE)['u_ref'], dev),
+                            full_cov=True)
+    finally:
+        vt.variance_trace_batched_tied = orig
+    u = torch.cat([seen[s][0] for s in steps])
+    m2 = torch.cat([seen[s][1] for s in steps])
+    off = float(m2[:, 0, 1].abs().max())
+    if not off > 0 or not bool((torch.linalg.eigvalsh(m2) > 0).all()):
+        raise AssertionError('full-covariance M2: not non-diagonal SPD')
+    return u, m2, cache.x, cache.b_lam
+
+
 def phase_kernels(dev, b, n_ragged, cache):
-    """Phase 3: each kernel against its plain version. Returns
-    {kernel: max abs forward error at the JAX test's bar}."""
+    """Phase 3: each kernel against its plain version, then the precision
+    policy on every path, then K1 on the full-covariance rollout's M2.
+    Returns ({kernel: (max abs forward error of its f32 instance at the JAX
+    test's bar, of its f64 instance on the headline operands)}, a summary of
+    the policy and full-covariance checks)."""
+    import torch
+    from gpmpc_tpu_torch.problems import headline_operands
     rng = np.random.default_rng(0)
-    out = {}
-    for tied, key in ((True, 'K1'), (False, 'K2')):
-        out[key] = check_kernel(key, *trace_fns(tied), tied, dev, b, n_ragged,
-                                cache, rng)
+    out = {}      # {kernel: (f32 instance's max abs err, f64 instance's)}
+    *out['K1'], k1_p50 = check_kernel('K1', *trace_fns(True), True, dev, b,
+                                      n_ragged, cache, rng)
+    log(f'[kernels] K1 in f32 on the headline operands at B={b}: p50 '
+        f'relative error of t vs f64 {k1_p50:.3e} (the JAX kernel on a TPU '
+        f'v5e: {JAX_TPU_T_REL_ERR_P50:.1e}, benchmarks/quality_retired.py)')
+    out['K2'] = check_kernel('K2', *trace_fns(False), False, dev, b,
+                             n_ragged, cache, rng)[:2]
     for width in RECIPE_WIDTHS:
         check_k1_wide(cache, rng, width)
     k1, k1_ref = trace_fns(True)
-    out['K3'] = max(check_kernel(f'K3 summed over n_m={n_m} row blocks',
-                                 block_fn(n_m), k1_ref, True, dev, b, n_ragged,
-                                 cache, rng, also=k1)
-                    for n_m in (1, 2, 4))
+    k3 = [check_kernel(f'K3 summed over n_m={n_m} row blocks', block_fn(n_m),
+                       k1_ref, True, dev, b, n_ragged, cache, rng, also=k1)
+          for n_m in (1, 2, 4)]
+    out['K3'] = [max(r[i] for r in k3) for i in (0, 1)]
     for tied, key in ((True, 'K4 tied'), (False, 'K4 per-output')):
         base, ref = trace_fns(tied)
         out[key] = check_kernel(key, sym_fn(tied), ref, tied, dev, b,
-                                n_ragged, cache, rng, also=base)
-    return out
+                                n_ragged, cache, rng, also=base)[:2]
+    policy = {}
+    for key, fn, tied in (
+            ('K1', trace_fns(True, native=False)[0], True),
+            ('K2', trace_fns(False, native=False)[0], False),
+            ('K3 n_m=2', block_fn(2, native=False), True),
+            ('K4 tied', sym_fn(True, native=False), True),
+            ('K4 per-output', sym_fn(False, native=False), False)):
+        policy[key] = check_policy(f'{key} policy', fn, trace_fns(tied)[1],
+                                   *headline_operands(rng, b, cache, tied))
+        log(f'[kernels] precision policy, {key} from f32 operands (the f64 '
+            f'instance, t rounded) vs plain f64 on the headline operands: '
+            f'max abs err {policy[key][0]:.3e}, at most {policy[key][1]:.3f} '
+            'of its bar (1 f32 ulp of |t| + 16 f64 ulps of the magnitude '
+            'sum) ok')
+    fc = full_cov_operands(dev)
+    full = {}
+    for dtype, rtol in ((torch.float32, 5e-5), (torch.float64, 1e-12)):
+        k_max, p_max, k_mag, k_p50 = check_conditioned(
+            f'K1 full-covariance M2 {dtype}', k1, k1_ref, *fc, dtype, rtol)
+        full[str(dtype)] = dict(max_abs_err=k_max, plain_max_abs_err=p_max,
+                                p50_rel_err=k_p50)
+        log(f'[kernels] K1 in {dtype} on the full-covariance rollout\'s M2 '
+            f'(B={fc[0].shape[0]}, steps {FULL_COV_STEPS}, max |M2_01| '
+            f'{float(fc[1][:, 0, 1].abs().max()):.3e}) vs plain f64: max abs '
+            f'err {k_max:.3e} (the plain version in {dtype}: {p_max:.3e}), '
+            f'at most {k_mag:.3e} of the magnitude sum, p50 rel err '
+            f'{k_p50:.3e}; bar {rtol} |t| + 16 eps mag ok')
+    full['policy'] = check_policy('K1 policy, full-covariance M2',
+                                  trace_fns(True, native=False)[0], k1_ref,
+                                  *fc)
+    log(f'[kernels] precision policy, K1 on the full-covariance M2: max abs '
+        f'err {full["policy"][0]:.3e}, at most {full["policy"][1]:.3f} of '
+        'its bar ok')
+    return out, dict(k1_f32_p50_rel_err=k1_p50, policy=policy, full_cov=full)
 
 
-def launch_plans(b, n, d, e) -> dict:
-    """Each kernel's launch plan at the headline shape, f32, with the
+def launch_plans(b, n, d, e, dtype) -> dict:
+    """Each kernel's launch plan at the headline shape in `dtype`, with the
     blocks an SM holds (CUDA occupancy), logged and returned."""
-    import torch
     from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
-    f32 = torch.float32
     plans = {}
     for key, n_out, e_k in (('K1', n, e), ('K2', n, 1), ('K3', n, e),
                             ('K3 Nl=N/2', n // 2, e)):
-        plan = vt.rw_tied_plan(b, n_out, n, d, e_k, f32)._asdict()
-        plan['blocks_per_sm'] = vt.rw_tied_blocks_per_sm(d, e_k, f32)
+        plan = vt.rw_tied_plan(b, n_out, n, d, e_k, dtype)._asdict()
+        plan['blocks_per_sm'] = vt.rw_tied_blocks_per_sm(d, e_k, dtype)
         plans[key] = plan
     for key, tied in (('K4 tied', True), ('K4 per-output', False)):
-        plan = vt.rw_sym_plan(b, n, d, e, f32, tied)._asdict()
-        plan['blocks_per_sm'] = vt.rw_sym_blocks_per_sm(d, e, f32, tied)
+        plan = vt.rw_sym_plan(b, n, d, e, dtype, tied)._asdict()
+        plan['blocks_per_sm'] = vt.rw_sym_blocks_per_sm(d, e, dtype, tied)
         plans[key] = plan
     for key, plan in plans.items():
-        log(f'[kernels] plan {key}: ' + ', '.join(f'{k} {v}'
-                                                 for k, v in plan.items()))
+        log(f'[kernels] plan {key} {dtype}: ' + ', '.join(
+            f'{k} {v}' for k, v in plan.items()))
     return plans
 
 
-def time_kernels(dev, b, cache, reps):
-    """Phase 3, timing at the headline shape: each wrapper (CUDA kernel)
-    beside its plain PyTorch version on the same f32 inputs. K3 at n_m = 1
-    (all N rows, the (1, 1) sharded solve's launches) and, as 'K3 Nl=N/2',
-    at n_m = 2 (one rank's half of the rows against all N)."""
+def time_kernels(dev, b, cache, reps, dtype):
+    """Phase 3, timing at the headline shape: each wrapper (the kernel's
+    instance for `dtype`) beside its plain PyTorch version on the same
+    inputs, and its bound for `dtype`. K3 at n_m = 1 (all N rows, the (1, 1)
+    sharded solve's launches) and, as 'K3 Nl=N/2', at n_m = 2 (one rank's
+    half of the rows against all N)."""
     import torch
     from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
     from gpmpc_tpu_torch.problems import headline_operands
     rng = np.random.default_rng(1)
     e, n, d = cache.b_lam.shape[0], cache.x.shape[0], cache.x.shape[1]
-    f32 = lambda t: t.to(torch.float32).contiguous()
+    f64 = dtype == torch.float64
+    cast = lambda t: t.to(dtype).contiguous()
     u, m2, x, _ = headline_operands(rng, b, cache, True)
-    a, g, dv = vt._prep_tied(f32(u), f32(m2), f32(x))
+    a, g, dv = vt._prep_tied(cast(u), cast(m2), cast(x))
     aod = vt._aug(a) * dv[..., None]
-    k1 = [f32(t) for t in (g, dv, a, aod, cache.b_lam)]
+    k1 = [cast(t) for t in (g, dv, a, aod, cache.b_lam)]
     k3 = {}
     for n_loc in (n, n // 2):
-        _, g_b, dv_b = vt._prep_tied(f32(u), f32(m2), f32(x[:n_loc]))
-        k3[n_loc] = [f32(t) for t in (g_b, dv_b, a, aod,
-                                      cache.b_lam[:, :n_loc].transpose(1, 2))]
+        _, g_b, dv_b = vt._prep_tied(cast(u), cast(m2), cast(x[:n_loc]))
+        k3[n_loc] = [cast(t) for t in (g_b, dv_b, a, aod,
+                                       cache.b_lam[:, :n_loc].transpose(1, 2))]
     uu, m2u, xu, _ = headline_operands(rng, b, cache, False)
-    au, gu, dvu = vt._prep_batched(f32(uu), f32(m2u), f32(xu))
-    k2 = [f32(t) for t in (gu, dvu, au, vt._aug(au), cache.b_lam)]
-    a4, z4, dv4 = vt._prep_sym(f32(u), f32(m2), f32(x), 1)
-    k4t = [f32(t) for t in (z4, a4, dv4, vt._aug(a4), cache.b_lam)]
-    a4u, z4u, dv4u = vt._prep_sym(f32(uu), f32(m2u), f32(xu), 2)
-    k4u = [f32(t) for t in (z4u, a4u, dv4u, vt._aug(a4u), cache.b_lam)]
+    au, gu, dvu = vt._prep_batched(cast(uu), cast(m2u), cast(xu))
+    k2 = [cast(t) for t in (gu, dvu, au, vt._aug(au), cache.b_lam)]
+    a4, z4, dv4 = vt._prep_sym(cast(u), cast(m2), cast(x), 1)
+    k4t = [cast(t) for t in (z4, a4, dv4, vt._aug(a4), cache.b_lam)]
+    a4u, z4u, dv4u = vt._prep_sym(cast(uu), cast(m2u), cast(xu), 2)
+    k4u = [cast(t) for t in (z4u, a4u, dv4u, vt._aug(a4u), cache.b_lam)]
     res = {
         'K1': dict(ms=cuda_ms(lambda: vt.rw_tied(*k1), reps),
                    plain_ms=cuda_ms(lambda: vt.rw_tied_reference(*k1), reps),
-                   bound=bound_ms(b, n, n, d, e, chains=1)),
+                   bound=bound_ms(b, n, n, d, e, 1, f64)),
         'K2': dict(ms=cuda_ms(lambda: vt.rw_untied(*k2), reps),
                    plain_ms=cuda_ms(lambda: vt.rw_untied_reference(*k2), reps),
-                   bound=bound_ms(b, n, n, d, e, chains=e)),
+                   bound=bound_ms(b, n, n, d, e, e, f64)),
         **{key: dict(
             ms=cuda_ms(lambda: vt.rw_tied_block(*k3[n_loc]), reps),
             plain_ms=cuda_ms(lambda: vt.rw_tied_block_reference(*k3[n_loc]),
                              reps),
-            bound=bound_ms(b, n_loc, n, d, e, chains=1), n_loc=n_loc)
+            bound=bound_ms(b, n_loc, n, d, e, 1, f64), n_loc=n_loc)
            for key, n_loc in (('K3', n), ('K3 Nl=N/2', n // 2))},
         'K4 tied': dict(
             ms=cuda_ms(lambda: vt.rw_sym(*k4t, shared_chain=True), reps),
             plain_ms=cuda_ms(lambda: vt.rw_sym_reference(*k4t, True), reps),
-            bound=sym_bound_ms(b, n, d, e, chains=1)),
+            bound=sym_bound_ms(b, n, d, e, 1, f64)),
         'K4 per-output': dict(
             ms=cuda_ms(lambda: vt.rw_sym(*k4u, shared_chain=False), reps),
             plain_ms=cuda_ms(lambda: vt.rw_sym_reference(*k4u, False), reps),
-            bound=sym_bound_ms(b, n, d, e, chains=e)),
+            bound=sym_bound_ms(b, n, d, e, e, f64)),
     }
     graphed = graph_ms({
         'K1': lambda: vt.rw_tied(*k1), 'K2': lambda: vt.rw_untied(*k2),
@@ -509,17 +670,37 @@ def time_kernels(dev, b, cache, reps):
         'K3 Nl=N/2': lambda: vt.rw_tied_block(*k3[n // 2]),
         'K4 tied': lambda: vt.rw_sym(*k4t, shared_chain=True),
         'K4 per-output': lambda: vt.rw_sym(*k4u, shared_chain=False)}, dev)
-    plans = launch_plans(b, n, d, e)
+    plans = launch_plans(b, n, d, e, dtype)
     for key, r in res.items():
         r['graph_ms'] = graphed[key]
         r['plan'] = plans[key]
-        log(f'[kernels] {key} at B={b} N={n} d={d} E={e}'
+        log(f'[kernels] {key} {dtype} at B={b} N={n} d={d} E={e}'
             f'{" Nl=" + str(r["n_loc"]) if "n_loc" in r else ""}: '
             f'{r["ms"]:.4f} ms by events over host-enqueued calls, '
             f'{r["graph_ms"]:.4f} ms by graph slope, '
             f'plain {r["plain_ms"]:.4f} ms, bound {r["bound"][0]:.4f} ms '
             f'({r["bound"][1]})')
     return res
+
+
+def time_k1_f64_wide(dev, b, cache):
+    """K1's f64 instance by graph slope at B = b (the recipe's widest lane
+    count), beside its bound."""
+    import torch
+    from gpmpc_tpu_torch.benchmarks.chain import kernel_args
+    from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
+    from gpmpc_tpu_torch.problems import headline_operands
+    args = kernel_args(*headline_operands(np.random.default_rng(3), b, cache,
+                                          True))
+    if args[0].dtype != torch.float64:
+        raise AssertionError('K1 f64 timing: operands are not f64')
+    n, d, e = cache.x.shape[0], cache.x.shape[1], cache.b_lam.shape[0]
+    out = dict(graph_ms=graph_ms({'K1 f64': lambda: vt.rw_tied(*args)},
+                                 dev)['K1 f64'],
+               bound=bound_ms(b, n, n, d, e, 1, f64=True))
+    log(f'[kernels] K1 float64 at B={b} N={n}: {out["graph_ms"]:.4f} ms by '
+        f'graph slope, bound {out["bound"][0]:.4f} ms ({out["bound"][1]})')
+    return out
 
 
 def probe_args(inputs):
@@ -651,13 +832,13 @@ def phase_objective(dev, ref, b):
     j64 = headline_j64(b, dev)
     reset_counts()
     j_uref, rel_k1 = check_objective('K1 path', j64, ref, b, dev)
-    if read_counts()['K1'] == 0:
+    if read_counts()['K1 f64'] == 0:
         raise AssertionError('objective: the f64 objective launched no K1')
     reset_counts()
     with sym_opt_in():
         _, rel_k4 = check_objective('K4 path', j64, ref, b, dev)
     counts = read_counts()
-    if counts['K4'] == 0 or counts['K1'] != 0:
+    if counts['K4'] == 0 or counts['K1 f64'] or counts['K1 f32']:
         raise AssertionError(f'objective with the K4 opt-in: launches {counts}')
 
     p32 = make_headline_problem(b=b, dtype=torch.float32, device=dev)
@@ -712,12 +893,17 @@ def solve_checked(tag, desc, solve, x0s, key, per_trace, horizon,
 def score_and_time(tag, b, solve, res, j64, j_uref, reps, dev):
     """Cost excess of `res` against the f64 reference controls, then
     solves/s over fresh x0s."""
-    import torch
     from gpmpc_tpu_torch.problems import cost_excess
     quality = cost_excess(j64, res.u, j_uref)
     log(f'[{tag}] cost excess vs f64 u_ref (J64): p50 {quality["p50"]:.4%} '
         f'p90 {quality["p90"]:.4%} max {quality["max"]:.4%}, lanes >1% '
         f'{quality["lanes_above_1pct"]}/{b}')
+    return dict(quality=quality, **time_solves(tag, b, solve, reps, dev))
+
+
+def time_solves(tag, b, solve, reps, dev):
+    """Solves/s over `reps` batches of fresh x0s (the median)."""
+    import torch
     rng = np.random.default_rng(123)
     walls, iters = [], []
     for _ in range(reps):
@@ -732,8 +918,8 @@ def score_and_time(tag, b, solve, res, j64, j_uref, reps, dev):
     rate = [b / w for w in walls]
     log(f'[{tag}] wall s per batch {[round(w, 4) for w in walls]}, loop '
         f'iterations {iters}; solves/s median {float(np.median(rate)):.2f}')
-    return dict(quality=quality, walls=walls,
-                solves_per_s=float(np.median(rate)), iters_timed=iters)
+    return dict(walls=walls, solves_per_s=float(np.median(rate)),
+                iters_timed=iters)
 
 
 def headline_solve_setup(dev, b):
@@ -750,8 +936,9 @@ def headline_solve_setup(dev, b):
     return p, SolverConfig(max_iters=ITERS, tol=1e-4), cost0
 
 
-def phase_solve(dev, b, j64, j_uref, reps, tag='solve', key='K1'):
-    """Phase 5: the main path (K1), or with the K4 opt-in on (key 'K4'),
+def phase_solve(dev, b, j64, j_uref, reps, tag='solve', key='K1 f64'):
+    """Phase 5: the plain path (K1's f64 instance, by the precision policy;
+    'K1 f32' under the k1_f32 trace), or with the K4 opt-in on (key 'K4'),
     counted, then scored and timed."""
     from gpmpc_tpu_torch.parallel.batch import solve_batch
     p, cfg, cost0 = headline_solve_setup(dev, b)
@@ -805,10 +992,11 @@ def phase_untied(dev, b, key='K2'):
 
 
 @contextlib.contextmanager
-def count_full_rollouts():
-    """Count the full-covariance rollouts of parallel.batch (those with
-    neither frozen_cov_diag nor mean_only) in a block; yields a one-item
-    list holding the count and a dict {lanes: rollouts}."""
+def count_propagated_rollouts():
+    """Count the propagated-variance rollouts of parallel.batch (those with
+    neither frozen_cov_diag nor mean_only: each runs the variance trace at
+    every step) in a block; yields a one-item list holding the count and a
+    dict {lanes: rollouts}."""
     from gpmpc_tpu_torch.parallel import batch
     orig, count, widths = batch.rollout_batched, [0], {}
 
@@ -829,11 +1017,11 @@ def count_full_rollouts():
 def phase_recipe(dev, b, j64, j_uref, card, lane_counts=RECIPE_WIDTHS):
     """Phase 5c: the production recipe (solve_batch_multistart_retired with
     problems.RECIPE and REFINE) on the f32 headline problem, counted: finite
-    costs, exactly H K1 launches a full-covariance rollout and no other
-    kernel, each rollout at one of `lane_counts` (the B = 256 ones phase 3
-    checked; None, at another B, skips that check); its diag counters, its
-    cost excess against the f64 reference controls (fails at p90 >=
-    RECIPE_P90_MAX) and its solves/s over fresh x0s."""
+    costs, exactly H launches of K1's f64 instance a propagated-variance
+    rollout and no other kernel, each rollout at one of `lane_counts` (the
+    B = 256 ones phase 3 checked; None, at another B, skips that check); its
+    diag counters, its cost excess against the f64 reference controls (fails
+    at p90 >= RECIPE_P90_MAX) and its solves/s over fresh x0s."""
     import torch
     from gpmpc_tpu_torch.mpc.solver import SolverConfig
     from gpmpc_tpu_torch.parallel.batch import solve_batch_multistart_retired
@@ -848,7 +1036,7 @@ def phase_recipe(dev, b, j64, j_uref, card, lane_counts=RECIPE_WIDTHS):
             diag=diag, **RECIPE)
 
     diag = {}
-    with count_full_rollouts() as (rollouts, widths):
+    with count_propagated_rollouts() as (rollouts, widths):
         reset_counts()
         t0 = time.perf_counter()
         res = solve(p.x0s, diag)
@@ -856,24 +1044,24 @@ def phase_recipe(dev, b, j64, j_uref, card, lane_counts=RECIPE_WIDTHS):
         wall = time.perf_counter() - t0
         counts = read_counts()
     expect = p.horizon * rollouts[0]
-    others = {k: v for k, v in counts.items() if k != 'K1' and v}
-    if counts['K1'] != expect or others:
+    others = {k: v for k, v in counts.items() if k != 'K1 f64' and v}
+    if counts['K1 f64'] != expect or others:
         raise AssertionError(f'recipe: launches {counts}, expected {expect} '
-                             f'K1 = H * {rollouts[0]} full-covariance '
+                             f'K1 f64 = H * {rollouts[0]} propagated-variance '
                              'rollouts and no other')
     widths = dict(sorted(widths.items()))
     if lane_counts is not None and not set(widths) <= set(lane_counts):
-        raise AssertionError(f'recipe: full-covariance rollouts at lane '
+        raise AssertionError(f'recipe: propagated-variance rollouts at lane '
                              f'counts {widths}, phase 3 checked K1 only at '
                              f'{lane_counts}')
     if not bool(torch.isfinite(res.cost).all()):
         raise AssertionError('recipe: non-finite costs')
     log(f'[recipe] {RECIPE_NAME} B={b} H={p.horizon} f32: {rollouts[0]} '
-        f'full-covariance rollouts ({{lanes: rollouts}} {widths}, each lane '
-        f'count checked in phase 3 ok), K1 launches {counts["K1"]} = H * '
-        f'rollouts ok, no other kernel; costs finite ok; max iters '
-        f'{int(res.iters.max())}; diag {diag}; wall {wall:.2f} s (the first '
-        f'solve)')
+        f'propagated-variance rollouts ({{lanes: rollouts}} {widths}, each '
+        f'lane count checked in phase 3 ok), K1 f64 launches '
+        f'{counts["K1 f64"]} = H * rollouts ok, no other kernel; costs finite '
+        f'ok; max iters {int(res.iters.max())}; diag {diag}; wall {wall:.2f} '
+        's (the first solve)')
     out = score_and_time('recipe', b, solve, res, j64, j_uref, RECIPE_REPS,
                          dev)
     q = out['quality']
@@ -886,8 +1074,68 @@ def phase_recipe(dev, b, j64, j_uref, card, lane_counts=RECIPE_WIDTHS):
     if not q['p90'] < RECIPE_P90_MAX:
         raise AssertionError(f'recipe: p90 cost excess {q["p90"]:.4%} is not '
                              f'below {RECIPE_P90_MAX:.0%}')
-    return dict(launches=counts['K1'], full_rollouts=rollouts[0],
+    return dict(launches=counts['K1 f64'], propagated_rollouts=rollouts[0],
                 rollout_lanes=widths, diag=diag, first_wall_s=wall, **out)
+
+
+def phase_full_cov(dev, b, ref, out_dir):
+    """Phase 5e: the full-covariance headline solve, solve_batch(full_cov=
+    True), and its f64 objective and gradient against the JAX package's."""
+    import torch
+    from gpmpc_tpu_torch.dynamics import build_rollout_cache
+    from gpmpc_tpu_torch.mpc.solver import SolverConfig
+    from gpmpc_tpu_torch.parallel.batch import batch_objective, solve_batch
+    from gpmpc_tpu_torch.problems import make_headline_problem
+    p64 = make_headline_problem(b=b, dtype=torch.float64, device=dev)
+    cache64 = build_rollout_cache(p64.gp, 2, 1)
+    u_ref = as64(ref['u_ref'][:b], dev)
+    reset_counts()
+    with torch.no_grad():
+        j = batch_objective(cache64, p64.x0s, p64.params, full_cov=True)(u_ref)
+    if read_counts()['K1 f64'] != p64.horizon:
+        raise AssertionError(f'full cov: the f64 objective launched '
+                             f'{read_counts()}, expected H K1 f64')
+    j_want = torch.tensor(ref['j_uref_full'][:b])
+    assert_close('full-cov J64(u_ref)', j, j_want, rtol=OBJ_RTOL, atol=0.0)
+    lanes = ref['grad_full_lanes']
+    u = u_ref[lanes].clone().requires_grad_()
+    (g,) = torch.autograd.grad(batch_objective(
+        cache64, p64.x0s[lanes], p64.params._replace(
+            gamma=p64.params.gamma[lanes]), full_cov=True)(u).sum(), u)
+    g_want = torch.tensor(ref['grad_uref_full'])
+    assert_close('full-cov dJ64/du at u_ref', g, g_want, rtol=OBJ_RTOL,
+                 atol=1e-10)
+    rel_j = float((j.cpu() / j_want - 1).abs().max())
+    rel_g = float((g.cpu() - g_want).abs().max() / g_want.abs().max())
+    penalised = int((j_want > 1e5).sum())
+    log(f'[full cov] f64 J at u_ref with full_cov=True, B={b}: max rel err vs '
+        f'JAX {rel_j:.2e} (rtol {OBJ_RTOL}; {penalised} lanes take the PD-cone '
+        f'penalty there, as in JAX); dJ/du on lanes '
+        f'{[int(k) for k in lanes]}: max abs err {rel_g:.2e} of max |g| ok')
+
+    p = make_headline_problem(b=b, dtype=torch.float32, device=dev)
+    cfg = SolverConfig(max_iters=ITERS, tol=1e-4)
+    with torch.no_grad():
+        cost0 = batch_objective(build_rollout_cache(p.gp, 2, 1), p.x0s,
+                                p.params, full_cov=True)(
+            torch.zeros((b, p.horizon, 1), dtype=torch.float32, device=dev))
+
+    def solve(x0s, iters=ITERS):
+        return solve_batch(p.gp, 2, 1, x0s, p.params, p.horizon, p.lb, p.ub,
+                           cfg.replace(max_iters=iters), full_cov=True)
+
+    res, launches, loop_iters = solve_checked(
+        'full cov', f'solve_batch(full_cov=True) B={b} H={p.horizon} '
+        f'max_iters={ITERS}', solve, p.x0s, 'K1 f64', 1, p.horizon, cost0)
+    log('[full cov] no f64 reference solve exists for the full-covariance '
+        'objective: no cost excess is recorded')
+    out = dict(launches=launches, loop_iters=loop_iters, rel_j=rel_j,
+               rel_g=rel_g, penalised_lanes_at_uref=penalised,
+               **time_solves('full cov', b, solve, FULL_COV_REPS, dev))
+    out['profile'] = profile_solve(
+        'full cov', lambda x0s: solve(x0s, PROFILE_ITERS), p.x0s,
+        'rw_tied_kernel', out_dir)
+    return out
 
 
 def profile_solve(tag, solve, x0s, kernel, out_dir):
@@ -1083,6 +1331,7 @@ def main() -> int:
         shard_worker(out_dir)
         return 0
     from gpmpc_tpu_torch.benchmarks.chain import card_line
+    from gpmpc_tpu_torch.benchmarks.recipe_quality import k1_f32, tied_trace
     from gpmpc_tpu_torch.device import resolve_device
     from gpmpc_tpu_torch.dynamics import build_rollout_cache
     from gpmpc_tpu_torch.ops.kernels import _build
@@ -1104,10 +1353,12 @@ def main() -> int:
         + ', '.join(f'{k} {v:.1f} s' for k, v in each_s.items()) + ')')
 
     b = 256
+    f32, f64 = torch.float32, torch.float64
     cache = build_rollout_cache(
-        make_headline_problem(b=b, dtype=torch.float32, device=dev).gp, 2, 1)
-    checks = phase_kernels(dev, b, 200, cache)
-    times = time_kernels(dev, b, cache, reps=50)
+        make_headline_problem(b=b, dtype=f32, device=dev).gp, 2, 1)
+    checks, precision = phase_kernels(dev, b, 200, cache)
+    times = {dt: time_kernels(dev, b, cache, 50, dt) for dt in (f32, f64)}
+    k1_f64_wide = time_k1_f64_wide(dev, RECIPE_WIDTHS[-1], cache)
     k1_instr = instr_bound_ms(b, cache.x.shape[0], 3, cache.b_lam.shape[0],
                               props, float(clock))
     log(f'[kernels] K1 instruction-rate estimate from {props.multi_processor_count}'
@@ -1118,37 +1369,52 @@ def main() -> int:
     ref = np.load(REF_FILE)
     j64, j_uref, obj = phase_objective(dev, ref, b)
     solve = phase_solve(dev, b, j64, j_uref, reps=3)
+    with tied_trace(k1_f32):
+        solve_f32 = phase_solve(dev, b, j64, j_uref, reps=1,
+                                tag='solve k1_f32', key='K1 f32')
     untied_launches = phase_untied(dev, b)
     prof = phase_profile(dev, b, out_dir)
     recipe = phase_recipe(dev, b, j64, j_uref, card)
+    os.makedirs(out_dir, exist_ok=True)
+    full_cov = phase_full_cov(dev, b, ref, out_dir)
     with sym_opt_in():
         sym_solve = phase_solve(dev, b, j64, j_uref, reps=3, tag='sym solve',
                                 key='K4')
         sym_untied_launches = phase_untied(dev, b, key='K4')
         sym_solve['profile'] = phase_profile(dev, b, out_dir, 'sym solve',
                                              'rw_sym')
-    os.makedirs(out_dir, exist_ok=True)
     sharded_11 = phase_sharded_11(dev, b, j64, j_uref, reps=3, out_dir=out_dir)
     sharded_12 = phase_sharded_12(dev, b, ref, out_dir)
 
+    # One row a kernel instance that a path launches: K1's f32 instance (the
+    # k1_f32 solve) and its f64 instance (the recipe, the main path); K2-K4
+    # launch their f64 instances, by the precision policy.
     kernels = []
-    for key, fn, src, line, launches in (
-            ('K1', 'rw_tied (variance_trace_batched_tied; launches: the '
-             'recipe solve)', SOURCE, 638, recipe['launches']),
-            ('K2', 'rw_untied (variance_trace_batched)', SOURCE, 214,
-             untied_launches),
-            ('K3', 'rw_tied_block (variance_trace_tied_block)', SOURCE, 598,
+    for key, dt, fn, src, line, launches in (
+            ('K1', f32, 'rw_tied f32 instance (variance_trace_batched_tied, '
+             'native=True; launches: the k1_f32 plain solve)', SOURCE, 638,
+             solve_f32['launches']),
+            ('K1', f64, 'rw_tied f64 instance (variance_trace_batched_tied '
+             'under the precision policy; launches: the recipe solve)',
+             SOURCE_F64, 638, recipe['launches']),
+            ('K2', f64, 'rw_untied f64 instance (variance_trace_batched)',
+             SOURCE_F64, 214, untied_launches),
+            ('K3', f64, 'rw_tied_block f64 instance '
+             '(variance_trace_tied_block)', SOURCE_F64, 598,
              sharded_11['launches']),
-            ('K4 tied', 'rw_sym shared chain (GPMPC_SYM_KERNEL=1)',
-             SYM_SOURCE, 527, sym_solve['launches']),
-            ('K4 per-output', 'rw_sym per output (GPMPC_SYM_KERNEL=1)',
-             SYM_SOURCE, 527, sym_untied_launches)):
-        t = times[key]
+            ('K4 tied', f64, 'rw_sym shared chain, f64 instance '
+             '(GPMPC_SYM_KERNEL=1)', SYM_SOURCE_F64, 527,
+             sym_solve['launches']),
+            ('K4 per-output', f64, 'rw_sym per output, f64 instance '
+             '(GPMPC_SYM_KERNEL=1)', SYM_SOURCE_F64, 527,
+             sym_untied_launches)):
+        t = times[dt][key]
         kernels.append(dict(
             name=f'{key} {fn}', route='cuda', source=src,
             replaces=f'{TPU_FILE}:{line}', launches=launches,
-            max_abs_err=checks[key], ms=t['ms'], plain_ms=t['plain_ms'],
-            bound_ms=t['bound'][0], bound_by=t['bound'][1], library_ms=None))
+            max_abs_err=checks[key][dt == f64], ms=t['ms'],
+            plain_ms=t['plain_ms'], bound_ms=t['bound'][0],
+            bound_by=t['bound'][1], library_ms=None))
     # The probes' rows: `ms` is the kernel-only graph slope of P1's `full`
     # (K1's body) and of P2's `base` counterpart `tc_p`; `launches` counts the
     # probe's own wrapper calls in its run, not the solve's.
@@ -1164,13 +1430,15 @@ def main() -> int:
             source=PROBE_SOURCE, replaces=src, launches=probe_launches[key],
             max_abs_err=max(probe_checks[v][0] for v in modes),
             ms=run['variants'][mode]['kernel_us'] / 1e3,
-            plain_ms=probe_plain[variant], bound_ms=times['K1']['bound'][0],
-            bound_by=times['K1']['bound'][1], library_ms=None))
-    detail = dict(objective=obj, solve=solve, recipe=recipe,
-                  sym_solve=sym_solve,
+            plain_ms=probe_plain[variant],
+            bound_ms=times[f32]['K1']['bound'][0],
+            bound_by=times[f32]['K1']['bound'][1], library_ms=None))
+    detail = dict(objective=obj, solve=solve, solve_k1_f32=solve_f32,
+                  recipe=recipe, full_cov=full_cov, sym_solve=sym_solve,
                   sharded_1x1=sharded_11, sharded_1x2=sharded_12,
                   profile=prof, k1_instr_bound_ms=k1_instr,
-                  k3_half_rows=times['K3 Nl=N/2'], kernel_times=times,
+                  precision=precision, k1_f64_wide=k1_f64_wide,
+                  kernel_times={str(dt): r for dt, r in times.items()},
                   probes=dict(checks=probe_checks, launches=probe_launches,
                               plain_ms=probe_plain, **probes),
                   total_s=time.perf_counter() - t_start)

@@ -6,15 +6,18 @@ checked against, and this package imports none of it (nor JAX).
 
 Ported so far: the batched solve on the headline problem (`solve_batch`,
 fused branch) with its chain: the padded exact GP and its f64 fit, the
-diagonal-covariance moment-matched rollout, the risk-sensitive cost and the
-lockstep projected L-BFGS; the multistart recipes on top of it
+moment-matched rollout with a diagonal or a full covariance (batched, and
+the single-scenario `rollout` with the nominal-model terms), the
+risk-sensitive cost and the lockstep projected L-BFGS; the multistart
+recipes on top of it
 (`solve_batch_multistart`, the production `solve_batch_multistart_retired`
 with `problems.RECIPE` and `REFINE`) and `solve_batch_staged`; the fan-out over torch.distributed
 (parallel/mesh, parallel/distributed, `solve_batch_sharded`) and the
 model-sharded solve `parallel.model_sharded.solve_batch_2d`. The variance
 trace runs through hand-written CUDA kernels (ops/kernels/csrc): the column
 sweep, its row block for model sharding, and the symmetric-pair kernel behind
-the GPMPC_SYM_KERNEL=1 opt-in. The probes of the column sweep's time
+the GPMPC_SYM_KERNEL=1 opt-in; it is evaluated in f64 whatever the problem's
+dtype, since it cancels (ops/kernels/variance_trace.py). The probes of the column sweep's time
 (ops/kernels/probe.py, run by benchmarks/kernel_ablate and kernel_probe)
 instantiate its body under variants. Entry points run on CUDA unless the
 caller passes device='cpu'.
@@ -24,7 +27,8 @@ from gpmpc_tpu_torch.device import resolve_device
 from gpmpc_tpu_torch.gp.state import GPConfig, GPState, make_gp
 from gpmpc_tpu_torch.gp.exact import predict, log_marginal_likelihood
 from gpmpc_tpu_torch.dynamics import (RolloutCache, build_rollout_cache,
-                                      rollout_batched)
+                                      rollout, rollout_batched,
+                                      rollout_from_gp)
 from gpmpc_tpu_torch.mpc.cost import CostParams, risk_sensitive_cost
 from gpmpc_tpu_torch.mpc.solver import SolverConfig, solve_trajectory_batched
 from gpmpc_tpu_torch.parallel.batch import (solve_batch,

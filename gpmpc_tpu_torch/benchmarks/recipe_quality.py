@@ -4,25 +4,36 @@ several seeds and under diagnostics, on the card.
     python -m gpmpc_tpu_torch.benchmarks.recipe_quality --out DIR [--seeds 0,1,2]
 
 Each row is one solve_batch_multistart_retired with problems.RECIPE and
-REFINE on the f32 headline problem (B = 256, its own x0s), scored by
+REFINE on the headline problem (B = 256, its own x0s), scored by
 problems.cost_excess against the f64 reference controls, with its wall and
-diag counters. Rows `seed s` start from the port's own draws, a
-torch.Generator seeded by s. As a check of the scoring, jax_u: the JAX
-recipe's own result on a TPU (benchmarks/results/quality_retired_u_b256.npz,
-ret_prod_nopre, where the repository has it) scored by the port's J64. Four
-more rows, from the first seed, locate a quality gap: phase_a (the exchange
-rounds and the polish off), f64 (the whole recipe in f64: the f64 problem
-and K1's f64 instance), trace64 (f32, but each variance trace computed by
-K1's f64 instance and rounded to f32) and plain32 (f32, each variance trace
-computed by its plain PyTorch version in f32 instead of K1). Writes
-DIR/recipe_quality.json. `run(device='cpu', b=2)` runs the path on the CPU;
-its numbers mean nothing there (the reference controls are B = 256's).
+diag counters. Rows at each seed s (the port's own start draws, a
+torch.Generator seeded by s):
+  seed s          the f32 recipe as users run it: every variance trace
+                  evaluated in f64 and rounded (the trace's precision
+                  policy, ops/kernels/variance_trace.py);
+  f64 seed s      the whole recipe in f64 (the f64 problem);
+  trace64 seed s  f32, each tied trace computed from operands upcast by the
+                  caller and rounded to f32: the policy done by hand, so it
+                  reads as `seed s` to the last digit.
+Rows from the first seed, which locate what f32 arithmetic costs:
+  phase_a         the exchange rounds and the polish off;
+  k1_f32          each tied trace by K1's f32 instance in f32 (native=True):
+                  the recipe before the precision policy;
+  fwd64           the value in f64 (K1's f64 instance) but the backward in
+                  f32 on the f32-rounded rw;
+  plain32         each tied trace by its plain PyTorch version in f32.
+As a check of the scoring, jax_u: the JAX recipe's own result on a TPU
+(benchmarks/results/quality_retired_u_b256.npz, ret_prod_nopre, where the
+repository has it) scored by the port's J64. Writes DIR/recipe_quality.json.
+`run(device='cpu', b=2)` runs the path on the CPU; its numbers mean nothing
+there (the reference controls are B = 256's).
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import os
 import time
@@ -54,8 +65,29 @@ def _trace64(u, m2, x, b_lam, _k1=vt.variance_trace_batched_tied):
     return _k1(u.double(), m2.double(), x.double(), b_lam.double()).to(u.dtype)
 
 
+# The tied trace in its operands' own dtype: K1's f32 instance on the card.
+k1_f32 = functools.partial(vt.variance_trace_batched_tied, native=True)
+
+
+class _Fwd64(torch.autograd.Function):
+    """The tied trace's value from f64 arithmetic (K1's f64 instance on the
+    card), its backward in the operands' dtype on the rounded rw."""
+
+    @staticmethod
+    def forward(ctx, u, m2, x, b_lam):
+        rw = vt._rw_dispatch(*(t.double() for t in (u, m2, x, b_lam)),
+                             tied=True)
+        ctx.save_for_backward(u, m2, x, rw.to(u.dtype))
+        return rw[..., 0].sum(dim=-1).to(u.dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        u, m2, x, rw = ctx.saved_tensors
+        return (*vt._tied_backward(u, m2, x, rw, ct), None, None)
+
+
 @contextlib.contextmanager
-def _tied_trace(fn):
+def tied_trace(fn):
     """The tied variance trace computed by `fn` for the length of the
     block."""
     orig = vt.variance_trace_batched_tied
@@ -91,14 +123,18 @@ def run(device=None, b=256, seeds=(0, 1, 2)) -> dict:
         return dict(wall_s=wall, diag=diag, max_iters=int(res.iters.max()),
                     **cost_excess(j64, res.u, j_ref))
 
-    rows = {f'seed {s}': solve(seed=s) for s in seeds}
+    rows = {}
+    for s in seeds:
+        rows[f'seed {s}'] = solve(seed=s)
+        rows[f'f64 seed {s}'] = solve(dtype=torch.float64, seed=s)
+        with tied_trace(_trace64):
+            rows[f'trace64 seed {s}'] = solve(seed=s)
     first = dict(seed=seeds[0])
     rows['phase_a'] = solve(shift_set=(), neighbor_set=0,
                             propose_smoothed=False, polish_lanes=0, **first)
-    rows['f64'] = solve(dtype=torch.float64, **first)
-    for key, fn in (('trace64', _trace64),
+    for key, fn in (('k1_f32', k1_f32), ('fwd64', _Fwd64.apply),
                     ('plain32', vt.variance_trace_batched_tied_reference)):
-        with _tied_trace(fn):
+        with tied_trace(fn):
             rows[key] = solve(**first)
     if b == 256 and os.path.exists(JAX_U):
         rows['jax_u'] = cost_excess(j64, torch.as_tensor(

@@ -18,6 +18,7 @@ growing tenfold, nine attempts in all.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -40,6 +41,10 @@ class GPConfig:
     # All output GPs share one lengthscale vector; auto-detected by make_gp.
     # Enables the shared-exp-chain variance kernel; never changes results.
     tied_lambdas: bool = False
+    # Nominal mean model f_nom: (n, x_dim) -> (n, out_dim) torch tensors.
+    # When set, the GP fits the residual y - f_nom(x), and dynamics.rollout
+    # adds f_nom back (first-order moment propagation).
+    nominal_fn: Optional[Callable] = None
 
 
 @dataclass(frozen=True)
@@ -59,8 +64,11 @@ class GPState:
 
 
 def residuals(state: GPState) -> torch.Tensor:
-    """(E, cap) masked targets (zero where padded)."""
-    return state.y * state.mask.to(state.y.dtype)
+    """(E, cap) masked targets minus the nominal mean (zero where padded)."""
+    y = state.y
+    if state.config.nominal_fn is not None:
+        y = y - state.config.nominal_fn(state.x).T
+    return y * state.mask.to(y.dtype)
 
 
 def _chol_with_jitter(ky, diag_mask, base_jitter, eps0):

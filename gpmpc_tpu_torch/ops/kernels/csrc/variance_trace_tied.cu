@@ -29,11 +29,16 @@
 // ops/kernels/variance_trace.py; the probe (variance_trace_probe.cu)
 // instantiates the same body under its variants.
 //
-// Precision: the trace cancels (sum |terms| / |result| reaches 1e2-1e3), so the
-// exp is the accurate expf (never __expf or --use_fast_math) and the (1+d)-wide
-// reduction is exact f32 FMAs. The double instances, which serve the f64
-// reference objective on the card, are built from variance_trace_tied_f64.cu
-// into a library of their own, so that the two build side by side.
+// Precision: the trace cancels (on the headline GP sum |terms| / |result|
+// reaches 1e3-1e6), so the exp is the accurate expf (never __expf or
+// --use_fast_math) and the (1+d)-wide reduction is exact FMAs. Even so an
+// f32 evaluation costs the solver its quality, so the solver's paths launch
+// the double instances from f32 operands upcast by the wrapper (the
+// precision policy of ops/kernels/variance_trace.py; PERF.md, fault F1).
+// These float instances stay built and held against their plain versions;
+// they serve callers that ask for native f32 arithmetic. The double
+// instances are built from variance_trace_tied_f64.cu into a library of
+// their own, so that the two build side by side.
 
 #include "rw_tied_body.cuh"
 

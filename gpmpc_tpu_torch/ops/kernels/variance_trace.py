@@ -36,6 +36,17 @@ untied traces its per-output variant (one launch for all E); the backward is
 unchanged, since it needs only rw. A shape K4 cannot take raises; it never
 falls back to K1. Its launch follows `rw_sym_plan` (S scenarios a block of
 SYM_THREADS threads), checked against the library's at load as K1's.
+
+Precision policy: every trace is evaluated in f64 whatever the operands'
+dtype. The trace cancels (on the headline GP its terms sum to 1e3-1e6 times
+the result), so any f32 evaluation of it, the kernel's or the plain one's,
+costs the solver its quality (PERF.md, fault F1). The f32 operands are
+upcast, the prep, the kernel's f64 instance, the row sum and the analytic
+backward run in f64, and only t and the cotangents (du, dm2) are rounded to
+the operands' dtype; the row block's partial stays f64 until the caller has
+summed it over the model ranks. `native=True` evaluates a trace in its
+operands' own dtype instead (the f32 instances' checks and the diagnostics
+that measure what f32 arithmetic costs); no solver path passes it.
 """
 
 from __future__ import annotations
@@ -52,8 +63,10 @@ from gpmpc_tpu_torch.utils.smallchol import chol_small
 
 # Kernel launches, counted where they happen (tied K1, untied K2, the row
 # block K3, the symmetric pairs K4), so a run can show that it went through
-# the kernel.
+# the kernel. LAUNCHES_F64 counts those of K1's launches that ran its f64
+# instance (all of them on the solver's paths, by the precision policy).
 LAUNCHES = 0
+LAUNCHES_F64 = 0
 LAUNCHES_UNTIED = 0
 LAUNCHES_BLOCK = 0
 LAUNCHES_SYM = 0
@@ -249,11 +262,12 @@ def _launch(g_out, dv_out, a, aod, blam):
 def rw_tied(g_out, dv_out, a, aod, blam):
     """K1: rw (B, E, Nout, 1+d) with one exp chain shared by all E outputs.
     CUDA tensors launch the kernel; CPU tensors take `rw_tied_reference`."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_F64
     if g_out.device.type == 'cpu':
         return rw_tied_reference(g_out, dv_out, a, aod, blam)
     rw, launched = _launch(g_out, dv_out, a, aod, blam)
     LAUNCHES += launched
+    LAUNCHES_F64 += int(launched and g_out.dtype == torch.float64)
     return rw
 
 
@@ -582,22 +596,37 @@ def _tied_backward(u, m2, x_rows, rw, ct):
     return du, dm2
 
 
+# The dtype every trace is evaluated in (the precision policy above).
+TRACE_DTYPE = torch.float64
+
+
+def _upcast(native: bool, *ts):
+    """The trace's operands in TRACE_DTYPE, or as they are when native."""
+    return ts if native else tuple(t.to(TRACE_DTYPE) for t in ts)
+
+
 class _VarianceTraceTied(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, u, m2, x, blam):
+    def forward(ctx, u, m2, x, blam, native):
+        dtype = u.dtype
+        u, m2, x, blam = _upcast(native, u, m2, x, blam)
         rw = _rw_dispatch(u, m2, x, blam, tied=True)
         ctx.save_for_backward(u, m2, x, rw)
-        return rw[..., 0].sum(dim=-1)
+        return rw[..., 0].sum(dim=-1).to(dtype)
 
     @staticmethod
     def backward(ctx, ct):
         u, m2, x, rw = ctx.saved_tensors
-        return (*_tied_backward(u, m2, x, rw, ct), None, None)
+        du, dm2 = _tied_backward(u, m2, x, rw, ct.to(rw.dtype))
+        return du.to(ct.dtype), dm2.to(ct.dtype), None, None, None
 
 
 class _VarianceTraceTiedBlock(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, u, m2, x, x_blk, blam_t_blk):
+    def forward(ctx, u, m2, x, x_blk, blam_t_blk, native):
+        ctx.dtype = u.dtype
+        u, m2, x, x_blk, blam_t_blk = _upcast(native, u, m2, x, x_blk,
+                                              blam_t_blk)
         a, _, dv = _prep_tied(u, m2, x)
         _, g_blk, dv_blk = _prep_tied(u, m2, x_blk)
         rw = rw_tied_block(g_blk.contiguous(), dv_blk.contiguous(),
@@ -610,55 +639,66 @@ class _VarianceTraceTiedBlock(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         u, m2, x_blk, rw = ctx.saved_tensors
-        return (*_tied_backward(u, m2, x_blk, rw, ct), None, None, None)
+        du, dm2 = _tied_backward(u, m2, x_blk, rw, ct.to(rw.dtype))
+        return du.to(ctx.dtype), dm2.to(ctx.dtype), None, None, None, None
 
 
 class _VarianceTraceUntied(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, u, m2, x, blam):
+    def forward(ctx, u, m2, x, blam, native):
+        dtype = u.dtype
+        u, m2, x, blam = _upcast(native, u, m2, x, blam)
         rw = _rw_dispatch(u, m2, x, blam, tied=False)
         ctx.save_for_backward(u, m2, x, rw)
-        return rw[..., 0].sum(dim=-1)
+        return rw[..., 0].sum(dim=-1).to(dtype)
 
     @staticmethod
     def backward(ctx, ct):
         u, m2, x, rw = ctx.saved_tensors
+        ct64 = ct.to(rw.dtype)
         a = u[:, None, :] - x[None]                    # (B, N, d)
         r = rw[..., 0]                                 # (B, E, N)
         wa = rw[..., 1:]                               # (B, E, N, d)
         z0 = torch.einsum('bnd,ben->bed', a, r)
-        du = -torch.einsum('be,bedk,bek->bd', ct, m2, z0)
+        du = -torch.einsum('be,bedk,bek->bd', ct64, m2, z0)
         war = wa + a[:, None] * r[..., None]           # W A + diag(r) A
         dm2 = -0.25 * torch.einsum('bnd,benk->bedk', a,
-                                   ct[..., None, None] * war)
-        return du, dm2, None, None
+                                   ct64[..., None, None] * war)
+        return du.to(ct.dtype), dm2.to(ct.dtype), None, None, None
 
 
-def variance_trace_batched_tied(u, m2, x, blam):
+def variance_trace_batched_tied(u, m2, x, blam, *, native: bool = False):
     """Tied-lengthscale batched trace: u (B, d); m2 (B, d, d) shared across
-    outputs; x (N, d); blam (E, N, N) -> (B, E). Analytic gradients in
-    (u, m2); x and blam are constants (the rollout cache is detached)."""
-    return _VarianceTraceTied.apply(u, m2, x, blam)
+    outputs; x (N, d); blam (E, N, N) -> (B, E) in u's dtype, evaluated in
+    f64 (the precision policy; native=True: in u's dtype). Analytic
+    gradients in (u, m2); x and blam are constants (the rollout cache is
+    detached)."""
+    return _VarianceTraceTied.apply(u, m2, x, blam, native)
 
 
-def variance_trace_batched(u, m2, x, blam):
+def variance_trace_batched(u, m2, x, blam, *, native: bool = False):
     """Untied batched trace: u (B, d); m2 (B, E, d, d); x (N, d);
-    blam (E, N, N) -> (B, E). Gradients as variance_trace_batched_tied."""
-    return _VarianceTraceUntied.apply(u, m2, x, blam)
+    blam (E, N, N) -> (B, E). Precision and gradients as
+    variance_trace_batched_tied."""
+    return _VarianceTraceUntied.apply(u, m2, x, blam, native)
 
 
-def variance_trace_tied_block(u, m2, x, x_blk, blam_t_blk):
+def variance_trace_tied_block(u, m2, x, x_blk, blam_t_blk, *,
+                              native: bool = False):
     """Per-shard partial of the tied trace: u (B, d); m2 (B, d, d); x (N, d)
     all training inputs; x_blk (Nl, d) this shard's rows; blam_t_blk
     (E, N, Nl) the shard's blam row block transposed -> (B, E) partial
-    traces, whose sum over the shards is the full trace.
+    traces, whose sum over the shards is the full trace. The partial is
+    returned in f64 whatever the operands' dtype (native=True: in u's), since
+    the partials cancel across shards as the terms do within one: the caller
+    rounds only their sum. The cotangents come back in u's dtype.
 
     The backward returns the symmetry-collapsed cotangents restricted to the
     block: a shard's (du, dm2) is not the gradient of its partial alone, but
     the sum over the shards is the exact full gradient. Use it only where the
     caller sums the cotangents of u and m2 over the model ranks
     (parallel/model_sharded.py)."""
-    return _VarianceTraceTiedBlock.apply(u, m2, x, x_blk, blam_t_blk)
+    return _VarianceTraceTiedBlock.apply(u, m2, x, x_blk, blam_t_blk, native)
 
 
 def variance_trace_batched_reference(u, m2, x, blam):

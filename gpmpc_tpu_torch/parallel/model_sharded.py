@@ -91,13 +91,18 @@ def _variance_multi_batched_diag_rows(u, s_diag, x, blam_t_rows, row_off,
     summed over `group` (the model axis).
 
     tied=True (GPConfig.tied_lambdas) runs the row-block kernel K3; untied
-    runs the einsum form."""
+    runs the einsum form. Both take the trace's precision policy
+    (ops/kernels/variance_trace.py): the operands enter the group in f64,
+    the partials are summed in f64 (they cancel across ranks as the terms do
+    within one), and only the sum is rounded to u's dtype; the cotangents of
+    u and M2 are summed over the group in f64 too."""
     n_loc = blam_t_rows.shape[2]
+    f64 = vt.TRACE_DTYPE
     hls = (torch.exp(log_lambdas) / 2.0)[None] + s_diag[:, None, :]  # (B, E, d)
     log_det_part = -0.5 * (torch.sum(torch.log(hls), dim=-1)
                            - torch.sum(log_lambdas - math.log(2.0),
                                        dim=-1)[None])         # (B, E)
-    u_c = _CopyToGroup.apply(u, group)
+    u_c = _CopyToGroup.apply(u.to(f64), group)
     if tied:
         x_blk = x[row_off:row_off + n_loc]
         # Lengthscale cotangents through the tied hypergrad guard (NaN);
@@ -106,19 +111,20 @@ def _variance_multi_batched_diag_rows(u, s_diag, x, blam_t_rows, row_off,
                            dim=0)
         m2s = torch.diag_embed(1.0 / ((lam0g / 2.0)[None] + s_diag))  # (B, d, d)
         t_loc = vt.variance_trace_tied_block(
-            u_c, _CopyToGroup.apply(m2s, group), x, x_blk, blam_t_rows)
+            u_c, _CopyToGroup.apply(m2s.to(f64), group), x, x_blk, blam_t_rows)
     else:
-        a = u_c[:, None, :] - x[None]                           # (B, N, d)
-        inv_hls = _CopyToGroup.apply(1.0 / hls, group)          # (B, E, d)
+        a = u_c[:, None, :] - x.to(f64)[None]                   # (B, N, d)
+        inv_hls = _CopyToGroup.apply((1.0 / hls).to(f64), group)  # (B, E, d)
         g = a[:, None] * inv_hls[:, :, None, :]                 # (B, E, N, d)
         q = torch.sum(g * a[:, None], dim=-1)                   # (B, E, N)
         dv = torch.exp(-0.125 * q)                              # (B, E, N)
         rows = slice(row_off, row_off + n_loc)
         # p_loc[b, e, i, j] = g_rows[b, e, i, :] . a[b, j, :]   (B, E, Nl, N)
         p_loc = torch.einsum('beid,bjd->beij', g[:, :, rows], a)
-        w = blam_t_rows.transpose(1, 2)[None] * torch.exp(-0.25 * p_loc)
+        w = (blam_t_rows.transpose(1, 2).to(f64)[None]
+             * torch.exp(-0.25 * p_loc))
         t_loc = torch.einsum('bei,beij,bej->be', dv[:, :, rows], w, dv)
-    t = _SumOverGroup.apply(t_loc, group)
+    t = _SumOverGroup.apply(t_loc, group).to(u.dtype)
     return (torch.exp(2.0 * log_sigma_f)[None]
             - torch.exp(log_det_part) * t - means ** 2)
 

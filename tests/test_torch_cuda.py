@@ -9,6 +9,8 @@ with the card and no JAX: from the repository root,
 (tests/conftest.py configures JAX, hence --noconftest there).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -43,13 +45,15 @@ def _problem(tied, b, e, n, d, seed):
 @pytest.mark.parametrize('shape', [(7, 2, 200, 3), (256, 2, 256, 3),
                                    (3, 8, 130, 8)])
 def test_cuda_kernel_matches_plain_version(tied, shape):
-    """K1 / K2 in f32 on the card against the plain version in f64: forward
-    rtol 5e-5 (atol 5e-5), backward rtol 2e-3 (atol 2e-4), the bars of the
-    JAX kernel test (tests/test_batched.py TestTiedStreamedKernel)."""
+    """K1 / K2's f32 instances on the card (the trace evaluated natively in
+    f32) against the plain version in f64: forward rtol 5e-5 (atol 5e-5),
+    backward rtol 2e-3 (atol 2e-4), the bars of the JAX kernel test
+    (tests/test_batched.py TestTiedStreamedKernel)."""
     dev = _cuda()
     b, e, n, d = shape
     u, m2, x, blam, ct = _problem(tied, b, e, n, d, seed=5)
-    tfn = tvt.variance_trace_batched_tied if tied else tvt.variance_trace_batched
+    tfn = functools.partial(tvt.variance_trace_batched_tied if tied
+                            else tvt.variance_trace_batched, native=True)
     rfn = (tvt.variance_trace_batched_tied_reference if tied
            else tvt.variance_trace_batched_reference)
 
@@ -82,7 +86,8 @@ def test_cuda_k1_at_recipe_widths(b, n, dtype):
     candidates of 256 lanes): value and analytic gradients in `dtype`
     against the plain version in f64 at the JAX kernel test's bars (forward
     rtol 5e-5 atol 5e-5, backward rtol 2e-3 atol 2e-4); the f64 instance's
-    value also at rtol 1e-12. One counted launch."""
+    value also at rtol 1e-12. One counted launch of the `dtype` instance
+    (the trace evaluated natively)."""
     dev = _cuda()
     u, m2, x, blam, ct = _problem(True, b, 2, n, 3, seed=13)
 
@@ -93,10 +98,12 @@ def test_cuda_k1_at_recipe_widths(b, n, dtype):
         grads = torch.autograd.grad(torch.sum(out * f(ct)), (ut, mt))
         return [v.detach().cpu().double().numpy() for v in (out, *grads)]
 
-    before = tvt.LAUNCHES
-    k_out, k_gu, k_gm = run(tvt.variance_trace_batched_tied, dtype)
+    before = (tvt.LAUNCHES, tvt.LAUNCHES_F64)
+    k_out, k_gu, k_gm = run(functools.partial(tvt.variance_trace_batched_tied,
+                                              native=True), dtype)
     torch.cuda.synchronize()
-    assert tvt.LAUNCHES == before + 1
+    f64 = int(dtype == torch.float64)
+    assert (tvt.LAUNCHES, tvt.LAUNCHES_F64) == (before[0] + 1, before[1] + f64)
     r_out, r_gu, r_gm = run(tvt.variance_trace_batched_tied_reference,
                             torch.float64)
     np.testing.assert_allclose(k_out, r_out, rtol=5e-5, atol=5e-5)
@@ -138,10 +145,10 @@ def test_cuda_launch_raises_instead_of_falling_back(case):
 @pytest.mark.cuda
 @pytest.mark.parametrize('n_blocks', [2, 4])
 def test_cuda_block_kernel_matches_plain_version(n_blocks):
-    """K3: the f32 row-block partials on the card, summed over n_blocks,
-    against the plain full trace in f64 (fwd rtol 5e-5 atol 5e-5, bwd rtol
-    2e-3 atol 2e-4); the f64 instance per block against the plain block,
-    rtol 1e-12."""
+    """K3: the f32 instance's row-block partials on the card (evaluated
+    natively), summed over n_blocks, against the plain full trace in f64
+    (fwd rtol 5e-5 atol 5e-5, bwd rtol 2e-3 atol 2e-4); the f64 instance per
+    block against the plain block, rtol 1e-12."""
     dev = _cuda()
     b, e, n, d = 256, 2, 256, 3
     u, m2, x, blam, ct = _problem(True, b, e, n, d, seed=7)
@@ -152,8 +159,8 @@ def test_cuda_block_kernel_matches_plain_version(n_blocks):
         ut, mt = f(u).requires_grad_(), f(m2).requires_grad_()
         parts = [tvt.variance_trace_tied_block(
             ut, mt, f(x), f(x[k:k + n_loc]),
-            f(np.ascontiguousarray(np.swapaxes(blam[:, k:k + n_loc], 1, 2))))
-            for k in range(0, n, n_loc)]
+            f(np.ascontiguousarray(np.swapaxes(blam[:, k:k + n_loc], 1, 2))),
+            native=True) for k in range(0, n, n_loc)]
         out = sum(parts)
         grads = torch.autograd.grad(torch.sum(out * f(ct)), (ut, mt))
         return [v.detach().cpu().double().numpy() for v in (out, *grads)]
@@ -193,14 +200,15 @@ def run_reference(u, m2, x, blam, ct, dev):
 @pytest.mark.parametrize('shape', [(7, 2, 200, 3), (256, 2, 256, 3),
                                    (3, 8, 130, 8)])
 def test_cuda_sym_kernel_matches_plain_version(monkeypatch, tied, shape):
-    """K4 (GPMPC_SYM_KERNEL=1) in f32 on the card against the plain column
-    sweep in f64, at the bars of the K1 test above; one launch a trace for
-    all E."""
+    """K4's f32 instance (GPMPC_SYM_KERNEL=1, the trace evaluated natively)
+    on the card against the plain column sweep in f64, at the bars of the K1
+    test above; one launch a trace for all E."""
     dev = _cuda()
     monkeypatch.setenv('GPMPC_SYM_KERNEL', '1')
     b, e, n, d = shape
     u, m2, x, blam, ct = _problem(tied, b, e, n, d, seed=8)
-    tfn = tvt.variance_trace_batched_tied if tied else tvt.variance_trace_batched
+    tfn = functools.partial(tvt.variance_trace_batched_tied if tied
+                            else tvt.variance_trace_batched, native=True)
     rfn = (tvt.variance_trace_batched_tied_reference if tied
            else tvt.variance_trace_batched_reference)
 
@@ -339,3 +347,117 @@ def test_cuda_rw_ragged_plans_match_plain_version(kernel, b, n, de, dtype):
     tol = (dict(rtol=5e-5, atol=5e-5) if dtype == torch.float32
            else dict(rtol=1e-12, atol=1e-15))
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **tol)
+
+
+# ------------------------------------------- the precision policy, full S --
+def _headline(dev, b, seed):
+    """The headline GP's x and b_lam (f64) on `dev`, with B scenarios' u in
+    its data range and M2 = (Lambda/2 + S)^{-1} as the full-covariance
+    rollout makes it: Lambda = 4 I and a joint covariance S whose state block
+    is a correlated SPD matrix of the size a 20-step rollout reaches (0.001
+    to 0.6, correlations up to 0.95) and whose action block is 1e-3."""
+    from gpmpc_tpu_torch.dynamics import build_rollout_cache
+    from gpmpc_tpu_torch.problems import DATA_SCALE, make_headline_problem
+    cache = build_rollout_cache(make_headline_problem(
+        b=2, dtype=torch.float64, device=dev).gp, 2, 1)
+    rng = np.random.default_rng(seed)
+    u = rng.uniform(-1, 1, (b, 3)) * DATA_SCALE
+    sd = np.exp(rng.uniform(np.log(0.03), np.log(0.8), (b, 2)))
+    rho = rng.uniform(-0.95, 0.95, b)
+    s = np.zeros((b, 3, 3))
+    s[:, 0, 0], s[:, 1, 1] = sd[:, 0] ** 2, sd[:, 1] ** 2
+    s[:, 0, 1] = s[:, 1, 0] = rho * sd[:, 0] * sd[:, 1]
+    s[:, 2, 2] = 1e-3
+    m2 = np.linalg.inv(2.0 * np.eye(3) + s)
+    f = lambda v: torch.tensor(v, dtype=torch.float64, device=dev)
+    return f(u), f(m2), cache.x, cache.b_lam
+
+
+def _conditioned_bar(ref, u, m2, x, blam, rtol, eps):
+    """rtol |t64| + 16 eps of the terms' magnitude sum (chip_smoke.py's bar
+    on the cancelling headline trace)."""
+    return rtol * ref(u, m2, x, blam).abs() + 16 * eps * ref(u, m2, x,
+                                                            blam.abs())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('b', [64, 256, 1024, 3584])
+def test_cuda_k1_full_cov_m2_on_headline(b, dtype):
+    """K1's `dtype` instance (evaluated natively) with the non-diagonal SPD
+    M2 of a full-covariance rollout on the headline GP's x and b_lam,
+    against the plain f64 trace: rtol 5e-5 (f32) or 1e-12 (f64) of |t| plus
+    16 ulps of the terms' magnitude sum."""
+    dev = _cuda()
+    u, m2, x, blam = _headline(dev, b, seed=20)
+    assert float(m2[:, 0, 1].abs().max()) > 1e-2
+    ops = [v.to(dtype) for v in (u, m2, x, blam)]
+    ref = tvt.variance_trace_batched_tied_reference
+    want = ref(*(v.double() for v in ops))
+    before = tvt.LAUNCHES_F64
+    got = tvt.variance_trace_batched_tied(*ops, native=True).double()
+    torch.cuda.synchronize()
+    assert tvt.LAUNCHES_F64 == before + int(dtype == torch.float64)
+    rtol = 5e-5 if dtype == torch.float32 else 1e-12
+    bar = _conditioned_bar(ref, *(v.double() for v in ops), rtol,
+                           torch.finfo(dtype).eps)
+    ratio = float(((got - want).abs() / bar).max())
+    assert ratio <= 1.0, f'{ratio:.3f}x the bar'
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('path', ['K1', 'K2', 'K4 tied', 'K4 per-output'])
+def test_cuda_policy_trace_matches_plain_f64(monkeypatch, path):
+    """The precision policy on the card: from f32 operands (the headline
+    GP's, full-covariance M2) every path launches its f64 instance and
+    returns f32 t within one f32 ulp of the plain f64 trace of the same
+    operands, plus 16 f64 ulps of the terms' magnitude sum."""
+    dev = _cuda()
+    b, tied = 256, path in ('K1', 'K4 tied')
+    u, m2, x, blam = _headline(dev, b, seed=21)
+    if not tied:
+        m2 = torch.stack([m2, m2.flip(0)], dim=1)           # (B, E, d, d)
+    ops = [v.to(torch.float32) for v in (u, m2, x, blam)]
+    fn = tvt.variance_trace_batched_tied if tied else tvt.variance_trace_batched
+    ref = (tvt.variance_trace_batched_tied_reference if tied
+           else tvt.variance_trace_batched_reference)
+    if path.startswith('K4'):
+        monkeypatch.setenv('GPMPC_SYM_KERNEL', '1')
+    before = (tvt.LAUNCHES - tvt.LAUNCHES_F64, tvt.LAUNCHES_F64)
+    got = fn(*ops)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    if path == 'K1':
+        assert (tvt.LAUNCHES - tvt.LAUNCHES_F64, tvt.LAUNCHES_F64) == (
+            before[0], before[1] + 1)
+    ops64 = [v.double() for v in ops]
+    want = ref(*ops64)
+    bar = (torch.finfo(torch.float32).eps * want.abs()
+           + 16 * torch.finfo(torch.float64).eps * ref(*ops64[:3],
+                                                        ops64[3].abs()))
+    ratio = float(((got.double() - want).abs() / bar).max())
+    assert ratio <= 1.0, f'{path}: {ratio:.3f}x the bar'
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('delta', [False, True])
+def test_cuda_full_cov_rollout_matches_cpu(delta):
+    """rollout_batched(full_cov=True) on the card (K1's f64 instance) against
+    the same call on the CPU (the plain trace), f64, on the headline problem
+    at B = 16: means, covariances and d/du, rtol 1e-9."""
+    from gpmpc_tpu_torch.dynamics import build_rollout_cache, rollout_batched
+    from gpmpc_tpu_torch.problems import make_headline_problem
+    dev = _cuda()
+    us = np.random.default_rng(22).uniform(-2, 2, (16, 20, 1))
+    outs = {}
+    for where in ('cpu', dev):
+        p = make_headline_problem(b=16, dtype=torch.float64, device=where)
+        cache = build_rollout_cache(p.gp, 2, 1)
+        u = torch.tensor(us, dtype=torch.float64, device=where,
+                         requires_grad=True)
+        m, c = rollout_batched(cache, p.x0s, u, full_cov=True, delta=delta)
+        (g,) = torch.autograd.grad(m.sum() + c.sum(), u)
+        outs[str(where)] = [v.detach().cpu().numpy() for v in (m, c, g)]
+    for got, want in zip(outs[str(dev)], outs['cpu']):
+        np.testing.assert_allclose(got, want, rtol=1e-9,
+                                   atol=1e-12 * np.abs(want).max())

@@ -269,8 +269,11 @@ def test_recipe_quality_probe_runs_on_cpu(monkeypatch):
     k1 = rq.vt.variance_trace_batched_tied
     out = rq.run(device='cpu', b=2, seeds=(0,))
     assert rq.vt.variance_trace_batched_tied is k1
-    assert set(out['rows']) == {'seed 0', 'phase_a', 'f64', 'trace64',
-                                'plain32'}
+    assert set(out['rows']) == {'seed 0', 'f64 seed 0', 'trace64 seed 0',
+                                'phase_a', 'k1_f32', 'fwd64', 'plain32'}
+    # The default f32 path is the f64 trace rounded: trace64 to the digit.
+    for k in ('p50', 'p90', 'max', 'lanes_above_1pct'):
+        assert out['rows']['trace64 seed 0'][k] == out['rows']['seed 0'][k]
     assert out['rows']['phase_a']['diag'] == {'n_tail': out['rows'][
         'phase_a']['diag']['n_tail']}
     for key, row in out['rows'].items():

@@ -1,6 +1,9 @@
 """gpmpc_tpu_torch.dynamics.rollout_batched against gpmpc_tpu's at f64,
 rtol 1e-8: means, covariances and d/du, tied and untied, delta dynamics,
-the frozen-covariance and mean-only surrogates."""
+the frozen-covariance and mean-only surrogates; the raise on a nominal mean
+model. The full-covariance rollout is in tests/test_torch_fullcov.py."""
+
+from dataclasses import replace
 
 import numpy as np
 import pytest
@@ -68,6 +71,11 @@ def test_rollout_batched_matches(tied, delta, mode):
 
 
 def test_full_cov_raises_until_ported():
+    """full_cov=True is ported (tests/test_torch_fullcov.py); what still
+    raises, as in the JAX package, is the batched rollout of a GP with a
+    nominal mean model, full covariance or not."""
     _, tcache, x0s, us = _setup(True)
-    with pytest.raises(NotImplementedError, match='item 9'):
-        td.rollout_batched(tcache, t64(x0s), t64(us), full_cov=True)
+    nominal = replace(tcache, nominal_fn=lambda xs: xs[:, :2])
+    for full_cov in (True, False):
+        with pytest.raises(NotImplementedError, match='nominal'):
+            td.rollout_batched(nominal, t64(x0s), t64(us), full_cov=full_cov)

@@ -14,6 +14,10 @@ Cases:
          solve_batch_2d.
   batch  (2, 1) mesh: solve_batch_sharded, then solve_batch_multihost on each
          rank's own scenarios.
+  rows32 (1, n) mesh: the row-sharded tied variance op in f32 on the
+         headline GP (problems.make_headline_problem), its value and
+         gradient, the dtype of the partial traces it sums over the ranks,
+         and the unsharded f32 op on the same inputs.
 """
 
 import os
@@ -104,14 +108,55 @@ def case_batch(inp, world):
             'multi_cost': multi.cost.numpy()}
 
 
+def case_rows32(inp, world):
+    from gpmpc_tpu_torch.ops import moments
+    from gpmpc_tpu_torch.problems import make_headline_problem
+    mesh = pmesh.make_mesh(1, world, device='cpu')
+    group = mesh.get_group(pmesh.MODEL_AXIS)
+    f32 = torch.float32
+    cache = build_rollout_cache(make_headline_problem(
+        b=2, dtype=f32, device='cpu').gp, 2, 1)
+    off, rows = pmesh.row_block(mesh, cache.b_lam)
+    summed = []
+    orig = ms._SumOverGroup.apply
+
+    def record(t, grp):
+        summed.append(str(t.dtype))
+        return orig(t, grp)
+
+    out = {}
+    for name in ('sharded', 'unsharded'):
+        u = torch.tensor(inp['u'], dtype=f32, requires_grad=True)
+        s = torch.tensor(inp['s_diag'], dtype=f32, requires_grad=True)
+        args = (cache.log_lambdas, cache.log_sigma_f,
+                torch.tensor(inp['means'], dtype=f32))
+        if name == 'sharded':
+            ms._SumOverGroup.apply = record
+            try:
+                v = ms._variance_multi_batched_diag_rows(
+                    u, s, cache.x, rows, off, *args, group, tied=True)
+            finally:
+                ms._SumOverGroup.apply = orig
+        else:
+            v = moments.variance_prop_multi_batched_diag(
+                u, s, cache.x, cache.b_lam, *args, tied=True)
+        gu, gs = torch.autograd.grad(torch.sum(v * torch.tensor(
+            inp['w'], dtype=f32)), (u, s))
+        out.update({f'{name}_v': v.detach().numpy(),
+                    f'{name}_gu': gu.numpy(), f'{name}_gs': gs.numpy()})
+    out['summed_dtypes'] = np.array(summed)
+    out['v_dtype'] = np.array(str(out['sharded_v'].dtype))
+    return out
+
+
 def main():
     case, inp_path, out_prefix = sys.argv[1:4]
     torch.set_num_threads(1)
     pdist.initialize(device='cpu', timeout_s=PG_TIMEOUT_S)
     rank, world = torch.distributed.get_rank(), torch.distributed.get_world_size()
     inp = np.load(inp_path)
-    out = {'rows': case_rows, 'model': case_model, 'batch': case_batch}[case](
-        inp, world)
+    out = {'rows': case_rows, 'model': case_model, 'batch': case_batch,
+           'rows32': case_rows32}[case](inp, world)
     np.savez(f'{out_prefix}_rank{rank}.npz', **out)
     pdist.finish_rank()
 
