@@ -65,6 +65,19 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 with the counts set to 0 just before and read just after: the
                 probe kernel launched, no other kernel, every variant within
                 its bars on the probes' own inputs.
+  3c. loop kernels  K1 and K2 at every shape and lane count the closed loop
+                (phase 7) launches them at: B = 1 and the multistart's
+                candidate count (4 starts plus the warm start, read from
+                parallel.batch._multistart_starts), N = 128 (100 valid rows)
+                and 512 (320 valid), (d, E) = (2, 1), (3, 2), (5, 4), on the
+                JAX kernel test's inputs with the padded rows zeroed: each f32
+                instance against its plain f64 version at that test's bars
+                (forward and backward), both instances at phase 3's
+                conditioned bars. Then the f64 instances at the loop's shapes
+                (B = 1: the integrator's K1, the pendulum's and cartpole's
+                K2; the pendulum's K2 at the multistart's count) timed by
+                events and graph slope beside their plain versions and
+                bounds.
   4. objective  the port's f64 objective on the card (the f64 kernel
                 instances) at the reference controls and at 0 against the
                 JAX package's values in gpmpc_tpu_torch/data/headline_ref.npz,
@@ -80,8 +93,9 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 same way: the path whose launches the `kernels` line gives
                 K1's f32 instance. Then the untied path
                 (K2) on the same problem with per-output lengthscales, and a
-                profiler pass (of a 10-iteration solve, as every profiler
-                pass here).
+                profiler pass (of a 4-iteration solve, as every profiler
+                pass here but phase 5e's, of one value-and-grad, and phase
+                7's, of one control step).
   5c. recipe    the main path: the production recipe
                 (solve_batch_multistart_retired with problems.RECIPE and
                 REFINE, ret_prod_nopre) on the same problem, counted: finite
@@ -95,8 +109,9 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
   5e. full cov  solve_batch(full_cov=True) on the same problem (B=256, H=20,
                 f32, 40 iterations): finite costs, no lane worse than its
                 start, exactly H * (1 + iterations) launches of K1's f64
-                instance and no other kernel; solves/s over 3 fresh-x0
-                batches and a profiler pass. Its f64 objective at the
+                instance and no other kernel; solves/s over 2 fresh-x0
+                batches and a profiler pass (one value-and-grad). Its f64
+                objective at the
                 reference controls (all lanes) and its gradient (the
                 reference file's eight grad_full_lanes) against JAX's
                 rollout_batched(full_cov=True) values in headline_ref.npz,
@@ -116,7 +131,27 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 gradient (rtol 1e-10, atol 1e-10 of its largest entry, so it
                 is not counted twice), both ranks equal to the bit, and
                 exactly H K3 launches on each rank (one forward rollout).
-  7. output     the card line, one `kernels` JSON line and the result line.
+  7. closed loop  the online learn-and-control loop, each part with the
+                counts set to 0 just before it, every step's wall, K1 and K2
+                launches logged, and every K1 / K2 call at a shape phase 3c
+                checked: (a) experiments/integrator.py at f64, u* = [-1]*5
+                within 5e-3; (b) tests/test_closed_loop.py's swing-up at f64
+                on the stored JAX transitions (gpmpc_tpu_torch/data/
+                closed_loop_ref.npz): train_gp(80) timed and its
+                hyperparameters and iterations against JAX's (rtol 1e-8),
+                one append-and-refit at N = 512 timed, 40 Simulator steps
+                whose first five actions, states and costs match JAX's
+                (atol 1e-6, 1e-6, rtol 1e-6) and whose tail meets the
+                test's criteria (|theta| < 0.15, |theta_dot| < 0.5, actions
+                in bounds, count 250 + steps); on the B = 1 route each step
+                launches exactly E * H * (1 + iters) K2; (c)
+                pretrain_pendulum's delta mode in f32 (300 transitions,
+                train_gp(150), multistart n_starts = 4, N = 512, H = 8) for
+                10 steps; (d) pretrain_cartpole's delta mode, (d, E) =
+                (5, 4), for 10 steps: finite costs, actions in bounds; (e)
+                run_episode_on_device for 4 steps with tests/test_sim.py's
+                assertions.
+  8. output     the card line, one `kernels` JSON line and the result line.
 
 Times, rates and bounds printed here are measured in this run on this card.
 """
@@ -139,6 +174,8 @@ SOURCE_F64 = 'gpmpc_tpu_torch/ops/kernels/csrc/variance_trace_tied_f64.cu'
 SYM_SOURCE_F64 = 'gpmpc_tpu_torch/ops/kernels/csrc/variance_trace_sym_f64.cu'
 PROBE_SOURCE = 'gpmpc_tpu_torch/ops/kernels/csrc/variance_trace_probe.cu'
 TPU_FILE = 'gpmpc_tpu/ops/pallas/variance_trace.py'
+CLOSED_LOOP_REF = os.path.join(ROOT, 'gpmpc_tpu_torch', 'data',
+                               'closed_loop_ref.npz')
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): float32 and
 # float64 outside the tensor cores, and HBM3 bandwidth.
@@ -159,9 +196,10 @@ OBJ_RTOL = 1e-8
 GRAD_RTOL = 1e-10
 ITERS = 40
 UNTIED_ITERS = 10
-# The profiled solves are cut to 10 iterations: the profiler's own
-# processing of a 40-iteration solve (~120k device kernels) takes ~100 s.
-PROFILE_ITERS = 10
+# The profiled solves are cut to 4 iterations: the profiler's own
+# processing takes ~1 s per 1,000 device kernels (~3,000 a value-and-grad),
+# ~45 s at 10 iterations on a slow host.
+PROFILE_ITERS = 4
 WORKER_TIMEOUT_S = 600
 PG_TIMEOUT_S = 300.0
 # The lane counts at which the recipe (problems.RECIPE at B = 256) launches
@@ -182,7 +220,33 @@ RECIPE_WIDTHS = (64, 128, 256, 1024, 2048, 14 * 256)
 RECIPE_P90_MAX = 0.01
 JAX_RECIPE_BAR = dict(p90=0.0058, lanes_above_1pct=17, max=0.033)
 RECIPE_REPS = 2
-FULL_COV_REPS = 3
+# Phase 5e's depth, cut to make room for phase 7 within half the time
+# limit: two timed solves, and a profile pass of one value-and-grad
+# (max_iters 0; at 10 iterations its 221,669 device kernels took the
+# profiler ~165 s to process, at one iteration still 43 s).
+FULL_COV_REPS = 2
+FULL_COV_PROFILE_ITERS = 0
+# The closed loop's kernel shapes (phase 3c checks K1 and K2 at each; phase
+# 7 fails on a launch at any other): each capacity N with the valid rows it
+# holds there (the integrator's 100 in 128; the pendulum's 250-310 and the
+# cartpole's 300-310 in 512), the (d, E) of the integrator, the pendulum and
+# the cartpole, and the lane counts of loop_lane_counts.
+LOOP_CAPACITIES = ((128, 100), (512, 320))
+LOOP_DIMS = ((2, 1), (3, 2), (5, 4))
+# pretrain_pendulum's multistart: 4 starts plus the shifted last trajectory.
+LOOP_N_STARTS = 4
+SWING_STEPS = 40
+PRETRAIN_STEPS = 10
+DEVICE_EPISODE_STEPS = 4
+# The swing-up against the stored JAX reference (closed_loop_ref.npz). The
+# port on the CPU reads the trained hyperparameters within 4.9e-11 of JAX's
+# (relative), the first five actions equal (all at the bound -5), the states
+# within 4.8e-8 (the plants step in f32) and the costs within 1.5e-8
+# relative; the bars leave the card's f64 linear algebra two decades more.
+LOOP_HP_RTOL = 1e-8
+LOOP_ACTION_ATOL = 1e-6
+LOOP_STATE_ATOL = 1e-6
+LOOP_COST_RTOL = 1e-6
 # Each kernel's launch counter in ops/kernels/variance_trace.py; K1's are
 # split by instance: LAUNCHES counts both, LAUNCHES_F64 the f64 ones.
 COUNTER = {'K2': 'LAUNCHES_UNTIED', 'K3': 'LAUNCHES_BLOCK',
@@ -1133,7 +1197,7 @@ def phase_full_cov(dev, b, ref, out_dir):
                rel_g=rel_g, penalised_lanes_at_uref=penalised,
                **time_solves('full cov', b, solve, FULL_COV_REPS, dev))
     out['profile'] = profile_solve(
-        'full cov', lambda x0s: solve(x0s, PROFILE_ITERS), p.x0s,
+        'full cov', lambda x0s: solve(x0s, FULL_COV_PROFILE_ITERS), p.x0s,
         'rw_tied_kernel', out_dir)
     return out
 
@@ -1312,6 +1376,436 @@ def phase_sharded_12(dev, b, ref, out_dir, world=2):
     return dict(rel_f=rel_f, rel_g=rel_g, k3_per_rank=int(outs[0]['k3']))
 
 
+# ------------------------------------------------ the closed loop (3c, 7) --
+_DT_NAME = {'torch.float32': 'f32', 'torch.float64': 'f64'}
+
+
+def loop_lane_counts(dev) -> tuple:
+    """The lane counts at which the closed loop launches K1 and K2: B = 1
+    (the controller's single solves) and the candidate count of
+    solve_batch_multistart at B = 1 with n_starts = LOOP_N_STARTS and the
+    shifted last trajectory as one extra start, read from the port's own
+    start set."""
+    import torch
+    from gpmpc_tpu_torch.parallel.batch import _multistart_starts
+    x0 = torch.zeros((1, 2), dtype=torch.float64, device=dev)
+    k = _multistart_starts(x0, 8, 1, -5.0, 5.0, LOOP_N_STARTS, 0, 0.02, 0.6,
+                           0, extra_starts=torch.zeros(
+                               (1, 1, 8, 1), dtype=torch.float64,
+                               device=dev)).shape[0]
+    return (1, k)
+
+
+def loop_inputs(rng, b, n, n_valid, d, e, tied, dev):
+    """The JAX kernel test's inputs (kernel_test_inputs) at a capacity n
+    with n_valid valid rows, as a padded GP gives them: x and blam zero
+    outside the valid block."""
+    u, m2, x, blam, ct = kernel_test_inputs(rng, b, n, d, e, tied, dev)
+    x[n_valid:] = 0.0
+    blam[:, n_valid:] = 0.0
+    blam[:, :, n_valid:] = 0.0
+    return u, m2, x, blam, ct
+
+
+def phase_loop_kernels(dev):
+    """Phase 3c: K1 and K2 at every shape and lane count of the closed loop
+    (LOOP_CAPACITIES x LOOP_DIMS x loop_lane_counts): each f32 instance
+    against the plain f64 version at the JAX kernel test's bars (forward
+    and backward), and both instances at check_conditioned's bars (f32:
+    5e-5 |t| + 16 eps mag; f64: 1e-12 |t| + 16 eps mag). Returns the set of
+    (kernel, instance, B, N, d, E) checked, the max abs errors per shape
+    and the lane counts."""
+    import torch
+    rng = np.random.default_rng(7)
+    lanes = loop_lane_counts(dev)
+    checked, errs = set(), {}
+    for key, tied in (('K1', True), ('K2', False)):
+        fn, ref = trace_fns(tied)
+        for n, n_valid in LOOP_CAPACITIES:
+            for d, e in LOOP_DIMS:
+                for b in lanes:
+                    tag = f'{key} loop B={b} N={n} ({n_valid} valid) d={d} E={e}'
+                    ins = loop_inputs(rng, b, n, n_valid, d, e, tied, dev)
+                    err = {'f32 bars': check_trace(tag, fn, ref, *ins)}
+                    for dtype, rtol in ((torch.float32, 5e-5),
+                                        (torch.float64, 1e-12)):
+                        err[_DT_NAME[str(dtype)]] = check_conditioned(
+                            tag, fn, ref, *(t.detach() for t in ins[:4]),
+                            dtype, rtol)[0]
+                    errs[f'{key} B={b} N={n} d={d} E={e}'] = err
+                    checked |= {(key, dt, b, n, d, e) for dt in ('f32', 'f64')}
+        worst = {k: max(v[k] for name, v in errs.items()
+                        if name.startswith(key))
+                 for k in ('f32 bars', 'f32', 'f64')}
+        log(f'[loop kernels] {key} at B in {lanes}, N in '
+            f'{[c[0] for c in LOOP_CAPACITIES]}, (d, E) in {list(LOOP_DIMS)}: '
+            f'f32 vs plain f64 max abs err {worst["f32 bars"]:.3e} (fwd rtol '
+            f'5e-5 atol 5e-5, bwd rtol 2e-3 atol 2e-4); on the conditioned '
+            f'bar f32 {worst["f32"]:.3e}, f64 {worst["f64"]:.3e} ok')
+    return checked, errs, lanes
+
+
+def _loop_kernel_args(rng, b, n, n_valid, d, e, tied, dev):
+    """Each kernel's f64 arguments at a loop shape, prepped as the traces
+    prep them."""
+    from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
+    u, m2, x, blam, _ = loop_inputs(rng, b, n, n_valid, d, e, tied, dev)
+    if tied:
+        a, g, dv = vt._prep_tied(u, m2, x)
+        return [t.contiguous() for t in (g, dv, a, vt._aug(a) * dv[..., None],
+                                         blam)]
+    a, g, dv = vt._prep_batched(u, m2, x)
+    return [t.contiguous() for t in (g, dv, a, vt._aug(a), blam)]
+
+
+# (kernel, B, N, valid rows, d, E) of the closed loop's timed launches: the
+# integrator's K1; the pendulum's and the cartpole's K2 at B = 1 and the
+# pendulum's K2 at the multistart's candidate count (filled in by
+# time_loop_kernels); K1 at the pendulum's shape for comparison.
+LOOP_TIMED = (('K1', 1, 128, 100, 2, 1), ('K1', 1, 512, 320, 3, 2),
+              ('K2', 1, 512, 320, 3, 2), ('K2', 1, 512, 320, 5, 4))
+
+
+def time_loop_kernels(dev, lanes):
+    """The f64 instances of K1 and K2 at the closed loop's shapes
+    (LOOP_TIMED, and K2 at the multistart's lane count): CUDA events over
+    50 host-enqueued calls, CUDA-graph slope, the plain version's events
+    time and the bound."""
+    from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
+    rng = np.random.default_rng(11)
+    shapes = list(LOOP_TIMED) + [('K2', lanes[-1], 512, 320, 3, 2)]
+    res, fns = {}, {}
+    for key, b, n, n_valid, d, e in shapes:
+        tied = key == 'K1'
+        args = _loop_kernel_args(rng, b, n, n_valid, d, e, tied, dev)
+        kern = vt.rw_tied if tied else vt.rw_untied
+        plain = vt.rw_tied_reference if tied else vt.rw_untied_reference
+        name = f'{key} f64 B={b} N={n} d={d} E={e}'
+        fns[name] = (lambda k=kern, a=args: k(*a))
+        bound = bound_ms(b, n, n, d, e, 1 if tied else e, f64=True)
+        res[name] = dict(ms=cuda_ms(fns[name], 50),
+                         plain_ms=cuda_ms(lambda p=plain, a=args: p(*a), 50),
+                         bound=bound,
+                         plan=vt.rw_tied_plan(b, n, n, d, e if tied else 1,
+                                              args[0].dtype)._asdict())
+    for name, ms in graph_ms(fns, dev).items():
+        r = res[name]
+        r['graph_ms'] = ms
+        log(f'[loop kernels] {name}: {r["ms"]:.4f} ms by events, '
+            f'{ms:.4f} ms by graph slope, plain {r["plain_ms"]:.4f} ms, bound '
+            f'{r["bound"][0]:.5f} ms ({r["bound"][1]}); grid '
+            f'{tuple(r["plan"]["grid"])}, S {r["plan"]["scenarios"]}')
+    return res
+
+
+@contextlib.contextmanager
+def record_launch_shapes():
+    """Record (kernel, instance, B, N, d, E) of every K1 and K2 call on CUDA
+    tensors in a block (K2's E is the GP's, launched once per output);
+    yields a dict {shape: calls}."""
+    from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
+    seen = {}
+    orig_t, orig_u = vt.rw_tied, vt.rw_untied
+
+    def note(key, g, e):
+        if g.is_cuda:
+            k = (key, _DT_NAME[str(g.dtype)], g.shape[0], g.shape[-2],
+                 g.shape[-1], e)
+            seen[k] = seen.get(k, 0) + 1
+
+    def tied(g_out, dv_out, a, aod, blam):
+        note('K1', g_out, blam.shape[0])
+        return orig_t(g_out, dv_out, a, aod, blam)
+
+    def untied(g, dv, a, ao, blam):
+        note('K2', g, g.shape[1])
+        return orig_u(g, dv, a, ao, blam)
+
+    vt.rw_tied, vt.rw_untied = tied, untied
+    try:
+        yield seen
+    finally:
+        vt.rw_tied, vt.rw_untied = orig_t, orig_u
+
+
+def _loop_launches() -> dict:
+    c = read_counts()
+    return {'K1': c['K1 f32'] + c['K1 f64'], 'K2': c['K2']}
+
+
+def count_steps(mpc, steps: list, horizon: int, e_untied: int):
+    """Wrap mpc.get_optimal_trajectory to log each control step: its wall
+    (synchronized), its K1 and K2 launches, solver iterations and first
+    action. On the controller's single B = 1 route (no multistart) each
+    value-and-grad runs one rollout, H traces: the step must launch exactly
+    H * (1 + iters) of K1 (tied) or e_untied * H * (1 + iters) of K2."""
+    orig = mpc.get_optimal_trajectory
+
+    def step(x):
+        before = _loop_launches()
+        t0 = time.perf_counter()
+        u = orig(x)
+        sync(mpc.device)
+        wall = time.perf_counter() - t0
+        after = _loop_launches()
+        res = mpc.last_result
+        row = dict(wall_s=wall, iters=int(res.iters) if res is not None else 0,
+                   u0=float(u[0, 0]),
+                   **{k: after[k] - before[k] for k in after})
+        if res is not None and mpc.solver_recipe != 'multistart':
+            rollouts = 1 + row['iters']
+            want = ({'K1': horizon * rollouts, 'K2': 0}
+                    if mpc.gp.config.tied_lambdas else
+                    {'K1': 0, 'K2': e_untied * horizon * rollouts})
+            if {k: row[k] for k in want} != want:
+                raise AssertionError(f'closed loop step {len(steps)}: launches '
+                                     f'{row}, expected {want}')
+        steps.append(row)
+        return u
+
+    mpc.get_optimal_trajectory = step
+
+
+def _log_steps(tag, steps):
+    for i, r in enumerate(steps):
+        log(f'[loop {tag}] step {i}: {r["wall_s"]:.3f} s, iters {r["iters"]}, '
+            f'K1 {r["K1"]} K2 {r["K2"]}, u0 {r["u0"]:+.4f}')
+    walls = [r['wall_s'] for r in steps]
+    return dict(steps=steps, wall_p50_s=float(np.median(walls)),
+                wall_max_s=float(np.max(walls)),
+                k1=sum(r['K1'] for r in steps), k2=sum(r['K2'] for r in steps))
+
+
+def _timed(fn, dev):
+    sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def time_append(mpc, dev, reps=3):
+    """Seconds of one append-and-refit of a single transition (not kept)
+    at the controller's capacity, the median of `reps`."""
+    from gpmpc_tpu_torch.gp import state as gp_state
+    d, e = mpc.gp.config.x_dim, mpc.gp.config.out_dim
+    row = mpc.gp.x[:1].clone(), mpc.gp.y[:, :1].T.clone()
+    walls = [_timed(lambda: gp_state.append(mpc.gp, *row), dev)[1]
+             for _ in range(reps)]
+    return float(np.median(walls)), (mpc.gp.config.capacity, d, e)
+
+
+def phase_closed_loop(dev, checked, ref_path, out_dir):
+    """Phase 7: the online learn-and-control loop on the card, each part
+    with the counts set to 0 just before it and read just after, every K1
+    and K2 launch at a shape phase 3c checked. (a) the integrator's known
+    answer; (b) the swing-up of tests/test_closed_loop.py at f64 on the
+    stored JAX transitions, its trained hyperparameters and first steps
+    against JAX's and the test's criteria; (c) pretrain_pendulum's delta
+    mode in f32 with the multistart recipe; (d) pretrain_cartpole's delta
+    mode; (e) run_episode_on_device with tests/test_sim.py's assertions.
+    One more swing-up step from the episode's last state runs under the
+    profiler (device busy share, kernels a value-and-grad)."""
+    import torch
+    from gpmpc_tpu_torch.envs import pendulum
+    from gpmpc_tpu_torch.envs.pendulum import PendulumEnv, PendulumParams
+    from gpmpc_tpu_torch.experiments import pretrain_cartpole, pretrain_pendulum
+    from gpmpc_tpu_torch.experiments.integrator import integrator_experiment
+    from gpmpc_tpu_torch.gp import state as gp_state
+    from gpmpc_tpu_torch.mpc.controller import RiskSensitiveMPC
+    from gpmpc_tpu_torch.mpc.cost import CostParams
+    from gpmpc_tpu_torch.mpc.solver import SolverConfig
+    from gpmpc_tpu_torch.sim.simulator import Simulator, run_episode_on_device
+    out = {}
+    t_phase = time.perf_counter()
+    with record_launch_shapes() as shapes:
+        # (a) The integrator: K1 f64 at B = 1, N = 128, d = 2, E = 1.
+        reset_counts()
+        (u, err), wall = _timed(lambda: integrator_experiment(
+            verbose=False, device=dev), dev)
+        launches = _loop_launches()
+        if not err < 5e-3:
+            raise AssertionError(f'integrator: u* {u.ravel()} off [-1]*5 by {err}')
+        out['integrator'] = dict(u=u.ravel().tolist(), err=err, wall_s=wall,
+                                 **launches)
+        log(f'[loop integrator] u* {np.round(u.ravel(), 6).tolist()}, max '
+            f'|u + 1| {err:.2e} (< 5e-3) ok; {wall:.3f} s with the fit; '
+            f'launches {launches}')
+
+        # (b) The swing-up at f64 on the stored JAX transitions.
+        ref = np.load(ref_path)
+        params = PendulumParams(g=10.0, max_torque=5.0)
+        mpc = RiskSensitiveMPC(
+            gamma=0.0, horizon=8, state_dim=2, input_dim=1,
+            Q=np.diag([8.0, 1.0]), R=0.001 * np.eye(1),
+            R_delta=0.001 * np.eye(1), capacity=512, delta_dynamics=True,
+            dtype=torch.float64, solver=SolverConfig(max_iters=60, tol=1e-4),
+            device=dev)
+        mpc.set_ub([params.max_torque])
+        mpc.set_lb([-params.max_torque])
+        mpc.set_gp_hyperparams(lambdas=[2.0, 2.0, 2.0], sigma_f=1.0,
+                               sigma_n=1e-2)
+        mpc.dynamics.append_train_data(ref['states'], ref['actions'],
+                                       ref['next_states'])
+        reset_counts()
+        res, train_s = _timed(lambda: mpc.train_gp(num_iters=80), dev)
+        hp_err = {}
+        for k in ('log_lambdas', 'log_sigma_f', 'log_sigma_n'):
+            got = getattr(mpc.gp, k).cpu().numpy()
+            np.testing.assert_allclose(got, ref[k], rtol=LOOP_HP_RTOL,
+                                       err_msg=f'swing-up trained {k} vs JAX')
+            hp_err[k] = float(np.max(np.abs(got / ref[k] - 1)))
+        if res.iters != int(ref['train_iters']):
+            raise AssertionError(f'swing-up: train iters {res.iters}, JAX '
+                                 f'{int(ref["train_iters"])}')
+        append_s, at = time_append(mpc, dev)
+        steps = []
+        count_steps(mpc, steps, 8, 2)
+        env = PendulumEnv(params=params, device=dev,
+                          init_state={'th_init': 1.0, 'thdot_init': 0.5})
+        ep = Simulator(mpc, env, num_iters=SWING_STEPS).run()
+        n_ref = ref['ep_actions'].shape[0]
+        np.testing.assert_allclose(ep.actions[:n_ref], ref['ep_actions'],
+                                   rtol=0, atol=LOOP_ACTION_ATOL,
+                                   err_msg='swing-up first actions vs JAX')
+        np.testing.assert_allclose(ep.states[:n_ref + 1], ref['ep_states'],
+                                   rtol=0, atol=LOOP_STATE_ATOL,
+                                   err_msg='swing-up first states vs JAX')
+        np.testing.assert_allclose(ep.costs[:n_ref], ref['ep_costs'],
+                                   rtol=LOOP_COST_RTOL,
+                                   err_msg='swing-up first costs vs JAX')
+        th_tail, thdot_tail = ep.states[-8:, 0], ep.states[-8:, 1]
+        if not (np.max(np.abs(th_tail)) < 0.15
+                and np.max(np.abs(thdot_tail)) < 0.5):
+            raise AssertionError(f'swing-up not upright: tail theta '
+                                 f'{np.round(th_tail, 3)}, theta_dot '
+                                 f'{np.round(thdot_tail, 3)}')
+        if not np.all(np.abs(ep.actions) <= params.max_torque + 1e-9):
+            raise AssertionError('swing-up: actions outside the bounds')
+        if int(mpc.gp.count) != 250 + len(ep.actions):
+            raise AssertionError(f'swing-up: GP count {int(mpc.gp.count)}')
+        del mpc.get_optimal_trajectory          # count_steps' wrapper
+
+        def one_step(_):
+            mpc.get_optimal_trajectory(ep.states[-1])
+            return mpc.last_result
+
+        prof = profile_solve('loop step', one_step, mpc.gp.x, 'rw_tied_kernel',
+                             out_dir)
+        out['swing_up'] = dict(
+            train_s=train_s, train_iters=res.iters, hp_rel_err=hp_err,
+            append_refit_s=append_s, append_at=at,
+            first_action_err=float(np.max(np.abs(
+                ep.actions[:n_ref] - ref['ep_actions']))),
+            first_cost_rel_err=float(np.max(np.abs(
+                ep.costs[:n_ref] / ref['ep_costs'] - 1))),
+            tail_theta_max=float(np.max(np.abs(th_tail))),
+            tail_thdot_max=float(np.max(np.abs(thdot_tail))),
+            iters_vs_jax=[ep.iters[:n_ref].tolist(), ref['ep_iters'].tolist()],
+            profile=prof, **_log_steps('swing-up', steps))
+        r = out['swing_up']
+        log(f'[loop swing-up] f64 N=512: train_gp(80) {train_s:.3f} s, {res.iters}'
+            f' iters (JAX {int(ref["train_iters"])}), hyperparameters vs JAX '
+            f'max rel err {max(hp_err.values()):.2e} (rtol {LOOP_HP_RTOL}) ok;'
+            f' append-and-refit at (N, D, E) = {at}: {append_s * 1e3:.2f} ms; '
+            f'first {n_ref} actions vs JAX max abs err '
+            f'{r["first_action_err"]:.2e} (atol {LOOP_ACTION_ATOL}), costs '
+            f'{r["first_cost_rel_err"]:.2e} (rtol {LOOP_COST_RTOL}) ok; tail '
+            f'|theta| {r["tail_theta_max"]:.4f} < 0.15, |theta_dot| '
+            f'{r["tail_thdot_max"]:.4f} < 0.5, actions in bounds, count '
+            f'{int(mpc.gp.count)} ok; step wall p50 {r["wall_p50_s"]:.3f} s, '
+            f'max {r["wall_max_s"]:.3f} s; K2 {r["k2"]}, K1 {r["k1"]}')
+
+        # (c) pretrain_pendulum, delta mode, f32, the multistart recipe.
+        mpc, env, params = pretrain_pendulum.make_controller(
+            'delta', train_iters=0, device=dev)
+        reset_counts()
+        res, train_s = _timed(lambda: mpc.train_gp(num_iters=150), dev)
+        append_s, at = time_append(mpc, dev)
+        steps = []
+        count_steps(mpc, steps, 8, 2)
+        ep = Simulator(mpc, env, num_iters=PRETRAIN_STEPS).run()
+        if not (np.all(np.isfinite(ep.costs))
+                and np.all(np.abs(ep.actions) <= params.max_torque + 1e-6)):
+            raise AssertionError(f'pretrain_pendulum: costs {ep.costs}, '
+                                 f'actions {ep.actions.ravel()}')
+        out['pretrain_pendulum'] = dict(train_s=train_s, train_iters=res.iters,
+                                        append_refit_s=append_s, append_at=at,
+                                        **_log_steps('pendulum', steps))
+        r = out['pretrain_pendulum']
+        log(f'[loop pendulum] f32 multistart n_starts={LOOP_N_STARTS}: '
+            f'train_gp(150) {train_s:.3f} s ({res.iters} iters), '
+            f'append-and-refit {append_s * 1e3:.2f} ms; costs finite, actions '
+            f'in bounds ok; step wall p50 {r["wall_p50_s"]:.3f} s; K2 '
+            f'{r["k2"]}, K1 {r["k1"]}')
+
+        # (d) pretrain_cartpole, delta mode: (d, E) = (5, 4).
+        mpc, env, params = pretrain_cartpole.make_controller(
+            'delta', train_iters=0, device=dev)
+        reset_counts()
+        res, train_s = _timed(lambda: mpc.train_gp(num_iters=150), dev)
+        append_s, at = time_append(mpc, dev)
+        steps = []
+        count_steps(mpc, steps, 5, 4)
+        ep = Simulator(mpc, env, num_iters=PRETRAIN_STEPS).run()
+        if not (np.all(np.isfinite(ep.costs))
+                and np.all(np.abs(ep.actions) <= 1.0 + 1e-6)):
+            raise AssertionError(f'pretrain_cartpole: costs {ep.costs}, '
+                                 f'actions {ep.actions.ravel()}')
+        out['pretrain_cartpole'] = dict(train_s=train_s, train_iters=res.iters,
+                                        append_refit_s=append_s, append_at=at,
+                                        **_log_steps('cartpole', steps))
+        r = out['pretrain_cartpole']
+        log(f'[loop cartpole] f32: train_gp(150) {train_s:.3f} s '
+            f'({res.iters} iters), append-and-refit {append_s * 1e3:.2f} ms; '
+            f'costs finite, actions in bounds ok; step wall p50 '
+            f'{r["wall_p50_s"]:.3f} s; K2 {r["k2"]}, K1 {r["k1"]}')
+
+        # (e) run_episode_on_device (tests/test_sim.py:49-73).
+        p = PendulumParams(max_torque=3.0)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        s, a, ns = pendulum.sample_transitions(gen, 20, p, dtype=torch.float64,
+                                               device=dev)
+        gp = gp_state.make_gp(
+            gp_state.GPConfig(capacity=32, x_dim=3, out_dim=2),
+            torch.cat([s, a], 1).cpu().numpy(), (ns - s).cpu().numpy(),
+            log_lambdas=np.log(np.full((2, 3), 3.0)),
+            log_sigma_n=np.log(np.full(2, 0.05)), dtype=torch.float64,
+            device=dev)
+        f64 = dict(dtype=torch.float64, device=dev)
+        cp = CostParams(Q=2 * torch.eye(2, **f64), R=0.1 * torch.eye(1, **f64),
+                        gamma=torch.tensor(0.0, **f64),
+                        x_ref=torch.zeros(2, **f64), u_ref=torch.zeros(1, **f64))
+        reset_counts()
+        (gp_f, outs), wall = _timed(lambda: run_episode_on_device(
+            gp, lambda st, u: pendulum.step(st, u, p),
+            torch.tensor([0.5, 0.0], **f64), cp, horizon=3,
+            num_steps=DEVICE_EPISODE_STEPS, lb=-3.0, ub=3.0,
+            solver=SolverConfig(max_iters=25), delta_dynamics=True), dev)
+        if not (outs['state'].shape == (DEVICE_EPISODE_STEPS, 2)
+                and bool(torch.isfinite(outs['state']).all())
+                and int(gp_f.count) == 20 + DEVICE_EPISODE_STEPS
+                and float(outs['action'].abs().max()) <= 3.0 + 1e-9
+                and outs['state'].device == gp.x.device):
+            raise AssertionError(f'run_episode_on_device: {outs}, count '
+                                 f'{int(gp_f.count)}')
+        out['device_episode'] = dict(wall_s=wall, **_loop_launches())
+        log(f'[loop on device] run_episode_on_device {DEVICE_EPISODE_STEPS} '
+            f'steps: states finite on the card, count {int(gp_f.count)} = 20 + '
+            f'{DEVICE_EPISODE_STEPS}, actions in bounds ok; {wall:.3f} s '
+            f'(the single-scenario rollout: launches {_loop_launches()})')
+    unchecked = {k: v for k, v in shapes.items() if k not in checked}
+    if unchecked:
+        raise AssertionError(f'closed loop: K1/K2 launched at shapes phase 3c '
+                             f'did not check: {unchecked}')
+    out['launch_shapes'] = {' '.join(map(str, k)): v for k, v in shapes.items()}
+    out['wall_s'] = time.perf_counter() - t_phase
+    log(f'[loop] calls by (kernel, instance, B, N, d, E), each checked in '
+        f'phase 3c ok: {out["launch_shapes"]}; phase {out["wall_s"]:.1f} s')
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--out', default=os.path.join(ROOT, 'chip_smoke_out'),
@@ -1357,6 +1851,8 @@ def main() -> int:
     cache = build_rollout_cache(
         make_headline_problem(b=b, dtype=f32, device=dev).gp, 2, 1)
     checks, precision = phase_kernels(dev, b, 200, cache)
+    loop_checked, loop_errs, loop_lanes = phase_loop_kernels(dev)
+    loop_times = time_loop_kernels(dev, loop_lanes)
     times = {dt: time_kernels(dev, b, cache, 50, dt) for dt in (f32, f64)}
     k1_f64_wide = time_k1_f64_wide(dev, RECIPE_WIDTHS[-1], cache)
     k1_instr = instr_bound_ms(b, cache.x.shape[0], 3, cache.b_lam.shape[0],
@@ -1385,6 +1881,7 @@ def main() -> int:
                                              'rw_sym')
     sharded_11 = phase_sharded_11(dev, b, j64, j_uref, reps=3, out_dir=out_dir)
     sharded_12 = phase_sharded_12(dev, b, ref, out_dir)
+    loop = phase_closed_loop(dev, loop_checked, CLOSED_LOOP_REF, out_dir)
 
     # One row a kernel instance that a path launches: K1's f32 instance (the
     # k1_f32 solve) and its f64 instance (the recipe, the main path); K2-K4
@@ -1415,6 +1912,22 @@ def main() -> int:
             max_abs_err=checks[key][dt == f64], ms=t['ms'],
             plain_ms=t['plain_ms'], bound_ms=t['bound'][0],
             bound_by=t['bound'][1], library_ms=None))
+    # The closed loop's rows (phase 7): each f64 instance at the shape its
+    # part launches it at, with that part's launches.
+    for key, shape, part, count, line in (
+            ('K1', 'B=1 N=128 d=2 E=1', 'the integrator', 'K1', 638),
+            ('K2', 'B=1 N=512 d=3 E=2', 'the pendulum swing-up', 'k2', 214),
+            ('K2', 'B=1 N=512 d=5 E=4', 'the cartpole', 'k2', 214)):
+        t = loop_times[f'{key} f64 {shape}']
+        launches = {'K1': loop['integrator']['K1'],
+                    'k2': loop['swing_up' if 'pendulum' in part
+                               else 'pretrain_cartpole']['k2']}[count]
+        kernels.append(dict(
+            name=f'{key} f64 instance, closed loop ({part}, {shape})',
+            route='cuda', source=SOURCE_F64, replaces=f'{TPU_FILE}:{line}',
+            launches=launches, max_abs_err=loop_errs[f'{key} {shape}']['f64'],
+            ms=t['ms'], plain_ms=t['plain_ms'], bound_ms=t['bound'][0],
+            bound_by=t['bound'][1], library_ms=None))
     # The probes' rows: `ms` is the kernel-only graph slope of P1's `full`
     # (K1's body) and of P2's `base` counterpart `tc_p`; `launches` counts the
     # probe's own wrapper calls in its run, not the solve's.
@@ -1436,6 +1949,8 @@ def main() -> int:
     detail = dict(objective=obj, solve=solve, solve_k1_f32=solve_f32,
                   recipe=recipe, full_cov=full_cov, sym_solve=sym_solve,
                   sharded_1x1=sharded_11, sharded_1x2=sharded_12,
+                  closed_loop=loop, loop_kernel_errs=loop_errs,
+                  loop_kernel_times=loop_times,
                   profile=prof, k1_instr_bound_ms=k1_instr,
                   precision=precision, k1_f64_wide=k1_f64_wide,
                   kernel_times={str(dt): r for dt, r in times.items()},

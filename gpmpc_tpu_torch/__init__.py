@@ -13,7 +13,13 @@ recipes on top of it
 (`solve_batch_multistart`, the production `solve_batch_multistart_retired`
 with `problems.RECIPE` and `REFINE`) and `solve_batch_staged`; the fan-out over torch.distributed
 (parallel/mesh, parallel/distributed, `solve_batch_sharded`) and the
-model-sharded solve `parallel.model_sharded.solve_batch_2d`. The variance
+model-sharded solve `parallel.model_sharded.solve_batch_2d`; and the online
+learn-and-control loop: the GP's append, grow, set_hyperparams and eigh
+backend, marginal-likelihood training (gp/train.py), the single-scenario
+solver (`solve_trajectory`, L-BFGS and Adam), the `RiskSensitiveMPC`
+controller, the pendulum and cartpole plants, the analytic pendulum models,
+the `Simulator` and `run_episode_on_device`, and the experiments
+(`python -m gpmpc_tpu_torch.experiments.<name>`). The variance
 trace runs through hand-written CUDA kernels (ops/kernels/csrc): the column
 sweep, its row block for model sharding, and the symmetric-pair kernel behind
 the GPMPC_SYM_KERNEL=1 opt-in; it is evaluated in f64 whatever the problem's
@@ -24,17 +30,21 @@ caller passes device='cpu'.
 """
 
 from gpmpc_tpu_torch.device import resolve_device
-from gpmpc_tpu_torch.gp.state import GPConfig, GPState, make_gp
+from gpmpc_tpu_torch.gp.state import GPConfig, GPState, append, make_gp
 from gpmpc_tpu_torch.gp.exact import predict, log_marginal_likelihood
+from gpmpc_tpu_torch.gp.train import train_hyperparams
 from gpmpc_tpu_torch.dynamics import (RolloutCache, build_rollout_cache,
                                       rollout, rollout_batched,
                                       rollout_from_gp)
 from gpmpc_tpu_torch.mpc.cost import CostParams, risk_sensitive_cost
-from gpmpc_tpu_torch.mpc.solver import SolverConfig, solve_trajectory_batched
+from gpmpc_tpu_torch.mpc.controller import RiskSensitiveMPC
+from gpmpc_tpu_torch.mpc.solver import (SolverConfig, solve_trajectory,
+                                        solve_trajectory_batched)
 from gpmpc_tpu_torch.parallel.batch import (solve_batch,
                                              solve_batch_multistart,
                                              solve_batch_multistart_retired,
                                              solve_batch_staged)
 from gpmpc_tpu_torch.problems import RECIPE, REFINE, make_headline_problem
+from gpmpc_tpu_torch.sim.simulator import Simulator, run_episode_on_device
 
 __version__ = "0.1.0"

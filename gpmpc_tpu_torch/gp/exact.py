@@ -15,7 +15,9 @@ def predict(state: GPState, x_pred: torch.Tensor, full_cov: bool = False,
             include_noise: bool = False):
     """Posterior mean and covariance at test points x_pred (P, x_dim) or
     (x_dim,). Returns mean (P, E) and cov (E, P, P) if full_cov else (P, E)
-    marginal variances. include_noise adds sigma_n^2 (predicting targets)."""
+    marginal variances. include_noise adds sigma_n^2 (predicting targets).
+    A nominal mean model (GPConfig.nominal_fn) adds f_nom(x_pred) to the
+    mean."""
     single = x_pred.ndim == 1
     xp = torch.atleast_2d(x_pred).to(state.x.dtype)
     mvalid = state.mask.to(xp.dtype)
@@ -23,6 +25,8 @@ def predict(state: GPState, x_pred: torch.Tensor, full_cov: bool = False,
     k_star = se_gram_batched(xp, state.x, state.log_lambdas, state.log_sigma_f)
     k_star = k_star * mvalid[None, None, :]                # (E, P, cap)
     mean = torch.einsum('epn,en->pe', k_star, state.beta)
+    if state.config.nominal_fn is not None:
+        mean = mean + state.config.nominal_fn(xp)
     sol = torch.einsum('enm,epm->enp', state.kinv, k_star)  # (E, cap, P)
     if full_cov:
         k_pp = se_gram_batched(xp, xp, state.log_lambdas, state.log_sigma_f)

@@ -10,9 +10,16 @@ covers all E outputs that share inputs. Cached per fit:
 The factorization runs in f64 on the state's device and is cast back to the
 storage dtype: at the headline conditioning (cond(Ky) ~ 2e4) an f32 Cholesky
 leaves ~1e-3 relative error in beta and kinv, a systematic model error the
-H-step rollout amplifies. It is the adaptive-jitter Cholesky of the JAX
-package's host f64 core: no jitter first, then 10 eps * mean(diag Ky),
-growing tenfold, nine attempts in all.
+H-step rollout amplifies. The default backend is the adaptive-jitter
+Cholesky of the JAX package: no jitter first, then 10 eps * mean(diag Ky),
+growing tenfold, nine attempts in all; the jitter is chosen without a
+gradient and the Cholesky at that jitter carries it, so hyperparameter
+training (gp/train.py) differentiates through the fit. GPConfig(
+solve_backend='eigh') takes the spectrum-clipped eigendecomposition instead.
+
+`append` writes new rows on the device with a masked write (rows past the
+capacity are dropped) and refits; `grow` repads to a larger capacity;
+`set_hyperparams` sets hyperparameters in natural space and refits.
 """
 
 from __future__ import annotations
@@ -45,6 +52,9 @@ class GPConfig:
     # When set, the GP fits the residual y - f_nom(x), and dynamics.rollout
     # adds f_nom back (first-order moment propagation).
     nominal_fn: Optional[Callable] = None
+    # Factorization backend: 'chol' (adaptive-jitter Cholesky) or 'eigh'
+    # (eigendecomposition with the spectrum clipped at N eps w_max).
+    solve_backend: str = 'chol'
 
 
 @dataclass(frozen=True)
@@ -62,6 +72,22 @@ class GPState:
     logdet: torch.Tensor       # (E,)
     jitter_used: torch.Tensor  # (E,)
 
+    @property
+    def capacity(self) -> int:
+        return self.config.capacity
+
+    @property
+    def lambdas(self) -> torch.Tensor:
+        return torch.exp(self.log_lambdas)
+
+    @property
+    def sigma_f(self) -> torch.Tensor:
+        return torch.exp(self.log_sigma_f)
+
+    @property
+    def sigma_n(self) -> torch.Tensor:
+        return torch.exp(self.log_sigma_n)
+
 
 def residuals(state: GPState) -> torch.Tensor:
     """(E, cap) masked targets minus the nominal mean (zero where padded)."""
@@ -73,7 +99,8 @@ def residuals(state: GPState) -> torch.Tensor:
 
 def _chol_with_jitter(ky, diag_mask, base_jitter, eps0):
     """Cholesky of ky + j * diag_mask at the smallest j of the escalation that
-    factorizes; returns (chol, j)."""
+    factorizes; returns (chol, j). j is chosen on the host without a gradient;
+    the factor at that j carries ky's."""
     j = float(base_jitter)
     for _ in range(_JITTER_ATTEMPTS):
         chol, info = torch.linalg.cholesky_ex(ky + j * diag_mask)
@@ -83,33 +110,67 @@ def _chol_with_jitter(ky, diag_mask, base_jitter, eps0):
     raise torch.linalg.LinAlgError('jitter escalation exhausted')
 
 
+def _solve_chol(ky, m, resid, base_jitter, need_kinv):
+    """One output's (kinv or None, beta, logdet, jitter) by the escalating-
+    jitter Cholesky; m is the mask as ky's dtype."""
+    n_valid = max(float(m.sum()), 1.0)
+    mean_diag = float(torch.sum(torch.diagonal(ky).detach() * m)) / n_valid
+    eps0 = 10.0 * torch.finfo(ky.dtype).eps * mean_diag
+    chol, j = _chol_with_jitter(ky, torch.diag(m), base_jitter, eps0)
+    kinv = chol_inverse(chol) if need_kinv else None
+    return kinv, chol_solve(chol, resid), chol_logdet(chol), j
+
+
+def _solve_eigh(ky, m, resid, base_jitter, need_kinv):
+    """One output's (kinv or None, beta, logdet, clip floor) from the
+    eigendecomposition with the spectrum clipped at max(jitter,
+    N eps w_max): the exact posterior in well-conditioned directions; the
+    padded block's unit eigenvalues add 0 to logdet."""
+    w, v = torch.linalg.eigh(ky)
+    floor = max(float(base_jitter),
+                ky.shape[-1] * torch.finfo(ky.dtype).eps * float(w[-1]))
+    w_clip = torch.clamp(w, min=floor)
+    w_inv = 1.0 / w_clip
+    kinv = (v * w_inv[None, :]) @ v.T if need_kinv else None
+    beta = v @ (w_inv * (v.T @ resid))
+    return kinv, beta, torch.sum(torch.log(w_clip)), floor
+
+
+def fit_f64(state: GPState, need_kinv: bool = True):
+    """(kinv (E, cap, cap) or None, beta (E, cap), logdet (E,), jitter (E,))
+    of the masked Ky under the state's data and hyperparameters, all in f64,
+    differentiable w.r.t. the log hyperparameters (the jitter is not)."""
+    cfg = state.config
+    if cfg.solve_backend not in ('chol', 'eigh'):
+        raise ValueError(f'unknown solve_backend {cfg.solve_backend!r}')
+    f64 = torch.float64
+    x = state.x.to(f64)
+    kf = se_gram_batched(x, x, state.log_lambdas.to(f64),
+                         state.log_sigma_f.to(f64))
+    ky = masked_psd_add(kf, state.mask,
+                        torch.exp(2.0 * state.log_sigma_n.to(f64)))
+    resid = residuals(state).to(f64)
+    m = state.mask.to(f64)
+    solver = _solve_chol if cfg.solve_backend == 'chol' else _solve_eigh
+    outs = [solver(ky[k], m, resid[k], cfg.jitter, need_kinv)
+            for k in range(cfg.out_dim)]
+    kinv = torch.stack([o[0] for o in outs]) if need_kinv else None
+    jit = torch.tensor([o[3] for o in outs], dtype=f64, device=x.device)
+    return (kinv, torch.stack([o[1] for o in outs]),
+            torch.stack([o[2] for o in outs]), jit)
+
+
 def _factorize(state: GPState) -> GPState:
     """Rebuild kinv / beta / logdet under the current data and hyperparameters
     (masked Ky with a unit padded diagonal), in f64, cast to the storage
     dtype."""
-    cfg = state.config
     dt = state.x.dtype
-    f64 = torch.float64
-    kf = se_gram_batched(state.x.to(f64), state.x.to(f64),
-                         state.log_lambdas.to(f64), state.log_sigma_f.to(f64))
-    ky = masked_psd_add(kf, state.mask, torch.exp(2.0 * state.log_sigma_n.to(f64)))
-    resid = residuals(state).to(f64)
-    m = state.mask.to(f64)
-    diag_mask = torch.diag(m)
-    n_valid = max(int(state.mask.sum()), 1)
-    kinv, beta, logdet, jit = [], [], [], []
-    for k in range(cfg.out_dim):
-        mean_diag = float(torch.sum(torch.diagonal(ky[k]) * m)) / n_valid
-        eps0 = 10.0 * torch.finfo(f64).eps * mean_diag
-        chol, j = _chol_with_jitter(ky[k], diag_mask, cfg.jitter, eps0)
-        kinv.append(chol_inverse(chol))
-        beta.append(chol_solve(chol, resid[k]))
-        logdet.append(chol_logdet(chol))
-        jit.append(j)
-    return replace(state,
-                   kinv=torch.stack(kinv).to(dt), beta=torch.stack(beta).to(dt),
-                   logdet=torch.stack(logdet).to(dt),
-                   jitter_used=torch.tensor(jit, dtype=dt, device=state.x.device))
+    kinv, beta, logdet, jit = fit_f64(state)
+    return replace(state, kinv=kinv.to(dt), beta=beta.to(dt),
+                   logdet=logdet.to(dt), jitter_used=jit.to(dt))
+
+
+fit = _factorize
 
 
 def _rows_tied(v) -> bool:
@@ -165,3 +226,73 @@ def make_gp(config: GPConfig, x=None, y=None, log_lambdas=None,
         logdet=torch.zeros((e,), dtype=dtype, device=dev),
         jitter_used=torch.zeros((e,), dtype=dtype, device=dev))
     return _factorize(state)
+
+
+def append(state: GPState, x_new, y_new) -> GPState:
+    """Append observations on the state's device and refit.
+
+    x_new: (x_dim,) or (n, x_dim); y_new: (out_dim,) or (n, out_dim), tensors
+    or array-likes. Rows that do not fit in the capacity are dropped (`grow`
+    repads): they are written to a spare row that is cut off, so the count
+    never leaves the device before the fit."""
+    cfg = state.config
+    dev = state.x.device
+    x_new = torch.as_tensor(x_new, dtype=state.x.dtype,
+                            device=dev).reshape(-1, cfg.x_dim)
+    y_new = torch.as_tensor(y_new, dtype=state.y.dtype,
+                            device=dev).reshape(-1, cfg.out_dim)
+    n, cap = x_new.shape[0], cfg.capacity
+    idx = state.count.long() + torch.arange(n, device=dev)
+    slot = torch.where(idx < cap, idx, torch.full_like(idx, cap))
+    x = torch.cat([state.x, state.x.new_zeros((1, cfg.x_dim))])
+    y = torch.cat([state.y, state.y.new_zeros((cfg.out_dim, 1))], dim=1)
+    mask = torch.cat([state.mask, state.mask.new_zeros((1,))])
+    x[slot] = x_new
+    y[:, slot] = y_new.T
+    mask[slot] = True
+    count = torch.clamp(state.count + n, max=cap).to(torch.int32)
+    return _factorize(replace(state, x=x[:cap], y=y[:, :cap], mask=mask[:cap],
+                              count=count))
+
+
+# Alias for loop bodies where `append` names a local.
+gp_append = append
+
+
+def grow(state: GPState, new_capacity: int) -> GPState:
+    """Repad to a larger capacity and refit."""
+    if new_capacity < state.config.capacity:
+        raise ValueError('new capacity must be >= current capacity')
+    pad = new_capacity - state.config.capacity
+    e = state.config.out_dim
+    return _factorize(replace(
+        state, config=replace(state.config, capacity=new_capacity),
+        x=torch.nn.functional.pad(state.x, (0, 0, 0, pad)),
+        y=torch.nn.functional.pad(state.y, (0, pad)),
+        mask=torch.nn.functional.pad(state.mask, (0, pad)),
+        kinv=state.kinv.new_zeros((e, new_capacity, new_capacity)),
+        beta=state.beta.new_zeros((e, new_capacity))))
+
+
+def set_hyperparams(state: GPState, lambdas=None, sigma_f=None, sigma_n=None,
+                    refit: bool = True) -> GPState:
+    """Set hyperparameters in natural (not log) space, broadcast to every
+    output; lengthscales re-detect `tied_lambdas`. Refits unless
+    refit=False."""
+    e, d = state.log_lambdas.shape
+    dt, dev = state.log_lambdas.dtype, state.x.device
+
+    def log_of(v, shape):
+        v = (v.to(dt) if isinstance(v, torch.Tensor)
+             else torch.tensor(np.asarray(v), dtype=dt))
+        return torch.log(v.to(dev)).broadcast_to(shape).clone()
+
+    if lambdas is not None:
+        state = replace(state, log_lambdas=log_of(lambdas, (e, d)),
+                        config=replace(state.config,
+                                       tied_lambdas=_rows_tied(lambdas)))
+    if sigma_f is not None:
+        state = replace(state, log_sigma_f=log_of(sigma_f, (e,)))
+    if sigma_n is not None:
+        state = replace(state, log_sigma_n=log_of(sigma_n, (e,)))
+    return _factorize(state) if refit else state

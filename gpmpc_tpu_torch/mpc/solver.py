@@ -1,10 +1,15 @@
-"""Lockstep projected L-BFGS over B independent box-constrained solves
-(port of `solve_trajectory_batched`, gpmpc_tpu/mpc/solver.py).
+"""Box-constrained trajectory solvers (port of gpmpc_tpu/mpc/solver.py).
 
-Every lane has its own acceptance, step size, history and convergence; lanes
-that are done freeze while the loop runs on until all are done or the
-iteration cap. The JAX `lax.while_loop` is a host loop here; it reads
-`all(done)` once per iteration, so the iteration count is the JAX one.
+`solve_trajectory_batched`: lockstep projected L-BFGS over B independent
+solves. Every lane has its own acceptance, step size, history and
+convergence; lanes that are done freeze while the loop runs on until all are
+done or the iteration cap. The JAX `lax.while_loop` is a host loop here; it
+reads `all(done)` once per iteration, so the iteration count is the JAX one.
+
+`solve_trajectory`: one solve of objective(u) -> scalar, by projected L-BFGS
+(method='lbfgs', the batched solver at B = 1: JAX's single-scenario L-BFGS
+is the same recurrence lane for lane) or by projected Adam with a fixed step
+and an optional polish of normalized-gradient steps (method='adam').
 """
 
 from __future__ import annotations
@@ -18,10 +23,21 @@ import torch
 
 @dataclass(frozen=True)
 class SolverConfig:
+    # 'lbfgs': projected L-BFGS with a projected-Armijo step; 'adam':
+    # projected Adam with a fixed step (solve_trajectory only).
+    method: str = 'lbfgs'
     max_iters: int = 300
     tol: float = 1e-4
+    # Adam options.
+    learning_rate: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
     # L-BFGS history length.
     history: int = 8
+    # Kept for the JAX config's field set; the single-candidate Armijo step
+    # has no inner backtracking loop.
+    max_backtracks: int = 20
     # Nonmonotone Armijo window (accept against the max of the last
     # `nonmonotone` accepted values); 0 = monotone.
     nonmonotone: int = 0
@@ -30,6 +46,9 @@ class SolverConfig:
     # improvement beyond the noise, and the best iterate is returned.
     noise_rel: float = 0.0
     progress_window: int = 12
+    # Projected steps along the normalized gradient after the main loop, the
+    # step decaying by 2^(-1/4) each (solve_trajectory with Adam).
+    polish_iters: int = 0
 
     def replace(self, **changes) -> 'SolverConfig':
         """A copy with `changes` applied (the JAX struct's `.replace`)."""
@@ -37,11 +56,17 @@ class SolverConfig:
 
 
 class SolveResult(NamedTuple):
-    u: torch.Tensor          # (B, H, da)
-    cost: torch.Tensor       # (B,)
-    iters: torch.Tensor      # (B,) iterations each lane took
+    u: torch.Tensor          # (B, H, da); (H, da) from solve_trajectory
+    cost: torch.Tensor       # (B,) or ()
+    iters: torch.Tensor      # (B,) iterations each lane took, or ()
     pg_norm: torch.Tensor    # (B,) projected-gradient residual (inf-norm)
-    converged: torch.Tensor  # (B,) done before the cap
+    # (B,) done before the cap; None from the Adam solver, as in JAX.
+    converged: Optional[torch.Tensor] = None
+
+
+def first_lane(res: SolveResult) -> SolveResult:
+    """Lane 0 of a batched result, shaped as a single solve's."""
+    return SolveResult(*(t[0] for t in res))
 
 
 def _value_and_grad(objective_b, u_flat, shape):
@@ -226,3 +251,69 @@ def solve_trajectory_batched(objective_b: Optional[Callable[[torch.Tensor],
                            pg_norm=pg_res(u, g), converged=done)
     return SolveResult(u=u.reshape(shape), cost=f, iters=iters_b,
                        pg_norm=pg_res(u, g), converged=done)
+
+
+def solve_trajectory(objective: Callable[[torch.Tensor], torch.Tensor],
+                     u_init: torch.Tensor, lb, ub,
+                     config: SolverConfig = SolverConfig()) -> SolveResult:
+    """Minimize objective(u) (u (H, da) -> scalar, differentiable by
+    autograd) over the box [lb, ub] (broadcast against u)."""
+    if config.method == 'lbfgs':
+        return _solve_lbfgs(objective, u_init, lb, ub, config)
+    if config.method == 'adam':
+        return _solve_adam(objective, u_init, lb, ub, config)
+    raise ValueError(f'unknown method {config.method!r}')
+
+
+def _solve_lbfgs(objective, u_init, lb, ub, config: SolverConfig) -> SolveResult:
+    """The lockstep solver at B = 1: the single JAX solve's acceptance, step
+    size, history, restarts, stop and result, lane for lane."""
+    return first_lane(solve_trajectory_batched(
+        lambda u_b: objective(u_b[0])[None], u_init[None], lb, ub, config))
+
+
+def _solve_adam(objective, u_init, lb, ub, config: SolverConfig) -> SolveResult:
+    """Projected Adam, one gradient an iteration, stopped at the projected-
+    gradient residual < tol or the cap; then `polish_iters` steps of
+    lr 2^(-i/4) g / (max|g| + eps). Non-finite gradients count as 0."""
+    dt, dev = u_init.dtype, u_init.device
+    lb = torch.as_tensor(lb, dtype=dt, device=dev).broadcast_to(u_init.shape)
+    ub = torch.as_tensor(ub, dtype=dt, device=dev).broadcast_to(u_init.shape)
+    lr = config.learning_rate
+
+    def proj(u):
+        return torch.minimum(torch.maximum(u, lb), ub)
+
+    def grad(u):
+        u_var = u.detach().requires_grad_(True)
+        with torch.enable_grad():
+            (g,) = torch.autograd.grad(objective(u_var), u_var)
+        return torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+
+    def pg_residual(u, g):
+        return torch.amax(torch.abs(u - proj(u - g)))
+
+    u = proj(u_init)
+    g = grad(u)
+    m = torch.zeros_like(u)
+    v = torch.zeros_like(u)
+    t = 0
+    done = False
+    while t < config.max_iters and not done:
+        m = config.b1 * m + (1.0 - config.b1) * g
+        v = config.b2 * v + (1.0 - config.b2) * g * g
+        t += 1
+        mhat = m / (1.0 - config.b1 ** t)
+        vhat = v / (1.0 - config.b2 ** t)
+        u = proj(u - lr * mhat / (torch.sqrt(vhat) + config.eps))
+        g = grad(u)
+        done = bool(pg_residual(u, g) < config.tol)
+    for i in range(config.polish_iters):
+        gp = grad(u)
+        step = lr * 0.5 ** (i / 4.0)
+        u = proj(u - step * gp / (torch.amax(torch.abs(gp)) + config.eps))
+    with torch.no_grad():
+        cost = objective(u)
+    return SolveResult(u=u, cost=cost,
+                       iters=torch.tensor(t, dtype=torch.int32, device=dev),
+                       pg_norm=pg_residual(u, grad(u)))

@@ -461,3 +461,81 @@ def test_cuda_full_cov_rollout_matches_cpu(delta):
     for got, want in zip(outs[str(dev)], outs['cpu']):
         np.testing.assert_allclose(got, want, rtol=1e-9,
                                    atol=1e-12 * np.abs(want).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('de', [(2, 1), (3, 2), (5, 4)])
+@pytest.mark.parametrize('nv', [(128, 100), (512, 320)])
+@pytest.mark.parametrize('b', [1, 5])
+@pytest.mark.parametrize('tied', [True, False])
+def test_cuda_kernel_at_closed_loop_shapes(tied, b, nv, de):
+    """K1 / K2's f32 instances at the closed loop's shapes (B = 1 and the
+    multistart's 5 candidates; capacity N with the padded rows' x and blam
+    zeroed; the integrator's, pendulum's and cartpole's (d, E)) against the
+    plain version in f64 at the JAX kernel test's bars, and the f64
+    instances within 1e-12 relative plus 16 ulps of the magnitude sum."""
+    dev = _cuda()
+    (n, n_valid), (d, e) = nv, de
+    u, m2, x, blam, ct = _problem(tied, b, e, n, d, seed=13)
+    x[n_valid:] = 0.0
+    blam[:, n_valid:] = 0.0
+    blam[:, :, n_valid:] = 0.0
+    tfn = functools.partial(tvt.variance_trace_batched_tied if tied
+                            else tvt.variance_trace_batched, native=True)
+    rfn = (tvt.variance_trace_batched_tied_reference if tied
+           else tvt.variance_trace_batched_reference)
+
+    def run(fn, dtype):
+        ut = torch.tensor(u, dtype=dtype, device=dev, requires_grad=True)
+        mt = torch.tensor(m2, dtype=dtype, device=dev, requires_grad=True)
+        out = fn(ut, mt, torch.tensor(x, dtype=dtype, device=dev),
+                 torch.tensor(blam, dtype=dtype, device=dev))
+        grads = torch.autograd.grad(
+            torch.sum(out * torch.tensor(ct, dtype=dtype, device=dev)), (ut, mt))
+        return [v.detach().cpu().double().numpy() for v in (out, *grads)]
+
+    k_out, k_gu, k_gm = run(tfn, torch.float32)
+    r_out, r_gu, r_gm = run(rfn, torch.float64)
+    np.testing.assert_allclose(k_out, r_out, rtol=5e-5, atol=5e-5)
+    np.testing.assert_allclose(k_gu, r_gu, rtol=2e-3, atol=2e-4)
+    np.testing.assert_allclose(k_gm, r_gm, rtol=2e-3, atol=2e-4)
+    k64 = run(tfn, torch.float64)[0]
+    mag = np.abs(run(lambda uu, mm, xx, bb: rfn(uu, mm, xx, bb.abs()),
+                     torch.float64)[0])
+    assert np.all(np.abs(k64 - r_out) <= 1e-12 * np.abs(r_out)
+                  + 16 * np.finfo(np.float64).eps * mag)
+
+
+@pytest.mark.cuda
+def test_cuda_closed_loop_matches_cpu():
+    """The integrator's controller (K1 f64 at B = 1) and a train_gp followed
+    by an untied solve (K2) on the card against the same on the CPU, f64."""
+    from gpmpc_tpu_torch.experiments.integrator import integrator_experiment
+    from gpmpc_tpu_torch.mpc.controller import RiskSensitiveMPC
+    from gpmpc_tpu_torch.mpc.solver import SolverConfig
+    dev = _cuda()
+    u_gpu, err = integrator_experiment(verbose=False, device=dev)
+    u_cpu, _ = integrator_experiment(verbose=False, device='cpu')
+    assert err < 5e-3
+    np.testing.assert_allclose(u_gpu, u_cpu, rtol=1e-6, atol=1e-7)
+    rng = np.random.default_rng(3)
+    s, a = rng.uniform(-1, 1, (40, 2)), rng.uniform(-1, 1, (40, 1))
+    ns = s + 0.1 * np.concatenate([s[:, 1:], a], 1) + 0.02 * np.sin(s)
+    outs = {}
+    for where in (dev, 'cpu'):
+        mpc = RiskSensitiveMPC(gamma=0.2, horizon=5, state_dim=2, input_dim=1,
+                               Q=np.eye(2), R=0.1 * np.eye(1), capacity=64,
+                               delta_dynamics=True, dtype=torch.float64,
+                               solver=SolverConfig(max_iters=30), device=where)
+        mpc.set_ub([1.0])
+        mpc.set_lb([-1.0])
+        mpc.dynamics.append_train_data(s, a, ns)
+        res = mpc.train_gp(num_iters=20)
+        before = tvt.LAUNCHES_UNTIED
+        u = mpc.get_optimal_trajectory(np.array([0.5, -0.2]))
+        outs[str(where)] = (res.iters, mpc.gp.log_lambdas.cpu().numpy(), u,
+                            tvt.LAUNCHES_UNTIED - before)
+    g, c = outs[str(dev)], outs['cpu']
+    assert g[0] == c[0] and g[3] > 0 and c[3] == 0
+    np.testing.assert_allclose(g[1], c[1], rtol=1e-8)
+    np.testing.assert_allclose(g[2], c[2], rtol=1e-6, atol=1e-7)
