@@ -151,7 +151,49 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 (5, 4), for 10 steps: finite costs, actions in bounds; (e)
                 run_episode_on_device for 4 steps with tests/test_sim.py's
                 assertions.
-  8. output     the card line, one `kernels` JSON line and the result line.
+  3d. sparse kernels  K1 at the three shapes phase 8 launches it at:
+                (B, N, d, E) = (256, 128, 5, 4) (suite config 3b),
+                (64, 128, 3, 2) (config 4, full covariance) and (1, 512, 4, 2)
+                (the uncertainty experiment, 400 valid rows), on the JAX
+                kernel test's inputs with the padded rows zeroed, at phase
+                3c's bars; the f64 instance timed at each by events and
+                graph slope beside its plain version, bound and launch plan
+                (S, shared bytes, grid, blocks an SM).
+  8. sparse     the sparse GP and the remaining modules, each part with
+                the counts set to 0 just before it, every K1 launch at a
+                shape phase 3d checked:
+                (a) config 3b at full width (problems.
+                make_sparse_cartpole_problem, B = 256, N = 1,000 through the
+                FITC GP of M = 128, H = 10, f32): the f64 posterior (W,
+                alpha) within 1e-8 of JAX's largest entry, the f64 objective
+                at 0 and at the f64 reference controls (benchmarks/results/
+                quality_sparse_ref_3b_sparse_cartpole.npz) within rtol 1e-8
+                of JAX's (gpmpc_tpu_torch/data/sparse_ref.npz) and its
+                gradient within 1e-8 of the largest entry; the plain
+                solve_batch at 40 iterations with
+                exactly H (1 + iters) K1 f64 launches, its cost excess
+                (fails at p90 >= 1 %) beside the JAX package's TPU figure
+                (benchmarks/results/quality_sparse.json), solves/s over 3
+                fresh-x0 batches; (b) config 4 (B = 64, H = 50, full
+                covariance): on JAX's posterior carried across, the f64
+                objective at 0 and u_ref within rtol 1e-8 of JAX's and the
+                gradient within 1e-8 (at 0) and 1e-5 (at u_ref) of its
+                largest entry; on the port's own fit, the posterior within
+                1e-6, J within 1e-7, the gradient within 1e-6 and 1e-4
+                (SPARSE_BARS); one f32 solve cut to 5 iterations,
+                counted and timed, its cost excess recorded (no gate); (c)
+                the per-scenario routes in f64, solve_batch with Adam
+                ('auto' -> 'vmap') on four headline lanes and solve_batch_gp
+                over three stack_gps draws, against JAX's stored results,
+                launching no kernel; (d) experiments/uncertainty.py at its
+                published settings, both gammas against JAX's stored f64
+                controls and means (atol 1e-4), exactly H (1 + iters) K1 f64
+                launches each, walls; (e) hs071 by solve_constrained (x*, f*
+                within 1e-5, violations below 1e-7), a checkpoint round
+                trip of the uncertainty controller and its GP, and
+                native.solve_box built into gpmpc_tpu_torch/_build/ on the
+                integrator objective.
+  9. output     the card line, one `kernels` JSON line and the result line.
 
 Times, rates and bounds printed here are measured in this run on this card.
 """
@@ -965,13 +1007,15 @@ def score_and_time(tag, b, solve, res, j64, j_uref, reps, dev):
     return dict(quality=quality, **time_solves(tag, b, solve, reps, dev))
 
 
-def time_solves(tag, b, solve, reps, dev):
-    """Solves/s over `reps` batches of fresh x0s (the median)."""
+def time_solves(tag, b, solve, reps, dev, draw_x0s=None):
+    """Solves/s over `reps` batches of fresh x0s (the median); draw_x0s(rng)
+    gives a batch (numpy), by default the headline's U(-1, 1)^(B, 2)."""
     import torch
     rng = np.random.default_rng(123)
     walls, iters = [], []
     for _ in range(reps):
-        x0s = torch.tensor(rng.uniform(-1, 1, (b, 2)), dtype=torch.float32,
+        x0s = torch.tensor(rng.uniform(-1, 1, (b, 2)) if draw_x0s is None
+                           else draw_x0s(rng), dtype=torch.float32,
                            device=dev)
         sync(dev)
         t0 = time.perf_counter()
@@ -1468,12 +1512,17 @@ LOOP_TIMED = (('K1', 1, 128, 100, 2, 1), ('K1', 1, 512, 320, 3, 2),
 
 def time_loop_kernels(dev, lanes):
     """The f64 instances of K1 and K2 at the closed loop's shapes
-    (LOOP_TIMED, and K2 at the multistart's lane count): CUDA events over
-    50 host-enqueued calls, CUDA-graph slope, the plain version's events
-    time and the bound."""
+    (LOOP_TIMED, and K2 at the multistart's lane count), time_shapes."""
+    return time_shapes(dev, list(LOOP_TIMED)
+                       + [('K2', lanes[-1], 512, 320, 3, 2)], 'loop kernels',
+                       np.random.default_rng(11))
+
+
+def time_shapes(dev, shapes, tag, rng):
+    """The f64 instances of K1 / K2 at (kernel, B, N, valid rows, d, E)
+    `shapes`: CUDA events over 50 host-enqueued calls, CUDA-graph slope, the
+    plain version's events time, the bound and the launch plan."""
     from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
-    rng = np.random.default_rng(11)
-    shapes = list(LOOP_TIMED) + [('K2', lanes[-1], 512, 320, 3, 2)]
     res, fns = {}, {}
     for key, b, n, n_valid, d, e in shapes:
         tied = key == 'K1'
@@ -1483,18 +1532,22 @@ def time_loop_kernels(dev, lanes):
         name = f'{key} f64 B={b} N={n} d={d} E={e}'
         fns[name] = (lambda k=kern, a=args: k(*a))
         bound = bound_ms(b, n, n, d, e, 1 if tied else e, f64=True)
+        plan = vt.rw_tied_plan(b, n, n, d, e if tied else 1,
+                               args[0].dtype)._asdict()
+        plan['blocks_per_sm'] = vt.rw_tied_blocks_per_sm(
+            d, e if tied else 1, args[0].dtype)
         res[name] = dict(ms=cuda_ms(fns[name], 50),
                          plain_ms=cuda_ms(lambda p=plain, a=args: p(*a), 50),
-                         bound=bound,
-                         plan=vt.rw_tied_plan(b, n, n, d, e if tied else 1,
-                                              args[0].dtype)._asdict())
+                         bound=bound, plan=plan)
     for name, ms in graph_ms(fns, dev).items():
         r = res[name]
         r['graph_ms'] = ms
-        log(f'[loop kernels] {name}: {r["ms"]:.4f} ms by events, '
+        log(f'[{tag}] {name}: {r["ms"]:.4f} ms by events, '
             f'{ms:.4f} ms by graph slope, plain {r["plain_ms"]:.4f} ms, bound '
             f'{r["bound"][0]:.5f} ms ({r["bound"][1]}); grid '
-            f'{tuple(r["plan"]["grid"])}, S {r["plan"]["scenarios"]}')
+            f'{tuple(r["plan"]["grid"])}, S {r["plan"]["scenarios"]}, '
+            f'{r["plan"]["smem_bytes"]} shared bytes, '
+            f'{r["plan"]["blocks_per_sm"]} blocks an SM')
     return res
 
 
@@ -1806,6 +1859,513 @@ def phase_closed_loop(dev, checked, ref_path, out_dir):
     return out
 
 
+# (B, N, valid rows, d, E) of K1's launches in phase 8: suite config 3b
+# (B = 256 lanes, M = 128 inducing points, the cartpole's d = 5, E = 4),
+# config 4 (B = 64, M = 128, the pendulum's d = 3, E = 2; full covariance,
+# so a non-diagonal M2) and the uncertainty experiment (B = 1, its 400
+# points in capacity 512, d = 4, E = 2). Phase 3d checks K1 at each; phase 8
+# fails on a K1 launch at any other.
+SPARSE_SHAPES = ((256, 128, 128, 5, 4), (64, 128, 128, 3, 2),
+                 (1, 512, 400, 4, 2))
+# Config 3b's solve (benchmarks/suite.py config3b): the plain solve_batch at
+# 40 iterations, f32; three fresh-x0 batches timed; the cost-excess gate of
+# phase 5c.
+SPARSE_ITERS = 40
+SPARSE_REPS = 3
+SPARSE_P90_MAX = 0.01
+# Config 4's timed solve, cut from the suite's 40 iterations to 5: at H = 50
+# the full-covariance path issues ~50,000 device kernels a value-and-grad.
+FULLCOV_H50_ITERS = 5
+# The bars of sparse_objective_parity against JAX's stored f64 values, and
+# what the port reads on the CPU. The posterior (W, alpha) entrywise within
+# a share of its largest entry: W is a difference of two inverses of
+# matrices of condition 1e4 (3b) to 5e5 (config 4), so the packages' f64
+# fits agree only to a share of the largest entry (CPU: 3b 7.8e-11 and
+# 4.2e-10, config 4 3.3e-8 and 5.2e-8). J at rtol (CPU: 3b 1.4e-10; config
+# 4 4.4e-9 on its own fit, 4.3e-10 on JAX's posterior). The gradient within
+# a share of its largest entry at u = 0 (CPU: 3b 5e-11; config 4 on JAX's
+# posterior 1.1e-9 at 0 and 1.3e-7 at u_ref, on its own fit 3.5e-8 and
+# 2.4e-6: 50 steps of the full-covariance recurrence, with its eigenvalue
+# clip, amplify the rounding away from u = 0).
+SPARSE_BARS = {
+    '3b': dict(posterior=1e-8, j=1e-8, grad_zero=1e-8, grad_uref=1e-8),
+    '4 own fit': dict(posterior=1e-6, j=1e-7, grad_zero=1e-6,
+                      grad_uref=1e-4),
+    '4 carried': dict(j=1e-8, grad_zero=1e-8, grad_uref=1e-5)}
+# The per-scenario routes (phase 8c) against the stored JAX results: the
+# port on the CPU reads controls within 2.4e-13 (Adam) and 1.4e-10 (the GP
+# draws) of JAX's, costs within 7.4e-13 and 4.9e-12 relative, iterations
+# equal; the bars leave the card's f64 arithmetic about two decades.
+VMAP_U_ATOL = 1e-8
+VMAP_COST_RTOL = 1e-9
+# The uncertainty experiment (phase 8d) against the stored JAX results: on
+# the CPU the port's controls read within 1.8e-6 of JAX's at gamma = -1
+# after 112 iterations to JAX's 110 (the trace cancels and sigma_n = 1e-5
+# leaves the objective flat; 1.4e-7 at gamma = 1e-5, 29 iterations to 29),
+# its GP means 1.5e-6; the bar leaves the card almost two decades.
+UNC_ATOL = 1e-4
+# hs071's known optimum (tests/test_solver_oracle.py:35-36, 50-61's bars).
+HS071_X_STAR = (1.00000000, 4.74299963, 3.82114998, 1.37940829)
+HS071_F_STAR = 17.0140173
+
+
+def phase_sparse_kernels(dev):
+    """Phase 3d: K1 at the shapes of phase 8 (SPARSE_SHAPES), on the JAX
+    kernel test's inputs with the padded rows zeroed: the f32 instance
+    against the plain f64 version at that test's bars (forward and
+    backward), both instances at check_conditioned's bars; then the f64
+    instance timed at each (time_shapes: events, graph slope, plain, bound,
+    launch plan). Returns (the set of (kernel, instance, B, N, d, E)
+    checked, the max abs errors per shape, the timings)."""
+    import torch
+    rng = np.random.default_rng(17)
+    fn, ref = trace_fns(True)
+    checked, errs = set(), {}
+    for b, n, n_valid, d, e in SPARSE_SHAPES:
+        tag = f'K1 B={b} N={n} d={d} E={e}'
+        ins = loop_inputs(rng, b, n, n_valid, d, e, True, dev)
+        err = {'f32 bars': check_trace(f'{tag} ({n_valid} valid)', fn, ref,
+                                       *ins)}
+        for dtype, rtol in ((torch.float32, 5e-5), (torch.float64, 1e-12)):
+            err[_DT_NAME[str(dtype)]] = check_conditioned(
+                tag, fn, ref, *(t.detach() for t in ins[:4]), dtype, rtol)[0]
+        errs[tag] = err
+        checked |= {('K1', dt, b, n, d, e) for dt in ('f32', 'f64')}
+        log(f'[sparse kernels] {tag} ({n_valid} valid rows): f32 vs plain '
+            f'f64 max abs err {err["f32 bars"]:.3e} (fwd rtol 5e-5 atol 5e-5, '
+            f'bwd rtol 2e-3 atol 2e-4); conditioned bar f32 {err["f32"]:.3e}, '
+            f'f64 {err["f64"]:.3e} ok')
+    times = time_shapes(dev, [('K1', *shape) for shape in SPARSE_SHAPES],
+                        'sparse kernels', np.random.default_rng(19))
+    return checked, errs, times
+
+
+def assert_close_to_max(name, got, want, tol) -> float:
+    """|got - want| <= tol max |want| entrywise; returns the largest
+    |got - want| / max |want|."""
+    got = got.detach().double().cpu().numpy()
+    want = np.asarray(want)
+    rel = float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+    if not rel <= tol:
+        raise AssertionError(f'{name}: off by {rel:.3e} of its largest entry '
+                             f'(bar {tol})')
+    return rel
+
+
+def sparse_objective_parity(tag, name, ref, dev, bars, carried=False):
+    """The f64 objective of a sparse workload (problems.sparse_j64: the f64
+    FITC posterior, the workload's covariance) and its gradient on every
+    lane, at u = 0 and at the reference controls u_ref, against JAX's stored
+    values: J at rtol bars['j']; the gradient within bars['grad_zero'] /
+    bars['grad_uref'] of the largest gradient entry at 0 (at 3b's u_ref, an
+    optimum of tol 1e-9, the gradient is a cancelling residual). The
+    posterior is the port's own fit, its (W, alpha) within bars['posterior']
+    of JAX's largest entry, or with `carried` JAX's stored (W, alpha) carried
+    across (the rollout, cost and kernels alone). Exactly 2 H K1 f64
+    launches (one forward rollout at each point; the backward launches
+    none). Returns (j64, J64(u_ref), summary)."""
+    import dataclasses
+    import torch
+    from gpmpc_tpu_torch.dynamics import build_rollout_cache
+    from gpmpc_tpu_torch.parallel.batch import batch_objective
+    from gpmpc_tpu_torch.problems import (SPARSE_U_REF, SPARSE_WORKLOADS,
+                                          sparse_j64, sparse_problem)
+    p64 = sparse_problem(name, dtype=torch.float64, device=dev)
+    out = {}
+    if carried:
+        gp = dataclasses.replace(p64.gp, kinv=as64(ref[f'{tag}_w'], dev),
+                                 beta=as64(ref[f'{tag}_alpha'], dev))
+        j64 = batch_objective(
+            build_rollout_cache(gp, p64.state_dim, p64.action_dim), p64.x0s,
+            p64.params, full_cov=SPARSE_WORKLOADS[name]['full_cov'])
+    else:
+        out['w_rel'] = assert_close_to_max(f'{tag} W', p64.gp.kinv,
+                                           ref[f'{tag}_w'], bars['posterior'])
+        out['alpha_rel'] = assert_close_to_max(f'{tag} alpha', p64.gp.beta,
+                                               ref[f'{tag}_alpha'],
+                                               bars['posterior'])
+        j64 = sparse_j64(name, dev)
+    u_ref = as64(np.load(SPARSE_U_REF.format(name))['u_ref'], dev)
+    reset_counts()
+    vals = {}
+    for at, u0 in (('uref', u_ref), ('zero', torch.zeros_like(u_ref))):
+        u = u0.clone().requires_grad_()
+        j = j64(u)
+        (g,) = torch.autograd.grad(j.sum(), u)
+        vals[at] = (j.detach(), g)
+    sync(dev)
+    launches = read_counts()
+    if dev.type == 'cuda' and (launches['K1 f64'] != 2 * p64.horizon or any(
+            v for k, v in launches.items() if k != 'K1 f64')):
+        raise AssertionError(f'{tag}: the f64 objective and gradient at two '
+                             f'points launched {launches}, expected 2 H = '
+                             f'{2 * p64.horizon} K1 f64')
+    g_scale = float(np.abs(ref[f'{tag}_grad_zero']).max())
+    for at, (j, g) in vals.items():
+        j_want, g_want = ref[f'{tag}_j_{at}'], ref[f'{tag}_grad_{at}']
+        assert_close(f'{tag} J64 at u_{at}', j, torch.tensor(j_want),
+                     rtol=bars['j'], atol=0.0)
+        assert_close(f'{tag} dJ64/du at u_{at}', g, torch.tensor(g_want),
+                     rtol=0.0, atol=bars[f'grad_{at}'] * g_scale)
+        out[f'j_rel_{at}'] = float(np.max(np.abs(j.cpu().numpy() / j_want
+                                                 - 1)))
+        out[f'grad_err_{at}'] = float(np.max(np.abs(g.cpu().numpy() - g_want))
+                                      / g_scale)
+    posterior = ("JAX's (W, alpha) carried across" if carried else
+                 f'its own f64 fit (W, alpha {out["w_rel"]:.2e}, '
+                 f'{out["alpha_rel"]:.2e} of the largest entry of JAX\'s, bar '
+                 f'{bars["posterior"]})')
+    log(f'[sparse {tag}] on {posterior}: J64 on {u_ref.shape[0]} lanes at u_ref'
+        f' and 0 max rel err {out["j_rel_uref"]:.2e} / {out["j_rel_zero"]:.2e}'
+        f' (rtol {bars["j"]}); dJ/du {out["grad_err_uref"]:.2e} / '
+        f'{out["grad_err_zero"]:.2e} of max |g(0)| (bars {bars["grad_uref"]} '
+        f'/ {bars["grad_zero"]}) ok; launches {launches}')
+    return j64, vals['uref'][0], out
+
+
+def phase_sparse_3b(dev, ref, jax_tpu):
+    """Phase 8a: suite config 3b at full width (B = 256 cartpole lanes, the
+    FITC GP of M = 128 over N = 1,000, (d, E) = (5, 4), H = 10, f32): the
+    f64 parity, then the plain solve_batch at SPARSE_ITERS, counted (exactly
+    H (1 + iters) K1 f64 launches and no other kernel), scored against the
+    f64 reference controls (fails at p90 >= 1 %) and timed over fresh
+    x0s."""
+    import torch
+    from gpmpc_tpu_torch.dynamics import build_rollout_cache
+    from gpmpc_tpu_torch.mpc.solver import SolverConfig
+    from gpmpc_tpu_torch.parallel.batch import batch_objective, solve_batch
+    from gpmpc_tpu_torch.problems import cost_excess, sparse_problem
+    name = '3b_sparse_cartpole'
+    j64, j_uref, parity = sparse_objective_parity('3b', name, ref, dev,
+                                                  SPARSE_BARS['3b'])
+    p = sparse_problem(name, dtype=torch.float32, device=dev)
+    b = p.x0s.shape[0]
+    with torch.no_grad():
+        cost0 = batch_objective(build_rollout_cache(p.gp, 4, 1), p.x0s,
+                                p.params)(p.x0s.new_zeros((b, p.horizon, 1)))
+    cfg = SolverConfig(max_iters=SPARSE_ITERS, tol=1e-4)
+
+    def solve(x0s):
+        return solve_batch(p.gp, 4, 1, x0s, p.params, p.horizon, p.lb, p.ub,
+                           cfg)
+
+    res, launches, loop_iters = solve_checked(
+        'sparse 3b', f'solve_batch B={b} H={p.horizon} M=128 '
+        f'max_iters={SPARSE_ITERS}', solve, p.x0s, 'K1 f64', 1, p.horizon,
+        cost0)
+    quality = cost_excess(j64, res.u, j_uref)
+    log(f'[sparse 3b] cost excess vs f64 u_ref: p50 {quality["p50"]:.4%} p90 '
+        f'{quality["p90"]:.4%} max {quality["max"]:.4%}, lanes >1% '
+        f'{quality["lanes_above_1pct"]}/{b} (the JAX package on a TPU v5e, '
+        f'benchmarks/results/quality_sparse.json: p90 '
+        f'{jax_tpu["excess_p90"]:.4%}, max {jax_tpu["excess_max"]:.4%}, '
+        f'{jax_tpu["n_gt1pct"]} lanes)')
+    if not quality['p90'] < SPARSE_P90_MAX:
+        raise AssertionError(f'sparse 3b: p90 cost excess {quality["p90"]:.4%}'
+                             f' not below {SPARSE_P90_MAX:.0%}')
+    timed = time_solves('sparse 3b', b, solve, SPARSE_REPS, dev,
+                        lambda rng: rng.uniform(-0.2, 0.2, (b, 4)))
+    return dict(launches=launches, loop_iters=loop_iters, quality=quality,
+                parity=parity, **timed)
+
+
+def phase_sparse_fullcov(dev, ref, jax_tpu):
+    """Phase 8b: suite config 4 (B = 64, H = 50, the FITC GP of M = 128,
+    (d, E) = (3, 2), gamma = -0.01, full covariance): the f64 objective and
+    gradient at u_ref against JAX's, then one f32 solve at
+    FULLCOV_H50_ITERS, counted (H (1 + iters) K1 f64 and no other kernel)
+    and timed, its cost excess recorded beside the JAX package's (no gate:
+    40 iterations do not converge H = 50 either)."""
+    import torch
+    from gpmpc_tpu_torch.dynamics import build_rollout_cache
+    from gpmpc_tpu_torch.mpc.solver import SolverConfig
+    from gpmpc_tpu_torch.parallel.batch import batch_objective, solve_batch
+    from gpmpc_tpu_torch.problems import cost_excess, sparse_problem
+    name = '4_sparse_fullcov'
+    parity = {'carried': sparse_objective_parity(
+        '4', name, ref, dev, SPARSE_BARS['4 carried'], carried=True)[2]}
+    j64, j_uref, parity['own fit'] = sparse_objective_parity(
+        '4', name, ref, dev, SPARSE_BARS['4 own fit'])
+    p = sparse_problem(name, dtype=torch.float32, device=dev)
+    b = p.x0s.shape[0]
+    with torch.no_grad():
+        cost0 = batch_objective(build_rollout_cache(p.gp, 2, 1), p.x0s,
+                                p.params, full_cov=True)(
+            p.x0s.new_zeros((b, p.horizon, 1)))
+    cfg = SolverConfig(max_iters=FULLCOV_H50_ITERS, tol=1e-4)
+
+    def solve(x0s):
+        return solve_batch(p.gp, 2, 1, x0s, p.params, p.horizon, p.lb, p.ub,
+                           cfg, full_cov=True)
+
+    (res, launches, loop_iters), wall = _timed(lambda: solve_checked(
+        'sparse 4', f'solve_batch(full_cov=True) B={b} H={p.horizon} M=128 '
+        f'max_iters={FULLCOV_H50_ITERS} (cut from 40)', solve, p.x0s,
+        'K1 f64', 1, p.horizon, cost0), dev)
+    quality = cost_excess(j64, res.u, j_uref)
+    log(f'[sparse 4] one solve {wall:.3f} s ({b / wall:.2f} solves/s, '
+        f'{wall / (1 + loop_iters):.3f} s a value-and-grad); cost excess vs '
+        f'f64 u_ref: p50 {quality["p50"]:.4%} p90 {quality["p90"]:.4%}, lanes '
+        f'>1% {quality["lanes_above_1pct"]}/{b} (no gate; the JAX package at '
+        f'40 iterations on a TPU v5e: p50 {jax_tpu["excess_p50"]:.2%})')
+    return dict(launches=launches, loop_iters=loop_iters, wall_s=wall,
+                solves_per_s=b / wall, quality=quality, parity=parity)
+
+
+def phase_vmap_routes(dev, ref):
+    """Phase 8c: the per-scenario routes in f64 against JAX's stored
+    results, with no kernel launched (the single-scenario rollout): (1)
+    solve_batch with projected Adam ('auto' -> 'vmap') on four headline
+    lanes; (2) solve_batch_gp over stack_gps of three headline data draws.
+    u within VMAP_U_ATOL, costs VMAP_COST_RTOL, iterations equal."""
+    import torch
+    from gpmpc_tpu_torch.mpc.solver import SolverConfig
+    from gpmpc_tpu_torch.parallel.batch import (solve_batch, solve_batch_gp,
+                                                stack_gps)
+    from gpmpc_tpu_torch.problems import make_headline_problem
+    cfgs = json.loads(str(ref['configs']))
+    hp = make_headline_problem(b=256, dtype=torch.float64, device=dev)
+    lanes = torch.as_tensor(ref['adam_lanes'], device=dev)
+    gps = stack_gps([make_headline_problem(b=1, dtype=torch.float64,
+                                           seed=int(s), device=dev).gp
+                     for s in ref['gp_seeds']])
+    runs = {
+        'adam': lambda: solve_batch(
+            hp.gp, 2, 1, hp.x0s[lanes], hp.params._replace(
+                gamma=hp.params.gamma[lanes]), hp.horizon, hp.lb, hp.ub,
+            SolverConfig(**cfgs['adam'])),
+        'gp': lambda: solve_batch_gp(
+            gps, 2, 1, hp.x0s[:len(ref['gp_seeds'])], hp.params._replace(
+                gamma=as64(cfgs['gp_gammas'], dev)), hp.horizon, hp.lb,
+            hp.ub, SolverConfig(**cfgs['gp_solver']))}
+    out = {}
+    for key, run in runs.items():
+        reset_counts()
+        res, wall = _timed(run, dev)
+        launches = read_counts()
+        if any(launches.values()):
+            raise AssertionError(f'vmap route {key}: launched {launches}')
+        u_err = assert_close(f'vmap {key} u', res.u, torch.tensor(
+            ref[f'{key}_u']), rtol=0.0, atol=VMAP_U_ATOL)
+        assert_close(f'vmap {key} cost', res.cost,
+                     torch.tensor(ref[f'{key}_cost']), rtol=VMAP_COST_RTOL,
+                     atol=0.0)
+        cost_rel = float(np.max(np.abs(res.cost.cpu().numpy()
+                                       / ref[f'{key}_cost'] - 1)))
+        iters = res.iters.cpu().numpy()
+        if not np.array_equal(iters, ref[f'{key}_iters']):
+            raise AssertionError(f'vmap {key}: iterations {iters}, JAX '
+                                 f'{ref[f"{key}_iters"]}')
+        out[key] = dict(u_max_abs_err=u_err, cost_rel_err=cost_rel,
+                        iters=iters.tolist(), wall_s=wall)
+        log(f'[vmap {key}] {len(iters)} lanes: u max abs err vs JAX {u_err:.2e}'
+            f' (atol {VMAP_U_ATOL}), costs {cost_rel:.2e} (rtol '
+            f'{VMAP_COST_RTOL}), iterations {iters.tolist()} equal ok; no '
+            f'kernel launched; {wall:.3f} s')
+    return out
+
+
+def phase_uncertainty(dev, ref):
+    """Phase 8d: experiments/uncertainty.py at its published settings on
+    the card, each gamma counted: exactly H (1 + iters) K1 f64 launches (the
+    controller's B = 1 route), its controls and GP means along them within
+    UNC_ATOL of JAX's stored f64 results, its iterations beside JAX's.
+    Returns the summary and the gamma = -1 controller."""
+    from gpmpc_tpu_torch.experiments.uncertainty import uncertainty_experiment
+    out, mpc = {}, None
+    for k, gamma in enumerate(ref['unc_gammas']):
+        reset_counts()
+        res, wall = _timed(lambda: uncertainty_experiment(
+            gammas=(float(gamma),), verbose=False, device=dev), dev)
+        r = res[float(gamma)]
+        launches = read_counts()
+        horizon = r['u'].shape[0]
+        if dev.type == 'cuda' and (
+                launches['K1 f64'] != horizon * (1 + r['iters']) or any(
+                    v for key, v in launches.items() if key != 'K1 f64')):
+            raise AssertionError(f'uncertainty gamma={gamma}: launches '
+                                 f'{launches}, iters {r["iters"]}')
+        u_err = float(np.max(np.abs(r['u'] - ref['unc_u'][k])))
+        m_err = float(np.max(np.abs(r['expected'] - ref['unc_expected'][k])))
+        if not (u_err <= UNC_ATOL and m_err <= UNC_ATOL):
+            raise AssertionError(f'uncertainty gamma={gamma}: u off JAX by '
+                                 f'{u_err:.3e}, means by {m_err:.3e} (atol '
+                                 f'{UNC_ATOL})')
+        out[str(float(gamma))] = dict(
+            wall_s=wall, iters=r['iters'], jax_iters=int(ref['unc_iters'][k]),
+            u_max_abs_err=u_err, means_max_abs_err=m_err, **launches)
+        if k == 0:
+            mpc, u_first = r['mpc'], r['u']
+        log(f'[uncertainty] gamma={gamma}: {wall:.3f} s with the fit, '
+            f'{r["iters"]} iterations (JAX {int(ref["unc_iters"][k])}), K1 f64 '
+            f'{launches["K1 f64"]} = H (1 + iters) ok; u vs JAX max abs err '
+            f'{u_err:.2e}, means {m_err:.2e} (atol {UNC_ATOL}) ok')
+    return out, mpc, u_first
+
+
+def phase_aux(dev, mpc, u_mpc, out_dir):
+    """Phase 8e: hs071 by solve_constrained in f64 on the card (x* and f*
+    within 1e-5, violations below 1e-7); checkpoint round trips on the card
+    (the uncertainty controller's GP, every array equal, and the controller,
+    whose resumed solve is within UNC_ATOL of its last controls: on this
+    flat objective two identical solves on the CPU's 4 threads differ by
+    1.8e-7, the reductions' order); and
+    native.solve_box built into gpmpc_tpu_torch/_build/ on the integrator
+    objective (u within 1e-4 of the bound -1 on the first four steps, and
+    within 5e-3 of solve_trajectory's)."""
+    import torch
+    from gpmpc_tpu_torch import native
+    from gpmpc_tpu_torch.dynamics import build_rollout_cache, rollout
+    from gpmpc_tpu_torch.gp.state import GPConfig, make_gp
+    from gpmpc_tpu_torch.mpc.constrained import solve_constrained
+    from gpmpc_tpu_torch.mpc.controller import single_cost
+    from gpmpc_tpu_torch.mpc.cost import CostParams
+    from gpmpc_tpu_torch.mpc.solver import SolverConfig, solve_trajectory
+    from gpmpc_tpu_torch.utils import checkpoint
+    out = {}
+
+    def no_launch(part):
+        launches = read_counts()
+        if any(launches.values()):
+            raise AssertionError(f'{part} launched {launches}')
+
+    reset_counts()
+
+    def hs071(x):
+        return x[0] * x[3] * (x[0] + x[1] + x[2]) + x[2]
+
+    res, wall = _timed(lambda: solve_constrained(
+        hs071, as64([1.0, 5.0, 5.0, 1.0], dev), 1.0, 5.0,
+        eq_con=lambda x: (torch.sum(x * x) - 40.0)[None],
+        ineq_con=lambda x: (x[0] * x[1] * x[2] * x[3] - 25.0)[None],
+        config=SolverConfig(max_iters=200, tol=1e-10), outer_iters=15), dev)
+    x_err = float(np.max(np.abs(res.u.cpu().numpy() - HS071_X_STAR)))
+    f_err = abs(float(res.cost) - HS071_F_STAR)
+    if not (x_err < 1e-5 and f_err < 1e-5 and float(res.eq_viol) < 1e-7
+            and float(res.ineq_viol) < 1e-7 and res.u.device.type == dev.type):
+        raise AssertionError(f'hs071: {res}')
+    no_launch('hs071')
+    out['hs071'] = dict(x_err=x_err, f_err=f_err, eq_viol=float(res.eq_viol),
+                        ineq_viol=float(res.ineq_viol), wall_s=wall)
+    log(f'[aux] hs071 by solve_constrained on {dev}: |x - x*| {x_err:.2e}, '
+        f'|f - f*| {f_err:.2e} (< 1e-5), violations {float(res.eq_viol):.1e}'
+        f' / {float(res.ineq_viol):.1e} (< 1e-7) ok; {wall:.3f} s')
+
+    base = os.path.join(out_dir, 'checkpoint', 'uncertainty')
+    checkpoint.save_controller(base, mpc)
+    gp2 = checkpoint.load_gp(base + '.gp.npz', device=dev)
+    for f in checkpoint._ARRAY_FIELDS:
+        a, b = getattr(gp2, f), getattr(mpc.gp, f)
+        if a.device.type != dev.type or not torch.equal(a, b):
+            raise AssertionError(f'checkpoint: GP field {f} changed')
+    mpc2 = checkpoint.load_controller(base, device=dev)
+    reset_counts()
+    u2 = mpc2.get_optimal_trajectory(np.array([4.0, -4.0]))
+    launches = read_counts()
+    want = mpc2.horizon * (1 + int(mpc2.last_result.iters))
+    ck_err = float(np.max(np.abs(u2 - u_mpc)))
+    if not (ck_err <= UNC_ATOL and mpc2.gamma == mpc.gamma
+            and np.array_equal(mpc2.last_traj, u2)):
+        raise AssertionError(f'checkpoint: the resumed solve is off by '
+                             f'{ck_err:.3e}')
+    if dev.type == 'cuda' and (launches['K1 f64'] != want or any(
+            v for k, v in launches.items() if k != 'K1 f64')):
+        raise AssertionError(f'checkpoint: the resumed solve launched '
+                             f'{launches}, expected {want} K1 f64')
+    out['checkpoint'] = dict(resumed_u_err=ck_err, **launches)
+    log(f'[aux] checkpoint of the uncertainty controller on {dev}: every GP '
+        f'array equal, the resumed solve within {ck_err:.1e} of its controls '
+        f'ok; launches {launches}')
+    reset_counts()
+
+    rng = np.random.default_rng(0)
+    s = rng.uniform(-10, 10, (60, 1))
+    a = rng.uniform(-1, 1, (60, 1))
+    gp = make_gp(GPConfig(capacity=64, x_dim=2, out_dim=1),
+                 np.concatenate([s, a], 1), s + a,
+                 log_lambdas=np.log([2.0, 2.0]), log_sigma_f=np.log(3.0),
+                 log_sigma_n=np.log(1e-4), dtype=torch.float64, device=dev)
+    cache = build_rollout_cache(gp, 1, 1)
+    params = CostParams(Q=2 * torch.eye(1, dtype=torch.float64, device=dev),
+                        R=torch.zeros((1, 1), dtype=torch.float64, device=dev),
+                        gamma=as64(1e-5, dev), x_ref=as64([0.0], dev),
+                        u_ref=as64([0.0], dev))
+    x0 = as64([5.0], dev)
+
+    def obj(u):
+        m, c = rollout(cache, x0, u)
+        return single_cost(params, m, c, u)
+
+    def fg(u_flat):
+        u = as64(u_flat, dev).reshape(5, 1).requires_grad_()
+        v = obj(u)
+        (g,) = torch.autograd.grad(v, u)
+        return float(v.detach()), g.cpu().numpy().ravel()
+
+    built = not native.library_path().exists()
+    build_s = _timed(native.build, dev)[1]
+    res_n, wall = _timed(lambda: native.solve_box(
+        fg, np.zeros(5), -np.ones(5), np.ones(5), max_iters=200, tol=1e-8),
+        dev)
+    res_p = solve_trajectory(obj, torch.zeros((5, 1), dtype=torch.float64,
+                                              device=dev), -1.0, 1.0,
+                             SolverConfig(max_iters=400, tol=1e-6))
+    p_err = float(np.max(np.abs(res_p.u.cpu().numpy().ravel() - res_n.x)))
+    if not (np.max(np.abs(res_n.x[:4] + 1.0)) < 1e-4 and p_err < 5e-3
+            and native.library_path().parent.name == '_build'):
+        raise AssertionError(f'native: {res_n}, solve_trajectory off by '
+                             f'{p_err}')
+    no_launch('native')
+    out['native'] = dict(x=res_n.x.tolist(), iterations=res_n.iterations,
+                         vs_solve_trajectory=p_err, built=built,
+                         build_s=build_s, wall_s=wall)
+    log(f'[aux] native.solve_box ({"built" if built else "found"} in '
+        f'{native.library_path().parent}, {build_s:.2f} s) on the integrator '
+        f'objective: u '
+        f'{np.round(res_n.x, 6).tolist()}, {res_n.iterations} iterations, '
+        f'solve_trajectory within {p_err:.1e} ok; no kernel launched')
+    return out
+
+
+def phase_sparse(dev, checked, out_dir):
+    """Phase 8: the sparse GP, the per-scenario routes and the remaining
+    modules, each part with the counts set to 0 just before it and read just
+    after, every K1 launch at a shape phase 3d checked: (a) config 3b, (b)
+    config 4, (c) the per-scenario routes, (d) the uncertainty experiment,
+    (e) hs071, checkpoints and the native solver."""
+    from gpmpc_tpu_torch.problems import SPARSE_REF_FILE
+    ref = np.load(SPARSE_REF_FILE)
+    with open(os.path.join(ROOT, 'benchmarks', 'results',
+                           'quality_sparse.json')) as f:
+        jax_tpu = json.load(f)
+    out = {}
+    t_phase = time.perf_counter()
+    with record_launch_shapes() as shapes:
+        for key, fn in (('3b', lambda: phase_sparse_3b(
+                dev, ref, jax_tpu['3b_sparse_cartpole'])),
+                        ('4', lambda: phase_sparse_fullcov(
+                            dev, ref, jax_tpu['4_sparse_fullcov'])),
+                        ('vmap', lambda: phase_vmap_routes(dev, ref))):
+            t0 = time.perf_counter()
+            out[key] = fn()
+            out[key + '_phase_s'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out['uncertainty'], mpc, u_mpc = phase_uncertainty(dev, ref)
+        out['uncertainty_phase_s'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out['aux'] = phase_aux(dev, mpc, u_mpc, out_dir)
+        out['aux_phase_s'] = time.perf_counter() - t0
+    unchecked = {k: v for k, v in shapes.items() if k not in checked}
+    if unchecked or not shapes:
+        raise AssertionError(f'phase 8: K1/K2 launched at shapes phase 3d did '
+                             f'not check: {unchecked}')
+    out['launch_shapes'] = {' '.join(map(str, k)): v for k, v in shapes.items()}
+    out['wall_s'] = time.perf_counter() - t_phase
+    log(f'[sparse] calls by (kernel, instance, B, N, d, E), each checked in '
+        f'phase 3d ok: {out["launch_shapes"]}; phase {out["wall_s"]:.1f} s')
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--out', default=os.path.join(ROOT, 'chip_smoke_out'),
@@ -1853,6 +2413,7 @@ def main() -> int:
     checks, precision = phase_kernels(dev, b, 200, cache)
     loop_checked, loop_errs, loop_lanes = phase_loop_kernels(dev)
     loop_times = time_loop_kernels(dev, loop_lanes)
+    sparse_checked, sparse_errs, sparse_times = phase_sparse_kernels(dev)
     times = {dt: time_kernels(dev, b, cache, 50, dt) for dt in (f32, f64)}
     k1_f64_wide = time_k1_f64_wide(dev, RECIPE_WIDTHS[-1], cache)
     k1_instr = instr_bound_ms(b, cache.x.shape[0], 3, cache.b_lam.shape[0],
@@ -1882,6 +2443,7 @@ def main() -> int:
     sharded_11 = phase_sharded_11(dev, b, j64, j_uref, reps=3, out_dir=out_dir)
     sharded_12 = phase_sharded_12(dev, b, ref, out_dir)
     loop = phase_closed_loop(dev, loop_checked, CLOSED_LOOP_REF, out_dir)
+    sparse = phase_sparse(dev, sparse_checked, out_dir)
 
     # One row a kernel instance that a path launches: K1's f32 instance (the
     # k1_f32 solve) and its f64 instance (the recipe, the main path); K2-K4
@@ -1928,6 +2490,22 @@ def main() -> int:
             launches=launches, max_abs_err=loop_errs[f'{key} {shape}']['f64'],
             ms=t['ms'], plain_ms=t['plain_ms'], bound_ms=t['bound'][0],
             bound_by=t['bound'][1], library_ms=None))
+    # Phase 8's rows: K1's f64 instance at each shape of phase 8, with the
+    # launches of the part that runs it there.
+    for (b, n, _, d, e), part, launches in zip(
+            SPARSE_SHAPES, ('suite config 3b, the sparse cartpole solve',
+                            'suite config 4, the full-covariance H = 50 solve',
+                            'the uncertainty experiment, both gammas'),
+            (sparse['3b']['launches'], sparse['4']['launches'],
+             sum(r['K1 f64'] for r in sparse['uncertainty'].values()))):
+        shape = f'B={b} N={n} d={d} E={e}'
+        t = sparse_times[f'K1 f64 {shape}']
+        kernels.append(dict(
+            name=f'K1 f64 instance, phase 8 ({part}, {shape})', route='cuda',
+            source=SOURCE_F64, replaces=f'{TPU_FILE}:638', launches=launches,
+            max_abs_err=sparse_errs[f'K1 {shape}']['f64'], ms=t['ms'],
+            plain_ms=t['plain_ms'], bound_ms=t['bound'][0],
+            bound_by=t['bound'][1], library_ms=None))
     # The probes' rows: `ms` is the kernel-only graph slope of P1's `full`
     # (K1's body) and of P2's `base` counterpart `tc_p`; `launches` counts the
     # probe's own wrapper calls in its run, not the solve's.
@@ -1950,7 +2528,9 @@ def main() -> int:
                   recipe=recipe, full_cov=full_cov, sym_solve=sym_solve,
                   sharded_1x1=sharded_11, sharded_1x2=sharded_12,
                   closed_loop=loop, loop_kernel_errs=loop_errs,
-                  loop_kernel_times=loop_times,
+                  loop_kernel_times=loop_times, sparse=sparse,
+                  sparse_kernel_errs=sparse_errs,
+                  sparse_kernel_times=sparse_times,
                   profile=prof, k1_instr_bound_ms=k1_instr,
                   precision=precision, k1_f64_wide=k1_f64_wide,
                   kernel_times={str(dt): r for dt, r in times.items()},

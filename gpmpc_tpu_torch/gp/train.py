@@ -51,6 +51,23 @@ def _neg_ml_and_grad(state64: GPState, hp, resid, n, flags):
     return [g if f else torch.zeros_like(g) for g, f in zip(grads, flags)]
 
 
+def adam_step(params, grads, mu, nu, count: int, lr: float):
+    """One step of optax's adam(lr, b1=0.9, b2=0.999, eps=1e-8) descending
+    on each tensor of `params` (lists of tensors): the moments update, bias
+    correction by the step count `count` (1 on the first step) and
+    params - lr m_hat / (sqrt(v_hat) + eps). Returns (params, mu, nu)."""
+    out = ([], [], [])
+    for p, g, m, v in zip(params, grads, mu, nu):
+        m = (1 - _B1) * g + _B1 * m
+        v = (1 - _B2) * g ** 2 + _B2 * v
+        m_hat = m / (1 - _B1 ** count)
+        v_hat = v / (1 - _B2 ** count)
+        for lst, val in zip(out, (p + (-lr) * (m_hat / (torch.sqrt(v_hat)
+                                                        + _EPS)), m, v)):
+            lst.append(val)
+    return out
+
+
 def _gnorm(g) -> float:
     return max(float(torch.max(torch.abs(gi))) for gi in g)
 
@@ -82,13 +99,7 @@ def train_hyperparams(state: GPState, num_iters: int = 1000, lr: float = 0.1,
     nu = [torch.zeros_like(h) for h in hp]
     t = 0
     while t < num_iters and _gnorm(g) >= tol:
-        count = t + 1
-        for i in range(3):
-            mu[i] = (1 - _B1) * g[i] + _B1 * mu[i]
-            nu[i] = (1 - _B2) * g[i] ** 2 + _B2 * nu[i]
-            mu_hat = mu[i] / (1 - _B1 ** count)
-            nu_hat = nu[i] / (1 - _B2 ** count)
-            hp[i] = hp[i] + (-lr) * (mu_hat / (torch.sqrt(nu_hat) + _EPS))
+        hp, mu, nu = adam_step(hp, g, mu, nu, t + 1, lr)
         if min_sigma_n > 0.0:
             hp[2] = torch.clamp(hp[2], min=log_floor)
         g = _neg_ml_and_grad(state64, hp, resid, n, flags)

@@ -275,7 +275,9 @@ def _solve_lbfgs(objective, u_init, lb, ub, config: SolverConfig) -> SolveResult
 def _solve_adam(objective, u_init, lb, ub, config: SolverConfig) -> SolveResult:
     """Projected Adam, one gradient an iteration, stopped at the projected-
     gradient residual < tol or the cap; then `polish_iters` steps of
-    lr 2^(-i/4) g / (max|g| + eps). Non-finite gradients count as 0."""
+    lr 2^(-i/4) g / (max|g| + eps). Non-finite gradients count as 0 in the
+    steps; the returned pg_norm reads the final gradient as it is (NaN where
+    it is not finite), as JAX's does."""
     dt, dev = u_init.dtype, u_init.device
     lb = torch.as_tensor(lb, dtype=dt, device=dev).broadcast_to(u_init.shape)
     ub = torch.as_tensor(ub, dtype=dt, device=dev).broadcast_to(u_init.shape)
@@ -284,10 +286,12 @@ def _solve_adam(objective, u_init, lb, ub, config: SolverConfig) -> SolveResult:
     def proj(u):
         return torch.minimum(torch.maximum(u, lb), ub)
 
-    def grad(u):
+    def grad(u, finite=True):
         u_var = u.detach().requires_grad_(True)
         with torch.enable_grad():
             (g,) = torch.autograd.grad(objective(u_var), u_var)
+        if not finite:
+            return g
         return torch.where(torch.isfinite(g), g, torch.zeros_like(g))
 
     def pg_residual(u, g):
@@ -316,4 +320,4 @@ def _solve_adam(objective, u_init, lb, ub, config: SolverConfig) -> SolveResult:
         cost = objective(u)
     return SolveResult(u=u, cost=cost,
                        iters=torch.tensor(t, dtype=torch.int32, device=dev),
-                       pg_norm=pg_residual(u, grad(u)))
+                       pg_norm=pg_residual(u, grad(u, finite=False)))

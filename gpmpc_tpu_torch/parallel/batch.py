@@ -1,11 +1,16 @@
-"""Batched GP-MPC solves against one shared GP posterior (port of
-gpmpc_tpu/parallel/batch.py: `solve_batch`'s fused branch, the multistart
-recipes `solve_batch_multistart` and `solve_batch_multistart_retired`,
-`solve_batch_staged` and `solve_batch_sharded`).
+"""Batched GP-MPC solves (port of gpmpc_tpu/parallel/batch.py: `solve_batch`
+with its fused and per-scenario routes, the multistart recipes
+`solve_batch_multistart` and `solve_batch_multistart_retired`,
+`solve_batch_staged`, `solve_batch_sharded`, and `solve_batch_gp` over a
+stack of GP draws, `stack_gps`).
 
 The unit of work is one full trajectory optimization. Initial states and
 per-lane cost parameters (a gamma sweep, say) fan out over a leading (B,)
-axis; the rollout cache is built once and shared by every lane.
+axis; the rollout cache is built once and shared by every lane. The
+per-scenario route (`impl='vmap'`, and `solve_batch_gp`, whose lanes each
+carry their own GP) solves lane by lane with the single-scenario rollout and
+`solve_trajectory`, as JAX's vmap of one solve does: each lane has its own
+line search, history and stop, and the variance runs no kernel.
 `solve_batch_sharded` splits the lanes over the batch axis of a process mesh
 (parallel/mesh.py): each rank solves its lanes against the replicated GP with
 no collective inside the solve, and the results are gathered.
@@ -20,18 +25,20 @@ their real lanes before the write. Work that needs no gradient runs under
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from gpmpc_tpu_torch.device import ensure_true_f32
 from gpmpc_tpu_torch.dynamics import (RolloutCache, build_rollout_cache,
-                                      rollout_batched)
+                                      rollout, rollout_batched)
 from gpmpc_tpu_torch.gp.state import GPState
 from gpmpc_tpu_torch.mpc.cost import (CostParams, is_lane_leaf,
                                       risk_sensitive_cost)
 from gpmpc_tpu_torch.mpc.solver import (SolverConfig, SolveResult,
+                                        solve_trajectory,
                                         solve_trajectory_batched)
 from gpmpc_tpu_torch.parallel.mesh import BATCH_AXIS, gather_lanes, lane_slice
 
@@ -54,14 +61,39 @@ def batch_objective(cache: RolloutCache, x0s: torch.Tensor,
     return objective_b
 
 
-def _setup(gp: GPState, x0s: torch.Tensor, state_dim: int,
-           action_dim: int) -> RolloutCache:
-    """The checks every driver makes (x0s on the GP's device, TF32 off) and
-    the rollout cache."""
+def _check_device(gp: GPState, x0s: torch.Tensor) -> None:
+    """x0s on the GP's device, TF32 off."""
     if x0s.device != gp.x.device:
         raise ValueError(f'x0s lies on {x0s.device}, the GP on {gp.x.device}')
     ensure_true_f32()
+
+
+def _setup(gp: GPState, x0s: torch.Tensor, state_dim: int,
+           action_dim: int) -> RolloutCache:
+    """The checks every batch solve makes (_check_device) and the
+    rollout cache."""
+    _check_device(gp, x0s)
     return build_rollout_cache(gp, state_dim, action_dim)
+
+
+def _single_solve(cache: RolloutCache, params: CostParams, x0, u_init, lb, ub,
+                  solver: SolverConfig, full_cov: bool,
+                  delta: bool = False) -> SolveResult:
+    """One lane's solve: the single-scenario rollout from x0 (ds,) and
+    `solve_trajectory` from u_init (H, da); params are shared-rank."""
+    def objective(u):
+        means, covs = rollout(cache, x0, u, full_cov=full_cov, delta=delta)
+        return risk_sensitive_cost(params, means[None], covs[None], u[None])[0]
+
+    return solve_trajectory(objective, u_init, lb, ub, solver)
+
+
+def _stack_results(results: Sequence[SolveResult]) -> SolveResult:
+    """Per-lane results stacked along a leading (B,) axis; `converged` stays
+    None where the solver gives none (Adam)."""
+    return SolveResult(*(None if results[0][k] is None
+                         else torch.stack([r[k] for r in results])
+                         for k in range(len(SolveResult._fields))))
 
 
 def solve_batch(gp: GPState, state_dim: int, action_dim: int,
@@ -74,24 +106,37 @@ def solve_batch(gp: GPState, state_dim: int, action_dim: int,
                 delta: bool = False,
                 impl: str = 'auto') -> SolveResult:
     """B independent solves against one shared GP posterior, on the GP's
-    device: the explicitly-batched rollout and the lockstep L-BFGS.
+    device.
 
-    impl: 'auto' and 'fused' run the batched path; 'vmap' (the JAX package's
-    per-scenario oracle twin) is not ported yet."""
-    if impl == 'vmap':
-        raise NotImplementedError(
-            "solve_batch(impl='vmap') is not ported: the per-scenario solver "
-            'is a later slice (ROADMAP section 1, item 11).')
-    if impl not in ('auto', 'fused'):
+    impl: 'fused' runs the explicitly-batched rollout and the lockstep
+    L-BFGS (the production path, through the variance-trace kernels);
+    'vmap' solves each lane on its own with the single-scenario rollout and
+    `solve_trajectory` (the oracle twin; any solver method, nominal models);
+    'auto' picks 'fused' for L-BFGS without a nominal model and 'vmap'
+    otherwise. 'fused' with a method other than L-BFGS raises ValueError."""
+    if impl not in ('auto', 'fused', 'vmap'):
         raise ValueError(f'unknown impl {impl!r}')
+    if impl == 'fused' and solver.method != 'lbfgs':
+        raise ValueError(
+            "impl='fused' runs under the lockstep L-BFGS solver; it cannot "
+            f"honor solver.method={solver.method!r}. Use impl='vmap' (or "
+            "'auto').")
     cache = _setup(gp, x0s, state_dim, action_dim)
     b = x0s.shape[0]
     if u_init is None:
         u_init = x0s.new_zeros((b, horizon, action_dim))
+    if impl == 'auto':
+        impl = ('fused' if solver.method == 'lbfgs' and cache.nominal_fn is None
+                else 'vmap')
 
-    return solve_trajectory_batched(
-        batch_objective(cache, x0s, params, delta, full_cov), u_init, lb, ub,
-        solver)
+    if impl == 'fused':
+        return solve_trajectory_batched(
+            batch_objective(cache, x0s, params, delta, full_cov), u_init, lb,
+            ub, solver)
+    return _stack_results([
+        _single_solve(cache, _gather_params(params, i), x0s[i], u_init[i],
+                      lb, ub, solver, full_cov, delta)
+        for i in range(b)])
 
 
 def _map_lane_leaves(params: CostParams, fn) -> CostParams:
@@ -823,3 +868,41 @@ def solve_batch_sharded(mesh, gp: GPState, state_dim: int, action_dim: int,
                       shard_params(params, lanes, b), horizon, lb, ub, solver,
                       full_cov=full_cov, delta=delta, impl=impl)
     return gather_result(mesh, res, axis)
+
+
+_GP_TENSORS = tuple(f.name for f in dataclasses.fields(GPState)
+                    if f.name != 'config')
+
+
+def stack_gps(gp_list: Sequence[GPState]) -> GPState:
+    """GPStates of one config (same capacity, dims and flags) stacked into
+    one with a leading (B,) axis on every tensor."""
+    cfg = gp_list[0].config
+    if any(g.config != cfg for g in gp_list):
+        raise ValueError('stack_gps: the GP states differ in their config')
+    return dataclasses.replace(gp_list[0], **{
+        name: torch.stack([getattr(g, name) for g in gp_list])
+        for name in _GP_TENSORS})
+
+
+def solve_batch_gp(gps: GPState, state_dim: int, action_dim: int,
+                   x0s: torch.Tensor, params: CostParams, horizon: int,
+                   lb, ub, solver: SolverConfig = SolverConfig(),
+                   full_cov: bool = False) -> SolveResult:
+    """B solves, each against its own GP draw (gps has a leading (B,) axis
+    on every tensor, see stack_gps), lane by lane on the single-scenario
+    route. gamma may be (B,); the other cost leaves are shared."""
+    _check_device(gps, x0s)
+    b = x0s.shape[0]
+    u_init = x0s.new_zeros((b, horizon, action_dim))
+    gamma = torch.as_tensor(params.gamma)
+    gamma_b = gamma if gamma.ndim == 1 else gamma.expand(b)
+    results = []
+    for i in range(b):
+        gp_i = dataclasses.replace(
+            gps, **{name: getattr(gps, name)[i] for name in _GP_TENSORS})
+        cache = build_rollout_cache(gp_i, state_dim, action_dim)
+        results.append(_single_solve(cache, params._replace(gamma=gamma_b[i]),
+                                     x0s[i], u_init[i], lb, ub, solver,
+                                     full_cov))
+    return _stack_results(results)

@@ -1,16 +1,19 @@
-"""The headline problem (port of `make_headline_problem`,
-benchmarks/problems.py).
+"""The benchmark problems (port of benchmarks/problems.py:
+`make_headline_problem`, `cartpole_data`, `make_sparse_cartpole_problem`,
+`make_sparse_fullcov_problem`).
 
-B independent risk-sensitive GP-MPC solves against a shared exact-GP
-pendulum-dimension posterior (ds = 2, da = 1): N = 200 training points in
-capacity 256, tied lengthscales 4, sigma_n = 0.1, horizon 20, a gamma sweep
-over [-0.5, 0.5] and bounds +-5. The data come from numpy with the same seed
-and draw order as the JAX package, so both build the same GP.
+The headline problem: B independent risk-sensitive GP-MPC solves against a
+shared exact-GP pendulum-dimension posterior (ds = 2, da = 1): N = 200
+training points in capacity 256, tied lengthscales 4, sigma_n = 0.1, horizon
+20, a gamma sweep over [-0.5, 0.5] and bounds +-5. The sparse problems, the
+benchmark suite's configs 3b and 4: N = 1,000 transitions through a FITC GP
+of M = 128 inducing points (gp/sparse.py). The data come from numpy with the
+same seeds and draw order as the JAX package, so both build the same GPs.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import functools
 import os
@@ -20,6 +23,8 @@ import torch
 
 from gpmpc_tpu_torch.device import resolve_device
 from gpmpc_tpu_torch.dynamics import build_rollout_cache
+from gpmpc_tpu_torch.envs.cartpole import CartPoleParams
+from gpmpc_tpu_torch.gp.sparse import fit_sparse
 from gpmpc_tpu_torch.gp.state import GPConfig, GPState, make_gp
 from gpmpc_tpu_torch.mpc.cost import CostParams
 from gpmpc_tpu_torch.parallel.batch import batch_objective
@@ -28,6 +33,22 @@ from gpmpc_tpu_torch.parallel.batch import batch_objective
 # (tests/make_torch_headline_ref.py): u_ref, j_uref, j_zero, grad_zero.
 REF_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'data',
                         'headline_ref.npz')
+# The JAX package's f64 values on the sparse workloads
+# (tests/make_torch_sparse_ref.py).
+SPARSE_REF_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               'data', 'sparse_ref.npz')
+# The suite's sparse workloads (benchmarks/quality_sparse.py's WORKLOADS):
+# maker, lanes and covariance; their f64 reference controls (u_ref) are
+# benchmarks/results/quality_sparse_ref_<name>.npz.
+SPARSE_WORKLOADS = {
+    '3b_sparse_cartpole': dict(maker='make_sparse_cartpole_problem', b=256,
+                               full_cov=False),
+    '4_sparse_fullcov': dict(maker='make_sparse_fullcov_problem', b=64,
+                             full_cov=True),
+}
+SPARSE_U_REF = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), 'benchmarks', 'results',
+    'quality_sparse_ref_{}.npz')
 
 
 # The headline inputs' range: (theta, omega, action) in [-pi, pi]^2 x [-5, 5].
@@ -87,6 +108,121 @@ def make_headline_problem(b: int = 256, dtype=torch.float32, seed: int = 0,
                            params=params, horizon=horizon, lb=-5.0, ub=5.0)
 
 
+def cartpole_data(n_train: int, seed: int = 0):
+    """Cartpole transitions from numpy: uniform states and forces, stepped by
+    host f64 physics (envs.cartpole.step_physics's equations), bit-equal to
+    the JAX package's. Returns (x (n, 5), next_states (n, 4)) float64."""
+    rng0 = np.random.default_rng(seed)
+    st = np.stack([rng0.uniform(-2.4, 2.4, n_train),
+                   rng0.uniform(-2.0, 2.0, n_train),
+                   rng0.uniform(-np.pi / 4, np.pi / 4, n_train),
+                   rng0.uniform(-2.0, 2.0, n_train)], axis=1)
+    ac = rng0.uniform(-1.0, 1.0, (n_train, 1))
+    pp = CartPoleParams()
+    force = pp.force_mag * ac[:, 0]
+    xp, xd, th, thd = st[:, 0], st[:, 1], st[:, 2], st[:, 3]
+    total_mass = pp.masscart + pp.masspole
+    pml = pp.masspole * pp.length
+    ct, stn = np.cos(th), np.sin(th)
+    temp = (force + pml * thd ** 2 * stn) / total_mass
+    thacc = (pp.gravity * stn - ct * temp) / (
+        pp.length * (4.0 / 3.0 - pp.masspole * ct ** 2 / total_mass))
+    xacc = temp - pml * thacc * ct / total_mass
+    ns = np.stack([xp + pp.tau * xd, xd + pp.tau * xacc,
+                   th + pp.tau * thd, thd + pp.tau * thacc], axis=1)
+    return np.concatenate([st, ac], axis=1), ns
+
+
+def _sparse_gp(x, ns, sel, lam, dtype, dev):
+    """fit_sparse on rows `sel` of x as Z, tied lengthscales `lam`,
+    sigma_f = 1, sigma_n = 0.1, in `dtype` on `dev`."""
+    ds, d = ns.shape[1], x.shape[1]
+
+    def t(v):
+        return torch.as_tensor(np.asarray(v), dtype=dtype, device=dev)
+
+    gp, _ = fit_sparse(t(x[sel]), t(x), t(ns.T), t(np.log(np.full((ds, d),
+                                                                   lam))),
+                       t(np.zeros(ds)), t(np.full(ds, np.log(0.1))))
+    return gp
+
+
+def make_sparse_cartpole_problem(b: int = 256, dtype=torch.float32,
+                                 seed: int = 0, n_train: int = 1000,
+                                 m: int = 128, horizon: int = 10,
+                                 device=None) -> HeadlineProblem:
+    """Suite config 3b: cartpole N = 1,000 through the FITC GP (M = 128,
+    tied lengthscales 2), gamma = 0, H = 10, bounds +-1."""
+    dev = resolve_device(device)
+    ds, da = 4, 1
+    x, ns = cartpole_data(n_train, seed)
+    rng = np.random.default_rng(seed + 3)
+    sel = rng.choice(n_train, m, replace=False)
+    gp = _sparse_gp(x, ns, sel, 2.0, dtype, dev)
+
+    def t(v):
+        return torch.as_tensor(v, dtype=dtype, device=dev)
+
+    x0s = t(rng.uniform(-0.2, 0.2, (b, ds)))
+    params = CostParams(Q=t(np.eye(ds)), R=t(0.1 * np.eye(da)),
+                        gamma=t(0.0), x_ref=t(np.zeros(ds)),
+                        u_ref=t(np.zeros(da)))
+    return HeadlineProblem(gp=gp, state_dim=ds, action_dim=da, x0s=x0s,
+                           params=params, horizon=horizon, lb=-1.0, ub=1.0)
+
+
+def make_sparse_fullcov_problem(b: int = 64, dtype=torch.float32,
+                                seed: int = 0, n_train: int = 1000,
+                                m: int = 128, horizon: int = 50,
+                                device=None) -> HeadlineProblem:
+    """Suite config 4: the headline's pendulum data at N = 1,000 through the
+    FITC GP (M = 128, tied lengthscales 4), solved with the full
+    cross-output covariance, H = 50, gamma = -0.01, bounds +-5."""
+    dev = resolve_device(device)
+    ds, da = 2, 1
+    rng = np.random.default_rng(seed)
+    states = rng.uniform(-np.pi, np.pi, (n_train, ds))
+    actions = rng.uniform(-5, 5, (n_train, da))
+    next_states = states + 0.05 * np.concatenate(
+        [states[:, 1:], 15 * np.sin(states[:, :1]) + 3 * actions], axis=1)
+    x = np.concatenate([states, actions], axis=1)
+    rng4 = np.random.default_rng(seed + 4)
+    sel = rng4.choice(n_train, m, replace=False)
+    gp = _sparse_gp(x, next_states, sel, 4.0, dtype, dev)
+
+    def t(v):
+        return torch.as_tensor(v, dtype=dtype, device=dev)
+
+    x0s = t(rng4.uniform(-1, 1, (b, ds)))
+    params = CostParams(Q=t(2.0 * np.eye(ds)), R=t(0.01 * np.eye(da)),
+                        gamma=t(-1e-2), x_ref=t(np.zeros(ds)),
+                        u_ref=t(np.zeros(da)))
+    return HeadlineProblem(gp=gp, state_dim=ds, action_dim=da, x0s=x0s,
+                           params=params, horizon=horizon, lb=-5.0, ub=5.0)
+
+
+def sparse_problem(name: str, b: Optional[int] = None, dtype=torch.float32,
+                   device=None) -> HeadlineProblem:
+    """A sparse workload of SPARSE_WORKLOADS by name, at its own B unless
+    given."""
+    wl = SPARSE_WORKLOADS[name]
+    maker = {'make_sparse_cartpole_problem': make_sparse_cartpole_problem,
+             'make_sparse_fullcov_problem': make_sparse_fullcov_problem}
+    return maker[wl['maker']](b=wl['b'] if b is None else b, dtype=dtype,
+                              device=device)
+
+
+def sparse_j64(name: str, device=None):
+    """The f64 objective J64: (B, H, 1) -> (B,) of a sparse workload: its
+    f64 FITC posterior of the same data, with the workload's covariance (the
+    yardstick of cost_excess, as benchmarks/quality_sparse.py scores)."""
+    p64 = sparse_problem(name, dtype=torch.float64, device=device)
+    return batch_objective(build_rollout_cache(p64.gp, p64.state_dim,
+                                               p64.action_dim), p64.x0s,
+                           p64.params,
+                           full_cov=SPARSE_WORKLOADS[name]['full_cov'])
+
+
 def headline_operands(rng, b, cache, tied=True):
     """Operands of the variance trace on the headline GP's own x (N, d) and
     b_lam (E, N, N), taken from `cache`: u ~ U(-1, 1) x DATA_SCALE (B, d)
@@ -111,7 +247,8 @@ def headline_j64(b: int = 256, device=None):
 
 
 def cost_excess(j64, u: torch.Tensor, j_ref: torch.Tensor) -> dict:
-    """Solution quality of controls u (B, H, 1) on the headline problem: the
+    """Solution quality of controls u (B, H, 1) under the f64 objective j64
+    (headline_j64, sparse_j64): the
     per-lane excess (J64(u) - J64(u_ref)) / (1 + |J64(u_ref)|) against the
     reference costs j_ref, summarised as p50, p90, max and the lanes above
     1 % (as benchmarks/quality_retired.py scores the JAX recipe)."""

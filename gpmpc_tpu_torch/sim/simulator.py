@@ -38,21 +38,24 @@ class EpisodeLog(NamedTuple):
 
 class Simulator:
     """Host control loop. `env` needs reset()/step()/close(); `mpc` is a
-    gpmpc_tpu_torch RiskSensitiveMPC. Episode recording (`renderer`, and
-    with it `video_path` and `fps`) needs sim/render.py, which is not
-    ported: a renderer raises NotImplementedError."""
+    gpmpc_tpu_torch RiskSensitiveMPC. Episode recording: pass `renderer` (a
+    frame function of sim/render.py, e.g. pendulum_renderer(params)) and
+    `video_path` ('.gif'); each step's state and action are captured, the
+    last state too, and the episode is written when the run ends. The
+    recorder is `self.recorder` (None without a renderer)."""
 
     def __init__(self, mpc, env, num_iters: int = 500,
                  learn_online: bool = True, renderer=None,
                  video_path: Optional[str] = None, fps: int = 20):
-        if renderer is not None:
-            raise NotImplementedError(
-                'Simulator(renderer=...) needs sim/render.py, which is not '
-                'ported yet')
         self.mpc = mpc
         self.env = env
         self.num_iters = num_iters
         self.learn_online = learn_online
+        self.recorder = None
+        self.video_path = video_path
+        if renderer is not None:
+            from gpmpc_tpu_torch.sim.render import EpisodeRecorder
+            self.recorder = EpisodeRecorder(renderer, fps=fps)
 
     def run(self) -> EpisodeLog:
         obs, _ = self.env.reset()
@@ -63,6 +66,8 @@ class Simulator:
             traj = self.mpc.get_optimal_trajectory(obs)
             solve_times.append(time.perf_counter() - t0)
             action = traj[0, :]
+            if self.recorder is not None:
+                self.recorder.capture(obs, action)
             next_obs, reward, terminated, truncated, _ = self.env.step(action)
             res = self.mpc.last_result
             costs.append(float(res.cost) if res is not None else np.nan)
@@ -75,6 +80,10 @@ class Simulator:
             if self.learn_online:
                 self.mpc.dynamics.append_train_data(obs, action, next_obs)
             obs = next_obs
+        if self.recorder is not None:
+            self.recorder.capture(obs)
+            if self.video_path is not None:
+                self.recorder.save(self.video_path)
         self.env.close()
         return EpisodeLog(states=np.asarray(states), actions=np.asarray(actions),
                           rewards=np.asarray(rewards),

@@ -539,3 +539,66 @@ def test_cuda_closed_loop_matches_cpu():
     assert g[0] == c[0] and g[3] > 0 and c[3] == 0
     np.testing.assert_allclose(g[1], c[1], rtol=1e-8)
     np.testing.assert_allclose(g[2], c[2], rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(256, 128, 128, 5, 4), (64, 128, 128, 3, 2),
+                                   (1, 512, 400, 4, 2)])
+def test_cuda_k1_at_sparse_shapes(shape):
+    """K1 at the shapes of the sparse workloads and the uncertainty
+    experiment ((B, N, valid rows, d, E): suite config 3b, config 4, the
+    experiment's 400 points in capacity 512): the f32 instance against the
+    plain version in f64 at the JAX kernel test's bars, the f64 instance
+    within 1e-12 relative plus 16 ulps of the magnitude sum."""
+    dev = _cuda()
+    b, n, n_valid, d, e = shape
+    u, m2, x, blam, ct = _problem(True, b, e, n, d, seed=31)
+    x[n_valid:] = 0.0
+    blam[:, n_valid:] = 0.0
+    blam[:, :, n_valid:] = 0.0
+    tfn = functools.partial(tvt.variance_trace_batched_tied, native=True)
+    rfn = tvt.variance_trace_batched_tied_reference
+
+    def run(fn, dtype, bl=blam):
+        ut = torch.tensor(u, dtype=dtype, device=dev, requires_grad=True)
+        mt = torch.tensor(m2, dtype=dtype, device=dev, requires_grad=True)
+        out = fn(ut, mt, torch.tensor(x, dtype=dtype, device=dev),
+                 torch.tensor(bl, dtype=dtype, device=dev))
+        grads = torch.autograd.grad(
+            torch.sum(out * torch.tensor(ct, dtype=dtype, device=dev)), (ut, mt))
+        return [v.detach().cpu().double().numpy() for v in (out, *grads)]
+
+    k_out, k_gu, k_gm = run(tfn, torch.float32)
+    r_out, r_gu, r_gm = run(rfn, torch.float64)
+    np.testing.assert_allclose(k_out, r_out, rtol=5e-5, atol=5e-5)
+    np.testing.assert_allclose(k_gu, r_gu, rtol=2e-3, atol=2e-4)
+    np.testing.assert_allclose(k_gm, r_gm, rtol=2e-3, atol=2e-4)
+    k64 = run(tfn, torch.float64)[0]
+    mag = np.abs(run(rfn, torch.float64, np.abs(blam))[0])
+    assert np.all(np.abs(k64 - r_out) <= 1e-12 * np.abs(r_out)
+                  + 16 * np.finfo(np.float64).eps * mag)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', ['3b_sparse_cartpole', '4_sparse_fullcov'])
+def test_cuda_fit_sparse_matches_cpu(name):
+    """The suite's sparse problems fitted on the card (f64 FITC, cuSOLVER)
+    against the same fit on the CPU: W and alpha within 1e-6 of their
+    largest entry (the fits' condition reaches 5e5; the CPU and JAX read
+    3.3e-8 on config 4), and the f32 problem's fit (run in f64 and rounded)
+    finite and within 1e-5 of the f64 one."""
+    from gpmpc_tpu_torch.problems import sparse_problem
+    dev = _cuda()
+    fits = {str(where): sparse_problem(name, b=4, dtype=torch.float64,
+                                       device=where).gp
+            for where in (dev, 'cpu')}
+    for k in ('kinv', 'beta'):
+        got = getattr(fits[str(dev)], k).cpu().numpy()
+        want = getattr(fits['cpu'], k).numpy()
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-6 * np.abs(want).max(), err_msg=k)
+    gp32 = sparse_problem(name, b=4, dtype=torch.float32, device=dev).gp
+    assert gp32.kinv.dtype == torch.float32 and gp32.kinv.is_cuda
+    want = fits['cpu'].beta.numpy()
+    np.testing.assert_allclose(gp32.beta.cpu().double().numpy(), want,
+                               rtol=0, atol=1e-5 * np.abs(want).max())

@@ -5,7 +5,6 @@ learn_online=False, the renderer that is not ported, and
 run_episode_on_device's carry, shapes, count and trajectory."""
 
 import numpy as np
-import pytest
 import torch
 
 import jax
@@ -94,15 +93,24 @@ def test_online_learning_from_empty():
     assert np.isnan(log.costs[0]) and log.iters[0] == 0
 
 
-def test_learn_online_off_and_renderer():
+def test_learn_online_off_and_renderer(tmp_path):
+    """learn_online=False keeps the GP empty; a renderer records one frame
+    a step and the last state, and the episode is written as a GIF."""
+    from gpmpc_tpu_torch.sim.render import pendulum_renderer
     env = tpend.PendulumEnv(device='cpu',
                             init_state={'th_init': 0.5, 'thdot_init': 0.0})
     mpc = TMPC(gamma=0.0, horizon=3, state_dim=2, input_dim=1, Q=np.eye(2),
                R=np.eye(1), capacity=16, dtype=torch.float64, device='cpu')
     Simulator(mpc, env, num_iters=3, learn_online=False).run()
     assert int(mpc.gp.count) == 0
-    with pytest.raises(NotImplementedError):
-        Simulator(mpc, env, renderer=lambda *a: None)
+    path = tmp_path / 'ep.gif'
+    sim = Simulator(mpc, env, num_iters=3, learn_online=False,
+                    renderer=pendulum_renderer(size=64), video_path=str(path))
+    log = sim.run()
+    frames = sim.recorder.frames
+    assert len(frames) == len(log.actions) + 1 == 4
+    assert frames[0].shape == (64, 64, 3) and frames[0].dtype == np.uint8
+    assert path.stat().st_size > 200
 
 
 def _episode_gp(n, cap, seed):

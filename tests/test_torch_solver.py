@@ -10,6 +10,7 @@ import torch
 import jax.numpy as jnp
 
 from benchmarks.problems import make_headline_problem as jmake
+from gpmpc_tpu.mpc.cost import CostParams as JCostParams
 from gpmpc_tpu.mpc.solver import SolverConfig as JSolverConfig
 from gpmpc_tpu.parallel import batch as jbatch
 from gpmpc_tpu_torch.gp.state import GPConfig, make_gp
@@ -17,7 +18,8 @@ from gpmpc_tpu_torch.mpc.cost import CostParams
 from gpmpc_tpu_torch.mpc.solver import SolverConfig, solve_trajectory_batched
 from gpmpc_tpu_torch.parallel.batch import solve_batch
 from gpmpc_tpu_torch.problems import make_headline_problem as tmake
-from torch_port_common import np_, t64
+from torch_port_common import (assert_same_solve, jit_solve,
+                               nominal_gp_pair, np_, t64)
 
 torch.set_num_threads(1)
 
@@ -107,8 +109,33 @@ def test_solve_batch_noise_mode_matches_jax_f64():
     np.testing.assert_array_equal(np_(tres.iters), np.asarray(jres.iters))
 
 
-def test_solve_batch_vmap_not_ported():
-    tp = tmake(b=2, dtype=torch.float64, device='cpu', n_train=10, capacity=16,
-               horizon=2)
-    with pytest.raises(NotImplementedError):
-        solve_batch(tp.gp, 2, 1, tp.x0s, tp.params, 2, -5.0, 5.0, impl='vmap')
+@pytest.mark.parametrize('case', ['adam', 'nominal'])
+def test_solve_batch_auto_route_matches_jax(case):
+    """F3: impl='auto' solves per scenario where the fused route cannot, as
+    JAX's solve_batch does: a non-L-BFGS method (projected Adam with its
+    polish, each lane its own) or a GP with a nominal model. u, cost and
+    iters equal JAX's (rtol 1e-8, atol 1e-10); the port ran the lockstep
+    L-BFGS whatever the method and raised on a nominal model."""
+    if case == 'adam':
+        kw = dict(b=3, seed=1, n_train=24, capacity=32, horizon=4)
+        jp = jmake(dtype=jnp.float64, **kw)
+        tp = tmake(dtype=torch.float64, device='cpu', **kw)
+        jgp, tgp, x0s, horizon, lb, ub = jp.gp, tp.gp, np_(tp.x0s), 4, -5., 5.
+        jparams, tparams = jp.params, tp.params
+        cfg = dict(method='adam', max_iters=25, tol=1e-3, learning_rate=0.05,
+                   polish_iters=5)
+    else:
+        jgp, tgp, rng = nominal_gp_pair()
+        x0s, horizon, lb, ub = rng.uniform(-1, 1, (2, 2)), 3, -1.0, 1.0
+        leaves = dict(Q=2.0 * np.eye(2), R=0.01 * np.eye(1),
+                      gamma=np.array([-0.3, 0.3]), x_ref=np.zeros(2),
+                      u_ref=np.zeros(1))
+        jparams = JCostParams(**{k: jnp.asarray(v) for k, v in leaves.items()})
+        tparams = CostParams(**{k: t64(v) for k, v in leaves.items()})
+        cfg = dict(max_iters=25, tol=1e-6)
+    jres = jit_solve(lambda x0s_j, p: jbatch.solve_batch(
+        jgp, 2, 1, x0s_j, p, horizon, lb, ub, JSolverConfig(**cfg)),
+        jnp.asarray(x0s), jparams)
+    tres = solve_batch(tgp, 2, 1, t64(x0s), tparams, horizon, lb, ub,
+                       SolverConfig(**cfg))
+    assert_same_solve(tres, jres)

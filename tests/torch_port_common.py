@@ -85,3 +85,64 @@ def sym(rng, e, n, scale=0.003):
     """Random symmetric (E, N, N) stand-in for b_lam."""
     br = rng.normal(size=(e, n, n)) * scale
     return br + np.swapaxes(br, -1, -2)
+
+
+def jit_solve(fn, *args):
+    """fn(*args) under jax.jit: JAX's eager while loops re-trace on every
+    call, so a jitted solve compiles once and runs in milliseconds. args are
+    pytrees of arrays; configs go in fn's closure."""
+    import jax
+    return jax.jit(fn)(*args)
+
+
+def assert_same_solve(tres, jres, rtol=1e-8, atol=1e-10, pg_atol=1e-7):
+    """A port SolveResult against JAX's: u and cost at rtol / atol (the solve
+    tolerance of tests/test_batched.py by default), iters and converged
+    equal (converged None on both for Adam), and pg_norm, a residual below
+    the solver's tol at the stop, within pg_atol."""
+    np.testing.assert_allclose(np_(tres.u), np.asarray(jres.u), rtol=rtol,
+                               atol=atol)
+    np.testing.assert_allclose(np_(tres.cost), np.asarray(jres.cost),
+                               rtol=rtol, atol=atol)
+    np.testing.assert_array_equal(np_(tres.iters), np.asarray(jres.iters))
+    np.testing.assert_allclose(np_(tres.pg_norm), np.asarray(jres.pg_norm),
+                               rtol=1e-6, atol=pg_atol)
+    if jres.converged is None:
+        assert tres.converged is None
+    else:
+        np.testing.assert_array_equal(np_(tres.converged),
+                                      np.asarray(jres.converged))
+
+
+A_NOM = np.array([[0.9, 0.1], [-0.08, 0.85]])
+B_NOM = np.array([[0.0], [0.12]])
+
+
+def nominal_gp_pair(n=30, cap=32, seed=23):
+    """A residual GP over an affine nominal model (tests/test_nominal.py's
+    plant), in both packages from the same numpy data: (JAX GPState, port
+    GPState, rng after the draws)."""
+    from gpmpc_tpu_torch.gp.state import GPConfig, make_gp
+
+    def nominal_j(xs):
+        return (xs[:, :2] @ jnp.asarray(A_NOM).T
+                + xs[:, 2:] @ jnp.asarray(B_NOM).T)
+
+    def nominal_t(xs):
+        return xs[:, :2] @ t64(A_NOM).T + xs[:, 2:] @ t64(B_NOM).T
+
+    rng = np.random.default_rng(seed)
+    s = rng.uniform(-2, 2, (n, 2))
+    a = rng.uniform(-1, 1, (n, 1))
+    nxt = s @ A_NOM.T + a @ B_NOM.T + 0.25 * np.stack(
+        [np.sin(s[:, 0]), np.cos(2 * s[:, 1])], axis=1)
+    x = np.concatenate([s, a], axis=1)
+    kw = dict(log_lambdas=np.log([2.0] * 3), log_sigma_f=np.log(0.5),
+              log_sigma_n=np.log(0.05))
+    jgp = gs.make_gp(gs.GPConfig(capacity=cap, x_dim=3, out_dim=2,
+                                 nominal_fn=nominal_j), x, nxt,
+                     dtype=jnp.float64, **kw)
+    tgp = make_gp(GPConfig(capacity=cap, x_dim=3, out_dim=2,
+                           nominal_fn=nominal_t), x, nxt,
+                  dtype=torch.float64, device='cpu', **kw)
+    return jgp, tgp, rng
