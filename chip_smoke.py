@@ -9,7 +9,11 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
   2. build      every CUDA source under gpmpc_tpu_torch/ops/kernels/csrc is
                 compiled by nvcc into gpmpc_tpu_torch/_build/, one nvcc per
                 source, all started together (each kernel's f32 and f64
-                instances are two sources); each source's seconds.
+                instances are two sources); each source's seconds. Then the
+                FP64 instructions of CUDA's double exp, read from the SASS
+                of a one-line kernel built with the libraries' flags
+                (benchmarks/sass_fp64.py): the f64 bounds count each pair's
+                exp by them.
   3. kernels    Each kernel's f32 instance, evaluated natively in f32
                 (native=True: the trace's precision policy would run the f64
                 instance), against its plain PyTorch version in f64 on the
@@ -35,7 +39,7 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 f64 headline rollout at the reference controls, its traces'
                 operands captured at four steps). Each kernel's f32 and f64
                 instances are timed with CUDA events beside their plain
-                versions and their bounds; K3 at the (1, 1) sharded solve's
+                versions and their bounds (K2 one launch a trace for all E); K3 at the (1, 1) sharded solve's
                 shape (Nl = N), whose launches the `kernels` line counts, and
                 at one rank's half of a (1, 2) mesh (Nl = N / 2). Each is
                 timed twice: by CUDA events around 50 calls enqueued from the
@@ -73,11 +77,15 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 JAX kernel test's inputs with the padded rows zeroed: each f32
                 instance against its plain f64 version at that test's bars
                 (forward and backward), both instances at phase 3's
-                conditioned bars. Then the f64 instances at the loop's shapes
+                conditioned bars; K1 and K2 at their small-B plans (S <= B,
+                the contraction split over a cluster where the grid is small)
+                against the split sum's plain version, and K2 one launch a
+                trace. Then the f64 instances at the loop's shapes
                 (B = 1: the integrator's K1, the pendulum's and cartpole's
                 K2; the pendulum's K2 at the multistart's count) timed by
                 events and graph slope beside their plain versions and
-                bounds.
+                bounds, each with its plan (S, split, cluster, grid, blocks
+                an SM).
   4. objective  the port's f64 objective on the card (the f64 kernel
                 instances) at the reference controls and at 0 against the
                 JAX package's values in gpmpc_tpu_torch/data/headline_ref.npz,
@@ -144,7 +152,8 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 (atol 1e-6, 1e-6, rtol 1e-6) and whose tail meets the
                 test's criteria (|theta| < 0.15, |theta_dot| < 0.5, actions
                 in bounds, count 250 + steps); on the B = 1 route each step
-                launches exactly E * H * (1 + iters) K2; (c)
+                launches exactly H * (1 + iters) K2 (one launch a trace for
+                all E outputs); (c)
                 pretrain_pendulum's delta mode in f32 (300 transitions,
                 train_gp(150), multistart n_starts = 4, N = 512, H = 8) for
                 10 steps; (d) pretrain_cartpole's delta mode, (d, E) =
@@ -224,6 +233,19 @@ CLOSED_LOOP_REF = os.path.join(ROOT, 'gpmpc_tpu_torch', 'data',
 PEAK_F32_FLOPS = 67e12
 PEAK_F64_FLOPS = 34e12
 PEAK_BYTES_PER_S = 3.35e12
+# FP64 instructions (DFMA + DMUL + DADD) of CUDA's double exp, the kernels'
+# accurate_exp (csrc/common.cuh), on the path an argument in the ordinary
+# range takes (|x| below ~708, every pair's -p/4 here), read from the SASS of
+# a one-line kernel built with the kernel libraries' flags for sm_90a
+# (benchmarks/sass_fp64.py, cuobjdump -sass): 14 DFMA (the rounding to a
+# multiple of ln 2, the two-part reduction, the degree-11 polynomial) and 1
+# DADD before the special-case branch, whose path adds a DADD and a DMUL
+# (17 in all; CUDA 12.8 on the H100's machine). Each takes one FP64 issue
+# slot, which the 34 TFLOP/s peak counts as the 2 flops of a DFMA, so an
+# f64 bound counts the exp as 2 * EXP_F64_INSTR flops (the f32 bounds count
+# expf as one). Phase 2 reads the count again and this run's bounds use
+# what it reads.
+EXP_F64_INSTR = 15
 # The JAX kernel's p50 relative error of t against f64 on the headline b_lam,
 # on a TPU v5e (benchmarks/quality_retired.py:245-246).
 JAX_TPU_T_REL_ERR_P50 = 7.8e-6
@@ -379,31 +401,39 @@ def _bound(flops, elems, f64=False):
                                        else 'bytes')
 
 
+def exp_flops(f64: bool) -> int:
+    """The flops a bound counts for one exp: expf as one; the double exp as
+    its FP64 instructions at 2 flops each (EXP_F64_INSTR)."""
+    return 2 * EXP_F64_INSTR if f64 else 1
+
+
 def bound_ms(b, n_out, n_c, d, e, chains, f64=False):
     """Least time for the rw function (K1, K2, K3) on this card: the larger
     of its operations over the peak for their type (f32 or f64) and its
     bytes (each input read once, each output written once) over the memory
     rate. Per (i, j) pair and exp chain: d multiply-adds and one scale for
-    the exponent, one exp, and per output one blam multiply and (1 + d)
-    multiply-adds."""
+    the exponent, one exp (exp_flops), and per output one blam multiply and
+    (1 + d) multiply-adds."""
     w1 = d + 1
     e_per_chain = e // chains
-    flops = b * n_out * n_c * chains * (2 * d + 2 + e_per_chain * (1 + 2 * w1))
+    flops = b * n_out * n_c * chains * (2 * d + 1 + exp_flops(f64)
+                                        + e_per_chain * (1 + 2 * w1))
     elems = (b * n_out * (d + 1) * chains + b * n_c * (d + w1) * chains
              + e * n_c * n_out + b * e * n_out * w1)
     return _bound(flops, elems, f64)
 
 
 def sym_bound_ms(b, n, d, e, chains, f64=False):
-    """K4's least time: the exponent (d multiply-adds, a scale, one exp) and
-    per output one blam multiply on each of the n (n + 1) / 2 unordered
-    pairs (W and blam are symmetric), and per output the (1 + d)
-    multiply-adds of each of the n^2 ordered pairs. Bytes: z and dv per
-    chain, ao, blam and rw, each once."""
+    """K4's least time: the exponent (d multiply-adds, a scale, one exp as
+    exp_flops counts it) and per output one blam multiply on each of the
+    n (n + 1) / 2 unordered pairs (W and blam are symmetric), and per
+    output the (1 + d) multiply-adds of each of the n^2 ordered pairs.
+    Bytes: z and dv per chain, ao, blam and rw, each once."""
     w1 = d + 1
     e_pc = e // chains
     pairs = n * (n + 1) // 2
-    flops = b * chains * (pairs * (2 * d + 2 + e_pc) + n * n * e_pc * 2 * w1)
+    flops = b * chains * (pairs * (2 * d + 1 + exp_flops(f64) + e_pc)
+                          + n * n * e_pc * 2 * w1)
     elems = (b * n * (d + 1) * chains + b * n * w1 + e * n * n
              + b * e * n * w1)
     return _bound(flops, elems, f64)
@@ -699,16 +729,49 @@ def phase_kernels(dev, b, n_ragged, cache):
     return out, dict(k1_f32_p50_rel_err=k1_p50, policy=policy, full_cov=full)
 
 
-def launch_plans(b, n, d, e, dtype) -> dict:
+def rw_plan(key, b, n_out, n_c, d, e, dtype, dev) -> dict:
+    """The launch plan of K1's body for kernel `key` (K2: untied, one launch
+    for all E) on this card, with the blocks an SM holds at its S."""
+    from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
+    sms = vt.device_sms(dev)
+    untied = key.startswith('K2')
+    plan = (vt.rw_untied_plan(b, n_c, d, e, dtype, sms) if untied
+            else vt.rw_tied_plan(b, n_out, n_c, d, e, dtype, sms))._asdict()
+    plan['blocks_per_sm'] = vt.rw_tied_blocks_per_sm(
+        d, e, dtype, untied, plan['scenarios'], plan['split'])
+    return plan
+
+
+def phase_sass() -> dict:
+    """Phase 2's count of the double exp's FP64 instructions from SASS
+    (benchmarks/sass_fp64.py); the f64 bounds of this run use it."""
+    global EXP_F64_INSTR
+    from gpmpc_tpu_torch.benchmarks import sass_fp64
+    from gpmpc_tpu_torch.ops.kernels import _build
+    res = sass_fp64.run(_build.BUILD_DIR / 'sass_fp64')
+    exp = res['exp_f64']
+    log(f'[build] CUDA double exp in SASS (sm_90a, the libraries\' flags): '
+        f'{exp["arith"]} FP64 instructions (DFMA {exp["DFMA"]}, DMUL '
+        f'{exp["DMUL"]}, DADD {exp["DADD"]}; {exp["arith_before_first_branch"]}'
+        f' on the ordinary path, before the special-case branch; other FP64 '
+        f'{exp["other_fp64"]}); the same exp inlined {res["exp_copies"]} '
+        f'times in {res["kernels_with_exp"]} of the f64 library\'s '
+        f'{res["kernels"]} kernels; EXP_F64_INSTR is {EXP_F64_INSTR}')
+    if exp['arith_before_first_branch'] != EXP_F64_INSTR:
+        log(f'[build] this toolkit\'s exp takes '
+            f'{exp["arith_before_first_branch"]} on its ordinary path, not '
+            f'EXP_F64_INSTR = {EXP_F64_INSTR}: this run\'s bounds use that')
+        EXP_F64_INSTR = exp['arith_before_first_branch']
+    return res
+
+
+def launch_plans(b, n, d, e, dtype, dev) -> dict:
     """Each kernel's launch plan at the headline shape in `dtype`, with the
     blocks an SM holds (CUDA occupancy), logged and returned."""
     from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
-    plans = {}
-    for key, n_out, e_k in (('K1', n, e), ('K2', n, 1), ('K3', n, e),
-                            ('K3 Nl=N/2', n // 2, e)):
-        plan = vt.rw_tied_plan(b, n_out, n, d, e_k, dtype)._asdict()
-        plan['blocks_per_sm'] = vt.rw_tied_blocks_per_sm(d, e_k, dtype)
-        plans[key] = plan
+    plans = {key: rw_plan(key, b, n_out, n, d, e, dtype, dev)
+             for key, n_out in (('K1', n), ('K2', n), ('K3', n),
+                                ('K3 Nl=N/2', n // 2))}
     for key, tied in (('K4 tied', True), ('K4 per-output', False)):
         plan = vt.rw_sym_plan(b, n, d, e, dtype, tied)._asdict()
         plan['blocks_per_sm'] = vt.rw_sym_blocks_per_sm(d, e, dtype, tied)
@@ -776,7 +839,7 @@ def time_kernels(dev, b, cache, reps, dtype):
         'K3 Nl=N/2': lambda: vt.rw_tied_block(*k3[n // 2]),
         'K4 tied': lambda: vt.rw_sym(*k4t, shared_chain=True),
         'K4 per-output': lambda: vt.rw_sym(*k4u, shared_chain=False)}, dev)
-    plans = launch_plans(b, n, d, e, dtype)
+    plans = launch_plans(b, n, d, e, dtype, dev)
     for key, r in res.items():
         r['graph_ms'] = graphed[key]
         r['plan'] = plans[key]
@@ -1079,15 +1142,14 @@ def untied_gp(dev):
 
 
 def phase_untied(dev, b, key='K2'):
-    """Phase 5b: the untied path (per-output lengthscales): K2, E launches a
-    trace, or with the K4 opt-in on (key 'K4') one launch a trace."""
+    """Phase 5b: the untied path (per-output lengthscales): K2, or with the
+    K4 opt-in on (key 'K4'), one launch a trace for all E outputs."""
     import torch
     from gpmpc_tpu_torch.mpc.solver import SolverConfig
     from gpmpc_tpu_torch.parallel.batch import solve_batch
     from gpmpc_tpu_torch.problems import make_headline_problem
     p = make_headline_problem(b=b, dtype=torch.float32, device=dev)
     gp = untied_gp(dev)
-    per_trace = gp.config.out_dim if key == 'K2' else 1
 
     def solve(x0s):
         return solve_batch(gp, 2, 1, x0s, p.params, p.horizon, p.lb, p.ub,
@@ -1095,7 +1157,7 @@ def phase_untied(dev, b, key='K2'):
 
     _, launches, _ = solve_checked(
         'untied', f'{key} B={b} max_iters={UNTIED_ITERS}', solve, p.x0s, key,
-        per_trace, p.horizon)
+        1, p.horizon)
     return launches
 
 
@@ -1451,6 +1513,55 @@ def loop_inputs(rng, b, n, n_valid, d, e, tied, dev):
     return u, m2, x, blam, ct
 
 
+def check_split(tag, key, u, m2, x, blam, dev) -> dict:
+    """K1's or K2's wrapper at its plan for this card (S <= B, the
+    contraction split over a cluster where the grid is small) against the
+    split sum's plain version in f64 on the same operands: f32 at the JAX
+    kernel test's forward bar, f64 within 1e-12 |rw| plus 16 f64 ulps of the
+    terms' magnitude sum; one counted launch each, K2's for all E. Returns
+    the max abs errors by instance, the plan and its blocks."""
+    import functools
+    import torch
+    from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
+    tied = key == 'K1'
+    b, n, d = u.shape[0], x.shape[0], x.shape[1]
+    e = blam.shape[0]
+    prep = vt._prep_tied if tied else vt._prep_batched
+    a, g, dv = prep(u, m2, x)
+    ao = vt._aug(a)
+    ops = (g, dv, a, ao * dv[..., None] if tied else ao, blam)
+    errs, sms = {}, vt.device_sms(dev)
+    for dtype in (torch.float32, torch.float64):
+        args = [t.to(dtype).contiguous() for t in ops]
+        plan = (vt.rw_tied_plan(b, n, n, d, e, dtype, sms) if tied
+                else vt.rw_untied_plan(b, n, d, e, dtype, sms))
+        ref = functools.partial(vt.rw_split_reference if tied
+                                else vt.rw_untied_split_reference, plan=plan)
+        counter = 'LAUNCHES' if tied else COUNTER['K2']
+        before = getattr(vt, counter)
+        got = (vt.rw_tied if tied else vt.rw_untied)(*args).double()
+        sync(dev)
+        if getattr(vt, counter) != before + 1:
+            raise AssertionError(f'{tag}: {getattr(vt, counter) - before} '
+                                 f'{key} launches for one call')
+        a64 = [t.double() for t in args]
+        want = ref(*a64)
+        if dtype == torch.float32:
+            errs['f32'] = assert_close(f'{tag} f32 vs the split plain f64',
+                                       got, want, **FWD_TOL)
+            continue
+        mag = ref(a64[0], a64[1], a64[2], a64[3].abs(), a64[4].abs())
+        err = (got - want).abs()
+        bar = 1e-12 * want.abs() + 16 * torch.finfo(torch.float64).eps * mag
+        if not bool((err <= bar).all()):
+            raise AssertionError(f'{tag} f64 vs the split plain version: '
+                                 f'{float((err / bar).max()):.3f}x its bar')
+        errs['f64'] = float(err.max())
+        errs['plan'] = dict(scenarios=plan.scenarios, split=plan.split,
+                            grid=plan.grid)
+    return errs
+
+
 def phase_loop_kernels(dev):
     """Phase 3c: K1 and K2 at every shape and lane count of the closed loop
     (LOOP_CAPACITIES x LOOP_DIMS x loop_lane_counts): each f32 instance
@@ -1476,16 +1587,24 @@ def phase_loop_kernels(dev):
                         err[_DT_NAME[str(dtype)]] = check_conditioned(
                             tag, fn, ref, *(t.detach() for t in ins[:4]),
                             dtype, rtol)[0]
+                    err['split'] = check_split(tag, key, *ins[:4], dev)
                     errs[f'{key} B={b} N={n} d={d} E={e}'] = err
                     checked |= {(key, dt, b, n, d, e) for dt in ('f32', 'f64')}
-        worst = {k: max(v[k] for name, v in errs.items()
-                        if name.startswith(key))
-                 for k in ('f32 bars', 'f32', 'f64')}
+        mine = [v for name, v in errs.items() if name.startswith(key)]
+        worst = {k: max(v[k] for v in mine) for k in ('f32 bars', 'f32', 'f64')}
+        worst_split = {k: max(v['split'][k] for v in mine)
+                       for k in ('f32', 'f64')}
         log(f'[loop kernels] {key} at B in {lanes}, N in '
             f'{[c[0] for c in LOOP_CAPACITIES]}, (d, E) in {list(LOOP_DIMS)}: '
             f'f32 vs plain f64 max abs err {worst["f32 bars"]:.3e} (fwd rtol '
             f'5e-5 atol 5e-5, bwd rtol 2e-3 atol 2e-4); on the conditioned '
-            f'bar f32 {worst["f32"]:.3e}, f64 {worst["f64"]:.3e} ok')
+            f'bar f32 {worst["f32"]:.3e}, f64 {worst["f64"]:.3e}; rw against '
+            f'the split sum\'s plain version f32 {worst_split["f32"]:.3e}, '
+            f'f64 {worst_split["f64"]:.3e} (1e-12 |rw| + 16 eps mag), one '
+            f'launch a call ok')
+        for name, v in errs.items():
+            if name.startswith(key):
+                log(f'[loop kernels] plan {name}: {v["split"]["plan"]}')
     return checked, errs, lanes
 
 
@@ -1502,6 +1621,11 @@ def _loop_kernel_args(rng, b, n, n_valid, d, e, tied, dev):
     return [t.contiguous() for t in (g, dv, a, vt._aug(a), blam)]
 
 
+# K2's f64 graph slopes at B = 1 as K1 launched once per output, before the
+# one-launch design (one H100 80GB HBM3 at 700 W; PERF.md §6): the one-launch
+# K2 must take at most a quarter of them.
+K2_GRAPH_MS_BEFORE = {('K2', 1, 512, 320, 3, 2): 0.0898,
+                   ('K2', 1, 512, 320, 5, 4): 0.1460}
 # (kernel, B, N, valid rows, d, E) of the closed loop's timed launches: the
 # integrator's K1; the pendulum's and the cartpole's K2 at B = 1 and the
 # pendulum's K2 at the multistart's candidate count (filled in by
@@ -1512,10 +1636,23 @@ LOOP_TIMED = (('K1', 1, 128, 100, 2, 1), ('K1', 1, 512, 320, 3, 2),
 
 def time_loop_kernels(dev, lanes):
     """The f64 instances of K1 and K2 at the closed loop's shapes
-    (LOOP_TIMED, and K2 at the multistart's lane count), time_shapes."""
-    return time_shapes(dev, list(LOOP_TIMED)
-                       + [('K2', lanes[-1], 512, 320, 3, 2)], 'loop kernels',
-                       np.random.default_rng(11))
+    (LOOP_TIMED, and K2 at the multistart's lane count), time_shapes; fails
+    where K2 at B = 1 takes more than a quarter of its graph slope as K1
+    launched once per output (K2_GRAPH_MS_BEFORE)."""
+    res = time_shapes(dev, list(LOOP_TIMED) + [('K2', lanes[-1], 512, 320,
+                                                3, 2)], 'loop kernels',
+                      np.random.default_rng(11))
+    for (key, b, n, _, d, e), before in K2_GRAPH_MS_BEFORE.items():
+        ms = res[f'{key} f64 B={b} N={n} d={d} E={e}']['graph_ms']
+        if not ms <= before / 4:
+            raise AssertionError(f'{key} f64 at (B, N, d, E) = ({b}, {n}, {d}, '
+                                 f'{e}): {ms:.4f} ms by graph slope, more '
+                                 f'than a quarter of the {before} ms of K1 '
+                                 'launched once per output')
+        log(f'[loop kernels] {key} f64 at ({b}, {n}, {d}, {e}): {ms:.4f} ms, '
+            f'{ms / before:.3f} of the {before} ms as K1 per output (at most '
+            f'0.25) ok')
+    return res
 
 
 def time_shapes(dev, shapes, tag, rng):
@@ -1532,10 +1669,7 @@ def time_shapes(dev, shapes, tag, rng):
         name = f'{key} f64 B={b} N={n} d={d} E={e}'
         fns[name] = (lambda k=kern, a=args: k(*a))
         bound = bound_ms(b, n, n, d, e, 1 if tied else e, f64=True)
-        plan = vt.rw_tied_plan(b, n, n, d, e if tied else 1,
-                               args[0].dtype)._asdict()
-        plan['blocks_per_sm'] = vt.rw_tied_blocks_per_sm(
-            d, e if tied else 1, args[0].dtype)
+        plan = rw_plan(key, b, n, n, d, e, args[0].dtype, dev)
         res[name] = dict(ms=cuda_ms(fns[name], 50),
                          plain_ms=cuda_ms(lambda p=plain, a=args: p(*a), 50),
                          bound=bound, plan=plan)
@@ -1544,8 +1678,9 @@ def time_shapes(dev, shapes, tag, rng):
         r['graph_ms'] = ms
         log(f'[{tag}] {name}: {r["ms"]:.4f} ms by events, '
             f'{ms:.4f} ms by graph slope, plain {r["plain_ms"]:.4f} ms, bound '
-            f'{r["bound"][0]:.5f} ms ({r["bound"][1]}); grid '
-            f'{tuple(r["plan"]["grid"])}, S {r["plan"]["scenarios"]}, '
+            f'{r["bound"][0]:.5f} ms ({r["bound"][1]}); S '
+            f'{r["plan"]["scenarios"]}, split {r["plan"]["split"]}, cluster '
+            f'{tuple(r["plan"]["cluster"])}, grid {tuple(r["plan"]["grid"])}, '
             f'{r["plan"]["smem_bytes"]} shared bytes, '
             f'{r["plan"]["blocks_per_sm"]} blocks an SM')
     return res
@@ -1554,8 +1689,8 @@ def time_shapes(dev, shapes, tag, rng):
 @contextlib.contextmanager
 def record_launch_shapes():
     """Record (kernel, instance, B, N, d, E) of every K1 and K2 call on CUDA
-    tensors in a block (K2's E is the GP's, launched once per output);
-    yields a dict {shape: calls}."""
+    tensors in a block (K2's E is the GP's, all in one launch); yields a
+    dict {shape: calls}."""
     from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
     seen = {}
     orig_t, orig_u = vt.rw_tied, vt.rw_untied
@@ -1586,12 +1721,13 @@ def _loop_launches() -> dict:
     return {'K1': c['K1 f32'] + c['K1 f64'], 'K2': c['K2']}
 
 
-def count_steps(mpc, steps: list, horizon: int, e_untied: int):
+def count_steps(mpc, steps: list, horizon: int):
     """Wrap mpc.get_optimal_trajectory to log each control step: its wall
     (synchronized), its K1 and K2 launches, solver iterations and first
     action. On the controller's single B = 1 route (no multistart) each
     value-and-grad runs one rollout, H traces: the step must launch exactly
-    H * (1 + iters) of K1 (tied) or e_untied * H * (1 + iters) of K2."""
+    H * (1 + iters) of K1 (tied) or of K2 (untied: one launch a trace for
+    all E outputs)."""
     orig = mpc.get_optimal_trajectory
 
     def step(x):
@@ -1609,7 +1745,7 @@ def count_steps(mpc, steps: list, horizon: int, e_untied: int):
             rollouts = 1 + row['iters']
             want = ({'K1': horizon * rollouts, 'K2': 0}
                     if mpc.gp.config.tied_lambdas else
-                    {'K1': 0, 'K2': e_untied * horizon * rollouts})
+                    {'K1': 0, 'K2': horizon * rollouts})
             if {k: row[k] for k in want} != want:
                 raise AssertionError(f'closed loop step {len(steps)}: launches '
                                      f'{row}, expected {want}')
@@ -1713,7 +1849,7 @@ def phase_closed_loop(dev, checked, ref_path, out_dir):
                                  f'{int(ref["train_iters"])}')
         append_s, at = time_append(mpc, dev)
         steps = []
-        count_steps(mpc, steps, 8, 2)
+        count_steps(mpc, steps, 8)
         env = PendulumEnv(params=params, device=dev,
                           init_state={'th_init': 1.0, 'thdot_init': 0.5})
         ep = Simulator(mpc, env, num_iters=SWING_STEPS).run()
@@ -1776,7 +1912,7 @@ def phase_closed_loop(dev, checked, ref_path, out_dir):
         res, train_s = _timed(lambda: mpc.train_gp(num_iters=150), dev)
         append_s, at = time_append(mpc, dev)
         steps = []
-        count_steps(mpc, steps, 8, 2)
+        count_steps(mpc, steps, 8)
         ep = Simulator(mpc, env, num_iters=PRETRAIN_STEPS).run()
         if not (np.all(np.isfinite(ep.costs))
                 and np.all(np.abs(ep.actions) <= params.max_torque + 1e-6)):
@@ -1799,7 +1935,7 @@ def phase_closed_loop(dev, checked, ref_path, out_dir):
         res, train_s = _timed(lambda: mpc.train_gp(num_iters=150), dev)
         append_s, at = time_append(mpc, dev)
         steps = []
-        count_steps(mpc, steps, 5, 4)
+        count_steps(mpc, steps, 5)
         ep = Simulator(mpc, env, num_iters=PRETRAIN_STEPS).run()
         if not (np.all(np.isfinite(ep.costs))
                 and np.all(np.abs(ep.actions) <= 1.0 + 1e-6)):
@@ -2405,6 +2541,7 @@ def main() -> int:
     build_s, each_s = _build.build_all()
     log(f'[build] nvcc built the kernels in {build_s:.1f} s ('
         + ', '.join(f'{k} {v:.1f} s' for k, v in each_s.items()) + ')')
+    sass = phase_sass()
 
     b = 256
     f32, f64 = torch.float32, torch.float64
@@ -2532,7 +2669,7 @@ def main() -> int:
                   sparse_kernel_errs=sparse_errs,
                   sparse_kernel_times=sparse_times,
                   profile=prof, k1_instr_bound_ms=k1_instr,
-                  precision=precision, k1_f64_wide=k1_f64_wide,
+                  precision=precision, k1_f64_wide=k1_f64_wide, sass=sass,
                   kernel_times={str(dt): r for dt, r in times.items()},
                   probes=dict(checks=probe_checks, launches=probe_launches,
                               plain_ms=probe_plain, **probes),

@@ -9,7 +9,7 @@
 // from, so `full` is K1's code and its rw equals K1's to the bit.
 //
 // Variants (ids as in ops/kernels/probe.py; all f32, d = 3, E = 2, any B, N):
-//   0 full          K1 (P1 full and vpured, P2 vpu_p).
+//   0 full          K1 at K1's own plan (P1 full and vpured, P2 vpu_p).
 //   1 full_tile256  K1 with twice the contraction rows staged per step, each
 //                   slice taking 2 kSubRows of a tile (P1 *_tj256).
 //   2 hwexp         __expf in place of expf (P1 hwexp).
@@ -311,9 +311,10 @@ cudaError_t launch_plan(const RwArgs<float>& p) {
                 kSubRows, Rows, Slices>(p);
 }
 
-cudaError_t launch_variant(int variant, const RwArgs<float>& p) {
+cudaError_t launch_variant(int variant, const RwArgs<float>& p, int sms) {
   switch (variant) {
-    case 0: return launch<float, kD, kE, Variant::kFull>(p);
+    case 0: return launch_planned<float, kD, kE, Variant::kFull, false>(
+        p, kE, sms, kMaxSplit);
     case 1: return launch<float, kD, kE, Variant::kFull,
                           scenarios<float, kD, kE>(), 2 * kSubRows>(p);
     case 2: return launch<float, kD, kE, Variant::kHwExp>(p);
@@ -336,19 +337,21 @@ cudaError_t launch_variant(int variant, const RwArgs<float>& p) {
 
 }  // namespace
 
-// Plain C interface for ctypes: the variant's id, then K1's arguments.
-// Returns the cudaError_t of the launch (0 on success); the launch is
-// asynchronous on `stream`. Only d = 3, E = 2 is instantiated.
+// Plain C interface for ctypes: the variant's id, then K1's arguments and
+// the card's SM count (`full` takes K1's plan, which reads it). Returns the
+// cudaError_t of the launch (0 on success); the launch is asynchronous on
+// `stream`. Only d = 3, E = 2 is instantiated.
 extern "C" int gpmpc_rw_probe_f32(int variant, const float* g, const float* dv,
                                   const float* a, const float* aod,
                                   const float* blam, float* rw, int b,
-                                  int n_out, int n_c, int d, int e,
+                                  int n_out, int n_c, int d, int e, int sms,
                                   void* stream) {
-  if (d != kD || e != kE || b <= 0 || n_out <= 0 || n_c < 0 || b > 65535)
+  if (d != kD || e != kE || b <= 0 || n_out <= 0 || n_c < 0 || b > 65535 ||
+      sms <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const RwArgs<float> p{g, dv, a, aod, blam, rw, b, n_out, n_c,
                         static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(launch_variant(variant, p));
+  return static_cast<int>(launch_variant(variant, p, sms));
 }
 
 extern "C" int gpmpc_rw_probe_variants() { return kNumVariants; }

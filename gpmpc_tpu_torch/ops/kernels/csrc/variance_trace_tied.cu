@@ -1,9 +1,11 @@
 // K1: the tied variance-trace kernel, written by hand for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_make_rw_tied_streamed_kernel`, dispatched by
-// `_rw_call_tied` in gpmpc_tpu/ops/pallas/variance_trace.py. K2 (`_rw_call`,
-// one launch per output at E = 1) and K3 (`_rw_call_tied_nm`, this shard's
-// rows against all contraction rows) launch the same kernel. For scenario b,
+// `_rw_call_tied` in gpmpc_tpu/ops/pallas/variance_trace.py. K3
+// (`_rw_call_tied_nm`, this shard's rows against all contraction rows)
+// launches the same kernel; K2 (`_rw_call`, which the JAX package runs as
+// K1 at E = 1 once per output) is the body's untied mode, one launch a
+// trace with the outputs on the grid (`gpmpc_rw_untied_*`). For scenario b,
 // output e, output row i and column c in [0, 1 + d):
 //
 //   rw[b,e,i,c] = dv[b,i] * sum_j blam[e,j,i] * exp(-1/4 sum_k a[b,j,k] g[b,i,k])
@@ -24,8 +26,11 @@
 // body in rw_tied_body.cuh, whose note gives the numbers and the design:
 // S scenarios a block share each blam load, the contraction is split across
 // the block's warps and their partials summed in a fixed order, and a and
-// aod are read as 16-byte broadcasts. The block shape (64 rows x 4 slices)
-// is a constexpr of the body, mirrored by `rw_tied_plan` in
+// aod are read as 16-byte broadcasts; at a small B a block serves only the
+// scenarios there are, and a grid that would leave the card mostly idle
+// splits the contraction over a thread-block cluster. The block shape
+// (64 rows x 4 slices) is a constexpr of the body, and the launch plan is
+// mirrored by `rw_tied_plan` and `rw_untied_plan` in
 // ops/kernels/variance_trace.py; the probe (variance_trace_probe.cu)
 // instantiates the same body under its variants.
 //

@@ -4,7 +4,10 @@ Port of the TPU probes `call_variant` (benchmarks/kernel_ablate.py) and
 `call` (benchmarks/kernel_probe.py). The CUDA source
 (csrc/variance_trace_probe.cu) instantiates K1's own body
 (csrc/rw_tied_body.cuh) once per variant, so `full` is the kernel the solve
-launches. Each variant computes a defined function of K1's arguments
+launches, at K1's own launch plan (`variance_trace.rw_tied_plan`: at a small
+B fewer scenarios a block and the contraction split over a cluster); every
+other variant runs at S_max scenarios a block with no split, K1's plan at
+the headline shape where the probes are timed. Each variant computes a defined function of K1's arguments
 (g, dv, a, aod, blam; `variance_trace.rw_tied`), given by its plain version
 `rw_probe_reference`:
 
@@ -228,7 +231,7 @@ def _kernel_fn():
     fn = lib.gpmpc_rw_probe_f32
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
-                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.gpmpc_probe_error_string.argtypes = [ctypes.c_int]
         lib.gpmpc_probe_error_string.restype = ctypes.c_char_p
@@ -260,7 +263,7 @@ def rw_probe(variant, g, dv, a, aod, blam):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(VARIANTS.index(variant), g.data_ptr(), dv.data_ptr(),
                  a.data_ptr(), aod.data_ptr(), blam.data_ptr(), rw.data_ptr(),
-                 b, n_out, n_c, d, e, stream)
+                 b, n_out, n_c, d, e, vt.device_sms(g.device), stream)
     if err != 0:
         msg = lib.gpmpc_probe_error_string(err).decode()
         raise RuntimeError(f'probe {variant} launch failed: cudaError {err} '

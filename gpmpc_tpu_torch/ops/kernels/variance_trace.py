@@ -19,14 +19,19 @@ work (derived for SYMMETRIC blam and M2, always true here):
 `rw_tied` launches the hand-written CUDA kernel
 (csrc/variance_trace_tied.cu) for CUDA tensors and takes the plain PyTorch
 version `rw_tied_reference` only for CPU tensors; there is no fallback from
-one to the other. The untied form (K2) is the same kernel launched once per
-output at E = 1, as the JAX package dispatches it. The row block of the
-model-sharded path (K3, `rw_tied_block`) is the same kernel again on a
-rectangle: this shard's rows against all N contraction rows. Each launch
-follows `rw_tied_plan`: blocks of ROWS output rows for S scenarios, the
-contraction split over SLICES warp rows (csrc/rw_tied_body.cuh, where the
-block shape is a constexpr); the library's own block shape, S and shared
-bytes are checked against the plan's when it is loaded.
+one to the other. The untied form (K2, `rw_untied`) is the same body in its
+untied mode: one launch a trace computes all E outputs, each block one
+output's chain, where the JAX package launches K1 at E = 1 once per output.
+The row block of the model-sharded path (K3, `rw_tied_block`) is the same
+kernel again on a rectangle: this shard's rows against all N contraction
+rows. Each launch follows `rw_tied_plan` (K1, K3) or `rw_untied_plan` (K2):
+blocks of ROWS output rows for S scenarios (S_max, or 1 where B < S_max),
+the contraction split over SLICES warp rows (csrc/rw_tied_body.cuh, where
+the block shape is a constexpr) and, where the grid would fill at most a
+quarter of the card's SMs, over a cluster of `split` blocks whose partials
+are added in rank order (`rw_split_reference` is that sum's plain version).
+The library's block shape, S, shared bytes and plans are checked against
+the wrapper's when it is loaded.
 
 The symmetric-pair kernel (K4, csrc/variance_trace_sym.cu, `rw_sym`) is the
 JAX package's opt-in GPMPC_SYM_KERNEL=1: the exponent in the whitened form
@@ -86,7 +91,11 @@ ROWS = 64               # kRows: output rows a block (blockDim.x)
 SLICES = 4              # kSlices: contraction slices a block (blockDim.y)
 SUB_ROWS = 32           # kSubRows: contraction rows a slice takes from each
                         # staged tile
+MAX_SPLIT = 8           # kMaxSplit: blocks of a cluster (the portable limit)
+SPLIT_ROWS = 16         # kSplitRows: the fewest contraction rows a rank takes
+SPLIT_FILL = 4          # kSplitFill: split only where blocks * 4 <= SMs
 MAX_SMEM = 232448       # dynamic shared memory a block may have (227 KB)
+H100_SMS = 132          # SMs of an H100 SXM, the plans' default card
 
 
 class RwPlan(NamedTuple):
@@ -94,9 +103,14 @@ class RwPlan(NamedTuple):
     slices: int         # contraction slices a block
     scenarios: int      # S: scenarios a block, sharing each blam load
     threads: int        # rows * slices
-    tile: int           # contraction rows staged a step: slices * SUB_ROWS
+    tile: int           # contraction rows staged a step: slices * sub
     smem_bytes: int     # dynamic shared memory of a block
-    grid: tuple         # (ceil(n_out / rows), ceil(B / S))
+    grid: tuple         # (ceil(n_out / rows) * split, ceil(B / S)); K2 adds
+                        # E, the outputs' axis
+    split: int          # blocks the contraction is split over (1: none)
+    cluster: tuple      # the thread-block cluster: (split, 1, 1)
+    chunk: int          # contraction rows a rank takes (n_c at split 1)
+    sub: int            # contraction rows a slice takes from each tile
 
 
 def _itemsize(dtype) -> int:
@@ -114,39 +128,89 @@ def _scenarios(words: int) -> int:
 
 
 def rw_scenarios(d: int, e: int, dtype) -> int:
-    """S of K1's body (`scenarios<T, D, E>()`): g (d) and the accumulators
-    (E (1+d)) of one scenario, in 32-bit words."""
+    """S_max of K1's body (`scenarios<T, D, E>()`): g (d) and the
+    accumulators (E (1+d)) of one scenario, in 32-bit words. K2's is the
+    one at E = 1 (one output's chain a block)."""
     return _scenarios(_itemsize(dtype) // 4 * (d + e * (d + 1)))
 
 
-def _rw_smem(d, e, dtype, s) -> int:
+def _rw_smem(d, e, dtype, s, untied=False) -> int:
     """`smem_bytes` of csrc/rw_tied_body.cuh: two staging buffers of a tile
-    of a and aod (rows padded to 4) or the slices' partials, whichever is
-    larger."""
-    stage = 2 * s * SLICES * SUB_ROWS * (_pad4(d) + _pad4(d + 1))
+    of a and aod (rows padded to 4; untied also the rows' dv) or the
+    slices' partials, whichever is larger."""
+    stage = 2 * s * SLICES * SUB_ROWS * (_pad4(d) + _pad4(d + 1) + int(untied))
     red = SLICES * s * e * (d + 1) * (ROWS + 1)
     return _itemsize(dtype) * max(stage, red)
 
 
-def rw_tied_plan(b, n_out, n_c, d, e, dtype) -> RwPlan:
-    """The launch of K1's body (K1, K2, K3) for B scenarios, n_out output
-    rows and n_c contraction rows: every (scenario, row) falls in exactly
-    one block's (S scenarios) x (rows rows), the ragged edges masked.
-    Raises on what the kernel cannot take, never adjusts."""
+def _plan(b, n_out, n_c, d, e, outs, dtype, sms, untied,
+          max_split=MAX_SPLIT) -> RwPlan:
+    """`plan_of` of csrc/rw_tied_body.cuh, for e outputs a block and `outs`
+    on the grid: S = S_max where B >= S_max, else 1; where the (row tiles x
+    scenario groups x outs) blocks fill at most 1 / SPLIT_FILL of the `sms`
+    SMs, the contraction split over up to max_split ranks of at least
+    SPLIT_ROWS rows, each rank's rows a multiple of SLICES, staged in tiles
+    of SLICES * sub rows."""
+    s_max = rw_scenarios(d, e, dtype)
+    s = s_max if b >= s_max else 1
+    tiles, groups = -(-n_out // ROWS), -(-b // s)
+    blocks = tiles * groups * outs
+    split = 1
+    if 0 < blocks and blocks * SPLIT_FILL <= sms:
+        split = max(1, min(sms // blocks, max_split, n_c // SPLIT_ROWS))
+    chunk, sub = n_c, SUB_ROWS
+    if split > 1:
+        chunk = -(-(-(-n_c // split)) // SLICES) * SLICES
+        split = -(-n_c // chunk)
+        sub = min(SUB_ROWS, chunk // SLICES)
+    grid = (tiles * split, groups) + ((outs,) if untied else ())
+    return RwPlan(ROWS, SLICES, s, ROWS * SLICES, SLICES * sub,
+                  _rw_smem(d, e, dtype, s, untied), grid, split, (split, 1, 1),
+                  chunk, sub)
+
+
+def _check_dims(d, e, dtype):
     if not (1 <= d <= MAX_D and 1 <= e <= MAX_E):
         raise ValueError(f'rw kernel supports d <= {MAX_D}, E <= {MAX_E}; '
                          f'got d={d}, E={e}')
     if dtype not in _FN:
         raise TypeError(f'rw kernel takes float32 or float64, got {dtype}')
-    s = rw_scenarios(d, e, dtype)
-    smem = _rw_smem(d, e, dtype, s)
-    grid = (-(-n_out // ROWS), -(-b // s))
-    if smem > MAX_SMEM or grid[1] > _MAX_GRID_Y:
-        raise ValueError(f'rw kernel: B={b} at {s} scenarios a block needs '
-                         f'grid.y {grid[1]} (at most {_MAX_GRID_Y}) and '
-                         f'{smem} shared bytes (at most {MAX_SMEM})')
-    return RwPlan(ROWS, SLICES, s, ROWS * SLICES, SLICES * SUB_ROWS, smem,
-                  grid)
+
+
+def _check_grid(plan: RwPlan, b) -> RwPlan:
+    if plan.smem_bytes > MAX_SMEM or plan.grid[1] > _MAX_GRID_Y:
+        raise ValueError(f'rw kernel: B={b} at {plan.scenarios} scenarios a '
+                         f'block needs grid.y {plan.grid[1]} (at most '
+                         f'{_MAX_GRID_Y}) and {plan.smem_bytes} shared bytes '
+                         f'(at most {MAX_SMEM})')
+    return plan
+
+
+def rw_tied_plan(b, n_out, n_c, d, e, dtype, sms=H100_SMS) -> RwPlan:
+    """The launch of K1's body for K1 and K3: B scenarios, n_out output rows
+    and n_c contraction rows on a card of `sms` SMs. Every (scenario, row)
+    falls in exactly one block's (S scenarios) x (rows rows) for each of
+    `split` ranks, and every contraction row in exactly one rank's chunk,
+    the ragged edges masked. Raises on what the kernel cannot take, never
+    adjusts."""
+    _check_dims(d, e, dtype)
+    return _check_grid(_plan(b, n_out, n_c, d, e, 1, dtype, sms, False), b)
+
+
+def rw_untied_plan(b, n, d, e, dtype, sms=H100_SMS) -> RwPlan:
+    """K2's launch: K1's body at one output a block (S_max of E = 1), the E
+    outputs on grid.z, N rows against N. Raises as `rw_tied_plan`."""
+    _check_dims(d, e, dtype)
+    return _check_grid(_plan(b, n, n, d, 1, e, dtype, sms, True), b)
+
+
+# The shapes whose plans are compared with the library's at load: the
+# solve's lane counts, the closed loop's, ragged edges and split corners,
+# on an H100's SM count and a small card's.
+_PLAN_CHECK_B = (1, 2, 3, 5, 7, 64, 256, 257)
+_PLAN_CHECK_N = (1, 17, 100, 128, 130, 256, 512)
+_PLAN_CHECK_DE = ((1, 1), (2, 1), (3, 2), (4, 2), (5, 4), (8, 8))
+_PLAN_CHECK_SMS = (H100_SMS, 16)
 
 
 def _check_plan(lib, prefix, want):
@@ -162,27 +226,83 @@ def _check_plan(lib, prefix, want):
                                f'compiled kernel, {value} in the wrapper')
 
 
-def _kernel_fn(dtype):
-    """(launch, error string) of `dtype`'s library, whose compiled plan is
-    checked against this module's when it is first loaded."""
+def _plan_values(plan: RwPlan) -> list:
+    """A plan as `gpmpc_rw_tied_plan_*` writes it: S, split, chunk, sub,
+    grid x, y, z and the shared bytes."""
+    grid = tuple(plan.grid) + (1,) * (3 - len(plan.grid))
+    return [plan.scenarios, plan.split, plan.chunk, plan.sub, *grid,
+            plan.smem_bytes]
+
+
+def _check_launch_plans(lib, sfx, dtype):
+    """Raise unless the library's `plan_of` equals `_plan` at the
+    _PLAN_CHECK_* shapes, for K1 and K2."""
+    fn = getattr(lib, f'gpmpc_rw_tied_plan_{sfx}')
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 8)()
+    for b in _PLAN_CHECK_B:
+        for n in _PLAN_CHECK_N:
+            for d, e in _PLAN_CHECK_DE:
+                for sms in _PLAN_CHECK_SMS:
+                    for untied in (False, True):
+                        want = _plan_values(
+                            _plan(b, n, n, d, 1, e, dtype, sms, True)
+                            if untied else
+                            _plan(b, n, n, d, e, 1, dtype, sms, False))
+                        args = (b, n, n, d, e, int(untied), sms)
+                        if fn(*args, out) != 0 or list(out) != want:
+                            raise RuntimeError(
+                                f'gpmpc_rw_tied_plan_{sfx}{args} is '
+                                f'{list(out)} in the compiled kernel, {want} '
+                                'in the wrapper')
+
+
+def _kernel_fn(dtype, untied=False):
+    """(launch, error string) of `dtype`'s library: K1's launch, or K2's
+    when untied. The compiled plan is checked against this module's when
+    the library is first loaded."""
     sfx = _FN[dtype]
     lib = _build.load(_LIB[dtype])
     fn = getattr(lib, f'gpmpc_rw_tied_{sfx}')
+    fn_u = getattr(lib, f'gpmpc_rw_untied_{sfx}')
     if fn.argtypes is None:
         want = {(f'rows_{sfx}',): ROWS, (f'slices_{sfx}',): SLICES,
-                (f'sub_rows_{sfx}',): SUB_ROWS}
+                (f'sub_rows_{sfx}',): SUB_ROWS,
+                (f'max_split_{sfx}',): MAX_SPLIT,
+                (f'split_rows_{sfx}',): SPLIT_ROWS,
+                (f'split_fill_{sfx}',): SPLIT_FILL}
         for d in range(1, MAX_D + 1):
             for e in range(1, MAX_E + 1):
                 s = rw_scenarios(d, e, dtype)
                 want[(f'scenarios_{sfx}', d, e)] = s
                 want[(f'smem_{sfx}', d, e)] = _rw_smem(d, e, dtype, s)
         _check_plan(lib, 'gpmpc_rw_tied', want)
+        _check_launch_plans(lib, sfx, dtype)
         err_fn = getattr(lib, f'gpmpc_rw_tied_error_string_{sfx}')
         err_fn.argtypes = [ctypes.c_int]
         err_fn.restype = ctypes.c_char_p
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn_u.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                         + [ctypes.c_void_p])
+        fn_u.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return fn, getattr(lib, f'gpmpc_rw_tied_error_string_{sfx}')
+    return (fn_u if untied else fn,
+            getattr(lib, f'gpmpc_rw_tied_error_string_{sfx}'))
+
+
+_sms: dict = {}
+
+
+def device_sms(device) -> int:
+    """The SM count of a CUDA device, which the launch plans read."""
+    idx = torch.device(device).index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
 
 
 def rw_tied_reference(g_out, dv_out, a, aod, blam):
@@ -194,6 +314,35 @@ def rw_tied_reference(g_out, dv_out, a, aod, blam):
     return dv_out[:, None, :, None] * rw
 
 
+def _split_parts(plan: RwPlan, n_c: int) -> list:
+    """The contraction rows of each rank of `plan`, in rank order."""
+    return [slice(r * plan.chunk, min(n_c, (r + 1) * plan.chunk))
+            for r in range(plan.split)]
+
+
+def rw_split_reference(g_out, dv_out, a, aod, blam, plan: RwPlan):
+    """Plain version of K1's split sum under `plan` (rw_tied_plan): each
+    rank's partial over its contraction rows, the partials added in rank
+    order 0 .. split-1 as the kernel adds them, then scaled by dv. Shapes
+    as `rw_tied_reference`, whose function it computes."""
+    parts = [rw_tied_reference(g_out, torch.ones_like(dv_out), a[:, sl],
+                               aod[:, sl], blam[:, sl])
+             for sl in _split_parts(plan, a.shape[1])]
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return dv_out[:, None, :, None] * total
+
+
+def rw_untied_split_reference(g, dv, a, ao, blam, plan: RwPlan):
+    """Plain version of K2's split sum under `plan` (rw_untied_plan):
+    `rw_split_reference` on each output's chain. Shapes as
+    `rw_untied_reference`."""
+    return torch.cat([rw_split_reference(
+        g[:, k], dv[:, k], a, ao * dv[:, k, :, None], blam[k:k + 1], plan)
+        for k in range(blam.shape[0])], dim=1)
+
+
 def _blocks_per_sm(lib_name, fn_name, *args) -> int:
     fn = getattr(_build.load(lib_name), fn_name)
     fn.restype = ctypes.c_longlong
@@ -203,40 +352,66 @@ def _blocks_per_sm(lib_name, fn_name, *args) -> int:
     return n
 
 
-def rw_tied_blocks_per_sm(d, e, dtype) -> int:
-    """Blocks of K1 an SM holds at once, as the CUDA runtime reports it
-    (needs the card)."""
+def rw_tied_blocks_per_sm(d, e, dtype, untied=False, s=None, split=1) -> int:
+    """Blocks that an SM holds at once of the K1 (K2 when untied) instance a
+    plan of S scenarios a block (S_max by default) and `split` launches, as
+    the CUDA runtime reports it (needs the card)."""
+    if s is None:
+        s = rw_scenarios(d, 1 if untied else e, dtype)
     return _blocks_per_sm(_LIB[dtype], f'gpmpc_rw_tied_blocks_per_sm_'
-                          f'{_FN[dtype]}', d, e)
+                          f'{_FN[dtype]}', d, e, int(untied), s, split)
 
 
 def _check(g_out, dv_out, a, aod, blam):
     b, n_out, d = g_out.shape
     e, n_c = blam.shape[:2]
-    want = {'dv_out': (b, n_out), 'a': (b, n_c, d), 'aod': (b, n_c, d + 1),
-            'blam': (e, n_c, n_out)}
-    got = {'dv_out': dv_out.shape, 'a': a.shape, 'aod': aod.shape,
-           'blam': blam.shape}
+    _check_tensors({'dv_out': (b, n_out), 'a': (b, n_c, d),
+                    'aod': (b, n_c, d + 1), 'blam': (e, n_c, n_out)},
+                   {'dv_out': dv_out, 'a': a, 'aod': aod, 'blam': blam},
+                   d, e, g_out)
+
+
+def _check_untied(g, dv, a, ao, blam):
+    b, e, n, d = g.shape
+    _check_tensors({'dv': (b, e, n), 'a': (b, n, d), 'ao': (b, n, d + 1),
+                    'blam': (e, n, n)},
+                   {'dv': dv, 'a': a, 'ao': ao, 'blam': blam}, d, e, g)
+
+
+def _check_tensors(want, got, d, e, g):
+    """Shapes `want` of the tensors `got` beside g; d, E within the built
+    instances; one float dtype, one device, contiguous."""
     for k, shape in want.items():
-        if tuple(got[k]) != shape:
-            raise ValueError(f'rw kernel: {k} has shape {tuple(got[k])}, '
-                             f'expected {shape}')
+        if tuple(got[k].shape) != shape:
+            raise ValueError(f'rw kernel: {k} has shape '
+                             f'{tuple(got[k].shape)}, expected {shape}')
     if not (1 <= d <= MAX_D and 1 <= e <= MAX_E):
         raise ValueError(f'rw kernel supports d <= {MAX_D} and E <= {MAX_E}; '
                          f'got d={d}, E={e}')
-    ts = (g_out, dv_out, a, aod, blam)
-    if g_out.dtype not in _FN or any(t.dtype != g_out.dtype for t in ts):
+    ts = (g, *got.values())
+    if g.dtype not in _FN or any(t.dtype != g.dtype for t in ts):
         raise TypeError('rw kernel takes float32 or float64 tensors of one '
                         f'dtype; got {[t.dtype for t in ts]}')
-    if any(t.device != g_out.device for t in ts):
+    if any(t.device != g.device for t in ts):
         raise ValueError('rw kernel: tensors lie on different devices')
     if any(not t.is_contiguous() for t in ts):
         raise ValueError('rw kernel takes contiguous tensors')
 
 
-def _launch(g_out, dv_out, a, aod, blam):
-    """Launch the CUDA kernel on the current stream, the plan of
-    `rw_tied_plan`; returns (rw, launched)."""
+def _run(fn, err_str, device, *args):
+    """Call a launch function on `device`'s current stream; raise on the
+    cudaError it returns (a launch the card refused)."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'rw kernel launch failed: cudaError {err} '
+                           f'({err_str(err).decode()})')
+
+
+def _launch(g_out, dv_out, a, aod, blam, max_split=MAX_SPLIT):
+    """Launch K1 on the current stream at the plan of `rw_tied_plan` for the
+    device's SM count, its split capped at max_split (MAX_SPLIT on every
+    path); returns (rw, launched)."""
     _check(g_out, dv_out, a, aod, blam)
     b, n_out, d = g_out.shape
     e, n_c, _ = blam.shape
@@ -248,14 +423,27 @@ def _launch(g_out, dv_out, a, aod, blam):
     if rw.numel() == 0:
         return rw, False
     fn, err_str = _kernel_fn(g_out.dtype)
-    with torch.cuda.device(g_out.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(g_out.data_ptr(), dv_out.data_ptr(), a.data_ptr(),
-                 aod.data_ptr(), blam.data_ptr(), rw.data_ptr(),
-                 b, n_out, n_c, d, e, stream)
-    if err != 0:
-        raise RuntimeError(f'rw kernel launch failed: cudaError {err} '
-                           f'({err_str(err).decode()})')
+    _run(fn, err_str, g_out.device, g_out.data_ptr(), dv_out.data_ptr(),
+         a.data_ptr(), aod.data_ptr(), blam.data_ptr(), rw.data_ptr(), b,
+         n_out, n_c, d, e, device_sms(g_out.device), max_split)
+    return rw, True
+
+
+def _launch_untied(g, dv, a, ao, blam, max_split=MAX_SPLIT):
+    """Launch K2 on the current stream at the plan of `rw_untied_plan`;
+    returns (rw, launched)."""
+    _check_untied(g, dv, a, ao, blam)
+    b, e, n, d = g.shape
+    rw_untied_plan(b, n, d, e, g.dtype)               # raises past the grid
+    if g.device.type != 'cuda':
+        raise ValueError(f'rw kernel runs on CUDA tensors, got {g.device}')
+    rw = torch.empty((b, e, n, d + 1), dtype=g.dtype, device=g.device)
+    if rw.numel() == 0:
+        return rw, False
+    fn, err_str = _kernel_fn(g.dtype, untied=True)
+    _run(fn, err_str, g.device, g.data_ptr(), dv.data_ptr(), a.data_ptr(),
+         ao.data_ptr(), blam.data_ptr(), rw.data_ptr(), b, n, d, e,
+         device_sms(g.device), max_split)
     return rw, True
 
 
@@ -280,19 +468,16 @@ def rw_untied_reference(g, dv, a, ao, blam):
 
 
 def rw_untied(g, dv, a, ao, blam):
-    """K2: one exp chain per output (untied M2_e), as K1 launched once per
-    output at E = 1. CPU tensors take `rw_untied_reference`."""
+    """K2: one exp chain per output (untied M2_e), all E outputs in one
+    launch; the kernel applies dv_e to ao itself, so the wrapper makes no
+    per-output tensor. Shapes as `rw_untied_reference`, contiguous. CPU
+    tensors take `rw_untied_reference`."""
     global LAUNCHES_UNTIED
     if g.device.type == 'cpu':
         return rw_untied_reference(g, dv, a, ao, blam)
-    outs = []
-    for k in range(blam.shape[0]):
-        rw, launched = _launch(g[:, k].contiguous(), dv[:, k].contiguous(), a,
-                               (ao * dv[:, k, :, None]).contiguous(),
-                               blam[k:k + 1])
-        LAUNCHES_UNTIED += launched
-        outs.append(rw)
-    return torch.cat(outs, dim=1)
+    rw, launched = _launch_untied(g, dv, a, ao, blam)
+    LAUNCHES_UNTIED += launched
+    return rw
 
 
 # ------------------------------------------------------- K3: the row block --
@@ -578,7 +763,8 @@ def _rw_dispatch(u, m2, x, blam, tied: bool):
                        (_aug(a) * dv[..., None]).contiguous(),
                        blam.contiguous())
     a, g, dv = _prep_batched(u, m2, x)
-    return rw_untied(g, dv, a.contiguous(), _aug(a), blam.contiguous())
+    return rw_untied(g.contiguous(), dv.contiguous(), a.contiguous(),
+                     _aug(a).contiguous(), blam.contiguous())
 
 
 def _tied_backward(u, m2, x_rows, rw, ct):

@@ -48,7 +48,8 @@ def test_cuda_kernel_matches_plain_version(tied, shape):
     """K1 / K2's f32 instances on the card (the trace evaluated natively in
     f32) against the plain version in f64: forward rtol 5e-5 (atol 5e-5),
     backward rtol 2e-3 (atol 2e-4), the bars of the JAX kernel test
-    (tests/test_batched.py TestTiedStreamedKernel)."""
+    (tests/test_batched.py TestTiedStreamedKernel). One launch a trace, K2's
+    for all E outputs."""
     dev = _cuda()
     b, e, n, d = shape
     u, m2, x, blam, ct = _problem(tied, b, e, n, d, seed=5)
@@ -69,7 +70,7 @@ def test_cuda_kernel_matches_plain_version(tied, shape):
     before = tvt.LAUNCHES + tvt.LAUNCHES_UNTIED
     k_out, k_gu, k_gm = run(tfn, torch.float32)
     torch.cuda.synchronize()
-    assert tvt.LAUNCHES + tvt.LAUNCHES_UNTIED == before + (1 if tied else e)
+    assert tvt.LAUNCHES + tvt.LAUNCHES_UNTIED == before + 1
     r_out, r_gu, r_gm = run(rfn, torch.float64)
     np.testing.assert_allclose(k_out, r_out, rtol=5e-5, atol=5e-5)
     np.testing.assert_allclose(k_gu, r_gu, rtol=2e-3, atol=2e-4)
@@ -302,10 +303,14 @@ def test_cuda_probe_full_equals_k1_to_the_bit(shape):
 def _rw_args(kernel, b, n, d, e, dtype, dev):
     """The wrapper's arguments for `kernel` on the JAX kernel test's inputs
     (prepared in f64, then cast), and its plain version."""
-    u, m2, x, blam, _ = _problem(kernel != 'K4 per-output', b, e, n, d,
-                                 seed=12)
+    u, m2, x, blam, _ = _problem(kernel not in ('K2', 'K4 per-output'), b,
+                                 e, n, d, seed=12)
     f = lambda v: torch.tensor(v, dtype=torch.float64, device=dev)
     cast = lambda ts: [t.to(dtype).contiguous() for t in ts]
+    if kernel == 'K2':
+        a, g, dv = tvt._prep_batched(f(u), f(m2), f(x))
+        return (cast((g, dv, a, tvt._aug(a), f(blam))), tvt.rw_untied,
+                tvt.rw_untied_reference, 'LAUNCHES_UNTIED')
     if kernel in ('K1', 'K3'):
         a, g, dv = tvt._prep_tied(f(u), f(m2), f(x))
         aod = tvt._aug(a) * dv[..., None]
@@ -329,11 +334,12 @@ def _rw_args(kernel, b, n, d, e, dtype, dev):
 @pytest.mark.parametrize('de', [(1, 1), (3, 2), (8, 8)])
 @pytest.mark.parametrize('n', [1, 130, 200, 257])
 @pytest.mark.parametrize('b', [1, 3, 7, 257])
-@pytest.mark.parametrize('kernel', ['K1', 'K3', 'K4 tied', 'K4 per-output'])
+@pytest.mark.parametrize('kernel', ['K1', 'K2', 'K3', 'K4 tied',
+                                    'K4 per-output'])
 def test_cuda_rw_ragged_plans_match_plain_version(kernel, b, n, de, dtype):
-    """K1's body (K1, and K3 on n // 2 + 1 of n rows) and K4 at B not a
-    multiple of S, N not a multiple of a block's rows or tile, and the (d, E)
-    corners: rw against the plain version in f64 on the same inputs, f32 at
+    """K1's body (K1, K2 in one launch for all E, and K3 on n // 2 + 1 of n
+    rows) and K4 at B not a multiple of S, N not a multiple of a block's
+    rows or tile, and the (d, E) corners: rw against the plain version in f64 on the same inputs, f32 at
     rtol 5e-5 atol 5e-5 (the JAX kernel test's bar), f64 at rtol 1e-12. One
     counted launch."""
     dev = _cuda()
@@ -509,7 +515,8 @@ def test_cuda_kernel_at_closed_loop_shapes(tied, b, nv, de):
 @pytest.mark.cuda
 def test_cuda_closed_loop_matches_cpu():
     """The integrator's controller (K1 f64 at B = 1) and a train_gp followed
-    by an untied solve (K2) on the card against the same on the CPU, f64."""
+    by an untied solve (K2, one launch a trace, H (1 + iters) a B = 1 solve)
+    on the card against the same on the CPU, f64."""
     from gpmpc_tpu_torch.experiments.integrator import integrator_experiment
     from gpmpc_tpu_torch.mpc.controller import RiskSensitiveMPC
     from gpmpc_tpu_torch.mpc.solver import SolverConfig
@@ -534,9 +541,11 @@ def test_cuda_closed_loop_matches_cpu():
         before = tvt.LAUNCHES_UNTIED
         u = mpc.get_optimal_trajectory(np.array([0.5, -0.2]))
         outs[str(where)] = (res.iters, mpc.gp.log_lambdas.cpu().numpy(), u,
-                            tvt.LAUNCHES_UNTIED - before)
+                            tvt.LAUNCHES_UNTIED - before,
+                            5 * (1 + int(mpc.last_result.iters)))
     g, c = outs[str(dev)], outs['cpu']
-    assert g[0] == c[0] and g[3] > 0 and c[3] == 0
+    # One K2 launch a trace for both outputs: H traces a value-and-grad.
+    assert g[0] == c[0] and g[3] == g[4] and c[3] == 0
     np.testing.assert_allclose(g[1], c[1], rtol=1e-8)
     np.testing.assert_allclose(g[2], c[2], rtol=1e-6, atol=1e-7)
 
@@ -602,3 +611,103 @@ def test_cuda_fit_sparse_matches_cpu(name):
     want = fits['cpu'].beta.numpy()
     np.testing.assert_allclose(gp32.beta.cpu().double().numpy(), want,
                                rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+# ------------------------------------- the small-B plan (K1's body, K2) --
+LOOP_SHAPES = [(b, n, v, d, e) for b in (1, 5) for n, v in ((128, 100),
+                                                          (512, 320))
+               for d, e in ((2, 1), (3, 2), (5, 4))] + [(64, 128, 128, 3, 2)]
+
+
+def _split_args(kernel, shape, dtype, dev, seed):
+    """K1's or K2's arguments at a loop shape (padded rows zeroed), prepped
+    in f64 and cast; the wrapper, the split sum's plain version under the
+    wrapper's plan on this card, its counter and the plan."""
+    b, n, n_valid, d, e = shape
+    tied = kernel == 'K1'
+    u, m2, x, blam, _ = _problem(tied, b, e, n, d, seed)
+    x[n_valid:] = 0.0
+    blam[:, n_valid:] = 0.0
+    blam[:, :, n_valid:] = 0.0
+    f = lambda v: torch.tensor(v, dtype=torch.float64, device=dev)
+    sms = tvt.device_sms(dev)
+    if tied:
+        a, g, dv = tvt._prep_tied(f(u), f(m2), f(x))
+        args = [t.to(dtype).contiguous()
+                for t in (g, dv, a, tvt._aug(a) * dv[..., None], f(blam))]
+        plan = tvt.rw_tied_plan(b, n, n, d, e, dtype, sms)
+        return (args, tvt.rw_tied, functools.partial(
+            tvt.rw_split_reference, plan=plan), 'LAUNCHES', plan)
+    a, g, dv = tvt._prep_batched(f(u), f(m2), f(x))
+    args = [t.to(dtype).contiguous() for t in (g, dv, a, tvt._aug(a), f(blam))]
+    plan = tvt.rw_untied_plan(b, n, d, e, dtype, sms)
+    return (args, tvt.rw_untied, functools.partial(
+        tvt.rw_untied_split_reference, plan=plan), 'LAUNCHES_UNTIED', plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('shape', LOOP_SHAPES)
+@pytest.mark.parametrize('kernel', ['K1', 'K2'])
+def test_cuda_small_b_plan_matches_split_plain_version(kernel, shape, dtype):
+    """K1 and K2 (one launch for all E) at every closed-loop shape and at
+    config 4, at the plan for this card (S <= B, the contraction split over
+    a cluster where the grid is small): rw against the split sum's plain
+    version in f64 on the same operands, f32 at the JAX kernel test's bar
+    (rtol 5e-5 atol 5e-5), f64 at the conditioned bar (1e-12 |rw| plus 16
+    f64 ulps of the terms' magnitude sum). One counted launch."""
+    dev = _cuda()
+    args, fn, ref, counter, plan = _split_args(kernel, shape, dtype, dev, 40)
+    assert plan.scenarios <= shape[0]
+    before = getattr(tvt, counter)
+    got = fn(*args).double()
+    torch.cuda.synchronize()
+    assert getattr(tvt, counter) == before + 1
+    a64 = [t.double() for t in args]
+    want = ref(*a64)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=5e-5, atol=5e-5)
+        return
+    mag = ref(a64[0], a64[1], a64[2], a64[3].abs(), a64[4].abs())
+    err = (got - want).abs()
+    bar = 1e-12 * want.abs() + 16 * torch.finfo(torch.float64).eps * mag
+    # The padded rows are 0 in both, their bar 0: compare, do not divide.
+    assert bool((err <= bar).all()), (
+        f'{kernel} {shape}: {float((err / bar)[bar > 0].max()):.3f}x the bar')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(1, 512, 320, 3, 2), (5, 512, 320, 5, 4),
+                                   (1, 128, 100, 2, 1), (256, 256, 200, 3, 2)])
+@pytest.mark.parametrize('kernel', ['K1', 'K2'])
+def test_cuda_same_inputs_same_bits(kernel, shape):
+    """The ranks' partials are added in a fixed order, so the same f64
+    operands give the same rw to the bit, split or not."""
+    dev = _cuda()
+    args, fn, _, _, _ = _split_args(kernel, shape, torch.float64, dev, 41)
+    first = fn(*args)
+    for _ in range(3):
+        assert torch.equal(fn(*args), first)
+
+
+@pytest.mark.cuda
+def test_cuda_refused_launch_raises():
+    """A plan the card refuses (a cluster of 32 blocks, past the hardware's
+    16, asked for through the launch's split cap) raises RuntimeError and
+    counts nothing; the next launch runs and is right."""
+    dev = _cuda()
+    rng = np.random.default_rng(42)
+    f = lambda *s: torch.tensor(rng.normal(size=s), device=dev)
+    args = [f(1, 64, 1), f(1, 64), f(1, 512, 1), f(1, 512, 2), f(1, 512, 64)]
+    assert tvt._plan(1, 64, 512, 1, 1, 1, torch.float64, tvt.device_sms(dev),
+                     False, max_split=32).split == 32
+    before = tvt.LAUNCHES
+    with pytest.raises(RuntimeError):
+        tvt._launch(*args, max_split=32)
+    assert tvt.LAUNCHES == before
+    got = tvt.rw_tied(*args)
+    torch.cuda.synchronize()
+    want = tvt.rw_tied_reference(*args).cpu().numpy()
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-12,
+                               atol=1e-12 * np.abs(want).max())

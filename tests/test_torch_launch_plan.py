@@ -2,8 +2,8 @@
 (scenario, output row) and every contraction row falls in exactly one
 block's share, within the card's limits (threads, 227 KB of shared memory,
 grid.y); what the kernels cannot take raises. And K1's summation order (the
-contraction slices' partials, then their fixed-order sum) transcribed in
-numpy f32, held to the f64 oracle on the headline operands at chip_smoke's
+contraction slices' partials, then their fixed-order sum, then the split
+ranks' sum in rank order) transcribed in numpy f32, held to the f64 oracle on the headline operands at chip_smoke's
 bar. The compiled plan is checked against these on the card when a library
 loads (ops/kernels/variance_trace.py, _check_plan)."""
 
@@ -32,15 +32,19 @@ def _cover(extent, block, blocks):
     return np.bincount(idx[idx < extent], minlength=extent)
 
 
-def _slices_cover(n_c, slices, sub):
-    """How often each contraction row falls in a slice's rows: tile j0
-    gives slice k its rows [j0 + k sub, j0 + (k+1) sub) within the tile."""
-    tile = slices * sub
+def _slices_cover(n_c, plan):
+    """How often each contraction row falls in a slice's rows: rank r of
+    the plan's split takes [r chunk, (r+1) chunk), in tiles of slices * sub
+    rows, and tile j0 gives slice k its rows [j0 + k sub, j0 + (k+1) sub)
+    within the tile."""
+    tile = plan.slices * plan.sub
     hits = np.zeros(n_c, int)
-    for j0 in range(0, n_c, tile):
-        jn = min(tile, n_c - j0)
-        for k in range(slices):
-            hits[j0 + k * sub:j0 + min((k + 1) * sub, jn)] += 1
+    for r in range(plan.split):
+        jend = min(n_c, (r + 1) * plan.chunk)
+        for j0 in range(r * plan.chunk, jend, tile):
+            jn = min(tile, jend - j0)
+            for k in range(plan.slices):
+                hits[j0 + k * plan.sub:j0 + min((k + 1) * plan.sub, jn)] += 1
     return hits
 
 
@@ -56,12 +60,14 @@ def test_rw_tied_plan_covers_every_row_once(dtype, d):
                     assert p.rows % 32 == 0
                     assert p.smem_bytes <= SMEM_CARD
                     assert p.grid[1] <= GRID_Y_CARD
-                    assert 1 <= p.scenarios <= 4
+                    assert 1 <= p.scenarios <= min(4, b)
                     assert np.all(_cover(b, p.scenarios, p.grid[1]) == 1)
-                    assert np.all(_cover(n_out, p.rows, p.grid[0]) == 1)
-                    assert np.all(_slices_cover(n_c, p.slices,
-                                                tvt.SUB_ROWS) == 1)
-                    assert p.tile == p.slices * tvt.SUB_ROWS
+                    assert p.grid[0] % p.split == 0
+                    assert np.all(_cover(n_out, p.rows,
+                                         p.grid[0] // p.split) == 1)
+                    assert np.all(_slices_cover(n_c, p) == 1)
+                    assert p.tile == p.slices * p.sub <= (p.slices
+                                                          * tvt.SUB_ROWS)
 
 
 @pytest.mark.parametrize('d', range(1, tvt.MAX_D + 1))
@@ -127,31 +133,40 @@ def test_headline_plans():
 
 
 def _k1_order_np(g, dv, a, aod, blam, plan):
-    """numpy f32 transcription of K1's sums under `plan`: slice k of each
-    staged tile takes the rows [j0 + k SUB_ROWS, j0 + (k+1) SUB_ROWS) and
-    accumulates (blam w) aod[c] over them in row order (a multiply and an
-    add where the card fuses them); the slices' partials are then summed
-    k = 0 .. slices-1 and scaled by dv. g (B, Nout, d), dv (B, Nout),
-    a (B, Nc, d), aod (B, Nc, 1+d), blam (E, Nc, Nout) -> rw
+    """numpy f32 transcription of K1's sums under `plan`: rank r of the
+    split takes the rows [r chunk, (r+1) chunk), staged in tiles of
+    slices * sub rows; slice k of each tile takes the rows
+    [j0 + k sub, j0 + (k+1) sub) and accumulates (blam w) aod[c] over them
+    in row order (a multiply and an add where the card fuses them); the
+    slices' partials are summed k = 0 .. slices-1, the ranks' sums
+    r = 0 .. split-1, and the total scaled by dv. g (B, Nout, d),
+    dv (B, Nout), a (B, Nc, d), aod (B, Nc, 1+d), blam (E, Nc, Nout) -> rw
     (B, E, Nout, 1+d)."""
     f32 = np.float32
     b, n_out, d = g.shape
     e, n_c, _ = blam.shape
-    parts = np.zeros((plan.slices, b, e, n_out, d + 1), f32)
-    for j0 in range(0, n_c, plan.tile):
-        for k in range(plan.slices):
-            for j in range(j0 + k * tvt.SUB_ROWS,
-                           min(j0 + (k + 1) * tvt.SUB_ROWS, n_c)):
-                p = np.zeros((b, n_out), f32)
-                for kk in range(d):
-                    p = p + a[:, j, kk][:, None] * g[:, :, kk]
-                w = np.exp(f32(-0.25) * p)
-                for ee in range(e):
-                    bw = blam[ee, j][None] * w
-                    parts[k, :, ee] += bw[..., None] * aod[:, j][:, None, :]
-    total = parts[0]
-    for k in range(1, plan.slices):
-        total = total + parts[k]
+    ranks = []
+    for r in range(plan.split):
+        jend = min(n_c, (r + 1) * plan.chunk)
+        parts = np.zeros((plan.slices, b, e, n_out, d + 1), f32)
+        for j0 in range(r * plan.chunk, jend, plan.tile):
+            for k in range(plan.slices):
+                for j in range(j0 + k * plan.sub,
+                               min(j0 + (k + 1) * plan.sub, jend)):
+                    p = np.zeros((b, n_out), f32)
+                    for kk in range(d):
+                        p = p + a[:, j, kk][:, None] * g[:, :, kk]
+                    w = np.exp(f32(-0.25) * p)
+                    for ee in range(e):
+                        bw = blam[ee, j][None] * w
+                        parts[k, :, ee] += bw[..., None] * aod[:, j][:, None, :]
+        block = parts[0]
+        for k in range(1, plan.slices):
+            block = block + parts[k]
+        ranks.append(block)
+    total = ranks[0]
+    for block in ranks[1:]:
+        total = total + block
     return dv[:, None, :, None] * total
 
 
