@@ -13,7 +13,10 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 FP64 instructions of CUDA's double exp, read from the SASS
                 of a one-line kernel built with the libraries' flags
                 (benchmarks/sass_fp64.py): the f64 bounds count each pair's
-                exp by them.
+                exp by them; the static DMMA and vector FP64 counts of the
+                tensor-core body's kernels; the registers and local memory
+                (spills) of K1's f64 instances, from cuobjdump -res-usage
+                (benchmarks/res_usage.py).
   3. kernels    Each kernel's f32 instance, evaluated natively in f32
                 (native=True: the trace's precision policy would run the f64
                 instance), against its plain PyTorch version in f64 on the
@@ -23,8 +26,12 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 headline GP's own x and b_lam, whose trace cancels, the
                 kernels' f32 and f64 instances against the plain f64 version:
                 rtol 5e-5 (f32) or 1e-12 (f64) of |t| plus 16 ulps of the
-                terms' magnitude sum; K1 also at every lane count of the
-                recipe there (RECIPE_WIDTHS: B = 64 to 3,584), and the p50
+                terms' magnitude sum; K1 (both instances) also at every
+                lane count of the recipe there (RECIPE_WIDTHS: B = 64 to
+                3,584). A tied f64 launch (K1, K3) takes the route of
+                variance_trace.rw_tied_body: the f64 tensor-core body
+                (csrc/rw_tied_f64_body.cuh) where its grid holds a block for
+                every SM, else the scalar body's plan. The p50
                 relative error of its f32 t against f64 beside the JAX
                 kernel's on a TPU. K1 (tied)
                 and K2 (untied); K3 (the row
@@ -46,7 +53,14 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 host (`ms`), and as the slope of CUDA-graph replays of 24 and
                 96 captured calls (`graph_ms`, gpmpc_tpu_torch/benchmarks/
                 chain.py), which leaves the host's enqueue out; K1's f64
-                instance also at B = 3,584 by graph slope. Before the
+                instance also at B = 3,584 by graph slope; K1 and K3 f64
+                also in each body, the scalar one (the f64 instance before
+                the tensor-core body) and the tensor-core one, whatever the
+                route. Bounds: f32 at the f32 peak; f64 the exp, scale and
+                blam multiplies at the FP64 vector peak plus the
+                multiply-adds at the FP64 tensor-core peak (they share the
+                datapath).
+                Before the
                 times, each kernel's launch plan at the headline shape
                 (variance_trace.rw_tied_plan, rw_sym_plan: rows, slices,
                 scenarios a block, threads, shared bytes, grid, and the
@@ -63,8 +77,14 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 terms' magnitude sum plus the operands' rounding slack, and
                 red_3xtf32 and tc_p also at 5e-5 against the plain f64 full);
                 `full` equal to K1 (`rw_tied`) to the bit on those inputs and
-                on the headline operands. Then both probes at the headline
-                shape (gpmpc_tpu_torch/benchmarks: kernel_ablate.run and
+                on the headline operands. The f64 variants (the scalar
+                body's stages at T = double and the tensor-core body's
+                variants, probe.F64_VARIANTS) against their plain f64
+                versions (1e-12 |rw| + 16 ulps of the magnitude sum), f64
+                `full` and `mma` equal to K1 f64 in the scalar and the
+                tensor-core body to the bit. Then both probes at the
+                headline shape, and P1 again at f64
+                (gpmpc_tpu_torch/benchmarks: kernel_ablate.run and
                 kernel_probe.run), each
                 with the counts set to 0 just before and read just after: the
                 probe kernel launched, no other kernel, every variant within
@@ -84,8 +104,8 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 (B = 1: the integrator's K1, the pendulum's and cartpole's
                 K2; the pendulum's K2 at the multistart's count) timed by
                 events and graph slope beside their plain versions and
-                bounds, each with its plan (S, split, cluster, grid, blocks
-                an SM).
+                bounds, each with its plan (body; S, split, cluster, grid
+                or S, grid; blocks an SM), K1 also in each body.
   4. objective  the port's f64 objective on the card (the f64 kernel
                 instances) at the reference controls and at 0 against the
                 JAX package's values in gpmpc_tpu_torch/data/headline_ref.npz,
@@ -167,7 +187,7 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 kernel test's inputs with the padded rows zeroed, at phase
                 3c's bars; the f64 instance timed at each by events and
                 graph slope beside its plain version, bound and launch plan
-                (S, shared bytes, grid, blocks an SM).
+                (S, shared bytes, grid, blocks an SM), and in each body.
   8. sparse     the sparse GP and the remaining modules, each part with
                 the counts set to 0 just before it, every K1 launch at a
                 shape phase 3d checked:
@@ -229,23 +249,32 @@ CLOSED_LOOP_REF = os.path.join(ROOT, 'gpmpc_tpu_torch', 'data',
                                'closed_loop_ref.npz')
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): float32 and
-# float64 outside the tensor cores, and HBM3 bandwidth.
+# float64 outside the tensor cores, float64 on the tensor cores (FP64 Tensor
+# Core, IEEE double: the f64 mma.sync of csrc/rw_tied_f64_body.cuh), and
+# HBM3 bandwidth. The f32 bounds count no tensor core: the precision policy
+# admits no TF32. The FP64 tensor cores and the FP64 vector pipe do not run
+# at once: benchmarks/dmma_rate.py measured 66 TFLOP/s of m16n8k4 alone, 32
+# of DFMA alone, and 38 for the two in one loop, below the 49 that running
+# them one after the other would give (one H100 80GB HBM3 at 700 W). So an
+# f64 bound adds the two times.
 PEAK_F32_FLOPS = 67e12
 PEAK_F64_FLOPS = 34e12
+PEAK_F64_TC_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-# FP64 instructions (DFMA + DMUL + DADD) of CUDA's double exp, the kernels'
-# accurate_exp (csrc/common.cuh), on the path an argument in the ordinary
-# range takes (|x| below ~708, every pair's -p/4 here), read from the SASS of
-# a one-line kernel built with the kernel libraries' flags for sm_90a
-# (benchmarks/sass_fp64.py, cuobjdump -sass): 14 DFMA (the rounding to a
-# multiple of ln 2, the two-part reduction, the degree-11 polynomial) and 1
-# DADD before the special-case branch, whose path adds a DADD and a DMUL
-# (17 in all; CUDA 12.8 on the H100's machine). Each takes one FP64 issue
-# slot, which the 34 TFLOP/s peak counts as the 2 flops of a DFMA, so an
-# f64 bound counts the exp as 2 * EXP_F64_INSTR flops (the f32 bounds count
-# expf as one). Phase 2 reads the count again and this run's bounds use
-# what it reads.
-EXP_F64_INSTR = 15
+# FP64 instructions (DFMA + DMUL + DADD) of the cheapest accurate double exp
+# the kernels use, read from the SASS of one-line kernels built with the
+# kernel libraries' flags for sm_90a (benchmarks/sass_fp64.py, cuobjdump
+# -sass; CUDA 12.8 on the H100's machine): exp_fast of
+# csrc/rw_tied_f64_body.cuh, the exp of K1's f64 tensor-core body (within 1
+# ulp of exp for |x| < 707, every pair's -p/4 here): 8 DFMA, 1 DMUL and 2
+# DADD, no branch; CUDA's exp (the other f64 kernels' accurate_exp,
+# csrc/common.cuh) takes 15 on its ordinary path (14 DFMA and 1 DADD before
+# its special-case branch, 17 in all). Each takes one FP64 issue slot, which
+# the 34 TFLOP/s peak counts as the 2 flops of a DFMA, so an f64 bound counts
+# the exp as 2 * EXP_F64_INSTR flops (the f32 bounds count expf as one): the
+# same work, whichever exp a kernel runs. Phase 2 reads both counts again
+# and this run's bounds use the smaller.
+EXP_F64_INSTR = 11
 # The JAX kernel's p50 relative error of t against f64 on the headline b_lam,
 # on a TPU v5e (benchmarks/quality_retired.py:245-246).
 JAX_TPU_T_REL_ERR_P50 = 7.8e-6
@@ -391,11 +420,13 @@ def assert_close(name, got, want, rtol, atol) -> float:
     return float(np.max(np.abs(got - want)))
 
 
-def _bound(flops, elems, f64=False):
+def _bound(flops, elems, f64=False, tc_flops=0):
     """(ms, what bounds it): the larger of the operations over the card's
-    peak for their type and the bytes (elems of 8 or 4 bytes) over its
-    memory rate."""
-    t_ops = flops / (PEAK_F64_FLOPS if f64 else PEAK_F32_FLOPS)
+    peaks for their type (f32: all of `flops` at the f32 peak; f64: `flops`
+    on the FP64 vector pipe plus `tc_flops` on the FP64 tensor cores, which
+    share it) and the bytes (elems of 8 or 4 bytes) over its memory rate."""
+    t_ops = (flops / (PEAK_F64_FLOPS if f64 else PEAK_F32_FLOPS)
+             + tc_flops / PEAK_F64_TC_FLOPS)
     t_bytes = elems * (8 if f64 else 4) / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ('operations' if t_ops >= t_bytes
                                        else 'bytes')
@@ -403,40 +434,54 @@ def _bound(flops, elems, f64=False):
 
 def exp_flops(f64: bool) -> int:
     """The flops a bound counts for one exp: expf as one; the double exp as
-    its FP64 instructions at 2 flops each (EXP_F64_INSTR)."""
+    the FP64 instructions of the cheapest accurate one at 2 flops each
+    (EXP_F64_INSTR)."""
     return 2 * EXP_F64_INSTR if f64 else 1
 
 
 def bound_ms(b, n_out, n_c, d, e, chains, f64=False):
-    """Least time for the rw function (K1, K2, K3) on this card: the larger
-    of its operations over the peak for their type (f32 or f64) and its
-    bytes (each input read once, each output written once) over the memory
-    rate. Per (i, j) pair and exp chain: d multiply-adds and one scale for
-    the exponent, one exp (exp_flops), and per output one blam multiply and
-    (1 + d) multiply-adds."""
+    """Least time for the rw function (K1, K2, K3) on this card: the largest
+    of its operations over the peak for their type and its bytes (each
+    input read once, each output written once) over the memory rate. Per
+    (i, j) pair and exp chain: d multiply-adds and one scale for the
+    exponent, one exp (exp_flops), and per output one blam multiply and
+    (1 + d) multiply-adds. In f32 all of them at the f32 peak; in f64 the
+    scale, the exp and the blam multiplies on the vector pipe
+    (PEAK_F64_FLOPS) and the multiply-adds, products of small matrices, on
+    the FP64 tensor cores (PEAK_F64_TC_FLOPS), the two times added (they
+    share the FP64 datapath): the same work whatever implements it."""
     w1 = d + 1
     e_per_chain = e // chains
-    flops = b * n_out * n_c * chains * (2 * d + 1 + exp_flops(f64)
-                                        + e_per_chain * (1 + 2 * w1))
+    pairs = b * n_out * n_c * chains
     elems = (b * n_out * (d + 1) * chains + b * n_c * (d + w1) * chains
              + e * n_c * n_out + b * e * n_out * w1)
-    return _bound(flops, elems, f64)
+    if not f64:
+        return _bound(pairs * (2 * d + 1 + exp_flops(False)
+                               + e_per_chain * (1 + 2 * w1)), elems)
+    return _bound(pairs * (1 + exp_flops(True) + e_per_chain), elems, True,
+                  tc_flops=pairs * (2 * d + e_per_chain * 2 * w1))
 
 
 def sym_bound_ms(b, n, d, e, chains, f64=False):
     """K4's least time: the exponent (d multiply-adds, a scale, one exp as
     exp_flops counts it) and per output one blam multiply on each of the
     n (n + 1) / 2 unordered pairs (W and blam are symmetric), and per
-    output the (1 + d) multiply-adds of each of the n^2 ordered pairs.
-    Bytes: z and dv per chain, ao, blam and rw, each once."""
+    output the (1 + d) multiply-adds of each of the n^2 ordered pairs; in
+    f64 the multiply-adds at the FP64 tensor-core peak and the rest at the
+    vector pipe's, added, as bound_ms. Bytes: z and dv per chain, ao, blam
+    and rw, each once."""
     w1 = d + 1
     e_pc = e // chains
     pairs = n * (n + 1) // 2
-    flops = b * chains * (pairs * (2 * d + 1 + exp_flops(f64) + e_pc)
-                          + n * n * e_pc * 2 * w1)
     elems = (b * n * (d + 1) * chains + b * n * w1 + e * n * n
              + b * e * n * w1)
-    return _bound(flops, elems, f64)
+    if not f64:
+        return _bound(b * chains * (pairs * (2 * d + 1 + exp_flops(False)
+                                             + e_pc)
+                                    + n * n * e_pc * 2 * w1), elems)
+    return _bound(b * chains * pairs * (1 + exp_flops(True) + e_pc), elems,
+                  True, tc_flops=b * chains * (pairs * 2 * d
+                                               + n * n * e_pc * 2 * w1))
 
 
 def instr_bound_ms(b, n, d, e, props, clock_mhz):
@@ -616,20 +661,25 @@ def check_kernel(key, fn, ref, tied, dev, b, n_ragged, cache, rng, also=None):
 
 
 def check_k1_wide(cache, rng, b):
-    """K1 in f32 at one of the recipe's lane counts (RECIPE_WIDTHS) on the
-    headline operands, against the plain f64 version at the bar of
-    check_conditioned."""
+    """K1's f32 and f64 instances at one of the recipe's lane counts
+    (RECIPE_WIDTHS) on the headline operands, against the plain f64 version
+    at the bar of check_conditioned (rtol 5e-5 in f32, 1e-12 in f64: the
+    recipe's launches at these widths run the f64 instance)."""
     import torch
     from gpmpc_tpu_torch.problems import headline_operands
     k1, k1_ref = trace_fns(True)
-    k_max, p_max, k_mag, _ = check_conditioned(
-        f'K1 B={b} headline operands', k1, k1_ref,
-        *headline_operands(rng, b, cache, True), torch.float32, 5e-5)
-    log(f'[kernels] K1 in f32 at B={b} on the headline x and b_lam vs plain '
-        f'f64: max abs err {k_max:.3e} (at most {k_mag:.3e} of the terms\' '
-        f'magnitude sum; the plain version in f32: {p_max:.3e}); bar 5e-5 '
-        f'|t| + 16 eps mag ok')
-    return k_max
+    ops = headline_operands(rng, b, cache, True)
+    out = {}
+    for dtype, rtol in ((torch.float32, 5e-5), (torch.float64, 1e-12)):
+        k_max, p_max, k_mag, _ = check_conditioned(
+            f'K1 B={b} headline operands {dtype}', k1, k1_ref, *ops, dtype,
+            rtol)
+        log(f'[kernels] K1 in {dtype} at B={b} on the headline x and b_lam '
+            f'vs plain f64: max abs err {k_max:.3e} (at most {k_mag:.3e} of '
+            f'the terms\' magnitude sum; the plain version in {dtype}: '
+            f'{p_max:.3e}); bar {rtol} |t| + 16 eps mag ok')
+        out[_DT_NAME[str(dtype)]] = k_max
+    return out
 
 
 def full_cov_operands(dev, steps=FULL_COV_STEPS):
@@ -730,16 +780,25 @@ def phase_kernels(dev, b, n_ragged, cache):
 
 
 def rw_plan(key, b, n_out, n_c, d, e, dtype, dev) -> dict:
-    """The launch plan of K1's body for kernel `key` (K2: untied, one launch
-    for all E) on this card, with the blocks an SM holds at its S."""
+    """The launch plan of kernel `key` (K2: untied, one launch for all E) on
+    this card, with the blocks an SM holds at its S: a tied launch's in the
+    body its route takes (`rw_tied_body`: 'mma', the f64 tensor-core body
+    at rw_tied_mma_plan, or 'scalar', K1's scalar body at rw_tied_plan)."""
     from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
     sms = vt.device_sms(dev)
     untied = key.startswith('K2')
+    body = 'scalar' if untied else vt.rw_tied_body(b, n_out, n_c, d, e,
+                                                   dtype, sms)
+    if body == 'mma':
+        plan = vt.rw_tied_mma_plan(b, n_out, d, e)._asdict()
+        plan['blocks_per_sm'] = vt.rw_tied_mma_blocks_per_sm(
+            d, e, plan['scenarios'])
+        return dict(body=body, **plan)
     plan = (vt.rw_untied_plan(b, n_c, d, e, dtype, sms) if untied
             else vt.rw_tied_plan(b, n_out, n_c, d, e, dtype, sms))._asdict()
     plan['blocks_per_sm'] = vt.rw_tied_blocks_per_sm(
         d, e, dtype, untied, plan['scenarios'], plan['split'])
-    return plan
+    return dict(body=body, **plan)
 
 
 def phase_sass() -> dict:
@@ -749,20 +808,60 @@ def phase_sass() -> dict:
     from gpmpc_tpu_torch.benchmarks import sass_fp64
     from gpmpc_tpu_torch.ops.kernels import _build
     res = sass_fp64.run(_build.BUILD_DIR / 'sass_fp64')
-    exp = res['exp_f64']
+    exp, fast = res['exp_f64'], res['exp_fast_f64']
     log(f'[build] CUDA double exp in SASS (sm_90a, the libraries\' flags): '
         f'{exp["arith"]} FP64 instructions (DFMA {exp["DFMA"]}, DMUL '
         f'{exp["DMUL"]}, DADD {exp["DADD"]}; {exp["arith_before_first_branch"]}'
         f' on the ordinary path, before the special-case branch; other FP64 '
         f'{exp["other_fp64"]}); the same exp inlined {res["exp_copies"]} '
         f'times in {res["kernels_with_exp"]} of the f64 library\'s '
-        f'{res["kernels"]} kernels; EXP_F64_INSTR is {EXP_F64_INSTR}')
-    if exp['arith_before_first_branch'] != EXP_F64_INSTR:
-        log(f'[build] this toolkit\'s exp takes '
-            f'{exp["arith_before_first_branch"]} on its ordinary path, not '
-            f'EXP_F64_INSTR = {EXP_F64_INSTR}: this run\'s bounds use that')
-        EXP_F64_INSTR = exp['arith_before_first_branch']
+        f'{res["kernels"]} kernels; exp_fast (K1\'s tensor-core body) '
+        f'{fast["arith"]} (DFMA {fast["DFMA"]}, DMUL {fast["DMUL"]}, DADD '
+        f'{fast["DADD"]}, {fast["arith_before_first_branch"]} before a branch)'
+        f'; EXP_F64_INSTR is {EXP_F64_INSTR}')
+    cheapest = min(exp['arith_before_first_branch'], fast['arith'])
+    for kname, ops in res['mma_kernels'].items():
+        log(f'[build] tensor-core body {kname}: static SASS counts {ops}')
+    if cheapest != EXP_F64_INSTR:
+        log(f'[build] this toolkit\'s cheapest accurate exp takes {cheapest} '
+            f'FP64 instructions, not EXP_F64_INSTR = {EXP_F64_INSTR}: this '
+            'run\'s bounds use that')
+        EXP_F64_INSTR = cheapest
     return res
+
+
+BODIES = ('scalar', 'mma')
+
+
+def body_fns(name, args) -> dict:
+    """A tied f64 launch on `args` in each body, whatever its route (the
+    scalar body is the f64 instance before the tensor-core body): the
+    evidence for the route. Keys '<name> scalar', '<name> mma'."""
+    from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
+    return {f'{name} {bd}': (lambda a=args, bd=bd: vt._launch(*a, body=bd))
+            for bd in BODIES}
+
+
+def bodies_note(r) -> str:
+    """' (<route> body, scalar body <ms>, mma body <ms>)' of a timing row of
+    K1's body (its plan names the body; the times where it has them)."""
+    if 'body' not in r['plan']:
+        return ''
+    return f' ({r["plan"]["body"]} body' + ''.join(
+        f', {bd} body {r[f"graph_ms_{bd}"]:.4f}' for bd in BODIES
+        if f'graph_ms_{bd}' in r) + ')'
+
+
+def phase_res_usage() -> dict:
+    """Phase 2's registers and local memory (spills) of K1's f64 instances
+    at the headline's (d, E), read from the built libraries
+    (benchmarks/res_usage.py)."""
+    from gpmpc_tpu_torch.benchmarks import res_usage
+    res = res_usage.run()
+    for name, u in res['summary'].items():
+        log(f'[build] {name}: {u.get("REG")} registers, stack '
+            f'{u.get("STACK")} B, local {u.get("LOCAL")} B a thread')
+    return res['summary']
 
 
 def launch_plans(b, n, d, e, dtype, dev) -> dict:
@@ -833,21 +932,28 @@ def time_kernels(dev, b, cache, reps, dtype):
             plain_ms=cuda_ms(lambda: vt.rw_sym_reference(*k4u, False), reps),
             bound=sym_bound_ms(b, n, d, e, e, f64)),
     }
-    graphed = graph_ms({
+    fns = {
         'K1': lambda: vt.rw_tied(*k1), 'K2': lambda: vt.rw_untied(*k2),
         'K3': lambda: vt.rw_tied_block(*k3[n]),
         'K3 Nl=N/2': lambda: vt.rw_tied_block(*k3[n // 2]),
         'K4 tied': lambda: vt.rw_sym(*k4t, shared_chain=True),
-        'K4 per-output': lambda: vt.rw_sym(*k4u, shared_chain=False)}, dev)
+        'K4 per-output': lambda: vt.rw_sym(*k4u, shared_chain=False)}
+    if f64:
+        fns.update(body_fns('K1', k1))
+        fns.update(body_fns('K3 Nl=N/2', k3[n // 2]))
+    graphed = graph_ms(fns, dev)
     plans = launch_plans(b, n, d, e, dtype, dev)
     for key, r in res.items():
         r['graph_ms'] = graphed[key]
         r['plan'] = plans[key]
+        for body in BODIES:
+            if f'{key} {body}' in graphed:
+                r[f'graph_ms_{body}'] = graphed[f'{key} {body}']
         log(f'[kernels] {key} {dtype} at B={b} N={n} d={d} E={e}'
             f'{" Nl=" + str(r["n_loc"]) if "n_loc" in r else ""}: '
             f'{r["ms"]:.4f} ms by events over host-enqueued calls, '
-            f'{r["graph_ms"]:.4f} ms by graph slope, '
-            f'plain {r["plain_ms"]:.4f} ms, bound {r["bound"][0]:.4f} ms '
+            f'{r["graph_ms"]:.4f} ms by graph slope{bodies_note(r)}, plain '
+            f'{r["plain_ms"]:.4f} ms, bound {r["bound"][0]:.4f} ms '
             f'({r["bound"][1]})')
     return res
 
@@ -864,11 +970,16 @@ def time_k1_f64_wide(dev, b, cache):
     if args[0].dtype != torch.float64:
         raise AssertionError('K1 f64 timing: operands are not f64')
     n, d, e = cache.x.shape[0], cache.x.shape[1], cache.b_lam.shape[0]
-    out = dict(graph_ms=graph_ms({'K1 f64': lambda: vt.rw_tied(*args)},
-                                 dev)['K1 f64'],
+    ms = graph_ms({'K1 f64': lambda: vt.rw_tied(*args),
+                   **body_fns('K1 f64', args)}, dev)
+    out = dict(graph_ms=ms['K1 f64'],
+               **{f'graph_ms_{bd}': ms[f'K1 f64 {bd}'] for bd in BODIES},
+               body=vt.rw_tied_body(b, n, n, d, e, torch.float64,
+                                    vt.device_sms(dev)),
                bound=bound_ms(b, n, n, d, e, 1, f64=True))
     log(f'[kernels] K1 float64 at B={b} N={n}: {out["graph_ms"]:.4f} ms by '
-        f'graph slope, bound {out["bound"][0]:.4f} ms ({out["bound"][1]})')
+        f'graph slope{bodies_note(dict(out, plan=dict(body=out["body"])))}, '
+        f'bound {out["bound"][0]:.4f} ms ({out["bound"][1]})')
     return out
 
 
@@ -917,6 +1028,35 @@ def check_probe_variants(dev, b, n, n_ragged, cache):
             f'max abs err {err:.3e}, at most {ratio:.3e} of its bar ok')
     log('[probes] full equal to K1 (rw_tied) to the bit on both shapes and '
         'on the headline operands ok')
+    # The f64 variants: the scalar body's stages at T = double and the
+    # tensor-core body's variants, each against its plain f64 version;
+    # `full` and `mma` equal to K1's f64 launch in that body to the bit.
+    for shape, args in shapes.items():
+        args = [t.double() for t in args]
+        for v in probe.F64_VARIANTS:
+            got = probe.rw_probe(v, *args)
+            (_, want, bar), = probe.checks(v, *args)
+            err = (got - want).abs()
+            ratio = float((err / bar).max())
+            if not ratio <= 1.0:
+                raise AssertionError(f'probe {v} f64 at {shape}: |err| '
+                                     f'exceeds the bar {ratio:.3f}x')
+            key = f'{v} f64'
+            old = out.get(key, (0.0, 0.0))
+            out[key] = (max(old[0], float(err.max())), max(old[1], ratio))
+        for v, body in (('full', 'scalar'), ('mma', 'mma')):
+            k1 = (vt._launch(*args, body=body)[0] if dev.type == 'cuda'
+                  else vt.rw_tied(*args))
+            if not torch.equal(probe.rw_probe(v, *args), k1):
+                raise AssertionError(f'probe {v} f64 differs from K1 f64 in '
+                                     f'the {body} body at {shape}')
+    for v in probe.F64_VARIANTS:
+        err, ratio = out[f'{v} f64']
+        log(f'[probes] {v} f64 vs its plain f64 version, '
+            f'{" and ".join(shapes)}: max abs err {err:.3e}, at most '
+            f'{ratio:.3e} of its bar (1e-12 |rw| + 16 eps mag) ok')
+    log('[probes] f64 full and mma equal to K1 f64 in the scalar and the '
+        'tensor-core body to the bit on both shapes ok')
     return out
 
 
@@ -924,14 +1064,18 @@ def phase_probes(dev, b, n_ragged, cache, reps):
     """Phase 3b: the probe kernel's checks, then P1 and P2 at the headline
     shape, each counted. Returns (checks, ablate, probe results, launches,
     plain ms of full and tc_p)."""
+    import torch
     from gpmpc_tpu_torch.benchmarks import kernel_ablate, kernel_probe
     from gpmpc_tpu_torch.ops.kernels import probe
     n = cache.x.shape[0]
     checks = check_probe_variants(dev, b, n, n_ragged, cache)
     runs, launches = {}, {}
-    for key, mod in (('P1', kernel_ablate), ('P2', kernel_probe)):
+    for key, mod, dtype in (('P1', kernel_ablate, torch.float32),
+                            ('P2', kernel_probe, torch.float32),
+                            ('P1 f64', kernel_ablate, torch.float64)):
         reset_counts()
-        runs[key] = mod.run(device=dev, b=b, n=n)
+        runs[key] = (mod.run(device=dev, b=b, n=n) if dtype == torch.float32
+                     else mod.run(device=dev, b=b, n=n, dtype=dtype))
         counts = read_counts()
         if counts['P'] == 0 or any(v for k, v in counts.items() if k != 'P'):
             raise AssertionError(f'{key}: launches {counts}, expected the '
@@ -951,6 +1095,13 @@ def phase_probes(dev, b, n_ragged, cache, reps):
     for name, r in runs['P1']['variants'].items():
         log(f'[probes]   {name:13s} ({r["tpu_variant"]}): {r["kernel_us"]:8.3f}'
             f' / {r["chain_us"]:8.3f} / {r["max_abs_err_vs_plain"]:.3e}')
+    log(f'[probes] P1 at f64 (the scalar body\'s stages at T = double, the '
+        f'tensor-core body\'s variants) at B={b} N={n}, microseconds: '
+        f'kernel-only / chain-step / max abs err vs plain; '
+        f'{launches["P1 f64"]} probe wrapper calls')
+    for name, r in runs['P1 f64']['variants'].items():
+        log(f'[probes]   {name:13s}: {r["kernel_us"]:8.3f} / '
+            f'{r["chain_us"]:8.3f} / {r["max_abs_err_vs_plain"]:.3e}')
     log(f'[probes] P2 (kernel_probe) at B={b} N={n}, microseconds: '
         'kernel-only / chain-step; max rel err of t vs f64 on the probes\' '
         f'inputs / on the headline GP; {launches["P2"]} probe wrapper calls')
@@ -1304,7 +1455,7 @@ def phase_full_cov(dev, b, ref, out_dir):
                **time_solves('full cov', b, solve, FULL_COV_REPS, dev))
     out['profile'] = profile_solve(
         'full cov', lambda x0s: solve(x0s, FULL_COV_PROFILE_ITERS), p.x0s,
-        'rw_tied_kernel', out_dir)
+        'rw_tied', out_dir)
     return out
 
 
@@ -1354,7 +1505,7 @@ def profile_solve(tag, solve, x0s, kernel, out_dir):
     return out
 
 
-def phase_profile(dev, b, out_dir, tag='K1 solve', kernel='rw_tied_kernel'):
+def phase_profile(dev, b, out_dir, tag='K1 solve', kernel='rw_tied'):
     """One headline solve_batch under the profiler (the K4 opt-in, when on,
     makes it the sym solve)."""
     import torch
@@ -1399,7 +1550,7 @@ def phase_sharded_11(dev, b, j64, j_uref, reps, out_dir):
     out['profile'] = profile_solve(
         tag, lambda x0s: solve_batch_2d(mesh, p.gp, 2, 1, x0s, p.params,
                                         p.horizon, p.lb, p.ub, cfg_prof),
-        p.x0s, 'rw_tied_kernel', out_dir)
+        p.x0s, 'rw_tied', out_dir)
     dist.destroy_process_group()
     return out
 
@@ -1537,6 +1688,9 @@ def check_split(tag, key, u, m2, x, blam, dev) -> dict:
                 else vt.rw_untied_plan(b, n, d, e, dtype, sms))
         ref = functools.partial(vt.rw_split_reference if tied
                                 else vt.rw_untied_split_reference, plan=plan)
+        if tied and vt.rw_tied_body(b, n, n, d, e, dtype, sms) == 'mma':
+            plan = vt.rw_tied_mma_plan(b, n, d, e)
+            ref = vt.rw_tied_mma_reference
         counter = 'LAUNCHES' if tied else COUNTER['K2']
         before = getattr(vt, counter)
         got = (vt.rw_tied if tied else vt.rw_untied)(*args).double()
@@ -1557,8 +1711,9 @@ def check_split(tag, key, u, m2, x, blam, dev) -> dict:
             raise AssertionError(f'{tag} f64 vs the split plain version: '
                                  f'{float((err / bar).max()):.3f}x its bar')
         errs['f64'] = float(err.max())
-        errs['plan'] = dict(scenarios=plan.scenarios, split=plan.split,
-                            grid=plan.grid)
+        errs['plan'] = dict(scenarios=plan.scenarios, grid=plan.grid,
+                            **({} if isinstance(plan, vt.MmaPlan)
+                               else {'split': plan.split}))
     return errs
 
 
@@ -1608,15 +1763,19 @@ def phase_loop_kernels(dev):
     return checked, errs, lanes
 
 
-def _loop_kernel_args(rng, b, n, n_valid, d, e, tied, dev):
+def _loop_kernel_args(rng, b, n, n_valid, d, e, tied, dev, n_loc=None):
     """Each kernel's f64 arguments at a loop shape, prepped as the traces
-    prep them."""
+    prep them; tied with n_loc, K3's: the first n_loc output rows against
+    all n, blam's column block transposed (as mesh.row_block stores it)."""
     from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
     u, m2, x, blam, _ = loop_inputs(rng, b, n, n_valid, d, e, tied, dev)
     if tied:
         a, g, dv = vt._prep_tied(u, m2, x)
-        return [t.contiguous() for t in (g, dv, a, vt._aug(a) * dv[..., None],
-                                         blam)]
+        aod = vt._aug(a) * dv[..., None]
+        if n_loc is not None:
+            _, g, dv = vt._prep_tied(u, m2, x[:n_loc])
+            blam = blam[:, :n_loc].transpose(1, 2)
+        return [t.contiguous() for t in (g, dv, a, aod, blam)]
     a, g, dv = vt._prep_batched(u, m2, x)
     return [t.contiguous() for t in (g, dv, a, vt._aug(a), blam)]
 
@@ -1655,34 +1814,48 @@ def time_loop_kernels(dev, lanes):
     return res
 
 
-def time_shapes(dev, shapes, tag, rng):
-    """The f64 instances of K1 / K2 at (kernel, B, N, valid rows, d, E)
-    `shapes`: CUDA events over 50 host-enqueued calls, CUDA-graph slope, the
-    plain version's events time, the bound and the launch plan."""
+def time_shapes(dev, shapes, tag, rng, bodies=True):
+    """The f64 instances of K1 / K2 / K3 at (kernel, B, N, valid rows, d, E)
+    `shapes` (K3: the first N / 2 output rows, one rank of a (1, 2) mesh):
+    CUDA events over 50 host-enqueued calls, CUDA-graph slope, the plain
+    version's events time, the bound and the launch plan. With `bodies`,
+    a tied launch is also timed by graph slope in each body, 'scalar' (the
+    plan before the tensor-core body, `graph_ms_scalar`) and 'mma'
+    (`graph_ms_mma`), whatever its route: the evidence for the route."""
     from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
     res, fns = {}, {}
     for key, b, n, n_valid, d, e in shapes:
-        tied = key == 'K1'
-        args = _loop_kernel_args(rng, b, n, n_valid, d, e, tied, dev)
-        kern = vt.rw_tied if tied else vt.rw_untied
+        tied = key != 'K2'
+        n_out = n // 2 if key == 'K3' else n
+        args = _loop_kernel_args(rng, b, n, n_valid, d, e, tied, dev,
+                                 n_out if key == 'K3' else None)
+        kern = {'K1': vt.rw_tied, 'K2': vt.rw_untied,
+                'K3': vt.rw_tied_block}[key]
         plain = vt.rw_tied_reference if tied else vt.rw_untied_reference
         name = f'{key} f64 B={b} N={n} d={d} E={e}'
+        if key == 'K3':
+            name += f' Nl={n_out}'
         fns[name] = (lambda k=kern, a=args: k(*a))
-        bound = bound_ms(b, n, n, d, e, 1 if tied else e, f64=True)
-        plan = rw_plan(key, b, n, n, d, e, args[0].dtype, dev)
+        if tied and bodies:
+            fns.update(body_fns(name, args))
+        bound = bound_ms(b, n_out, n, d, e, 1 if tied else e, f64=True)
+        plan = rw_plan(key, b, n_out, n, d, e, args[0].dtype, dev)
         res[name] = dict(ms=cuda_ms(fns[name], 50),
                          plain_ms=cuda_ms(lambda p=plain, a=args: p(*a), 50),
                          bound=bound, plan=plan)
     for name, ms in graph_ms(fns, dev).items():
-        r = res[name]
-        r['graph_ms'] = ms
+        base, _, body = name.rpartition(' ')
+        if body in BODIES and base in res:
+            res[base][f'graph_ms_{body}'] = ms
+        else:
+            res[name]['graph_ms'] = ms
+    for name, r in res.items():
         log(f'[{tag}] {name}: {r["ms"]:.4f} ms by events, '
-            f'{ms:.4f} ms by graph slope, plain {r["plain_ms"]:.4f} ms, bound '
-            f'{r["bound"][0]:.5f} ms ({r["bound"][1]}); S '
-            f'{r["plan"]["scenarios"]}, split {r["plan"]["split"]}, cluster '
-            f'{tuple(r["plan"]["cluster"])}, grid {tuple(r["plan"]["grid"])}, '
-            f'{r["plan"]["smem_bytes"]} shared bytes, '
-            f'{r["plan"]["blocks_per_sm"]} blocks an SM')
+            f'{r["graph_ms"]:.4f} ms by graph slope{bodies_note(r)}, plain '
+            f'{r["plain_ms"]:.4f} ms, bound '
+            f'{r["bound"][0]:.5f} ms ({r["bound"][1]}); plan '
+            + ', '.join(f'{k} {v}' for k, v in r['plan'].items()
+                        if k != 'body'))
     return res
 
 
@@ -1879,7 +2052,7 @@ def phase_closed_loop(dev, checked, ref_path, out_dir):
             mpc.get_optimal_trajectory(ep.states[-1])
             return mpc.last_result
 
-        prof = profile_solve('loop step', one_step, mpc.gp.x, 'rw_tied_kernel',
+        prof = profile_solve('loop step', one_step, mpc.gp.x, 'rw_tied',
                              out_dir)
         out['swing_up'] = dict(
             train_s=train_s, train_iters=res.iters, hp_rel_err=hp_err,
@@ -2542,6 +2715,7 @@ def main() -> int:
     log(f'[build] nvcc built the kernels in {build_s:.1f} s ('
         + ', '.join(f'{k} {v:.1f} s' for k, v in each_s.items()) + ')')
     sass = phase_sass()
+    sass['res_usage'] = phase_res_usage()
 
     b = 256
     f32, f64 = torch.float32, torch.float64
@@ -2591,8 +2765,9 @@ def main() -> int:
              'native=True; launches: the k1_f32 plain solve)', SOURCE, 638,
              solve_f32['launches']),
             ('K1', f64, 'rw_tied f64 instance (variance_trace_batched_tied '
-             'under the precision policy; launches: the recipe solve)',
-             SOURCE_F64, 638, recipe['launches']),
+             'under the precision policy; the FP64 tensor-core body of '
+             'csrc/rw_tied_f64_body.cuh where B fills its S; launches: the '
+             'recipe solve)', SOURCE_F64, 638, recipe['launches']),
             ('K2', f64, 'rw_untied f64 instance (variance_trace_batched)',
              SOURCE_F64, 214, untied_launches),
             ('K3', f64, 'rw_tied_block f64 instance '

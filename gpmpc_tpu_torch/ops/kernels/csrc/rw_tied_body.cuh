@@ -590,6 +590,15 @@ cudaError_t dispatch(int d, int e, const RwArgs<T>& p, int sms, int max_split) {
   });
 }
 
+// A tied launch of this body alone, float's only one: body -1 (the route)
+// or 0 (the f64 library routes by dispatch_routed, rw_tied_f64_body.cuh).
+template <typename T>
+cudaError_t dispatch_scalar_tied(int d, int e, const RwArgs<T>& p, int sms,
+                                 int max_split, int body) {
+  if (body < -1 || body > 0) return cudaErrorInvalidValue;
+  return dispatch<T>(d, e, p, sms, max_split);
+}
+
 template <typename T>
 cudaError_t dispatch_untied(int d, int e, const RwArgs<T>& p, int sms,
                             int max_split) {
@@ -691,20 +700,22 @@ long long blocks_per_sm_of(int d, int e, int untied, int s, int split) {
 // The plain C interface of one dtype's K1 and K2 instances, for ctypes: the
 // launches (return their cudaError_t, 0 on success; asynchronous on
 // `stream`; `sms` is the card's SM count and `max_split` the largest
-// cluster the plan may take, kMaxSplit on every path), the compiled plan
+// cluster the plan may take, kMaxSplit on every path; K1's `body` is -1 for
+// the route of TIED_DISPATCH, 0 for this body, 1 for the f64 library's
+// tensor-core body, rw_tied_f64_body.cuh), the compiled plan
 // for the wrapper's check at load (long long, as ctypes reads it: S_max and
 // the dynamic shared bytes of an S_max launch per (d, E), 0 / -1 outside
 // d, E in 1 .. 8; kRows, kSlices, kSubRows, kMaxSplit, kSplitRows,
 // kSplitFill; a launch's whole plan), the blocks an SM holds
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the error string.
-#define GPMPC_RW_TIED_EXPORTS(T, SUFFIX)                                       \
+#define GPMPC_RW_TIED_EXPORTS(T, SUFFIX, TIED_DISPATCH)                        \
   extern "C" int gpmpc_rw_tied_##SUFFIX(                                      \
       const T* g, const T* dv, const T* a, const T* aod, const T* blam,       \
       T* rw, int b, int n_out, int n_c, int d, int e, int sms, int max_split, \
-      void* stream) {                                                         \
+      int body, void* stream) {                                               \
     const RwArgs<T> p{g, dv, a, aod, blam, rw, b, n_out, n_c,                 \
                       static_cast<cudaStream_t>(stream)};                     \
-    return static_cast<int>(dispatch<T>(d, e, p, sms, max_split));            \
+    return static_cast<int>(TIED_DISPATCH(d, e, p, sms, max_split, body));    \
   }                                                                           \
   extern "C" int gpmpc_rw_untied_##SUFFIX(                                    \
       const T* g, const T* dv, const T* a, const T* ao, const T* blam, T* rw, \

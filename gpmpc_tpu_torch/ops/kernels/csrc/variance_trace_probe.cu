@@ -32,6 +32,31 @@
 //  14 plan_64x2     counterpart).
 //  15 plan_32x4
 //
+// The f64 variants (ids as F64_VARIANTS in ops/kernels/probe.py; d = 3,
+// E = 2, any B, N): the scalar body at T = double, K1's f64 instance before
+// the tensor-core body (its launches at small B still), under P1's stages:
+//   0 full  1 full_s1  2 noexp  3 nop  4 nodots  5 nomul  6 empty
+// (hwexp is f32 only: __expf has no double), and the tensor-core body of
+// rw_tied_f64_body.cuh, K1's f64 instance where tied_route takes it, with
+// one choice of its MmaCfg changed (S scenarios a block, G of them
+// interleaved, K8, PF) or one stage dropped:
+//   7 mma        K1 at its plan (mma_plan): K1 f64 at the headline, to the bit
+//                (S = 4 scenarios a block, G = 2 of them interleaved).
+//   8 mma_s2     S = 2, G = 1.      9 mma_s8     S = 8, G = 4.
+//  10 mma_k4     the contraction as two m16n8k4 in place of one m16n8k8.
+//  11 mma_cexp   CUDA's exp (its special-case branch in every exp) in place
+//                of exp_fast.
+//  12 mma_noexp  w = -p / 4: the exponent MMA without the exp.
+//  13 mma_nodots no contraction MMA: column c of rw sums blam w over the
+//                rows j = c mod 8.
+//  14 mma_nop    no exponent MMA: w = exp(-g_i[0] / 4).
+//  15 mma_g1     G = 1: one scenario's exps at a time.
+//  16 mma_g4     G = 4: all four.
+//  17 mma_nopf   blam loaded at its step, not one step ahead.
+//  18 mma_blsmem blam staged in shared memory with each chunk (cp.async).
+// `gpmpc_exp_table_f64` evaluates table_exp (exp_fast, or exp outside its
+// range) alone, for its ulp check.
+//
 // Bound on an H100: K1's, operations (see variance_trace_tied.cu); each
 // variant does that work or less. The tensor-core variants, kept from the
 // first design (a thread an output row, 128 rows a block, one scenario a
@@ -46,6 +71,7 @@
 #include <mma.h>
 
 #include "rw_tied_body.cuh"
+#include "rw_tied_f64_body.cuh"
 
 namespace {
 
@@ -335,6 +361,63 @@ cudaError_t launch_variant(int variant, const RwArgs<float>& p, int sms) {
   }
 }
 
+constexpr int kNumVariantsF64 = 19;
+
+// The tensor-core body at the headline's (E, KS, NT) with MmaCfg C.
+template <class C>
+cudaError_t launch_mma_variant(const RwArgs<double>& p) {
+  MmaPlan plan = mma_plan_at(C::S, p.b, p.n_out, kE, kD);
+  plan.smem = mma_smem_bytes(C::S, kE, mma_ks(kD), mma_nt(kD),
+                             C::BL == Blam::kStaged);
+  return launch_mma_at<kE, mma_ks(kD), mma_nt(kD), C>(p, kD, plan);
+}
+
+cudaError_t launch_variant_f64(int variant, const RwArgs<double>& p, int sms) {
+  constexpr int SM = mma_scenarios(kE, mma_nt(kD));
+  constexpr Blam Ah = Blam::kAhead;    // K1's
+  using Mode = MmaMode;
+  switch (variant) {
+    case 0: return launch_planned<double, kD, kE, Variant::kFull, false>(
+        p, kE, sms, kMaxSplit);
+    case 1: return launch<double, kD, kE, Variant::kFull, 1>(p);
+    case 2: return launch<double, kD, kE, Variant::kNoExp>(p);
+    case 3: return launch<double, kD, kE, Variant::kNoP>(p);
+    case 4: return launch<double, kD, kE, Variant::kNoDots>(p);
+    case 5: return launch<double, kD, kE, Variant::kNoMul>(p);
+    case 6: return launch<double, kD, kE, Variant::kEmpty>(p);
+    case 7: return launch_mma_planned<kE, mma_ks(kD), mma_nt(kD)>(
+        p, kD, mma_plan(p.b, p.n_out, kE, kD));
+    case 8: return launch_mma_variant<MmaCfg<2, 1, true, Ah>>(p);
+    case 9: return launch_mma_variant<MmaCfg<8, 4, true, Ah>>(p);
+    case 10: return launch_mma_variant<MmaCfg<SM, SM / 2, false, Ah>>(p);
+    case 11: return launch_mma_variant<
+        MmaCfg<SM, SM / 2, true, Ah, Mode::kCudaExp>>(p);
+    case 12: return launch_mma_variant<
+        MmaCfg<SM, SM / 2, true, Ah, Mode::kNoExp>>(p);
+    case 13: return launch_mma_variant<
+        MmaCfg<SM, SM / 2, true, Ah, Mode::kNoDots>>(p);
+    case 14: return launch_mma_variant<
+        MmaCfg<SM, SM / 2, true, Ah, Mode::kNoP>>(p);
+    case 15: return launch_mma_variant<MmaCfg<SM, 1, true, Ah>>(p);
+    case 16: return launch_mma_variant<MmaCfg<SM, SM, true, Ah>>(p);
+    case 17: return launch_mma_variant<
+        MmaCfg<SM, SM / 2, true, Blam::kAtStep>>(p);
+    case 18: return launch_mma_variant<
+        MmaCfg<SM, SM / 2, true, Blam::kStaged>>(p);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+__global__ void exp_table_kernel(const double* __restrict__ x,
+                                 double* __restrict__ y, int n) {
+  __shared__ double2 tab[64];
+  for (int q = threadIdx.x; q < 64; q += blockDim.x)
+    tab[q] = make_double2(kExp2Table[q][0], kExp2Table[q][1]);
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = table_exp(x[i], tab);
+}
+
 }  // namespace
 
 // Plain C interface for ctypes: the variant's id, then K1's arguments and
@@ -358,4 +441,29 @@ extern "C" int gpmpc_rw_probe_variants() { return kNumVariants; }
 
 extern "C" const char* gpmpc_probe_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The f64 variants (F64_VARIANTS), arguments as gpmpc_rw_probe_f32.
+extern "C" int gpmpc_rw_probe_f64(int variant, const double* g,
+                                  const double* dv, const double* a,
+                                  const double* aod, const double* blam,
+                                  double* rw, int b, int n_out, int n_c,
+                                  int d, int e, int sms, void* stream) {
+  if (d != kD || e != kE || b <= 0 || n_out <= 0 || n_c < 0 || b > 65535 ||
+      sms <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RwArgs<double> p{g, dv, a, aod, blam, rw, b, n_out, n_c,
+                         static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(launch_variant_f64(variant, p, sms));
+}
+
+extern "C" int gpmpc_rw_probe_variants_f64() { return kNumVariantsF64; }
+
+// y = table_exp(x) for n doubles, asynchronous on `stream`.
+extern "C" int gpmpc_exp_table_f64(const double* x, double* y, int n,
+                                   void* stream) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  exp_table_kernel<<<(n + 255) / 256, 256, 0,
+                     static_cast<cudaStream_t>(stream)>>>(x, y, n);
+  return static_cast<int>(cudaGetLastError());
 }

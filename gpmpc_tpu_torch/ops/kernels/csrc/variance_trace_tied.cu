@@ -47,4 +47,4 @@
 
 #include "rw_tied_body.cuh"
 
-GPMPC_RW_TIED_EXPORTS(float, f32)
+GPMPC_RW_TIED_EXPORTS(float, f32, dispatch_scalar_tied<float>)

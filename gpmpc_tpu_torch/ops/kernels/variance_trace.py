@@ -31,7 +31,12 @@ the block shape is a constexpr) and, where the grid would fill at most a
 quarter of the card's SMs, over a cluster of `split` blocks whose partials
 are added in rank order (`rw_split_reference` is that sum's plain version).
 The library's block shape, S, shared bytes and plans are checked against
-the wrapper's when it is loaded.
+the wrapper's when it is loaded. A tied f64 launch (K1, K3) takes the route
+of `rw_tied_body`: where its grid at S_max scenarios a block holds a block
+for every SM, the f64 tensor-core body (csrc/rw_tied_f64_body.cuh: the
+exponent and the contraction as f64 mma.sync, plan `rw_tied_mma_plan`, the
+order of its sums emulated by `rw_tied_mma_reference`), else the body
+above.
 
 The symmetric-pair kernel (K4, csrc/variance_trace_sym.cu, `rw_sym`) is the
 JAX package's opt-in GPMPC_SYM_KERNEL=1: the exponent in the whitened form
@@ -204,6 +209,78 @@ def rw_untied_plan(b, n, d, e, dtype, sms=H100_SMS) -> RwPlan:
     return _check_grid(_plan(b, n, n, d, 1, e, dtype, sms, True), b)
 
 
+# ------------------------------------ K1's f64 tensor-core body and route --
+# The constexprs of csrc/rw_tied_f64_body.cuh, checked against its exports.
+MMA_STRIPS = 4          # kMmaStrips: row strips (warps of 16 rows) a block
+MMA_ROWS = 64           # kMmaTileRows: output rows a block
+MMA_CHUNK = 32          # kMmaChunk: contraction rows a staged chunk
+MMA_THREADS = 32 * MMA_STRIPS
+
+
+class MmaPlan(NamedTuple):
+    scenarios: int      # S: scenarios a block, sharing each blam load
+    grid: tuple         # (ceil(n_out / MMA_ROWS), ceil(B / S)), blocks of
+                        # MMA_THREADS threads
+    smem_bytes: int     # dynamic shared memory of a block
+    ks: int             # k steps of the exponent: d padded to 4 or 8
+    nt: int             # n tiles of the contraction: 1 + d padded to 8, 16
+
+
+def _mma_ks(d: int) -> int:
+    return 2 if d > 4 else 1
+
+
+def _mma_nt(d: int) -> int:
+    return 2 if d + 1 > 8 else 1
+
+
+def rw_tied_mma_scenarios(d: int, e: int) -> int:
+    """S_max of the tensor-core body (`mma_scenarios`): its accumulators,
+    S E NT 4 doubles a thread, within 32; 1 to 8."""
+    return max(1, 8 // (e * _mma_nt(d)))
+
+
+def _mma_smem(s, d) -> int:
+    """`mma_smem_bytes`: two staging buffers of a chunk of a (row stride 4
+    or 12) and aod (8 NT + 2) for S scenarios."""
+    return 8 * 2 * s * MMA_CHUNK * ((4 if _mma_ks(d) == 1 else 12)
+                                    + 8 * _mma_nt(d) + 2)
+
+
+def rw_tied_mma_plan(b, n_out, d, e) -> MmaPlan:
+    """The launch of the f64 tensor-core body (csrc/rw_tied_f64_body.cuh,
+    `mma_plan`) for B scenarios and n_out output rows (any n_c: each warp
+    walks the whole contraction in chunks of MMA_CHUNK rows, steps of 8):
+    S = S_max where B >= S_max, else 1. Every (scenario, row) falls in one
+    block's S x MMA_ROWS. Raises on what the kernel cannot take."""
+    _check_dims(d, e, torch.float64)
+    s_max = rw_tied_mma_scenarios(d, e)
+    s = s_max if b >= s_max else 1
+    plan = MmaPlan(s, (-(-n_out // MMA_ROWS), -(-b // s)), _mma_smem(s, d),
+                   _mma_ks(d), _mma_nt(d))
+    if plan.smem_bytes > MAX_SMEM or plan.grid[1] > _MAX_GRID_Y:
+        raise ValueError(f'rw kernel (f64 tensor cores): B={b} at '
+                         f'{plan.scenarios} scenarios a block needs grid.y '
+                         f'{plan.grid[1]} (at most {_MAX_GRID_Y}) and '
+                         f'{plan.smem_bytes} shared bytes (at most '
+                         f'{MAX_SMEM})')
+    return plan
+
+
+def rw_tied_body(b, n_out, n_c, d, e, dtype, sms=H100_SMS) -> str:
+    """The body a tied launch (K1, K3) runs (`tied_route` of
+    csrc/rw_tied_f64_body.cuh): 'mma', the f64 tensor-core body, where the
+    operands are f64 and its grid at S_max scenarios a block holds at least
+    one block for every SM; else 'scalar', the body of csrc/rw_tied_body.cuh
+    at `rw_tied_plan` (the f32 instances, and f64 at the smaller grids,
+    where the card measured it the faster)."""
+    s_max = rw_tied_mma_scenarios(d, e)
+    if dtype == torch.float64 and -(-n_out // MMA_ROWS) * -(-b // s_max) \
+            >= sms:
+        return 'mma'
+    return 'scalar'
+
+
 # The shapes whose plans are compared with the library's at load: the
 # solve's lane counts, the closed loop's, ragged edges and split corners,
 # on an H100's SM count and a small card's.
@@ -258,10 +335,43 @@ def _check_launch_plans(lib, sfx, dtype):
                                 'in the wrapper')
 
 
+def _check_mma_plans(lib):
+    """Raise unless the f64 library's tensor-core plan and route equal
+    `rw_tied_mma_plan` and `rw_tied_body` at the _PLAN_CHECK_* shapes (and
+    at every (d, E))."""
+    fn = lib.gpmpc_rw_tied_mma_plan_f64
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    route = lib.gpmpc_rw_tied_route_f64
+    route.restype = ctypes.c_longlong
+    out = (ctypes.c_longlong * 4)()
+    des = [(d, e) for d in range(1, MAX_D + 1) for e in range(1, MAX_E + 1)]
+    for b in _PLAN_CHECK_B:
+        for n in _PLAN_CHECK_N:
+            for d, e in (des if n == _PLAN_CHECK_N[-1] else _PLAN_CHECK_DE):
+                p = rw_tied_mma_plan(b, n, d, e)
+                want = [p.scenarios, *p.grid, p.smem_bytes]
+                if fn(b, n, d, e, out) != 0 or list(out) != want:
+                    raise RuntimeError(
+                        f'gpmpc_rw_tied_mma_plan_f64{(b, n, d, e)} is '
+                        f'{list(out)} in the compiled kernel, {want} in the '
+                        'wrapper')
+                for sms in _PLAN_CHECK_SMS:
+                    got = route(b, n, n, d, e, sms)
+                    if got != int(rw_tied_body(b, n, n, d, e, torch.float64,
+                                               sms) == 'mma'):
+                        raise RuntimeError(
+                            f'gpmpc_rw_tied_route_f64{(b, n, n, d, e, sms)} '
+                            f'is {got} in the compiled kernel, '
+                            f'{rw_tied_body(b, n, n, d, e, torch.float64, sms)}'
+                            ' in the wrapper')
+
+
 def _kernel_fn(dtype, untied=False):
     """(launch, error string) of `dtype`'s library: K1's launch, or K2's
-    when untied. The compiled plan is checked against this module's when
-    the library is first loaded."""
+    when untied. The compiled plans (and, in f64, the tensor-core body's
+    plan and the route) are checked against this module's when the library
+    is first loaded."""
     sfx = _FN[dtype]
     lib = _build.load(_LIB[dtype])
     fn = getattr(lib, f'gpmpc_rw_tied_{sfx}')
@@ -277,15 +387,24 @@ def _kernel_fn(dtype, untied=False):
                 s = rw_scenarios(d, e, dtype)
                 want[(f'scenarios_{sfx}', d, e)] = s
                 want[(f'smem_{sfx}', d, e)] = _rw_smem(d, e, dtype, s)
+        if dtype == torch.float64:
+            want.update({('mma_rows_f64',): MMA_ROWS,
+                         ('mma_chunk_f64',): MMA_CHUNK})
+            for d in range(1, MAX_D + 1):
+                for e in range(1, MAX_E + 1):
+                    want[('mma_scenarios_f64', d, e)] = \
+                        rw_tied_mma_scenarios(d, e)
         _check_plan(lib, 'gpmpc_rw_tied', want)
         _check_launch_plans(lib, sfx, dtype)
+        if dtype == torch.float64:
+            _check_mma_plans(lib)
         err_fn = getattr(lib, f'gpmpc_rw_tied_error_string_{sfx}')
         err_fn.argtypes = [ctypes.c_int]
         err_fn.restype = ctypes.c_char_p
         fn_u.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                          + [ctypes.c_void_p])
         fn_u.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return (fn_u if untied else fn,
@@ -334,6 +453,32 @@ def rw_split_reference(g_out, dv_out, a, aod, blam, plan: RwPlan):
     return dv_out[:, None, :, None] * total
 
 
+def rw_tied_mma_reference(g_out, dv_out, a, aod, blam):
+    """Plain version of the f64 tensor-core body's order: the exponent
+    -g/4 . a summed over k in steps of 4 (the k steps of its MMAs); the
+    contraction in steps of 8 rows in order, each step as its even rows and
+    then its odd rows (the k indices t and t + 4 of the MMA that takes the
+    thread's columns 2t and 2t+1), then scaled by dv. Shapes as
+    `rw_tied_reference`, whose function it computes; the MMA's own order
+    within a step is the hardware's."""
+    b, n_out, d = g_out.shape
+    e, n_c, _ = blam.shape
+    gq = -0.25 * g_out
+    p = 0
+    for k0 in range(0, d, 4):
+        p = p + torch.einsum('bjk,bik->bji', a[..., k0:k0 + 4],
+                             gq[..., k0:k0 + 4])
+    w = torch.exp(p)                                   # (B, Nc, Nout)
+    acc = torch.zeros((b, e, n_out, d + 1), dtype=g_out.dtype,
+                      device=g_out.device)
+    for j0 in range(0, n_c, 8):
+        for par in (0, 1):
+            js = slice(j0 + par, min(j0 + 8, n_c), 2)
+            acc = acc + torch.einsum('eji,bji,bjc->beic', blam[:, js],
+                                     w[:, js], aod[:, js])
+    return dv_out[:, None, :, None] * acc
+
+
 def rw_untied_split_reference(g, dv, a, ao, blam, plan: RwPlan):
     """Plain version of K2's split sum under `plan` (rw_untied_plan):
     `rw_split_reference` on each output's chain. Shapes as
@@ -350,6 +495,13 @@ def _blocks_per_sm(lib_name, fn_name, *args) -> int:
     if n < 0:
         raise RuntimeError(f'{fn_name}{args}: the occupancy query failed')
     return n
+
+
+def rw_tied_mma_blocks_per_sm(d, e, s) -> int:
+    """Blocks of the f64 tensor-core body's instance at S scenarios a block
+    that an SM holds at once (needs the card)."""
+    return _blocks_per_sm(_LIB[torch.float64],
+                          'gpmpc_rw_tied_mma_blocks_per_sm_f64', d, e, s)
 
 
 def rw_tied_blocks_per_sm(d, e, dtype, untied=False, s=None, split=1) -> int:
@@ -408,16 +560,28 @@ def _run(fn, err_str, device, *args):
                            f'({err_str(err).decode()})')
 
 
-def _launch(g_out, dv_out, a, aod, blam, max_split=MAX_SPLIT):
-    """Launch K1 on the current stream at the plan of `rw_tied_plan` for the
-    device's SM count, its split capped at max_split (MAX_SPLIT on every
-    path); returns (rw, launched)."""
+_BODY = {None: -1, 'scalar': 0, 'mma': 1}
+
+
+def _launch(g_out, dv_out, a, aod, blam, max_split=MAX_SPLIT, body=None):
+    """Launch K1 on the current stream in the body of `rw_tied_body` for the
+    device's SM count (body=None, every path), or in the body named
+    ('scalar', 'mma': chip_smoke.py times the two side by side): the
+    tensor-core body at `rw_tied_mma_plan`, or the scalar body at
+    `rw_tied_plan`, its split capped at max_split (MAX_SPLIT on every path).
+    Returns (rw, launched)."""
     _check(g_out, dv_out, a, aod, blam)
     b, n_out, d = g_out.shape
     e, n_c, _ = blam.shape
-    rw_tied_plan(b, n_out, n_c, d, e, g_out.dtype)    # raises past the grid
+    if body not in _BODY or (body == 'mma' and g_out.dtype != torch.float64):
+        raise ValueError(f'rw kernel: no body {body!r} for {g_out.dtype}')
     if g_out.device.type != 'cuda':
         raise ValueError(f'rw kernel runs on CUDA tensors, got {g_out.device}')
+    sms = device_sms(g_out.device)
+    if (body or rw_tied_body(b, n_out, n_c, d, e, g_out.dtype, sms)) == 'mma':
+        rw_tied_mma_plan(b, n_out, d, e)              # raises past the grid
+    else:
+        rw_tied_plan(b, n_out, n_c, d, e, g_out.dtype)    # the same
     rw = torch.empty((b, e, n_out, d + 1), dtype=g_out.dtype,
                      device=g_out.device)
     if rw.numel() == 0:
@@ -425,7 +589,7 @@ def _launch(g_out, dv_out, a, aod, blam, max_split=MAX_SPLIT):
     fn, err_str = _kernel_fn(g_out.dtype)
     _run(fn, err_str, g_out.device, g_out.data_ptr(), dv_out.data_ptr(),
          a.data_ptr(), aod.data_ptr(), blam.data_ptr(), rw.data_ptr(), b,
-         n_out, n_c, d, e, device_sms(g_out.device), max_split)
+         n_out, n_c, d, e, sms, max_split, _BODY[body])
     return rw, True
 
 

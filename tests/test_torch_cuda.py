@@ -711,3 +711,162 @@ def test_cuda_refused_launch_raises():
     want = tvt.rw_tied_reference(*args).cpu().numpy()
     np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-12,
                                atol=1e-12 * np.abs(want).max())
+
+
+# ------------------------------- K1's f64 tensor-core body (K1 and K3) --
+# (d, E) of the tensor-core body's cases: every d at the headline's E, every
+# E at its d, the corners and config 3b's (5, 4).
+MMA_DE = sorted({(d, 2) for d in range(1, 9)} | {(3, e) for e in range(1, 9)}
+                | {(8, 8), (5, 4), (1, 1)})
+
+
+def _mma_b(d, e):
+    """B across the S boundaries of the tensor-core body's plan: 1, S - 1,
+    S, S + 1 and 2 S + 1 at S = S_max(d, E)."""
+    s = tvt.rw_tied_mma_scenarios(d, e)
+    return sorted({1, max(1, s - 1), s, s + 1, 2 * s + 1})
+
+
+def _mma_args(b, n, n_loc, d, e, dev, seed):
+    """f64 K1 arguments on the JAX kernel test's inputs, the output rows cut
+    to the first n_loc (K3's rectangle, blam's column block transposed as
+    mesh.row_block stores it; n_loc = n is K1)."""
+    u, m2, x, blam, _ = _problem(True, b, e, n, d, seed)
+    f = lambda v: torch.tensor(v, dtype=torch.float64, device=dev)
+    a, _, dv = tvt._prep_tied(f(u), f(m2), f(x))
+    _, g_b, dv_b = tvt._prep_tied(f(u), f(m2), f(x[:n_loc]))
+    blk = np.ascontiguousarray(np.swapaxes(blam[:, :n_loc], 1, 2))
+    return [t.contiguous() for t in (g_b, dv_b, a,
+                                     tvt._aug(a) * dv[..., None], f(blk))]
+
+
+def _assert_mma_bar(got, args, tag):
+    """rw against the plain f64 version: 1e-12 |rw| plus 16 f64 ulps of the
+    terms' magnitude sum (phase 3's f64 bar); compare, do not divide (the
+    ragged rows are 0 in both)."""
+    g, dv, a, aod, blam = args
+    want = tvt.rw_tied_reference(g, dv, a, aod, blam)
+    mag = tvt.rw_tied_reference(g, dv.abs(), a, aod.abs(), blam.abs())
+    err = (got - want).abs()
+    bar = 1e-12 * want.abs() + 16 * torch.finfo(torch.float64).eps * mag
+    assert bool((err <= bar).all()), (
+        f'{tag}: {float((err / bar)[bar > 0].max()):.3f}x the bar')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [1, 130, 256])
+@pytest.mark.parametrize('de', MMA_DE)
+def test_cuda_mma_f64_matches_plain_version(de, n):
+    """The tensor-core body (forced with body='mma', at its plan, S = S_max
+    or 1) at every d and E, ragged N and B across the S
+    boundaries: rw within phase 3's f64 bar of the plain version. And the
+    trace's own launch (rw_tied, its route) within the same bar, counted
+    once in LAUNCHES and LAUNCHES_F64."""
+    dev = _cuda()
+    d, e = de
+    for b in _mma_b(d, e):
+        args = _mma_args(b, n, n, d, e, dev, seed=60 + b)
+        got, launched = tvt._launch(*args, body='mma')
+        torch.cuda.synchronize()
+        assert launched
+        _assert_mma_bar(got, args, f'mma B={b} N={n} d={d} E={e}')
+        before = (tvt.LAUNCHES, tvt.LAUNCHES_F64)
+        routed = tvt.rw_tied(*args)
+        torch.cuda.synchronize()
+        assert (tvt.LAUNCHES, tvt.LAUNCHES_F64) == (before[0] + 1,
+                                                    before[1] + 1)
+        _assert_mma_bar(routed, args, f'routed B={b} N={n} d={d} E={e}')
+        if tvt.rw_tied_body(b, n, n, d, e, torch.float64,
+                            tvt.device_sms(dev)) == 'mma':
+            assert torch.equal(routed, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n_loc', ['N', 'N/2'])
+@pytest.mark.parametrize('de', [(3, 2), (5, 4), (8, 8), (1, 1)])
+@pytest.mark.parametrize('b', [7, 256])
+def test_cuda_mma_f64_block_matches_plain_version(b, de, n_loc):
+    """K3 in the tensor-core body: the shard's Nl = N or N / 2 rows against
+    all N = 256 contraction rows, through rw_tied_block (its route),
+    counted in LAUNCHES_BLOCK; rw within phase 3's f64 bar."""
+    dev = _cuda()
+    d, e = de
+    n = 256
+    args = _mma_args(b, n, n if n_loc == 'N' else n // 2, d, e, dev, seed=70)
+    before = tvt.LAUNCHES_BLOCK
+    got = tvt.rw_tied_block(*args)
+    torch.cuda.synchronize()
+    assert tvt.LAUNCHES_BLOCK == before + 1
+    _assert_mma_bar(got, args, f'K3 B={b} Nl={n_loc} d={d} E={e}')
+    forced, _ = tvt._launch(*args, body='mma')
+    _assert_mma_bar(forced, args, f'K3 mma B={b} Nl={n_loc} d={d} E={e}')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(256, 256, 3, 2), (3584, 256, 3, 2),
+                                   (256, 128, 5, 4), (64, 128, 3, 2),
+                                   (1, 512, 3, 2), (9, 130, 8, 8)])
+def test_cuda_mma_same_inputs_same_bits(shape):
+    """Each warp walks the contraction in a fixed order: the same f64
+    operands give the same rw to the bit, at S_max and at S = 1."""
+    dev = _cuda()
+    b, n, d, e = shape
+    args = _mma_args(b, n, n, d, e, dev, seed=71)
+    first, _ = tvt._launch(*args, body='mma')
+    for _ in range(3):
+        assert torch.equal(tvt._launch(*args, body='mma')[0], first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('variant', probe.F64_VARIANTS)
+@pytest.mark.parametrize('shape', [(256, 256), (7, 200)])
+def test_cuda_probe_f64_variant_matches_plain_version(variant, shape):
+    """The probe's f64 variants (the scalar body's stages at T = double and
+    the tensor-core body's variants) against their plain f64 versions
+    within probe.checks' f64 bar (1e-12 |rw| plus 16 f64 ulps of the terms'
+    magnitude sum). One launch, counted."""
+    dev = _cuda()
+    u, m2, x, blam, _ = _problem(True, shape[0], 2, shape[1], 3, seed=13)
+    f = lambda v: torch.tensor(v, dtype=torch.float64, device=dev)
+    args = kernel_args(f(u), f(m2), f(x), f(blam))
+    before = probe.LAUNCHES_PROBE
+    out = probe.rw_probe(variant, *args)
+    torch.cuda.synchronize()
+    assert probe.LAUNCHES_PROBE == before + 1
+    for label, want, bar in probe.checks(variant, *args):
+        ratio = float(((out - want).abs() / bar).max())
+        assert ratio <= 1.0, f'{variant} vs {label}: {ratio:.3f}x its bar'
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(256, 256), (3584, 256), (7, 200)])
+def test_cuda_probe_f64_full_and_mma_equal_k1_to_the_bit(shape):
+    """The probe's f64 `full` is the scalar body at its plan and `mma` the
+    tensor-core body at its plan: each equals K1's f64 launch in that body
+    to the bit."""
+    dev = _cuda()
+    u, m2, x, blam, _ = _problem(True, shape[0], 2, shape[1], 3, seed=14)
+    f = lambda v: torch.tensor(v, dtype=torch.float64, device=dev)
+    args = kernel_args(f(u), f(m2), f(x), f(blam))
+    assert torch.equal(probe.rw_probe('full', *args),
+                       tvt._launch(*args, body='scalar')[0])
+    assert torch.equal(probe.rw_probe('mma', *args),
+                       tvt._launch(*args, body='mma')[0])
+
+
+@pytest.mark.cuda
+def test_cuda_exp_table_within_one_ulp():
+    """The table-driven double exp (the mma_texp variant's) within one ulp
+    of the CPU's exp over the arguments the traces see (-p / 4 of the
+    headline-scale operands reach about -60 .. 10) and past them, its
+    special-case branch included."""
+    dev = _cuda()
+    rng = np.random.default_rng(15)
+    x = np.concatenate([rng.uniform(-60, 10, 200_000),
+                        rng.uniform(-1e-3, 1e-3, 20_000),
+                        rng.uniform(-745, 709, 20_000),
+                        [0.0, -0.0, 1e-300, -700.0, 700.0, 709.7, -745.0]])
+    got = probe.exp_table(torch.tensor(x, device=dev)).cpu().numpy()
+    want = np.exp(x)
+    ulp = np.spacing(np.abs(want))
+    assert float(np.max(np.abs(got - want) / ulp)) <= 1.0

@@ -222,6 +222,23 @@ def test_kernel_ablate_runs_on_cpu():
         res['kernel']['timer']
 
 
+def test_kernel_ablate_f64_runs_on_cpu(tmp_path, monkeypatch):
+    """P1 at f64 through main() (--dtype float64 --b 4, N = 32): the f64
+    variants (the scalar body's stages and the tensor-core body's) in the
+    JSON named for the dtype and B, each within its f64 bar (the plain
+    versions on the CPU)."""
+    monkeypatch.setattr(sys, 'argv', ['kernel_ablate', '--out', str(tmp_path),
+                                      '--dtype', 'float64', '--b', '4'])
+    monkeypatch.setattr(kernel_ablate, 'run', functools.partial(
+        kernel_ablate.run, device='cpu', n=32))
+    assert kernel_ablate.main(kernel_ablate.run) == 0
+    res = json.loads((tmp_path / 'kernel_ablate_f64_b4.json').read_text())
+    assert set(res['variants']) == set(probe.F64_VARIANTS)
+    assert res['dtype'] == 'torch.float64'
+    for row in res['variants'].values():
+        assert np.isfinite(row['kernel_us']) and row['bar_ratio'] <= 1.0
+
+
 def test_kernel_probe_runs_on_cpu(tmp_path, monkeypatch):
     """The P2 entry point through main(): every mode and its variant in the
     JSON under --out; the trace errors finite. Together with the ablation
@@ -246,8 +263,9 @@ def _args(b=2, n=8, d=3, e=2, dtype=torch.float32):
 
 @pytest.mark.parametrize('case', ['variant', 'd4', 'e3', 'f64', 'shape'])
 def test_rw_probe_rejects_what_it_is_not_built_for(case):
-    """On the CPU too: an unknown variant, d != 3, E != 2, float64, a wrong
-    shape. Nothing is counted."""
+    """On the CPU too: an unknown variant, d != 3, E != 2, float64 for a
+    variant built at float32 only (hwexp), a wrong shape. Nothing is
+    counted."""
     variant, args, err = 'full', _args(), ValueError
     if case == 'variant':
         variant = 'fast'
@@ -256,7 +274,7 @@ def test_rw_probe_rejects_what_it_is_not_built_for(case):
     elif case == 'e3':
         args = _args(e=3)
     elif case == 'f64':
-        args, err = _args(dtype=torch.float64), TypeError
+        variant, args, err = 'hwexp', _args(dtype=torch.float64), TypeError
     else:
         args[3] = torch.zeros(2, 8, 3)
     before = probe.LAUNCHES_PROBE
