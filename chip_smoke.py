@@ -122,8 +122,24 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 K1's f32 instance. Then the untied path
                 (K2) on the same problem with per-output lengthscales, and a
                 profiler pass (of a 4-iteration solve, as every profiler
-                pass here but phase 5e's, of one value-and-grad, and phase
-                7's, of one control step).
+                pass here but phase 5e's, of one value-and-grad, phase 5f's
+                graphed one, of ITERS, and phase 7's, of one control step).
+                Every solve here and below runs as its caller runs it: the
+                lockstep loop's iterations after the first as replays of one
+                captured CUDA graph (mpc/solver.py), except full covariance
+                (5e) and the sharded value-and-grad (6), which run eagerly;
+                each replay counts the kernel launches that the graph's own
+                kernel nodes hold (utils/replay_counts.py).
+  5f. graph     the lockstep loop graphed against eager, the plain
+                solve_batch at the headline (B=256, f32, K1 f64, 40
+                iterations): each counted as phase 5, the two results equal
+                to the bit (u, cost, iters, pg_norm, converged), the graph's
+                kernel nodes exactly H K1 f64 launches a replay; solves/s of
+                both over 5 fresh-x0 batches in turns, each pair equal to
+                the bit; host launch calls and the device's busy share of
+                each under the profiler (eager 4 iterations, graphed 40),
+                and in each device trace exactly H K1 kernels a
+                value-and-grad, the graph's replays included.
   5c. recipe    the main path: the production recipe
                 (solve_batch_multistart_retired with problems.RECIPE and
                 REFINE, ret_prod_nopre) on the same problem, counted: finite
@@ -133,7 +149,8 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 each rollout at a lane count that phase 3 checked K1 at, its
                 diag counters; its cost excess against the f64 reference
                 controls beside the JAX recipe's bar (fails at p90 >= 1 %);
-                quality-paired solves/s, the median over 2 fresh-x0 batches.
+                quality-paired solves/s, the median over 2 fresh-x0 batches,
+                graphed and eager in turns, each pair equal to the bit.
   5e. full cov  solve_batch(full_cov=True) on the same problem (B=256, H=20,
                 f32, 40 iterations): finite costs, no lane worse than its
                 start, exactly H * (1 + iterations) launches of K1's f64
@@ -173,7 +190,11 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 test's criteria (|theta| < 0.15, |theta_dot| < 0.5, actions
                 in bounds, count 250 + steps); on the B = 1 route each step
                 launches exactly H * (1 + iters) K2 (one launch a trace for
-                all E outputs); (c)
+                all E outputs); then 5 steps from the last state eagerly and
+                5 graphed, in turns, each pair equal to the bit and each
+                graph's kernel nodes H K2 launches a replay; one step under
+                the profiler, its device trace exactly H K2 kernels a
+                value-and-grad; (c)
                 pretrain_pendulum's delta mode in f32 (300 transitions,
                 train_gp(150), multistart n_starts = 4, N = 512, H = 8) for
                 10 steps; (d) pretrain_cartpole's delta mode, (d, E) =
@@ -199,11 +220,12 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 quality_sparse_ref_3b_sparse_cartpole.npz) within rtol 1e-8
                 of JAX's (gpmpc_tpu_torch/data/sparse_ref.npz) and its
                 gradient within 1e-8 of the largest entry; the plain
-                solve_batch at 40 iterations with
-                exactly H (1 + iters) K1 f64 launches, its cost excess
+                solve_batch at 40 iterations, eager and graphed, each with
+                exactly H (1 + iters) K1 f64 launches and the two equal to
+                the bit, its cost excess
                 (fails at p90 >= 1 %) beside the JAX package's TPU figure
                 (benchmarks/results/quality_sparse.json), solves/s over 3
-                fresh-x0 batches; (b) config 4 (B = 64, H = 50, full
+                fresh-x0 batches, graphed and eager in turns; (b) config 4 (B = 64, H = 50, full
                 covariance): on JAX's posterior carried across, the f64
                 objective at 0 and u_ref within rtol 1e-8 of JAX's and the
                 gradient within 1e-8 (at 0) and 1e-5 (at u_ref) of its
@@ -289,6 +311,11 @@ OBJ_RTOL = 1e-8
 GRAD_RTOL = 1e-10
 ITERS = 40
 UNTIED_ITERS = 10
+# Phase 5f: fresh-x0 batches each path (eager, graphed) is timed on, in
+# turns; and the closed loop's control steps timed each way (phase 7b).
+GRAPH_REPS = 5
+# The two executions of the solver's loop that time_solves holds together.
+BOTH = ('eager', 'graphed')
 # The profiled solves are cut to 4 iterations: the profiler's own
 # processing takes ~1 s per 1,000 device kernels (~3,000 a value-and-grad),
 # ~45 s at 10 iterations on a slow host.
@@ -387,6 +414,74 @@ def sym_opt_in():
         yield
     finally:
         os.environ.pop('GPMPC_SYM_KERNEL', None)
+
+
+@contextlib.contextmanager
+def eager_loop():
+    """Every lockstep solve in a block with its loop run eagerly, whatever
+    its caller asks (mpc/solver.py's _run_graphed replaced by _run_eager):
+    the execution of the port before the graphed loop, held against it."""
+    from gpmpc_tpu_torch.mpc import solver
+    graphed = solver._run_graphed
+    solver._run_graphed = solver._run_eager
+    try:
+        yield
+    finally:
+        solver._run_graphed = graphed
+
+
+@contextlib.contextmanager
+def capture_walls():
+    """Each CUDA-graph capture the solver takes in a block (mpc/solver.py's
+    _capture_step: recording one iteration, reading its kernel nodes and
+    instantiating the graph): yields the list of (host seconds, kernel
+    launches a replay by the graph's nodes) they go to."""
+    from gpmpc_tpu_torch.mpc import solver
+    capture, walls = solver._capture_step, []
+
+    def timed(p, s):
+        t0 = time.perf_counter()
+        graph, counts = capture(p, s)
+        walls.append((time.perf_counter() - t0, counts.launches))
+        return graph, counts
+
+    solver._capture_step = timed
+    try:
+        yield walls
+    finally:
+        solver._capture_step = capture
+
+
+def capture_note(walls, wall) -> dict:
+    """The captures of a graphed run of `wall` seconds (capture_walls):
+    their count, total and median seconds and share of the wall, and each
+    graph's kernel launches a replay, for the log and the json."""
+    secs = [w for w, _ in walls]
+    total = float(sum(secs))
+    return dict(captures=len(walls), capture_s=total,
+                capture_median_s=float(np.median(secs)) if walls else 0.0,
+                capture_share=total / wall,
+                replay_launches=[n for _, n in walls])
+
+
+def _bits(t):
+    """A tensor's bits: floats viewed as integers of their width."""
+    import torch
+    return t.view({torch.float32: torch.int32,
+                   torch.float64: torch.int64}.get(t.dtype, t.dtype))
+
+
+def same_bits(tag, res_a, res_b) -> None:
+    """Raises unless two SolveResults are equal to the bit in u, cost,
+    iters, pg_norm and converged."""
+    import torch
+    for k in ('u', 'cost', 'iters', 'pg_norm', 'converged'):
+        a, b = getattr(res_a, k), getattr(res_b, k)
+        if not (a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(_bits(a), _bits(b))):
+            raise AssertionError(f'{tag}: eager and graphed {k} differ '
+                                 f'(max abs diff '
+                                 f'{float((a.double() - b.double()).abs().max())})')
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1210,38 +1305,63 @@ def solve_checked(tag, desc, solve, x0s, key, per_trace, horizon,
     return res, counts[key], loop_iters
 
 
-def score_and_time(tag, b, solve, res, j64, j_uref, reps, dev):
+def score_and_time(tag, b, solve, res, j64, j_uref, reps, dev, both=False):
     """Cost excess of `res` against the f64 reference controls, then
-    solves/s over fresh x0s."""
+    solves/s over fresh x0s (graphed, as the solve runs; with `both` also
+    eagerly, in turns, under 'eager')."""
     from gpmpc_tpu_torch.problems import cost_excess
     quality = cost_excess(j64, res.u, j_uref)
     log(f'[{tag}] cost excess vs f64 u_ref (J64): p50 {quality["p50"]:.4%} '
         f'p90 {quality["p90"]:.4%} max {quality["max"]:.4%}, lanes >1% '
         f'{quality["lanes_above_1pct"]}/{b}')
+    if both:
+        timed = time_solves(tag, b, solve, reps, dev, modes=BOTH)
+        return dict(quality=quality, **timed['graphed'], eager=timed['eager'])
     return dict(quality=quality, **time_solves(tag, b, solve, reps, dev))
 
 
-def time_solves(tag, b, solve, reps, dev, draw_x0s=None):
+def time_solves(tag, b, solve, reps, dev, draw_x0s=None, modes=None):
     """Solves/s over `reps` batches of fresh x0s (the median); draw_x0s(rng)
-    gives a batch (numpy), by default the headline's U(-1, 1)^(B, 2)."""
+    gives a batch (numpy), by default the headline's U(-1, 1)^(B, 2). With
+    modes=('eager', 'graphed') each batch is solved both ways in turns
+    (eager first on even batches; 'eager' under eager_loop), the two
+    results equal to the bit (same_bits), and the result is {mode: ...}."""
     import torch
     rng = np.random.default_rng(123)
-    walls, iters = [], []
-    for _ in range(reps):
+    order = modes or (None,)
+    walls = {mode: [] for mode in order}
+    iters = []
+    for rep in range(reps):
         x0s = torch.tensor(rng.uniform(-1, 1, (b, 2)) if draw_x0s is None
                            else draw_x0s(rng), dtype=torch.float32,
                            device=dev)
-        sync(dev)
-        t0 = time.perf_counter()
-        r = solve(x0s)
-        sync(dev)
-        walls.append(time.perf_counter() - t0)
-        iters.append(int(r.iters.max()))
-    rate = [b / w for w in walls]
-    log(f'[{tag}] wall s per batch {[round(w, 4) for w in walls]}, loop '
-        f'iterations {iters}; solves/s median {float(np.median(rate)):.2f}')
-    return dict(walls=walls, solves_per_s=float(np.median(rate)),
-                iters_timed=iters)
+        res = {}
+        for mode in order if rep % 2 == 0 else order[::-1]:
+            with eager_loop() if mode == 'eager' else contextlib.nullcontext():
+                sync(dev)
+                t0 = time.perf_counter()
+                res[mode] = solve(x0s)
+                sync(dev)
+                walls[mode].append(time.perf_counter() - t0)
+        if modes:
+            same_bits(f'{tag} batch {rep}', *(res[m] for m in modes))
+        iters.append(int(res[order[-1]].iters.max()))
+    out = {}
+    for mode, w in walls.items():
+        rate = [b / x for x in w]
+        out[mode] = dict(walls=w, solves_per_s=float(np.median(rate)),
+                         iters_timed=iters)
+        log(f'[{tag}]{"" if mode is None else " " + mode} wall s per batch '
+            f'{[round(x, 4) for x in w]}, loop iterations {iters}; solves/s '
+            f'median {float(np.median(rate)):.2f} (min {min(rate):.2f}, max '
+            f'{max(rate):.2f})')
+    if not modes:
+        return out[None]
+    log(f'[{tag}] {reps} batches, {" and ".join(modes)} in turns: equal to '
+        f'the bit (u, cost, iters, pg_norm, converged) ok; '
+        f'{modes[-1]} / {modes[0]} solves/s '
+        f'{out[modes[-1]]["solves_per_s"] / out[modes[0]]["solves_per_s"]:.2f}')
+    return out
 
 
 def headline_solve_setup(dev, b):
@@ -1312,25 +1432,102 @@ def phase_untied(dev, b, key='K2'):
     return launches
 
 
+def tally(counts: dict):
+    """A dict of counts, made visible to CUDA-graph replays
+    (utils/replay_counts.py): a call captured in the solver's graph counts
+    once per replay. A context manager."""
+    from gpmpc_tpu_torch.utils import replay_counts
+
+    def add(delta):
+        for k, n in delta.items():
+            counts[k] = counts.get(k, 0) + n
+    return replay_counts.registered(lambda: dict(counts), add)
+
+
+def phase_graph(dev, b, card, out_dir):
+    """Phase 5f: the lockstep loop as replays of one captured CUDA graph,
+    held against the eager loop on the plain solve_batch at the headline
+    (B = 256, f32, K1 f64, ITERS iterations): each counted (exactly
+    H * (1 + iters) K1 f64 launches, the graphed call's replays included)
+    and the two equal to the bit; the graph's own kernel nodes hold
+    exactly H K1 f64 launches a replay; solves/s of both over GRAPH_REPS
+    fresh-x0 batches in turns (time_solves); the eager solve (PROFILE_ITERS)
+    and the graphed one (ITERS) under the profiler: host launch calls, the
+    device's busy share, and exactly H K1 kernels a value-and-grad in the
+    device trace, the graph's replays included."""
+    from gpmpc_tpu_torch.parallel.batch import solve_batch
+    p, cfg, cost0 = headline_solve_setup(dev, b)
+
+    def solve(x0s, iters=ITERS):
+        return solve_batch(p.gp, 2, 1, x0s, p.params, p.horizon, p.lb, p.ub,
+                           cfg.replace(max_iters=iters))
+
+    desc = f'B={b} H={p.horizon} max_iters={ITERS}'
+    with eager_loop():
+        res_e, _, _ = solve_checked('graph: eager', desc, solve, p.x0s,
+                                    'K1 f64', 1, p.horizon, cost0)
+    with capture_walls() as walls:
+        t0 = time.perf_counter()
+        res_g, launches, iters = solve_checked('graph: graphed', desc, solve,
+                                               p.x0s, 'K1 f64', 1, p.horizon,
+                                               cost0)
+        capture = capture_note(walls, time.perf_counter() - t0)
+    same_bits('graph headline', res_e, res_g)
+    want = {'LAUNCHES': p.horizon, 'LAUNCHES_F64': p.horizon}
+    if capture['replay_launches'] != [want]:
+        raise AssertionError(f'graph headline: the graph holds '
+                             f'{capture["replay_launches"]} kernel launches '
+                             f'a replay, expected one graph of {want}')
+    log(f'[graph] headline: eager and graphed equal to the bit (u, cost, '
+        f'iters, pg_norm, converged) ok; the graph\'s kernel nodes hold '
+        f'{want} launches a replay ok')
+    timed = time_solves('graph headline', b, solve, GRAPH_REPS, dev,
+                        modes=BOTH)
+    with eager_loop():
+        prof_e = profile_solve('graph eager', lambda x: solve(x, PROFILE_ITERS),
+                               p.x0s, 'rw_tied', out_dir, per_eval=p.horizon)
+    prof_g = profile_solve('graph graphed', solve, p.x0s, 'rw_tied', out_dir,
+                           per_eval=p.horizon)
+    out = dict(launches=launches, loop_iters=iters, profile_eager=prof_e,
+               profile_graphed=prof_g, capture=capture, **timed)
+    if prof_e and prof_g:
+        replayed = prof_g['evaluations'] - 2
+        log(f'[graph] on {card}: solves/s eager '
+            f'{timed["eager"]["solves_per_s"]:.2f}, graphed '
+            f'{timed["graphed"]["solves_per_s"]:.2f}; host launch calls: '
+            f'eager {prof_e["kernel_launches"] / prof_e["evaluations"]:.0f} '
+            f'kernels a value-and-grad; graphed '
+            f'{prof_g["graph_launches"]} graph launches for its {replayed} '
+            f'replayed iterations, and {prof_g["kernel_launches"]} kernel '
+            f'launches (the first value-and-grad, iteration 1 and the '
+            f'capture); device busy {100 * prof_e["device_busy_s"] / prof_e["wall_s"]:.1f}'
+            f' % of the eager solve, '
+            f'{100 * prof_g["device_busy_s"] / prof_g["wall_s"]:.1f} % of '
+            f'the graphed one; its {capture["captures"]} capture '
+            f'{1e3 * capture["capture_s"]:.1f} ms '
+            f'({100 * capture["capture_share"]:.1f} % of the solve)')
+    return out
+
+
 @contextlib.contextmanager
 def count_propagated_rollouts():
     """Count the propagated-variance rollouts of parallel.batch (those with
     neither frozen_cov_diag nor mean_only: each runs the variance trace at
-    every step) in a block; yields a one-item list holding the count and a
-    dict {lanes: rollouts}."""
+    every step) in a block, a rollout captured in the solver's graph once
+    per replay (`tally`); yields a dict {lanes: rollouts}."""
     from gpmpc_tpu_torch.parallel import batch
-    orig, count, widths = batch.rollout_batched, [0], {}
+    orig, widths = batch.rollout_batched, {}
 
     def counted(cache, x0s, actions, *args, **kw):
         if kw.get('frozen_cov_diag') is None and not kw.get('mean_only'):
-            count[0] += 1
             lanes = int(actions.shape[0])
             widths[lanes] = widths.get(lanes, 0) + 1
         return orig(cache, x0s, actions, *args, **kw)
 
     batch.rollout_batched = counted
     try:
-        yield count, widths
+        with tally(widths):
+            yield widths
     finally:
         batch.rollout_batched = orig
 
@@ -1357,18 +1554,20 @@ def phase_recipe(dev, b, j64, j_uref, card, lane_counts=RECIPE_WIDTHS):
             diag=diag, **RECIPE)
 
     diag = {}
-    with count_propagated_rollouts() as (rollouts, widths):
+    with count_propagated_rollouts() as widths, capture_walls() as walls:
         reset_counts()
         t0 = time.perf_counter()
         res = solve(p.x0s, diag)
         sync(dev)
         wall = time.perf_counter() - t0
         counts = read_counts()
-    expect = p.horizon * rollouts[0]
+    capture = capture_note(walls, wall)
+    rollouts = sum(widths.values())
+    expect = p.horizon * rollouts
     others = {k: v for k, v in counts.items() if k != 'K1 f64' and v}
     if counts['K1 f64'] != expect or others:
         raise AssertionError(f'recipe: launches {counts}, expected {expect} '
-                             f'K1 f64 = H * {rollouts[0]} propagated-variance '
+                             f'K1 f64 = H * {rollouts} propagated-variance '
                              'rollouts and no other')
     widths = dict(sorted(widths.items()))
     if lane_counts is not None and not set(widths) <= set(lane_counts):
@@ -1377,14 +1576,16 @@ def phase_recipe(dev, b, j64, j_uref, card, lane_counts=RECIPE_WIDTHS):
                              f'{lane_counts}')
     if not bool(torch.isfinite(res.cost).all()):
         raise AssertionError('recipe: non-finite costs')
-    log(f'[recipe] {RECIPE_NAME} B={b} H={p.horizon} f32: {rollouts[0]} '
+    log(f'[recipe] {RECIPE_NAME} B={b} H={p.horizon} f32: {rollouts} '
         f'propagated-variance rollouts ({{lanes: rollouts}} {widths}, each '
         f'lane count checked in phase 3 ok), K1 f64 launches '
         f'{counts["K1 f64"]} = H * rollouts ok, no other kernel; costs finite '
         f'ok; max iters {int(res.iters.max())}; diag {diag}; wall {wall:.2f} '
-        's (the first solve)')
+        f's (the first solve), of it {capture["captures"]} graph captures '
+        f'{capture["capture_s"]:.3f} s ({100 * capture["capture_share"]:.1f} '
+        f'%, median {1e3 * capture["capture_median_s"]:.2f} ms)')
     out = score_and_time('recipe', b, solve, res, j64, j_uref, RECIPE_REPS,
-                         dev)
+                         dev, both=True)
     q = out['quality']
     log(f'[recipe] beside the JAX recipe on a TPU (BENCH_r05.json): p90 '
         f'{q["p90"]:.4%} (JAX {JAX_RECIPE_BAR["p90"]:.2%}), lanes >1% '
@@ -1395,8 +1596,9 @@ def phase_recipe(dev, b, j64, j_uref, card, lane_counts=RECIPE_WIDTHS):
     if not q['p90'] < RECIPE_P90_MAX:
         raise AssertionError(f'recipe: p90 cost excess {q["p90"]:.4%} is not '
                              f'below {RECIPE_P90_MAX:.0%}')
-    return dict(launches=counts['K1 f64'], propagated_rollouts=rollouts[0],
-                rollout_lanes=widths, diag=diag, first_wall_s=wall, **out)
+    return dict(launches=counts['K1 f64'], propagated_rollouts=rollouts,
+                rollout_lanes=widths, diag=diag, first_wall_s=wall,
+                capture=capture, **out)
 
 
 def phase_full_cov(dev, b, ref, out_dir):
@@ -1459,11 +1661,14 @@ def phase_full_cov(dev, b, ref, out_dir):
     return out
 
 
-def profile_solve(tag, solve, x0s, kernel, out_dir):
+def profile_solve(tag, solve, x0s, kernel, out_dir, per_eval=None):
     """One solve (after a warm one) under torch.profiler: wall, device busy
-    time, the share of the kernels whose name holds `kernel`, the number of
-    device kernels, and the host time of the collectives, each also per
-    value-and-grad (1 + iterations of them a solve). The table goes to
+    time, the number and share of the kernels whose name holds `kernel`,
+    the number of device kernels, and the host time of the collectives,
+    each also per value-and-grad (1 + iterations of them a solve). With
+    per_eval, raises unless the device ran exactly per_eval x (1 +
+    iterations) of `kernel` (replays of a captured graph included: the
+    profiler traces each kernel node a replay runs). The table goes to
     out_dir/chip_smoke_profile_<tag>.txt."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1477,8 +1682,18 @@ def profile_solve(tag, solve, x0s, kernel, out_dir):
         wall = time.perf_counter() - t0
     evals = 1 + int(res.iters.max())
     events = [e for e in prof.events() if e.device_type.name == 'CUDA']
+    # The host's launch calls (cudaLaunchKernel*, cuLaunchKernel*): kernels,
+    # and graphs (cudaGraphLaunch).
+    launch_calls = {}
+    for e in prof.events():
+        if (e.device_type.name == 'CPU' and e.name.startswith('cu')
+                and 'Launch' in e.name):
+            launch_calls[e.name] = launch_calls.get(e.name, 0) + 1
+    graph_launches = sum(n for k, n in launch_calls.items() if 'Graph' in k)
+    kernel_launches = sum(launch_calls.values()) - graph_launches
     busy_us = sum(e.time_range.elapsed_us() for e in events)
-    k_us = sum(e.time_range.elapsed_us() for e in events if kernel in e.name)
+    k_events = [e for e in events if kernel in e.name]
+    k_us = sum(e.time_range.elapsed_us() for e in k_events)
     averages = prof.key_averages()
     coll = [e for e in averages if 'allreduce' in e.key.lower()
             or 'all_reduce' in e.key.lower()]
@@ -1491,17 +1706,31 @@ def profile_solve(tag, solve, x0s, kernel, out_dir):
     if busy_us == 0:
         log(f'[profile] {tag}: device time: not measured (the profiler saw '
             'no device events)')
+        if per_eval is not None:
+            raise AssertionError(f'{tag}: no device trace to count {kernel} '
+                                 'in')
         return None
+    if per_eval is not None and len(k_events) != per_eval * evals:
+        raise AssertionError(f'{tag}: the device ran {len(k_events)} '
+                             f'{kernel} kernels, expected {per_eval} x '
+                             f'{evals} value-and-grads')
     out = dict(evaluations=evals, wall_s=wall, device_busy_s=busy_us / 1e6,
                device_kernels=len(events), kernel_s=k_us / 1e6,
+               kernel_calls=len(k_events),
                collective_calls=coll_calls,
-               collective_host_s=coll_host_us / 1e6)
+               collective_host_s=coll_host_us / 1e6,
+               launch_calls=launch_calls, kernel_launches=kernel_launches,
+               graph_launches=graph_launches)
     log(f'[profile] {tag}, one solve of {evals} value-and-grads under the '
         f'profiler: wall {wall:.4f} s, device busy {busy_us / 1e6:.4f} s '
         f'({100 * busy_us / 1e6 / wall:.1f}%), {len(events)} device kernels '
-        f'({len(events) / evals:.0f} a value-and-grad), {kernel} '
-        f'{k_us / 1e6:.4f} s ({100 * k_us / max(busy_us, 1):.1f}% of busy); '
-        f'all_reduce calls {coll_calls}, host time {coll_host_us / 1e6:.4f} s')
+        f'({len(events) / evals:.0f} a value-and-grad), {len(k_events)} '
+        f'{kernel}{"" if per_eval is None else f" (= {per_eval} x {evals} ok)"}'
+        f' {k_us / 1e6:.4f} s ({100 * k_us / max(busy_us, 1):.1f}% of busy); '
+        f'all_reduce calls {coll_calls}, host time {coll_host_us / 1e6:.4f} s;'
+        f' host launch calls: {kernel_launches} kernels '
+        f'({kernel_launches / evals:.0f} a value-and-grad), {graph_launches} '
+        f'graphs {launch_calls}')
     return out
 
 
@@ -1862,8 +2091,9 @@ def time_shapes(dev, shapes, tag, rng, bodies=True):
 @contextlib.contextmanager
 def record_launch_shapes():
     """Record (kernel, instance, B, N, d, E) of every K1 and K2 call on CUDA
-    tensors in a block (K2's E is the GP's, all in one launch); yields a
-    dict {shape: calls}."""
+    tensors in a block (K2's E is the GP's, all in one launch), a call
+    captured in the solver's graph once per replay (`tally`); yields a dict
+    {shape: calls}."""
     from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
     seen = {}
     orig_t, orig_u = vt.rw_tied, vt.rw_untied
@@ -1884,7 +2114,8 @@ def record_launch_shapes():
 
     vt.rw_tied, vt.rw_untied = tied, untied
     try:
-        yield seen
+        with tally(seen):
+            yield seen
     finally:
         vt.rw_tied, vt.rw_untied = orig_t, orig_u
 
@@ -1926,6 +2157,69 @@ def count_steps(mpc, steps: list, horizon: int):
         return u
 
     mpc.get_optimal_trajectory = step
+
+
+def check_loop_step(tag, mpc, x, horizon, reps, dev):
+    """One control step of `mpc` from state x, `reps` times with the
+    solver's loop eager (eager_loop) and `reps` times graphed, in turns, the
+    controller's last trajectory (u_prev) reset before each: every step
+    launches exactly H * (1 + iters) of K1 (tied) or K2 (untied) on the
+    B = 1 route, each graphed step's graph holds exactly H of them a replay
+    by its kernel nodes, and each pair's results are equal to the bit.
+    Returns the step walls (synchronized) of each mode and their p50."""
+    import torch
+    traj = mpc.last_traj.copy()
+    kernel = 'K1' if mpc.gp.config.tied_lambdas else 'K2'
+    each = ({'LAUNCHES_UNTIED': horizon} if kernel == 'K2' else
+            {'LAUNCHES': horizon, **({'LAUNCHES_F64': horizon}
+                                     if mpc.gp.x.dtype == torch.float64
+                                     else {})})
+    walls = {'eager': [], 'graphed': []}
+    captures = {'eager': [], 'graphed': []}
+    captured = 0
+    for rep in range(reps):
+        res = {}
+        for mode in (('eager', 'graphed') if rep % 2 == 0
+                     else ('graphed', 'eager')):
+            mpc.last_traj = traj.copy()
+            reset_counts()
+            with (eager_loop() if mode == 'eager' else contextlib.nullcontext(),
+                  capture_walls() as cap):
+                _, wall = _timed(lambda: mpc.get_optimal_trajectory(x), dev)
+            captures[mode].extend(cap)
+            r = res[mode] = mpc.last_result
+            if mode == 'graphed':
+                # A solve captures a graph where it runs past iteration 1.
+                captured += int(r.iters) >= 2
+            got, want = _loop_launches(), horizon * (1 + int(r.iters))
+            if got[kernel] != want or sum(got.values()) != want:
+                raise AssertionError(f'{tag} {mode} step: launches {got}, '
+                                     f'expected {want} {kernel}')
+            walls[mode].append(wall)
+        same_bits(f'{tag} step {rep}', res['eager'], res['graphed'])
+    mpc.last_traj = traj
+    if captures['eager']:
+        raise AssertionError(f'{tag}: eager steps captured a graph')
+    out = {mode: dict(walls=w, wall_p50_s=float(np.median(w)))
+           for mode, w in walls.items()}
+    out['graphed']['capture'] = capture_note(captures['graphed'],
+                                             sum(walls['graphed']))
+    graphs = out['graphed']['capture']['replay_launches']
+    if len(graphs) != captured or any(n != each for n in graphs):
+        raise AssertionError(f'{tag}: the graphed steps\' graphs hold '
+                             f'{graphs} kernel launches a replay, expected '
+                             f'{captured} of {each}')
+    log(f'[loop {tag}] one step from the last state, eager and graphed in '
+        f'turns, {reps} each: {kernel} = H * (1 + iters) each, each graph\'s '
+        f'kernel nodes {each} a replay, equal to the bit ok; wall p50 eager {out["eager"]["wall_p50_s"]:.4f} s, graphed '
+        f'{out["graphed"]["wall_p50_s"]:.4f} s (walls eager '
+        f'{[round(w, 4) for w in walls["eager"]]}, graphed '
+        f'{[round(w, 4) for w in walls["graphed"]]}); a graphed step\'s '
+        f'capture median '
+        f'{1e3 * out["graphed"]["capture"]["capture_median_s"]:.2f} ms '
+        f'({100 * out["graphed"]["capture"]["capture_share"]:.1f} % of the '
+        f'graphed walls)')
+    return out
 
 
 def _log_steps(tag, steps):
@@ -2047,13 +2341,15 @@ def phase_closed_loop(dev, checked, ref_path, out_dir):
         if int(mpc.gp.count) != 250 + len(ep.actions):
             raise AssertionError(f'swing-up: GP count {int(mpc.gp.count)}')
         del mpc.get_optimal_trajectory          # count_steps' wrapper
+        graph_step = check_loop_step('swing-up', mpc, ep.states[-1], 8,
+                                     GRAPH_REPS, dev)
 
         def one_step(_):
             mpc.get_optimal_trajectory(ep.states[-1])
             return mpc.last_result
 
         prof = profile_solve('loop step', one_step, mpc.gp.x, 'rw_tied',
-                             out_dir)
+                             out_dir, per_eval=8)
         out['swing_up'] = dict(
             train_s=train_s, train_iters=res.iters, hp_rel_err=hp_err,
             append_refit_s=append_s, append_at=at,
@@ -2064,7 +2360,8 @@ def phase_closed_loop(dev, checked, ref_path, out_dir):
             tail_theta_max=float(np.max(np.abs(th_tail))),
             tail_thdot_max=float(np.max(np.abs(thdot_tail))),
             iters_vs_jax=[ep.iters[:n_ref].tolist(), ref['ep_iters'].tolist()],
-            profile=prof, **_log_steps('swing-up', steps))
+            profile=prof, graph_step=graph_step,
+            **_log_steps('swing-up', steps))
         r = out['swing_up']
         log(f'[loop swing-up] f64 N=512: train_gp(80) {train_s:.3f} s, {res.iters}'
             f' iters (JAX {int(ref["train_iters"])}), hyperparameters vs JAX '
@@ -2358,10 +2655,22 @@ def phase_sparse_3b(dev, ref, jax_tpu):
         return solve_batch(p.gp, 4, 1, x0s, p.params, p.horizon, p.lb, p.ub,
                            cfg)
 
-    res, launches, loop_iters = solve_checked(
-        'sparse 3b', f'solve_batch B={b} H={p.horizon} M=128 '
-        f'max_iters={SPARSE_ITERS}', solve, p.x0s, 'K1 f64', 1, p.horizon,
-        cost0)
+    desc = f'solve_batch B={b} H={p.horizon} M=128 max_iters={SPARSE_ITERS}'
+    with eager_loop():
+        res_e, _, _ = solve_checked('sparse 3b eager', desc, solve, p.x0s,
+                                    'K1 f64', 1, p.horizon, cost0)
+    with capture_walls() as walls:
+        res, launches, loop_iters = solve_checked(
+            'sparse 3b', desc, solve, p.x0s, 'K1 f64', 1, p.horizon, cost0)
+    same_bits('sparse 3b', res_e, res)
+    want = {'LAUNCHES': p.horizon, 'LAUNCHES_F64': p.horizon}
+    if [n for _, n in walls] != [want]:
+        raise AssertionError(f'sparse 3b: the graph holds '
+                             f'{[n for _, n in walls]} kernel launches a '
+                             f'replay, expected one graph of {want}')
+    log(f'[sparse 3b] eager and graphed equal to the bit (u, cost, iters, '
+        f'pg_norm, converged) ok; the graph\'s kernel nodes hold {want} '
+        f'launches a replay ok')
     quality = cost_excess(j64, res.u, j_uref)
     log(f'[sparse 3b] cost excess vs f64 u_ref: p50 {quality["p50"]:.4%} p90 '
         f'{quality["p90"]:.4%} max {quality["max"]:.4%}, lanes >1% '
@@ -2373,9 +2682,10 @@ def phase_sparse_3b(dev, ref, jax_tpu):
         raise AssertionError(f'sparse 3b: p90 cost excess {quality["p90"]:.4%}'
                              f' not below {SPARSE_P90_MAX:.0%}')
     timed = time_solves('sparse 3b', b, solve, SPARSE_REPS, dev,
-                        lambda rng: rng.uniform(-0.2, 0.2, (b, 4)))
+                        lambda rng: rng.uniform(-0.2, 0.2, (b, 4)),
+                        modes=BOTH)
     return dict(launches=launches, loop_iters=loop_iters, quality=quality,
-                parity=parity, **timed)
+                parity=parity, **timed['graphed'], eager=timed['eager'])
 
 
 def phase_sparse_fullcov(dev, ref, jax_tpu):
@@ -2741,9 +3051,10 @@ def main() -> int:
         solve_f32 = phase_solve(dev, b, j64, j_uref, reps=1,
                                 tag='solve k1_f32', key='K1 f32')
     untied_launches = phase_untied(dev, b)
+    os.makedirs(out_dir, exist_ok=True)
+    graph = phase_graph(dev, b, card, out_dir)
     prof = phase_profile(dev, b, out_dir)
     recipe = phase_recipe(dev, b, j64, j_uref, card)
-    os.makedirs(out_dir, exist_ok=True)
     full_cov = phase_full_cov(dev, b, ref, out_dir)
     with sym_opt_in():
         sym_solve = phase_solve(dev, b, j64, j_uref, reps=3, tag='sym solve',
@@ -2837,6 +3148,7 @@ def main() -> int:
             bound_ms=times[f32]['K1']['bound'][0],
             bound_by=times[f32]['K1']['bound'][1], library_ms=None))
     detail = dict(objective=obj, solve=solve, solve_k1_f32=solve_f32,
+                  graph=graph,
                   recipe=recipe, full_cov=full_cov, sym_solve=sym_solve,
                   sharded_1x1=sharded_11, sharded_1x2=sharded_12,
                   closed_loop=loop, loop_kernel_errs=loop_errs,

@@ -17,7 +17,11 @@ the GP, the rollouts and the solve run in torch on the controller's device
       K2 (untied, e.g. after `train_gp`);
   (c) otherwise the single-scenario `dynamics.rollout` and
       `solver.solve_trajectory`.
-JAX jits `_solve`; here it runs eagerly.
+JAX jits `_solve`. Here route (b) with a diagonal covariance runs its
+solver iterations after the first as replays of one CUDA graph captured for
+the solve (mpc/solver.py, `_run_graphed`); with full_cov=True, and routes
+(a) and (c), the controller's own code runs eagerly ((a)'s solves are
+graphed inside `solve_batch_multistart`).
 """
 
 from __future__ import annotations
@@ -69,8 +73,9 @@ def _solve(gp, state_dim, action_dim, x0, u_init, lb, ub, params: CostParams,
                                           delta=delta_dynamics)
             return risk_sensitive_cost(params, means, covs, u_b)
 
-        return first_lane(solve_trajectory_batched(objective_b, u_init[None], lb,
-                                               ub, solver_config))
+        return first_lane(solve_trajectory_batched(
+            objective_b, u_init[None], lb, ub, solver_config,
+            _graph=not full_cov))
 
     def objective(u):
         means, covs = rollout(cache, x0, u, full_cov=full_cov,

@@ -63,12 +63,14 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from gpmpc_tpu_torch.ops.kernels import _build
+from gpmpc_tpu_torch.utils import replay_counts
 from gpmpc_tpu_torch.utils.smallchol import chol_small
 
 # Kernel launches, counted where they happen (tied K1, untied K2, the row
@@ -80,6 +82,49 @@ LAUNCHES_F64 = 0
 LAUNCHES_UNTIED = 0
 LAUNCHES_BLOCK = 0
 LAUNCHES_SYM = 0
+_COUNTERS = ('LAUNCHES', 'LAUNCHES_F64', 'LAUNCHES_UNTIED', 'LAUNCHES_BLOCK',
+             'LAUNCHES_SYM')
+
+
+_TIED_FN = re.compile(r'rw_tied_kernel(?:I([fd])|<(float|double),)')
+_BOOL_ARG = re.compile(r'Lb([01])E|\b(true|false)\b')
+
+
+def _add_launches(delta) -> None:
+    for name, n in delta.items():
+        globals()[name] += n
+
+
+def graph_counters(name: str) -> tuple:
+    """The counters that a launch of the kernel function `name` (as a CUDA
+    graph's node names it, mangled or not) counts in: K1's tied body
+    (rw_tied_kernel<T, ..., Untied = false, ...>) LAUNCHES, and
+    LAUNCHES_F64 for T = double and for its tensor-core body
+    (rw_tied_mma_kernel); K2, the same template with Untied = true (its
+    first bool argument), LAUNCHES_UNTIED; K4's pair kernel LAUNCHES_SYM;
+    any other kernel (). K3 launches K1's kernel, so a graph holding it
+    counts it as K1, against what its wrapper counts: the check of
+    utils/replay_counts.Replays then raises."""
+    if 'rw_tied_mma_kernel' in name:
+        return ('LAUNCHES', 'LAUNCHES_F64')
+    m = _TIED_FN.search(name)
+    if m:
+        untied = _BOOL_ARG.search(name, m.end())
+        if untied is not None and (untied.group(1) or untied.group(2)) in (
+                '1', 'true'):
+            return ('LAUNCHES_UNTIED',)
+        f64 = (m.group(1) or m.group(2)[0]) == 'd'
+        return ('LAUNCHES', 'LAUNCHES_F64') if f64 else ('LAUNCHES',)
+    if 'rw_sym_pair_kernel' in name:
+        return ('LAUNCHES_SYM',)
+    return ()
+
+
+# A launch captured in a CUDA graph counts once per replay, by the graph's
+# own kernel nodes (utils/replay_counts.py).
+replay_counts.register_kernels(
+    lambda: {name: globals()[name] for name in _COUNTERS}, _add_launches,
+    graph_counters)
 
 MAX_D = 8
 MAX_E = 8

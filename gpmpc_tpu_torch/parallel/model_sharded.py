@@ -225,7 +225,8 @@ def solve_batch_2d(mesh, gp: GPState, state_dim: int, action_dim: int,
     only its (E, cap / n_model, cap) row block of b_lam (stored transposed,
     mesh.row_block). B must divide by the
     batch-axis size and the GP capacity by the model-axis size. Returns the
-    whole (B, ...) result on every rank."""
+    whole (B, ...) result on every rank. The solver's loop runs eagerly:
+    the value-and-grad is an external oracle with collectives inside."""
     if x0s.device != gp.x.device:
         raise ValueError(f'x0s lies on {x0s.device}, the GP on {gp.x.device}')
     ensure_true_f32()

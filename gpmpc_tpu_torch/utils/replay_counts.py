@@ -1,0 +1,202 @@
+"""Host counters that see the replays of a captured CUDA graph.
+
+A wrapper counts a kernel launch in Python, where it enqueues the launch. A
+replay of a captured graph runs the kernels again without that Python, so a
+counter sees a captured call once, at capture, where it launched nothing.
+
+Who captures and replays a graph (mpc/solver.py's graphed loop) therefore
+counts for the wrappers. It snapshots every registered counter before and
+after the capture, reads what the graph itself will launch, and builds a
+`Replays`. That object takes back what the capture counted, checks the
+graph against it, and adds the graph's launches once per replay.
+
+- Kernel counters (`register_kernels`: the wrappers' launch counts). Their
+  launches a replay are read from the graph's kernel nodes, through the
+  CUDA driver (`graph_kernel_names`), and each node's function name is
+  sorted into the counters it counts in. The count must equal what the
+  wrappers counted during the capture, or the capture raises: a launch
+  that left no node, or a node that no wrapper counted.
+- Tallies (`register`: a script's own counts of Python calls, e.g. of the
+  rollouts a solve runs). A replay runs no Python, so for them the
+  capture's difference is what each replay repeats.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+from collections import Counter
+from typing import Callable, Dict, Hashable, List, NamedTuple, Optional
+
+Counts = Dict[Hashable, int]
+
+
+class _Source(NamedTuple):
+    read: Callable[[], Counts]
+    add: Callable[[Counts], None]
+    # Kernel counters: a kernel's function name -> the keys its launch
+    # counts in (() for a kernel the source does not count).
+    classify: Optional[Callable[[str], tuple]]
+
+
+_SOURCES: List[_Source] = []
+
+
+def register(read: Callable[[], Counts], add: Callable[[Counts], None]):
+    """Make a tally visible to replays: read() returns its counts {key: n};
+    add({key: n}) adds to them (n may be negative). Returns the entry that
+    `unregister` takes."""
+    entry = _Source(read, add, None)
+    _SOURCES.append(entry)
+    return entry
+
+
+def register_kernels(read: Callable[[], Counts], add: Callable[[Counts], None],
+                     classify: Callable[[str], tuple]):
+    """Make kernel launch counters visible to replays: read and add as in
+    `register`; classify(name) gives the keys that a launch of the kernel
+    named `name` (mangled or not) counts in."""
+    entry = _Source(read, add, classify)
+    _SOURCES.append(entry)
+    return entry
+
+
+def unregister(entry) -> None:
+    _SOURCES.remove(entry)
+
+
+@contextlib.contextmanager
+def registered(read: Callable[[], Counts], add: Callable[[Counts], None]):
+    """`register` for the duration of a block."""
+    entry = register(read, add)
+    try:
+        yield
+    finally:
+        unregister(entry)
+
+
+def snapshot() -> list:
+    """Every registered counter's counts now."""
+    return [(entry, dict(entry.read())) for entry in _SOURCES]
+
+
+def _delta(before: Counts, after: Counts) -> Counts:
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
+
+
+class Replays:
+    """The counts of one captured graph. Built from the snapshots before and
+    after its capture and the function names of its kernel nodes: takes
+    back what the capture counted (it launched nothing), after checking
+    that the graph's kernel nodes are the launches the kernel counters saw.
+    `replayed()` then counts one replay."""
+
+    def __init__(self, before: list, after: list, kernel_names: List[str]):
+        if [e for e, _ in before] != [e for e, _ in after]:
+            raise RuntimeError('a counter was registered or removed during a '
+                               'capture')
+        self.per_replay = []
+        for (entry, b), (_, a) in zip(before, after):
+            captured = _delta(b, a)
+            if entry.classify is None:
+                each = captured
+            else:
+                nodes = Counter()
+                for name in kernel_names:
+                    nodes.update(entry.classify(name))
+                each = {k: n for k, n in nodes.items() if n}
+                if each != captured:
+                    raise RuntimeError(
+                        f'the captured graph holds kernel launches {each}, '
+                        f'the wrappers launched {captured} during its '
+                        'capture')
+            if captured:
+                entry.add({k: -n for k, n in captured.items()})
+            self.per_replay.append((entry, each))
+
+    @property
+    def launches(self) -> Counts:
+        """The kernel launches of one replay, by counter, read from the
+        graph's nodes."""
+        out = {}
+        for entry, each in self.per_replay:
+            if entry.classify is not None:
+                out.update(each)
+        return out
+
+    def replayed(self) -> None:
+        """Count one replay of the graph."""
+        for entry, each in self.per_replay:
+            if each:
+                entry.add(each)
+
+
+# ------------------------------------------- a graph's nodes, by the driver --
+_CU_GRAPH_NODE_TYPE_KERNEL = 0
+_CU_GRAPH_NODE_TYPE_GRAPH = 5
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 of cuda.h."""
+    _fields_ = [('func', ctypes.c_void_p), ('grid', ctypes.c_uint * 3),
+                ('block', ctypes.c_uint * 3), ('shared_mem', ctypes.c_uint),
+                ('kernel_params', ctypes.c_void_p),
+                ('extra', ctypes.c_void_p), ('kern', ctypes.c_void_p),
+                ('ctx', ctypes.c_void_p)]
+
+
+_driver: list = []
+
+
+def _cu():
+    """The CUDA driver library (loaded at first use)."""
+    if not _driver:
+        _driver.append(ctypes.CDLL('libcuda.so.1'))
+    return _driver[0]
+
+
+def _check(err: int, call: str) -> None:
+    if err != 0:
+        raise RuntimeError(f'{call} failed: CUresult {err}')
+
+
+def graph_kernel_names(graph: int) -> List[str]:
+    """The function name of every kernel node of a CUDA graph (a
+    cudaGraph_t, as torch.cuda.CUDAGraph(keep_graph=True).raw_cuda_graph()
+    gives it), child graphs included: one name for each launch that a
+    replay runs."""
+    cu = _cu()
+    n = ctypes.c_size_t(0)
+    _check(cu.cuGraphGetNodes(ctypes.c_void_p(graph), None, ctypes.byref(n)),
+           'cuGraphGetNodes')
+    nodes = (ctypes.c_void_p * n.value)()
+    _check(cu.cuGraphGetNodes(ctypes.c_void_p(graph), nodes, ctypes.byref(n)),
+           'cuGraphGetNodes')
+    names = []
+    for node in nodes:
+        node = ctypes.c_void_p(node)
+        kind = ctypes.c_int(-1)
+        _check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)),
+               'cuGraphNodeGetType')
+        if kind.value == _CU_GRAPH_NODE_TYPE_GRAPH:
+            child = ctypes.c_void_p()
+            _check(cu.cuGraphChildGraphNodeGetGraph(node, ctypes.byref(child)),
+                   'cuGraphChildGraphNodeGetGraph')
+            names.extend(graph_kernel_names(child.value))
+        if kind.value != _CU_GRAPH_NODE_TYPE_KERNEL:
+            continue
+        params = _KernelNodeParams()
+        _check(cu.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(params)),
+               'cuGraphKernelNodeGetParams_v2')
+        name = ctypes.c_char_p()
+        if params.func:
+            _check(cu.cuFuncGetName(ctypes.byref(name),
+                                    ctypes.c_void_p(params.func)),
+                   'cuFuncGetName')
+        else:
+            _check(cu.cuKernelGetName(ctypes.byref(name),
+                                      ctypes.c_void_p(params.kern)),
+                   'cuKernelGetName')
+        names.append(name.value.decode())
+    return names

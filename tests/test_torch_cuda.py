@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+
 from gpmpc_tpu_torch.benchmarks.chain import kernel_args
 from gpmpc_tpu_torch.ops.kernels import probe
 from gpmpc_tpu_torch.ops.kernels import variance_trace as tvt
@@ -870,3 +872,149 @@ def test_cuda_exp_table_within_one_ulp():
     want = np.exp(x)
     ulp = np.spacing(np.abs(want))
     assert float(np.max(np.abs(got - want) / ulp)) <= 1.0
+
+
+# ------------------------------------------- the graphed lockstep loop --
+def _launches():
+    return {'K1': tvt.LAUNCHES, 'K1 f64': tvt.LAUNCHES_F64,
+            'K2': tvt.LAUNCHES_UNTIED, 'K3': tvt.LAUNCHES_BLOCK,
+            'K4': tvt.LAUNCHES_SYM}
+
+
+def _eager_then_graphed(monkeypatch, solve):
+    """solve() with the solver's loop forced eager, then as its caller runs
+    it (graphed): [(result, launches counted during the call)] x 2."""
+    from gpmpc_tpu_torch.mpc import solver
+    out = []
+    for eager in (True, False):
+        with monkeypatch.context() as m:
+            if eager:
+                m.setattr(solver, '_run_graphed', solver._run_eager)
+            before = _launches()
+            res = solve()
+            torch.cuda.synchronize()
+            out.append((res, {k: v - before[k]
+                              for k, v in _launches().items()}))
+    return out
+
+
+def _swing_up_solve(dev):
+    """The swing-up controller of chip_smoke.py phase 7 (f64, N = 512,
+    delta dynamics) on the stored 250 transitions with their trained,
+    untied hyperparameters: one control step, the B = 1 route through K2
+    at (1, 512, 3, 2). Returns (solve, H, kernel)."""
+    import os
+    from gpmpc_tpu_torch.mpc.controller import RiskSensitiveMPC
+    from gpmpc_tpu_torch.mpc.solver import SolverConfig
+    ref = np.load(os.path.join(os.path.dirname(__file__), '..',
+                               'gpmpc_tpu_torch', 'data',
+                               'closed_loop_ref.npz'))
+    mpc = RiskSensitiveMPC(
+        gamma=0.0, horizon=8, state_dim=2, input_dim=1,
+        Q=np.diag([8.0, 1.0]), R=0.001 * np.eye(1),
+        R_delta=0.001 * np.eye(1), capacity=512, delta_dynamics=True,
+        dtype=torch.float64, solver=SolverConfig(max_iters=60, tol=1e-4),
+        device=dev)
+    mpc.set_ub([5.0])
+    mpc.set_lb([-5.0])
+    mpc.dynamics.append_train_data(ref['states'], ref['actions'],
+                                   ref['next_states'])
+    mpc.set_gp_hyperparams(lambdas=np.exp(ref['log_lambdas']),
+                           sigma_f=np.exp(ref['log_sigma_f']),
+                           sigma_n=np.exp(ref['log_sigma_n']))
+    assert not mpc.gp.config.tied_lambdas
+    traj = mpc.last_traj.copy()
+
+    def solve():
+        mpc.last_traj = traj.copy()
+        mpc.get_optimal_trajectory(ref['ep_states'][1])
+        return mpc.last_result
+    return solve, 8, 'K2'
+
+
+def _batch_solve(case, dev, iters=40):
+    """The plain solve_batch at the headline (B = 256, f32) or on suite
+    config 3b (B = 256, M = 128, (d, E) = (5, 4), f32). Returns (solve, H,
+    kernel)."""
+    from gpmpc_tpu_torch.mpc.solver import SolverConfig
+    from gpmpc_tpu_torch.parallel.batch import solve_batch
+    from gpmpc_tpu_torch.problems import make_headline_problem, sparse_problem
+    if case == 'headline':
+        p, ds = make_headline_problem(b=256, dtype=torch.float32,
+                                      device=dev), 2
+    else:
+        p, ds = sparse_problem('3b_sparse_cartpole', dtype=torch.float32,
+                               device=dev), 4
+    cfg = SolverConfig(max_iters=iters, tol=1e-4)
+    return (lambda: solve_batch(p.gp, ds, 1, p.x0s, p.params, p.horizon,
+                                p.lb, p.ub, cfg)), p.horizon, 'K1 f64'
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['headline', 'swing_up', '3b'])
+def test_cuda_graphed_solve_equals_eager_to_the_bit(monkeypatch, case):
+    """The lockstep loop as replays of one captured CUDA graph against the
+    eager loop: u, cost, iters, pg_norm and converged equal to the bit, at
+    the headline (K1 f64 at B = 256), the swing-up's B = 1 control step
+    (K2 at (1, 512, 3, 2)) and config 3b (K1 at (256, 128, 5, 4)); each
+    call launches its kernel exactly H * (1 + iters) times by the counters
+    and no other."""
+    dev = _cuda()
+    solve, h, kernel = (_swing_up_solve(dev) if case == 'swing_up'
+                        else _batch_solve(case, dev))
+    (res_e, n_e), (res_g, n_g) = _eager_then_graphed(monkeypatch, solve)
+    chip_smoke.same_bits(case, res_e, res_g)
+    want = h * (1 + int(res_g.iters.max()))
+    assert int(res_g.iters.max()) > 1         # the graph was replayed
+    for n in (n_e, n_g):
+        assert n[kernel] == want
+        assert sum(n.values()) == want * (2 if kernel == 'K1 f64' else 1)
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_solve_counts_each_replay(monkeypatch):
+    """A graphed solve_batch at the headline, at a cap that ends it before
+    convergence (iters = 5): its one graph holds H K1 f64 launches by its
+    own kernel nodes, and the counters count H * (1 + iters), the capture
+    nothing and each replay the graph's H."""
+    from gpmpc_tpu_torch.mpc import solver
+    dev = _cuda()
+    solve, h, _ = _batch_solve('headline', dev, iters=5)
+    graphs = []
+    capture = solver._capture_step
+
+    def noted(p, s):
+        graph, counts = capture(p, s)
+        graphs.append(counts.launches)
+        return graph, counts
+
+    monkeypatch.setattr(solver, '_capture_step', noted)
+    before = (tvt.LAUNCHES, tvt.LAUNCHES_F64)
+    res = solve()
+    torch.cuda.synchronize()
+    assert int(res.iters.max()) == 5
+    assert graphs == [{'LAUNCHES': h, 'LAUNCHES_F64': h}]
+    assert (tvt.LAUNCHES - before[0], tvt.LAUNCHES_F64 - before[1]) == (
+        h * 6, h * 6)
+
+
+@pytest.mark.cuda
+def test_cuda_forced_capture_of_full_cov_raises():
+    """full_cov=True waits on the host in its PSD clip (torch.linalg.eigh),
+    so its solves run eagerly; a capture forced on it raises, and never
+    turns into the eager loop."""
+    from gpmpc_tpu_torch.dynamics import build_rollout_cache
+    from gpmpc_tpu_torch.mpc.solver import (SolverConfig,
+                                            solve_trajectory_batched)
+    from gpmpc_tpu_torch.parallel.batch import batch_objective
+    from gpmpc_tpu_torch.problems import make_headline_problem
+    dev = _cuda()
+    p = make_headline_problem(b=8, dtype=torch.float32, device=dev)
+    obj = batch_objective(build_rollout_cache(p.gp, 2, 1), p.x0s, p.params,
+                          full_cov=True)
+    u0 = torch.zeros((8, p.horizon, 1), dtype=torch.float32, device=dev)
+    with pytest.raises(RuntimeError):
+        solve_trajectory_batched(obj, u0, p.lb, p.ub,
+                                 SolverConfig(max_iters=5, tol=0.0),
+                                 _graph=True)
+    torch.cuda.synchronize()
