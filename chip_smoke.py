@@ -106,6 +106,22 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 events and graph slope beside their plain versions and
                 bounds, each with its plan (body; S, split, cluster, grid
                 or S, grid; blocks an SM), K1 also in each body.
+  3e. eigh     the small symmetric eigensolver of the full-covariance
+                PSD clip (csrc/eigh_small.cu, ops/kernels/eigh_small.py: one
+                thread a matrix, cyclic Jacobi) against its plain version
+                (within 4 ulps of ||A||_F: the same IEEE operations in the
+                same order) and torch.linalg.eigh (eigenvalues,
+                ||V diag(w) V^T - A|| and ||V^T V - I|| within 16 d eps
+                ||A||_F, eps of the dtype): random definite, indefinite,
+                near-degenerate and diagonal matrices at d = 2, 3, 4, 5, 8
+                in f32 and f64, and the pre-clip covariances the paths hand
+                it (the headline's f32 rollout, B = 256; config 4's,
+                B = 64; the swing-up controller's f64 route (b), B = 1).
+                Timed at those three shapes and at (256, 4, 4), f32 and f64,
+                by events and by graph slope, beside its plain version,
+                torch.linalg.eigh (library_ms; the port never calls it) and
+                its bound on these inputs (the rotations the plain version
+                counts).
   4. objective  the port's f64 objective on the card (the f64 kernel
                 instances) at the reference controls and at 0 against the
                 JAX package's values in gpmpc_tpu_torch/data/headline_ref.npz,
@@ -126,16 +142,16 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 graphed one, of ITERS, and phase 7's, of one control step).
                 Every solve here and below runs as its caller runs it: the
                 lockstep loop's iterations after the first as replays of one
-                captured CUDA graph (mpc/solver.py), except full covariance
-                (5e) and the sharded value-and-grad (6), which run eagerly;
-                each replay counts the kernel launches that the graph's own
-                kernel nodes hold (utils/replay_counts.py).
+                captured CUDA graph (mpc/solver.py), full covariance (5e, 7b,
+                8b) included, except the sharded value-and-grad (6), which
+                runs eagerly; each replay counts the kernel launches that the
+                graph's own kernel nodes hold (utils/replay_counts.py).
   5f. graph     the lockstep loop graphed against eager, the plain
                 solve_batch at the headline (B=256, f32, K1 f64, 40
                 iterations): each counted as phase 5, the two results equal
                 to the bit (u, cost, iters, pg_norm, converged), the graph's
                 kernel nodes exactly H K1 f64 launches a replay; solves/s of
-                both over 5 fresh-x0 batches in turns, each pair equal to
+                both over 3 fresh-x0 batches in turns, each pair equal to
                 the bit; host launch calls and the device's busy share of
                 each under the profiler (eager 4 iterations, graphed 40),
                 and in each device trace exactly H K1 kernels a
@@ -149,15 +165,20 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 each rollout at a lane count that phase 3 checked K1 at, its
                 diag counters; its cost excess against the f64 reference
                 controls beside the JAX recipe's bar (fails at p90 >= 1 %);
-                quality-paired solves/s, the median over 2 fresh-x0 batches,
-                graphed and eager in turns, each pair equal to the bit.
+                quality-paired solves/s on a fresh-x0 batch, graphed and
+                eager in turns, the two equal to the bit.
   5e. full cov  solve_batch(full_cov=True) on the same problem (B=256, H=20,
-                f32, 40 iterations): finite costs, no lane worse than its
-                start, exactly H * (1 + iterations) launches of K1's f64
-                instance and no other kernel; solves/s over 2 fresh-x0
-                batches and a profiler pass (one value-and-grad). Its f64
-                objective at the
-                reference controls (all lanes) and its gradient (the
+                f32, 40 iterations), its PSD clip through the small
+                eigensolver: eagerly and graphed, each with finite costs, no
+                lane worse than its start, exactly H * (1 + iterations)
+                launches of K1's f64 instance and of the eigensolver and no
+                other kernel, the two equal to the bit, the graph's kernel
+                nodes exactly H K1 f64 and H eigensolver launches a replay;
+                solves/s of both on a fresh-x0 batch in turns, the pair
+                equal to the bit; the graphed solve at 2 iterations under
+                the profiler (busy share, host launch calls, H K1 kernels a
+                value-and-grad in the device trace). Its f64 objective at
+                the reference controls (all lanes) and its gradient (the
                 reference file's eight grad_full_lanes) against JAX's
                 rollout_batched(full_cov=True) values in headline_ref.npz,
                 rtol 1e-8. No f64 reference solve exists for this
@@ -190,9 +211,14 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 test's criteria (|theta| < 0.15, |theta_dot| < 0.5, actions
                 in bounds, count 250 + steps); on the B = 1 route each step
                 launches exactly H * (1 + iters) K2 (one launch a trace for
-                all E outputs); then 5 steps from the last state eagerly and
-                5 graphed, in turns, each pair equal to the bit and each
-                graph's kernel nodes H K2 launches a replay; one step under
+                all E outputs); then 3 steps from the last state eagerly and
+                3 graphed, in turns, each pair equal to the bit and each
+                graph's kernel nodes H K2 launches a replay; then one step
+                from the last state with full_cov=True on the same route
+                eagerly and one graphed, each launching H * (1 +
+                iters) K2 and eigensolver launches, each pair equal to the
+                bit and each graph's kernel nodes H K2 and H eigensolver
+                launches a replay; one step under
                 the profiler, its device trace exactly H K2 kernels a
                 value-and-grad; (c)
                 pretrain_pendulum's delta mode in f32 (300 transitions,
@@ -231,8 +257,13 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 gradient within 1e-8 (at 0) and 1e-5 (at u_ref) of its
                 largest entry; on the port's own fit, the posterior within
                 1e-6, J within 1e-7, the gradient within 1e-6 and 1e-4
-                (SPARSE_BARS); one f32 solve cut to 5 iterations,
-                counted and timed, its cost excess recorded (no gate); (c)
+                (SPARSE_BARS); the f32 solve (its PSD clip through the
+                eigensolver) at 5 iterations eagerly and graphed, each
+                counted (H (1 + iters) K1 f64 and eigensolver launches),
+                equal to the bit; then at the suite's 40 iterations graphed,
+                counted the same way, the graph's kernel nodes H K1 f64 and
+                H eigensolver launches a replay, timed, its cost excess
+                recorded beside the JAX package's p50 (no gate); (c)
                 the per-scenario routes in f64, solve_batch with Adam
                 ('auto' -> 'vmap') on four headline lanes and solve_batch_gp
                 over three stack_gps draws, against JAX's stored results,
@@ -313,7 +344,9 @@ ITERS = 40
 UNTIED_ITERS = 10
 # Phase 5f: fresh-x0 batches each path (eager, graphed) is timed on, in
 # turns; and the closed loop's control steps timed each way (phase 7b).
-GRAPH_REPS = 5
+# Cut from 5, as RECIPE_REPS from 2, to make room for the graphed
+# full-covariance phases within about 700 s on a slow host.
+GRAPH_REPS = 3
 # The two executions of the solver's loop that time_solves holds together.
 BOTH = ('eager', 'graphed')
 # The profiled solves are cut to 4 iterations: the profiler's own
@@ -339,13 +372,14 @@ RECIPE_WIDTHS = (64, 128, 256, 1024, 2048, 14 * 256)
 # here; the JAX bar itself is recorded beside it.
 RECIPE_P90_MAX = 0.01
 JAX_RECIPE_BAR = dict(p90=0.0058, lanes_above_1pct=17, max=0.033)
-RECIPE_REPS = 2
-# Phase 5e's depth, cut to make room for phase 7 within half the time
-# limit: two timed solves, and a profile pass of one value-and-grad
-# (max_iters 0; at 10 iterations its 221,669 device kernels took the
-# profiler ~165 s to process, at one iteration still 43 s).
-FULL_COV_REPS = 2
-FULL_COV_PROFILE_ITERS = 0
+RECIPE_REPS = 1
+# Phase 5e's depth: one timed batch, eager and graphed in turns (beside
+# the two counted solves), and a
+# profile pass of the graphed solve cut to 2 iterations (the first
+# value-and-grad and iteration 1 eager, then one replay: ~20,000 device
+# kernels each; the profiler took ~165 s to process 10 eager iterations).
+FULL_COV_REPS = 1
+FULL_COV_PROFILE_ITERS = 2
 # The closed loop's kernel shapes (phase 3c checks K1 and K2 at each; phase
 # 7 fails on a launch at any other): each capacity N with the valid rows it
 # holds there (the integrator's 100 in 128; the pendulum's 250-310 and the
@@ -356,6 +390,9 @@ LOOP_DIMS = ((2, 1), (3, 2), (5, 4))
 # pretrain_pendulum's multistart: 4 starts plus the shifted last trajectory.
 LOOP_N_STARTS = 4
 SWING_STEPS = 40
+# The swing-up's full-covariance control steps from the episode's last
+# state (phase 7b), eager and graphed in turns, each this many times.
+FULL_COV_LOOP_REPS = 1
 PRETRAIN_STEPS = 10
 DEVICE_EPISODE_STEPS = 4
 # The swing-up against the stored JAX reference (closed_loop_ref.npz). The
@@ -371,6 +408,26 @@ LOOP_COST_RTOL = 1e-6
 # split by instance: LAUNCHES counts both, LAUNCHES_F64 the f64 ones.
 COUNTER = {'K2': 'LAUNCHES_UNTIED', 'K3': 'LAUNCHES_BLOCK',
            'K4': 'LAUNCHES_SYM'}
+# The small symmetric eigensolver (ops/kernels/eigh_small.py), the PSD
+# clip of the full-covariance rollout; it replaces jnp.linalg.eigh (XLA's)
+# at gpmpc_tpu/dynamics.py:312 (batched) and :164 (single scenario). Phase
+# 3e checks it on random symmetric matrices of every EIGH_KIND at each of
+# EIGH_DIMS, and on the operands of the paths at EIGH_PATH_SHAPES (B, d):
+# the headline full-covariance solve's 256 lanes, config 4's 64 and the
+# controller's route (b) at B = 1; it is timed there and at (256, 4), a
+# ds = 4 full covariance, in f32 and f64.
+EIGH_SOURCE = 'gpmpc_tpu_torch/ops/kernels/csrc/eigh_small.cu'
+EIGH_REPLACES = 'gpmpc_tpu/dynamics.py:312'
+EIGH_KINDS = ('definite', 'indefinite', 'near-degenerate', 'diagonal')
+EIGH_DIMS = (2, 3, 4, 5, 8)
+EIGH_PATH_SHAPES = ((256, 2), (64, 2), (1, 2))
+EIGH_TIMED_SHAPES = EIGH_PATH_SHAPES + ((256, 4),)
+# The eigensolver's bars, in units of eps (the dtype's) times d times
+# ||A||_F (eigenvalues against torch.linalg.eigh's, the reconstruction),
+# of eps times d (orthonormality), and of ulps of ||A||_F (kernel against
+# its plain version: the same IEEE operations in the same order).
+EIGH_BAR = 16
+EIGH_PLAIN_ULPS = 4
 
 
 _T0 = time.perf_counter()
@@ -388,22 +445,23 @@ def sync(dev) -> None:
 
 
 def reset_counts() -> None:
-    from gpmpc_tpu_torch.ops.kernels import probe
+    from gpmpc_tpu_torch.ops.kernels import eigh_small, probe
     from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
     for name in ('LAUNCHES', 'LAUNCHES_F64', *COUNTER.values()):
         setattr(vt, name, 0)
     probe.LAUNCHES_PROBE = 0
+    eigh_small.LAUNCHES_EIGH = 0
 
 
 def read_counts() -> dict:
-    """Launches since reset_counts: K1's f32 and f64 instances, K2-K4, and
-    'P' of the probe kernel."""
-    from gpmpc_tpu_torch.ops.kernels import probe
+    """Launches since reset_counts: K1's f32 and f64 instances, K2-K4, 'P'
+    of the probe kernel and 'eigh' of the small eigensolver."""
+    from gpmpc_tpu_torch.ops.kernels import eigh_small, probe
     from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
     return {'K1 f32': vt.LAUNCHES - vt.LAUNCHES_F64,
             'K1 f64': vt.LAUNCHES_F64,
             **{k: getattr(vt, name) for k, name in COUNTER.items()},
-            'P': probe.LAUNCHES_PROBE}
+            'P': probe.LAUNCHES_PROBE, 'eigh': eigh_small.LAUNCHES_EIGH}
 
 
 @contextlib.contextmanager
@@ -808,6 +866,73 @@ def full_cov_operands(dev, steps=FULL_COV_STEPS):
     if not off > 0 or not bool((torch.linalg.eigvalsh(m2) > 0).all()):
         raise AssertionError('full-covariance M2: not non-diagonal SPD')
     return u, m2, cache.x, cache.b_lam
+
+
+def sym_inputs(kind, n, d, dtype, seed):
+    """(n, d, d) symmetric matrices of a kind, numpy, rounded to dtype:
+    'definite' (m m^T / d + I / 10), 'indefinite' (N(0, 1) symmetrised),
+    'near-degenerate' (Q diag(w) Q^T, the eigenvalues in pairs 1e-7 apart,
+    relative) or 'diagonal'."""
+    import torch
+    rng = np.random.default_rng(seed)
+    m = rng.normal(size=(n, d, d))
+    if kind == 'definite':
+        a = m @ np.swapaxes(m, -1, -2) / d + 0.1 * np.eye(d)
+    elif kind == 'indefinite':
+        a = (m + np.swapaxes(m, -1, -2)) / 2
+    elif kind == 'near-degenerate':
+        q = np.linalg.qr(m)[0]
+        w = np.repeat(rng.uniform(0.5, 2.0, (n, (d + 1) // 2)), 2,
+                      axis=1)[:, :d] * (1 + 1e-7 * np.arange(d))
+        a = q @ (w[..., None] * np.swapaxes(q, -1, -2))
+        a = (a + np.swapaxes(a, -1, -2)) / 2
+    elif kind == 'diagonal':
+        a = np.zeros((n, d, d))
+        a[:, np.arange(d), np.arange(d)] = rng.normal(size=(n, d))
+    else:
+        raise ValueError(f'unknown kind {kind!r}')
+    return a.astype(np.float32 if dtype == torch.float32 else np.float64)
+
+
+def check_eigh(tag, a, w, v, wp, vp) -> dict:
+    """The eigensolver's bars on (..., d, d) matrices a: the kernel's (w, v)
+    against its plain version's (wp, vp) within EIGH_PLAIN_ULPS ulps of
+    ||A||_F (w) and of 1 (v); its eigenvalues within EIGH_BAR d eps ||A||_F
+    of torch.linalg.eigh's, ||V diag(w) V^T - A||_F within EIGH_BAR d eps
+    ||A||_F and ||V^T V - I||_F within EIGH_BAR d eps (eps of a's dtype;
+    the norms taken in f64). Raises past a bar; returns each error in its
+    unit and the largest absolute difference from the plain version."""
+    import torch
+    d = a.shape[-1]
+    eps = torch.finfo(a.dtype).eps
+    a64 = a.double().reshape(-1, d, d)
+    w64, v64 = w.double().reshape(-1, d), v.double().reshape(-1, d, d)
+    fro = torch.linalg.matrix_norm(a64)                         # (n,)
+    ulp_a = torch.tensor(np.spacing(fro.cpu().numpy().astype(
+        np.float32 if a.dtype == torch.float32 else np.float64)),
+        dtype=torch.float64, device=a.device)
+    dw = (w64 - wp.double().reshape(-1, d)).abs().amax(-1)
+    dv = (v64 - vp.double().reshape(-1, d, d)).abs().amax((-1, -2))
+    wl = torch.linalg.eigvalsh(a.reshape(-1, d, d)).double()
+    rec = torch.linalg.matrix_norm(
+        v64 @ (w64[..., None] * v64.transpose(-1, -2)) - a64)
+    orth = torch.linalg.matrix_norm(v64.transpose(-1, -2) @ v64
+                                    - torch.eye(d, dtype=torch.float64,
+                                                device=a.device))
+    scale = d * eps * fro
+    out = dict(
+        plain_ulps=float(torch.maximum(dw / ulp_a, dv / eps).max()),
+        max_abs_err=float(torch.maximum(dw, dv).max()),
+        eig_vs_library=float(((w64 - wl).abs().amax(-1) / scale).max()),
+        reconstruction=float((rec / scale).max()),
+        orthonormality=float((orth / (d * eps)).max()))
+    bars = dict(plain_ulps=EIGH_PLAIN_ULPS, eig_vs_library=EIGH_BAR,
+                reconstruction=EIGH_BAR, orthonormality=EIGH_BAR)
+    for k, bar in bars.items():
+        if not out[k] <= bar:
+            raise AssertionError(f'eigh {tag}: {k} {out[k]:.3g} past its '
+                                 f'bar {bar} ({out})')
+    return out
 
 
 def phase_kernels(dev, b, n_ragged, cache):
@@ -1270,10 +1395,12 @@ def phase_objective(dev, ref, b):
 
 
 def solve_checked(tag, desc, solve, x0s, key, per_trace, horizon,
-                  cost0=None):
+                  cost0=None, also=()):
     """One counted solve: finite costs, exactly per_trace * H * (1 + iters)
-    launches of `key` and none of any other kernel, and (given cost0) no
-    lane above its start. Returns (result, launches, loop iterations)."""
+    launches of `key` and of each kernel of `also` (the eigensolver of a
+    full-covariance solve, one a step) and none of any other kernel, and
+    (given cost0) no lane above its start. Returns (result, launches of
+    `key`, loop iterations)."""
     import torch
     reset_counts()
     res = solve(x0s)
@@ -1281,11 +1408,12 @@ def solve_checked(tag, desc, solve, x0s, key, per_trace, horizon,
     counts = read_counts()
     loop_iters = int(res.iters.max())
     expect = per_trace * horizon * (1 + loop_iters)
-    others = {k: v for k, v in counts.items() if k != key and v}
-    if counts[key] != expect or others:
+    keys = (key, *also)
+    others = {k: v for k, v in counts.items() if k not in keys and v}
+    if any(counts[k] != expect for k in keys) or others:
         raise AssertionError(f'{tag}: launches {counts}, expected {expect} '
-                             f'{key} = {per_trace} * H * (1 + iters) and no '
-                             f'other')
+                             f'{" and ".join(keys)} = {per_trace} * H * '
+                             f'(1 + iters) and no other')
     if not bool(torch.isfinite(res.cost).all()):
         raise AssertionError(f'{tag}: non-finite costs')
     msg = ''
@@ -1300,8 +1428,9 @@ def solve_checked(tag, desc, solve, x0s, key, per_trace, horizon,
         msg = (f'; costs finite, none above its start ok; mean cost '
                f'{float(res.cost.mean()):.4f} vs {float(cost0.mean()):.4f} '
                f'at u=0')
-    log(f'[{tag}] {desc}: loop iterations {loop_iters}, {key} launches '
-        f'{counts[key]} = {per_trace}*H*(1+iters) ok, no other kernel{msg}')
+    log(f'[{tag}] {desc}: loop iterations {loop_iters}, '
+        f'{" and ".join(keys)} launches {counts[key]} each = '
+        f'{per_trace}*H*(1+iters) ok, no other kernel{msg}')
     return res, counts[key], loop_iters
 
 
@@ -1601,9 +1730,17 @@ def phase_recipe(dev, b, j64, j_uref, card, lane_counts=RECIPE_WIDTHS):
                 capture=capture, **out)
 
 
-def phase_full_cov(dev, b, ref, out_dir):
+def phase_full_cov(dev, b, ref, card, out_dir):
     """Phase 5e: the full-covariance headline solve, solve_batch(full_cov=
-    True), and its f64 objective and gradient against the JAX package's."""
+    True): its f64 objective and gradient against the JAX package's (K1 f64
+    and the eigensolver, H launches each a rollout); then the f32 solve at
+    ITERS iterations, eagerly (eager_loop) and graphed, each counted (H (1 +
+    iters) launches of K1 f64 and of the eigensolver and no other kernel),
+    the two equal to the bit and the graph's kernel nodes exactly H K1 f64
+    and H eigensolver launches a replay; solves/s of both over
+    FULL_COV_REPS fresh-x0 batches in turns; the graphed solve at
+    FULL_COV_PROFILE_ITERS under the profiler (H K1 kernels a
+    value-and-grad in the device trace)."""
     import torch
     from gpmpc_tpu_torch.dynamics import build_rollout_cache
     from gpmpc_tpu_torch.mpc.solver import SolverConfig
@@ -1615,9 +1752,10 @@ def phase_full_cov(dev, b, ref, out_dir):
     reset_counts()
     with torch.no_grad():
         j = batch_objective(cache64, p64.x0s, p64.params, full_cov=True)(u_ref)
-    if read_counts()['K1 f64'] != p64.horizon:
+    counts = read_counts()
+    if counts['K1 f64'] != p64.horizon or counts['eigh'] != p64.horizon:
         raise AssertionError(f'full cov: the f64 objective launched '
-                             f'{read_counts()}, expected H K1 f64')
+                             f'{counts}, expected H K1 f64 and H eigh')
     j_want = torch.tensor(ref['j_uref_full'][:b])
     assert_close('full-cov J64(u_ref)', j, j_want, rtol=OBJ_RTOL, atol=0.0)
     lanes = ref['grad_full_lanes']
@@ -1631,10 +1769,11 @@ def phase_full_cov(dev, b, ref, out_dir):
     rel_j = float((j.cpu() / j_want - 1).abs().max())
     rel_g = float((g.cpu() - g_want).abs().max() / g_want.abs().max())
     penalised = int((j_want > 1e5).sum())
-    log(f'[full cov] f64 J at u_ref with full_cov=True, B={b}: max rel err vs '
-        f'JAX {rel_j:.2e} (rtol {OBJ_RTOL}; {penalised} lanes take the PD-cone '
-        f'penalty there, as in JAX); dJ/du on lanes '
-        f'{[int(k) for k in lanes]}: max abs err {rel_g:.2e} of max |g| ok')
+    log(f'[full cov] f64 J at u_ref with full_cov=True, B={b}, through K1 f64'
+        f' and the eigensolver: max rel err vs JAX {rel_j:.2e} (rtol '
+        f'{OBJ_RTOL}; {penalised} lanes take the PD-cone penalty there, as in '
+        f'JAX); dJ/du on lanes {[int(k) for k in lanes]}: max abs err '
+        f'{rel_g:.2e} of max |g| ok')
 
     p = make_headline_problem(b=b, dtype=torch.float32, device=dev)
     cfg = SolverConfig(max_iters=ITERS, tol=1e-4)
@@ -1647,18 +1786,49 @@ def phase_full_cov(dev, b, ref, out_dir):
         return solve_batch(p.gp, 2, 1, x0s, p.params, p.horizon, p.lb, p.ub,
                            cfg.replace(max_iters=iters), full_cov=True)
 
-    res, launches, loop_iters = solve_checked(
-        'full cov', f'solve_batch(full_cov=True) B={b} H={p.horizon} '
-        f'max_iters={ITERS}', solve, p.x0s, 'K1 f64', 1, p.horizon, cost0)
+    desc = (f'solve_batch(full_cov=True) B={b} H={p.horizon} '
+            f'max_iters={ITERS}')
+    with eager_loop():
+        res_e, _, _ = solve_checked('full cov eager', desc, solve, p.x0s,
+                                    'K1 f64', 1, p.horizon, cost0,
+                                    also=('eigh',))
+    with capture_walls() as walls:
+        t0 = time.perf_counter()
+        res, launches, loop_iters = solve_checked(
+            'full cov', desc, solve, p.x0s, 'K1 f64', 1, p.horizon, cost0,
+            also=('eigh',))
+        capture = capture_note(walls, time.perf_counter() - t0)
+    same_bits('full cov headline', res_e, res)
+    want = {'LAUNCHES': p.horizon, 'LAUNCHES_F64': p.horizon,
+            'LAUNCHES_EIGH': p.horizon}
+    if capture['replay_launches'] != [want]:
+        raise AssertionError(f'full cov: the graph holds '
+                             f'{capture["replay_launches"]} kernel launches '
+                             f'a replay, expected one graph of {want}')
+    log(f'[full cov] eager and graphed equal to the bit (u, cost, iters, '
+        f'pg_norm, converged) ok; the graph\'s kernel nodes hold {want} '
+        f'launches a replay ok; its capture {1e3 * capture["capture_s"]:.1f}'
+        f' ms ({100 * capture["capture_share"]:.1f} % of the graphed solve)')
     log('[full cov] no f64 reference solve exists for the full-covariance '
         'objective: no cost excess is recorded')
-    out = dict(launches=launches, loop_iters=loop_iters, rel_j=rel_j,
-               rel_g=rel_g, penalised_lanes_at_uref=penalised,
-               **time_solves('full cov', b, solve, FULL_COV_REPS, dev))
-    out['profile'] = profile_solve(
-        'full cov', lambda x0s: solve(x0s, FULL_COV_PROFILE_ITERS), p.x0s,
-        'rw_tied', out_dir)
-    return out
+    timed = time_solves('full cov', b, solve, FULL_COV_REPS, dev, modes=BOTH)
+    prof = profile_solve(
+        'full cov graphed', lambda x0s: solve(x0s, FULL_COV_PROFILE_ITERS),
+        p.x0s, 'rw_tied', out_dir, per_eval=p.horizon)
+    if prof:
+        log(f'[full cov] on {card}: solves/s eager '
+            f'{timed["eager"]["solves_per_s"]:.2f}, graphed '
+            f'{timed["graphed"]["solves_per_s"]:.2f}; the graphed solve at '
+            f'{FULL_COV_PROFILE_ITERS} iterations: device busy '
+            f'{100 * prof["device_busy_s"] / prof["wall_s"]:.1f} % of its '
+            f'wall, {prof["kernel_launches"]} host kernel launches (the '
+            f'first value-and-grad, iteration 1 and the capture), '
+            f'{prof["graph_launches"]} graph launches')
+    return dict(launches=launches, eigh_launches=launches,
+                loop_iters=loop_iters, rel_j=rel_j, rel_g=rel_g,
+                penalised_lanes_at_uref=penalised, capture=capture,
+                profile_graphed=prof, **timed['graphed'],
+                eager=timed['eager'])
 
 
 def profile_solve(tag, solve, x0s, kernel, out_dir, per_eval=None):
@@ -2122,7 +2292,7 @@ def record_launch_shapes():
 
 def _loop_launches() -> dict:
     c = read_counts()
-    return {'K1': c['K1 f32'] + c['K1 f64'], 'K2': c['K2']}
+    return {'K1': c['K1 f32'] + c['K1 f64'], 'K2': c['K2'], 'eigh': c['eigh']}
 
 
 def count_steps(mpc, steps: list, horizon: int):
@@ -2159,23 +2329,29 @@ def count_steps(mpc, steps: list, horizon: int):
     mpc.get_optimal_trajectory = step
 
 
-def check_loop_step(tag, mpc, x, horizon, reps, dev):
+def check_loop_step(tag, mpc, x, horizon, reps, dev, full_cov=False):
     """One control step of `mpc` from state x, `reps` times with the
     solver's loop eager (eager_loop) and `reps` times graphed, in turns, the
     controller's last trajectory (u_prev) reset before each: every step
     launches exactly H * (1 + iters) of K1 (tied) or K2 (untied) on the
-    B = 1 route, each graphed step's graph holds exactly H of them a replay
-    by its kernel nodes, and each pair's results are equal to the bit.
-    Returns the step walls (synchronized) of each mode and their p50."""
+    B = 1 route, and with full_cov (the controller's full covariance, for
+    these steps) as many of the eigensolver; each graphed step's graph
+    holds exactly H of each a replay by its kernel nodes, and each pair's
+    results are equal to the bit. Returns the step walls (synchronized) of
+    each mode and their p50."""
     import torch
-    traj = mpc.last_traj.copy()
+    traj, own_cov = mpc.last_traj.copy(), mpc.full_cov
+    mpc.full_cov = full_cov
     kernel = 'K1' if mpc.gp.config.tied_lambdas else 'K2'
     each = ({'LAUNCHES_UNTIED': horizon} if kernel == 'K2' else
             {'LAUNCHES': horizon, **({'LAUNCHES_F64': horizon}
                                      if mpc.gp.x.dtype == torch.float64
                                      else {})})
+    if full_cov:
+        each['LAUNCHES_EIGH'] = horizon
     walls = {'eager': [], 'graphed': []}
     captures = {'eager': [], 'graphed': []}
+    launched = {'eager': [], 'graphed': []}
     captured = 0
     for rep in range(reps):
         res = {}
@@ -2192,15 +2368,19 @@ def check_loop_step(tag, mpc, x, horizon, reps, dev):
                 # A solve captures a graph where it runs past iteration 1.
                 captured += int(r.iters) >= 2
             got, want = _loop_launches(), horizon * (1 + int(r.iters))
-            if got[kernel] != want or sum(got.values()) != want:
+            if (got[kernel] != want or got['eigh'] != want * full_cov
+                    or sum(got.values()) != want * (1 + full_cov)):
                 raise AssertionError(f'{tag} {mode} step: launches {got}, '
-                                     f'expected {want} {kernel}')
+                                     f'expected {want} {kernel}'
+                                     + (' and eigh' if full_cov else ''))
             walls[mode].append(wall)
+            launched[mode].append(got)
         same_bits(f'{tag} step {rep}', res['eager'], res['graphed'])
-    mpc.last_traj = traj
+    mpc.last_traj, mpc.full_cov = traj, own_cov
     if captures['eager']:
         raise AssertionError(f'{tag}: eager steps captured a graph')
-    out = {mode: dict(walls=w, wall_p50_s=float(np.median(w)))
+    out = {mode: dict(walls=w, wall_p50_s=float(np.median(w)),
+                      launches=launched[mode])
            for mode, w in walls.items()}
     out['graphed']['capture'] = capture_note(captures['graphed'],
                                              sum(walls['graphed']))
@@ -2210,8 +2390,9 @@ def check_loop_step(tag, mpc, x, horizon, reps, dev):
                              f'{graphs} kernel launches a replay, expected '
                              f'{captured} of {each}')
     log(f'[loop {tag}] one step from the last state, eager and graphed in '
-        f'turns, {reps} each: {kernel} = H * (1 + iters) each, each graph\'s '
-        f'kernel nodes {each} a replay, equal to the bit ok; wall p50 eager {out["eager"]["wall_p50_s"]:.4f} s, graphed '
+        f'turns, {reps} each: {kernel}{" and eigh" if full_cov else ""} = '
+        f'H * (1 + iters) each, each graph\'s kernel nodes {each} a replay, '
+        f'equal to the bit ok; wall p50 eager {out["eager"]["wall_p50_s"]:.4f} s, graphed '
         f'{out["graphed"]["wall_p50_s"]:.4f} s (walls eager '
         f'{[round(w, 4) for w in walls["eager"]]}, graphed '
         f'{[round(w, 4) for w in walls["graphed"]]}); a graphed step\'s '
@@ -2343,6 +2524,10 @@ def phase_closed_loop(dev, checked, ref_path, out_dir):
         del mpc.get_optimal_trajectory          # count_steps' wrapper
         graph_step = check_loop_step('swing-up', mpc, ep.states[-1], 8,
                                      GRAPH_REPS, dev)
+        graph_step_full = check_loop_step('swing-up full_cov', mpc,
+                                          ep.states[-1], 8,
+                                          FULL_COV_LOOP_REPS, dev,
+                                          full_cov=True)
 
         def one_step(_):
             mpc.get_optimal_trajectory(ep.states[-1])
@@ -2361,6 +2546,7 @@ def phase_closed_loop(dev, checked, ref_path, out_dir):
             tail_thdot_max=float(np.max(np.abs(thdot_tail))),
             iters_vs_jax=[ep.iters[:n_ref].tolist(), ref['ep_iters'].tolist()],
             profile=prof, graph_step=graph_step,
+            graph_step_full_cov=graph_step_full,
             **_log_steps('swing-up', steps))
         r = out['swing_up']
         log(f'[loop swing-up] f64 N=512: train_gp(80) {train_s:.3f} s, {res.iters}'
@@ -2479,9 +2665,11 @@ SPARSE_SHAPES = ((256, 128, 128, 5, 4), (64, 128, 128, 3, 2),
 SPARSE_ITERS = 40
 SPARSE_REPS = 3
 SPARSE_P90_MAX = 0.01
-# Config 4's timed solve, cut from the suite's 40 iterations to 5: at H = 50
-# the full-covariance path issues ~50,000 device kernels a value-and-grad.
-FULLCOV_H50_ITERS = 5
+# Config 4's solve at the suite's 40 iterations, graphed; its eager and
+# graphed solves are held equal to the bit at 5 (at H = 50 an eager
+# value-and-grad launches ~50,000 kernels, 1.2 s on the card).
+FULLCOV_H50_ITERS = 40
+FULLCOV_BITS_ITERS = 5
 # The bars of sparse_objective_parity against JAX's stored f64 values, and
 # what the port reads on the CPU. The posterior (W, alpha) entrywise within
 # a share of its largest entry: W is a difference of two inverses of
@@ -2546,6 +2734,162 @@ def phase_sparse_kernels(dev):
     return checked, errs, times
 
 
+def eigh_bound_ms(a) -> tuple:
+    """(ms, what bounds it, rotations, visits): the eigensolver's least time
+    on this card for these inputs, the larger of its bytes (A read once, w
+    and V written once) over the memory rate and its operations over the
+    peak of its dtype, counting each arithmetic operation (sqrt and division
+    included) as one: 8 a pair visit (the skip test), 16 d + 4 a rotation
+    (the rotation and its update of a's two rows and V's two columns), as
+    many as the plain version counts on these inputs (eigh_small.work),
+    and d (d - 1) a matrix for the symmetrisation."""
+    import torch
+    from gpmpc_tpu_torch.ops.kernels import eigh_small
+    d = a.shape[-1]
+    n = a.numel() // (d * d)
+    rotations, visits = eigh_small.work(a)
+    flops = 8 * visits + (16 * d + 4) * rotations + n * d * (d - 1)
+    f64 = a.dtype == torch.float64
+    t_ops = flops / (PEAK_F64_FLOPS if f64 else PEAK_F32_FLOPS)
+    t_bytes = n * (2 * d * d + d) * a.element_size() / PEAK_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            'operations' if t_ops >= t_bytes else 'bytes', rotations, visits)
+
+
+@contextlib.contextmanager
+def record_eigh_operands():
+    """The operands of every eigensolver call in a block (the PSD clip's
+    pre-clip covariances), copied contiguous, in a list."""
+    import torch
+    from gpmpc_tpu_torch.ops.kernels import eigh_small
+    orig, seen = eigh_small.eigh, []
+
+    def rec(a):
+        seen.append(a.detach().clone(memory_format=torch.contiguous_format))
+        return orig(a)
+
+    eigh_small.eigh = rec
+    try:
+        yield seen
+    finally:
+        eigh_small.eigh = orig
+
+
+def eigh_path_operands(dev) -> dict:
+    """{(B, d): [(tag, operands (B, 2, 2)), ...]}: the pre-clip covariances
+    the paths hand the eigensolver, from full-covariance rollouts at u = 0:
+    the headline (f32, B = 256, 20 steps), config 4 (f32, B = 64, 50 steps)
+    and the swing-up controller's route (b) (f64, B = 1, H = 8, its stored
+    transitions and trained hyperparameters, delta dynamics)."""
+    import torch
+    from gpmpc_tpu_torch.dynamics import build_rollout_cache, rollout_batched
+    from gpmpc_tpu_torch.mpc.controller import RiskSensitiveMPC
+    from gpmpc_tpu_torch.problems import make_headline_problem, sparse_problem
+    ref = np.load(CLOSED_LOOP_REF)
+    mpc = RiskSensitiveMPC(
+        gamma=0.0, horizon=8, state_dim=2, input_dim=1,
+        Q=np.diag([8.0, 1.0]), R=0.001 * np.eye(1), capacity=512,
+        delta_dynamics=True, dtype=torch.float64, device=dev)
+    mpc.dynamics.append_train_data(ref['states'], ref['actions'],
+                                   ref['next_states'])
+    mpc.set_gp_hyperparams(lambdas=np.exp(ref['log_lambdas']),
+                           sigma_f=np.exp(ref['log_sigma_f']),
+                           sigma_n=np.exp(ref['log_sigma_n']))
+    cases = (('headline f32', make_headline_problem(
+                  b=256, dtype=torch.float32, device=dev), False),
+             ('config 4 f32', sparse_problem('4_sparse_fullcov',
+                                             dtype=torch.float32,
+                                             device=dev), False))
+    out = {}
+    with torch.no_grad():
+        for tag, p, delta in cases:
+            with record_eigh_operands() as seen:
+                rollout_batched(build_rollout_cache(p.gp, 2, 1), p.x0s,
+                                p.x0s.new_zeros((p.x0s.shape[0], p.horizon,
+                                                 1)), full_cov=True)
+            out.setdefault((p.x0s.shape[0], 2), []).extend(
+                (f'{tag} step {k + 1}', a) for k, a in enumerate(seen))
+        x0 = torch.tensor(ref['ep_states'][1], dtype=torch.float64,
+                          device=dev)[None]
+        with record_eigh_operands() as seen:
+            rollout_batched(build_rollout_cache(mpc.gp, 2, 1), x0,
+                            x0.new_zeros((1, 8, 1)), full_cov=True,
+                            delta=True)
+        out[(1, 2)] = [(f'swing-up f64 step {k + 1}', a)
+                       for k, a in enumerate(seen)]
+    return out
+
+
+def phase_eigh(dev):
+    """Phase 3e: the small eigensolver (csrc/eigh_small.cu) against its
+    plain version and torch.linalg.eigh (check_eigh's bars): on random
+    symmetric matrices of every EIGH_KIND at each of EIGH_DIMS (256 of
+    each), f32 and f64; on the operands the paths launch it on
+    (eigh_path_operands, at EIGH_PATH_SHAPES). Then its time at
+    EIGH_TIMED_SHAPES in both dtypes: by CUDA events around 200 launches,
+    by the slope of CUDA-graph replays, beside its plain version's,
+    torch.linalg.eigh's (library_ms; the port never calls it) and its bound
+    on these inputs (eigh_bound_ms). Returns (the largest errors by shape,
+    the times)."""
+    import torch
+    from gpmpc_tpu_torch.ops.kernels import eigh_small
+
+    worst = {}
+
+    def check(tag, key, a):
+        w, v, _ = eigh_small.launch(a)
+        r = check_eigh(tag, a, w, v, *eigh_small.eigh_reference(a))
+        worst[key] = {k: max(x, worst.get(key, {}).get(k, 0.0))
+                      for k, x in r.items()}
+
+    for dtype in (torch.float32, torch.float64):
+        for d in EIGH_DIMS:
+            for kind in EIGH_KINDS:
+                check(f'{kind} d={d} {dtype}',
+                      f'random d={d} {_DT_NAME[str(dtype)]}',
+                      torch.tensor(sym_inputs(kind, 256, d, dtype, seed=d),
+                                   device=dev))
+    log('[eigh] random definite, indefinite, near-degenerate and diagonal '
+        'inputs, 256 each, d = ' + ', '.join(map(str, EIGH_DIMS))
+        + ', f32 and f64: kernel vs plain version within '
+        f'{EIGH_PLAIN_ULPS} ulps (max '
+        f'{max(r["plain_ulps"] for r in worst.values()):.1f}), eigenvalues '
+        f'vs torch.linalg.eigh, reconstruction and orthonormality within '
+        f'{EIGH_BAR} d eps (max '
+        f'{max(r["eig_vs_library"] for r in worst.values()):.2f}, '
+        f'{max(r["reconstruction"] for r in worst.values()):.2f}, '
+        f'{max(r["orthonormality"] for r in worst.values()):.2f}) ok')
+    for shape, ops in eigh_path_operands(dev).items():
+        if shape not in EIGH_PATH_SHAPES:
+            raise AssertionError(f'eigh: a path launches it at {shape}, not '
+                                 f'in EIGH_PATH_SHAPES')
+        for tag, a in ops:
+            key = f'path B={shape[0]} d={shape[1]} {_DT_NAME[str(a.dtype)]}'
+            check(tag, key, a)
+        log(f'[eigh] the paths\' operands at (B, d) = {shape}: '
+            f'{len(ops)} launches ({ops[0][0]} ... {ops[-1][0]}), each at the '
+            f'bars ok: {worst[key]}')
+    times = {}
+    for dtype in (torch.float32, torch.float64):
+        for b, d in EIGH_TIMED_SHAPES:
+            a = torch.tensor(sym_inputs('definite', b, d, dtype, seed=b + d),
+                             device=dev)
+            key = f'eigh {_DT_NAME[str(dtype)]} B={b} d={d}'
+            ms = cuda_ms(lambda: eigh_small.launch(a), 200)
+            g_ms = graph_ms({key: lambda: eigh_small.launch(a)}, dev)[key]
+            plain = cuda_ms(lambda: eigh_small.eigh_reference(a), 5)
+            lib = cuda_ms(lambda: torch.linalg.eigh(a), 50)
+            bound, by, rotations, visits = eigh_bound_ms(a)
+            times[key] = dict(ms=ms, graph_ms=g_ms, plain_ms=plain,
+                              library_ms=lib, bound=(bound, by),
+                              rotations=rotations, visits=visits)
+            log(f'[eigh] {key}: {ms:.4f} ms by events, {g_ms:.4f} ms by '
+                f'graph slope, plain {plain:.4f} ms, torch.linalg.eigh '
+                f'{lib:.4f} ms, bound {bound:.2e} ms ({by}; {rotations} '
+                f'rotations, {visits} pair visits)')
+    return worst, times
+
+
 def assert_close_to_max(name, got, want, tol) -> float:
     """|got - want| <= tol max |want| entrywise; returns the largest
     |got - want| / max |want|."""
@@ -2569,7 +2913,8 @@ def sparse_objective_parity(tag, name, ref, dev, bars, carried=False):
     of JAX's largest entry, or with `carried` JAX's stored (W, alpha) carried
     across (the rollout, cost and kernels alone). Exactly 2 H K1 f64
     launches (one forward rollout at each point; the backward launches
-    none). Returns (j64, J64(u_ref), summary)."""
+    none), and with full covariance 2 H of the eigensolver. Returns (j64,
+    J64(u_ref), summary)."""
     import dataclasses
     import torch
     from gpmpc_tpu_torch.dynamics import build_rollout_cache
@@ -2601,11 +2946,14 @@ def sparse_objective_parity(tag, name, ref, dev, bars, carried=False):
         vals[at] = (j.detach(), g)
     sync(dev)
     launches = read_counts()
-    if dev.type == 'cuda' and (launches['K1 f64'] != 2 * p64.horizon or any(
-            v for k, v in launches.items() if k != 'K1 f64')):
+    full_cov = SPARSE_WORKLOADS[name]['full_cov']
+    want = {'K1 f64': 2 * p64.horizon, 'eigh': 2 * p64.horizon * full_cov}
+    if dev.type == 'cuda' and any(v != want.get(k, 0)
+                                  for k, v in launches.items()):
         raise AssertionError(f'{tag}: the f64 objective and gradient at two '
-                             f'points launched {launches}, expected 2 H = '
-                             f'{2 * p64.horizon} K1 f64')
+                             f'points launched {launches}, expected {want} '
+                             f'(2 H K1 f64, and 2 H eigensolver launches '
+                             f'with full covariance)')
     g_scale = float(np.abs(ref[f'{tag}_grad_zero']).max())
     for at, (j, g) in vals.items():
         j_want, g_want = ref[f'{tag}_j_{at}'], ref[f'{tag}_grad_{at}']
@@ -2691,10 +3039,13 @@ def phase_sparse_3b(dev, ref, jax_tpu):
 def phase_sparse_fullcov(dev, ref, jax_tpu):
     """Phase 8b: suite config 4 (B = 64, H = 50, the FITC GP of M = 128,
     (d, E) = (3, 2), gamma = -0.01, full covariance): the f64 objective and
-    gradient at u_ref against JAX's, then one f32 solve at
-    FULLCOV_H50_ITERS, counted (H (1 + iters) K1 f64 and no other kernel)
-    and timed, its cost excess recorded beside the JAX package's (no gate:
-    40 iterations do not converge H = 50 either)."""
+    gradient at u_ref against JAX's; the f32 solve at FULLCOV_BITS_ITERS
+    eagerly and graphed, each counted (H (1 + iters) launches of K1 f64 and
+    of the eigensolver, no other kernel), equal to the bit; then the suite's
+    FULLCOV_H50_ITERS-iteration solve graphed, counted the same way, its
+    graph's kernel nodes H K1 f64 and H eigensolver launches a replay,
+    timed, its cost excess recorded beside the JAX package's (no gate: the
+    JAX package's own solve reads p50 347 % on a TPU, VERDICT.md)."""
     import torch
     from gpmpc_tpu_torch.dynamics import build_rollout_cache
     from gpmpc_tpu_torch.mpc.solver import SolverConfig
@@ -2713,22 +3064,49 @@ def phase_sparse_fullcov(dev, ref, jax_tpu):
             p.x0s.new_zeros((b, p.horizon, 1)))
     cfg = SolverConfig(max_iters=FULLCOV_H50_ITERS, tol=1e-4)
 
-    def solve(x0s):
+    def solve(x0s, iters=FULLCOV_H50_ITERS):
         return solve_batch(p.gp, 2, 1, x0s, p.params, p.horizon, p.lb, p.ub,
-                           cfg, full_cov=True)
+                           cfg.replace(max_iters=iters), full_cov=True)
 
-    (res, launches, loop_iters), wall = _timed(lambda: solve_checked(
-        'sparse 4', f'solve_batch(full_cov=True) B={b} H={p.horizon} M=128 '
-        f'max_iters={FULLCOV_H50_ITERS} (cut from 40)', solve, p.x0s,
-        'K1 f64', 1, p.horizon, cost0), dev)
+    def desc(iters):
+        return (f'solve_batch(full_cov=True) B={b} H={p.horizon} M=128 '
+                f'max_iters={iters}')
+
+    def bits_solve(x0s):
+        return solve(x0s, FULLCOV_BITS_ITERS)
+
+    with eager_loop():
+        res_e, _, _ = solve_checked(
+            'sparse 4 eager', desc(FULLCOV_BITS_ITERS), bits_solve, p.x0s,
+            'K1 f64', 1, p.horizon, cost0, also=('eigh',))
+    res_g, _, _ = solve_checked(
+        'sparse 4 graphed', desc(FULLCOV_BITS_ITERS), bits_solve, p.x0s,
+        'K1 f64', 1, p.horizon, cost0, also=('eigh',))
+    same_bits('sparse 4', res_e, res_g)
+    log(f'[sparse 4] at {FULLCOV_BITS_ITERS} iterations eager and graphed '
+        f'equal to the bit (u, cost, iters, pg_norm, converged) ok')
+    with capture_walls() as walls:
+        (res, launches, loop_iters), wall = _timed(lambda: solve_checked(
+            'sparse 4', desc(FULLCOV_H50_ITERS), solve, p.x0s, 'K1 f64', 1,
+            p.horizon, cost0, also=('eigh',)), dev)
+    capture = capture_note(walls, wall)
+    want = {'LAUNCHES': p.horizon, 'LAUNCHES_F64': p.horizon,
+            'LAUNCHES_EIGH': p.horizon}
+    if capture['replay_launches'] != [want]:
+        raise AssertionError(f'sparse 4: the graph holds '
+                             f'{capture["replay_launches"]} kernel launches '
+                             f'a replay, expected one graph of {want}')
     quality = cost_excess(j64, res.u, j_uref)
-    log(f'[sparse 4] one solve {wall:.3f} s ({b / wall:.2f} solves/s, '
-        f'{wall / (1 + loop_iters):.3f} s a value-and-grad); cost excess vs '
-        f'f64 u_ref: p50 {quality["p50"]:.4%} p90 {quality["p90"]:.4%}, lanes '
-        f'>1% {quality["lanes_above_1pct"]}/{b} (no gate; the JAX package at '
-        f'40 iterations on a TPU v5e: p50 {jax_tpu["excess_p50"]:.2%})')
-    return dict(launches=launches, loop_iters=loop_iters, wall_s=wall,
-                solves_per_s=b / wall, quality=quality, parity=parity)
+    log(f'[sparse 4] the graph\'s kernel nodes hold {want} launches a '
+        f'replay ok; one graphed solve {wall:.3f} s ({b / wall:.2f} solves/s,'
+        f' {1e3 * wall / (1 + loop_iters):.1f} ms a value-and-grad, its '
+        f'capture {1e3 * capture["capture_s"]:.1f} ms); cost excess vs f64 '
+        f'u_ref: p50 {quality["p50"]:.4%} p90 {quality["p90"]:.4%}, lanes >1%'
+        f' {quality["lanes_above_1pct"]}/{b} (no gate; the JAX package at 40 '
+        f'iterations on a TPU v5e: p50 {jax_tpu["excess_p50"]:.2%})')
+    return dict(launches=launches, eigh_launches=launches,
+                loop_iters=loop_iters, wall_s=wall, solves_per_s=b / wall,
+                capture=capture, quality=quality, parity=parity)
 
 
 def phase_vmap_routes(dev, ref):
@@ -3035,6 +3413,7 @@ def main() -> int:
     loop_checked, loop_errs, loop_lanes = phase_loop_kernels(dev)
     loop_times = time_loop_kernels(dev, loop_lanes)
     sparse_checked, sparse_errs, sparse_times = phase_sparse_kernels(dev)
+    eigh_errs, eigh_times = phase_eigh(dev)
     times = {dt: time_kernels(dev, b, cache, 50, dt) for dt in (f32, f64)}
     k1_f64_wide = time_k1_f64_wide(dev, RECIPE_WIDTHS[-1], cache)
     k1_instr = instr_bound_ms(b, cache.x.shape[0], 3, cache.b_lam.shape[0],
@@ -3055,7 +3434,7 @@ def main() -> int:
     graph = phase_graph(dev, b, card, out_dir)
     prof = phase_profile(dev, b, out_dir)
     recipe = phase_recipe(dev, b, j64, j_uref, card)
-    full_cov = phase_full_cov(dev, b, ref, out_dir)
+    full_cov = phase_full_cov(dev, b, ref, card, out_dir)
     with sym_opt_in():
         sym_solve = phase_solve(dev, b, j64, j_uref, reps=3, tag='sym solve',
                                 key='K4')
@@ -3129,6 +3508,28 @@ def main() -> int:
             max_abs_err=sparse_errs[f'K1 {shape}']['f64'], ms=t['ms'],
             plain_ms=t['plain_ms'], bound_ms=t['bound'][0],
             bound_by=t['bound'][1], library_ms=None))
+    # The eigensolver's rows (phase 3e): its instance at each shape a path
+    # launches it at, with that path's launches (phase 7b's over its eager
+    # and graphed full-covariance steps).
+    loop_full = loop['swing_up']['graph_step_full_cov']
+    for (bb, d), dt, part, launches in (
+            ((256, 2), f32, 'the headline full-covariance solve, phase 5e',
+             full_cov['eigh_launches']),
+            ((64, 2), f32, 'suite config 4, the full-covariance H = 50 '
+             'solve, phase 8b', sparse['4']['eigh_launches']),
+            ((1, 2), f64, "the swing-up controller's route (b) with "
+             'full_cov=True, phase 7b',
+             sum(r['eigh'] for mode in BOTH
+                 for r in loop_full[mode]['launches']))):
+        dtn = _DT_NAME[str(dt)]
+        t = eigh_times[f'eigh {dtn} B={bb} d={d}']
+        kernels.append(dict(
+            name=f'eigh_small {dtn} instance, the PSD clip ({part}, B={bb} '
+                 f'd={d})', route='cuda', source=EIGH_SOURCE,
+            replaces=EIGH_REPLACES, launches=launches,
+            max_abs_err=eigh_errs[f'path B={bb} d={d} {dtn}']['max_abs_err'],
+            ms=t['ms'], plain_ms=t['plain_ms'], bound_ms=t['bound'][0],
+            bound_by=t['bound'][1], library_ms=t['library_ms']))
     # The probes' rows: `ms` is the kernel-only graph slope of P1's `full`
     # (K1's body) and of P2's `base` counterpart `tc_p`; `launches` counts the
     # probe's own wrapper calls in its run, not the solve's.
@@ -3155,6 +3556,7 @@ def main() -> int:
                   loop_kernel_times=loop_times, sparse=sparse,
                   sparse_kernel_errs=sparse_errs,
                   sparse_kernel_times=sparse_times,
+                  eigh_errs=eigh_errs, eigh_times=eigh_times,
                   profile=prof, k1_instr_bound_ms=k1_instr,
                   precision=precision, k1_f64_wide=k1_f64_wide, sass=sass,
                   kernel_times={str(dt): r for dt, r in times.items()},

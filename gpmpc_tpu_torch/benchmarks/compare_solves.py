@@ -6,8 +6,8 @@ checkout's package, builds the headline problem
 (problems.make_headline_problem: B = 256, f32, H = 20) and times the plain
 solve_batch at 40 iterations (tol 1e-4), with a diagonal covariance and
 with full_cov=True, over fresh x0s (U(-1, 1)^(B, 2) from one seed: the same
-batches in every child), one warm solve of each kind first. The diagonal
-solve is timed in each mode the child is given, in turns on every batch:
+batches in every child), one warm solve of each kind and mode first. Both
+are timed in each mode the child is given, in turns on every batch:
 'as-is' runs the checkout as its callers run it, 'eager' forces the
 solver's loop eager (mpc/solver.py's `_run_graphed` replaced by
 `_run_eager`, in a checkout that has them). The checkouts run in the order
@@ -15,7 +15,9 @@ A, B, B, A, so that a drift of the card or its host shows as a spread
 between the two runs of one side; checkout B runs both modes, A 'as-is'.
 Each solve reports its wall, its loop iterations and a digest of its
 result's bits (u, cost, iters, pg_norm, converged), so the runs can be
-held to computing the same thing.
+held to computing the same thing: every diagonal batch across all runs and
+modes, and every full-covariance batch within each checkout (two
+checkouts with different PSD-clip eigensolvers agree only to rounding).
 
 Run on the card's machine, from the root of checkout B, with checkout A
 unpacked beside it (e.g. `git archive <commit> | tar -x -C _checkout/a`):
@@ -78,18 +80,17 @@ def x0s_of(rng):
     return torch.tensor(rng.uniform(-1, 1, (b, 2)), dtype=torch.float32,
                         device=dev)
 
-out = {'diag': {m: [] for m in modes}, 'full_cov': []}
+out = {'diag': {m: [] for m in modes}, 'full_cov': {m: [] for m in modes}}
 for m in modes:
     solve(p.x0s, m, False)
-solve(p.x0s, 'as-is', True)
-rng = np.random.default_rng(123)
-for rep in range(diag_reps):
-    x0s = x0s_of(rng)
-    for m in modes if rep % 2 == 0 else modes[::-1]:
-        out['diag'][m].append(solve(x0s, m, False))
-rng = np.random.default_rng(321)
-for rep in range(full_reps):
-    out['full_cov'].append(solve(x0s_of(rng), 'as-is', True))
+    solve(p.x0s, m, True)
+for kind, seed, reps in (('diag', 123, diag_reps), ('full_cov', 321,
+                                                     full_reps)):
+    rng = np.random.default_rng(seed)
+    for rep in range(reps):
+        x0s = x0s_of(rng)
+        for m in modes if rep % 2 == 0 else modes[::-1]:
+            out[kind][m].append(solve(x0s, m, kind == 'full_cov'))
 print('RESULT ' + json.dumps(out), flush=True)
 '''
 
@@ -128,22 +129,23 @@ def main() -> int:
                              ('A', args.a, ['as-is'])):
         res = time_checkout(root, modes)
         runs.append(dict(tag=tag, root=root, solves=res))
-        print(f'run {len(runs)} ({tag}): diagonal solves/s ' + ', '.join(
-            f'{m} {_rate(v):.2f}' for m, v in res['diag'].items())
-            + f'; full_cov {_rate(res["full_cov"]):.2f}; iterations '
-            + str({m: [s['iters'] for s in v]
-                   for m, v in res['diag'].items()}), flush=True)
+        print(f'run {len(runs)} ({tag}): solves/s ' + '; '.join(
+            f'{kind} ' + ', '.join(f'{m} {_rate(v):.2f}'
+                                   for m, v in res[kind].items())
+            for kind in ('diag', 'full_cov')) + '; iterations '
+            + str({kind: {m: [s['iters'] for s in v]
+                          for m, v in res[kind].items()}
+                   for kind in ('diag', 'full_cov')}), flush=True)
     # Every run and mode solves the same batches: the digests of batch k
-    # should agree across all of them.
-    same = {}
-    for kind in ('diag', 'full_cov'):
-        per_batch = []
-        for r in runs:
-            groups = (r['solves'][kind].values() if kind == 'diag'
-                      else [r['solves'][kind]])
-            for solves in groups:
-                per_batch.append([s['digest'] for s in solves])
-        same[kind] = all(d == per_batch[0] for d in per_batch)
+    # should agree across all of them (full covariance: within a checkout).
+    def agree(kind, tags):
+        per_batch = [[s['digest'] for s in solves] for r in runs
+                     if r['tag'] in tags
+                     for solves in r['solves'][kind].values()]
+        return all(d == per_batch[0] for d in per_batch)
+
+    same = {'diag': agree('diag', 'AB'), 'full_cov A': agree('full_cov', 'A'),
+            'full_cov B': agree('full_cov', 'B')}
     print(f'same bits across runs and modes: {same}', flush=True)
     if args.out:
         os.makedirs(args.out, exist_ok=True)

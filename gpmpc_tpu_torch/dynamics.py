@@ -9,8 +9,10 @@ dimension, and gradients flow to the actions only (the cache is detached).
 The horizon recurrence is a Python loop over H. A full covariance carries the
 exact eq.-A14 cross-output terms, is symmetrised, keeps the exact
 predictive variances on its diagonal and is projected onto the PSD cone by
-an eigenvalue clip at 1e-8 (torch.linalg.eigh, which waits on the host once
-a step on CUDA).
+an eigenvalue clip at 1e-8. Its eigenvalues come from the small-d Jacobi
+eigensolver of ops/kernels/eigh_small.py (one kernel launch a step on CUDA,
+no host read, so that a full-covariance step can be captured in a CUDA
+graph); the clamp and the product stay torch ops, JAX's expression.
 
 A GP with a nominal mean model (GPConfig.nominal_fn: (n, D) -> (n, E)) fits
 the residual; `rollout` adds the nominal part back by first-order (EKF)
@@ -27,6 +29,7 @@ import torch
 
 from gpmpc_tpu_torch.gp.state import GPState
 from gpmpc_tpu_torch.ops import moments
+from gpmpc_tpu_torch.ops.kernels import eigh_small
 
 _MIN_VAR = 1e-8
 
@@ -65,7 +68,7 @@ def build_rollout_cache(gp: GPState, state_dim: int,
 def _psd_clip(cov):
     """The PSD projection of symmetric (..., d, d) matrices: eigenvalues
     clipped at _MIN_VAR."""
-    w, v = torch.linalg.eigh(cov)
+    w, v = eigh_small.eigh(cov)
     return torch.einsum('...ik,...k,...jk->...ij', v,
                         torch.clamp(w, min=_MIN_VAR), v)
 

@@ -17,11 +17,11 @@ the GP, the rollouts and the solve run in torch on the controller's device
       K2 (untied, e.g. after `train_gp`);
   (c) otherwise the single-scenario `dynamics.rollout` and
       `solver.solve_trajectory`.
-JAX jits `_solve`. Here route (b) with a diagonal covariance runs its
-solver iterations after the first as replays of one CUDA graph captured for
-the solve (mpc/solver.py, `_run_graphed`); with full_cov=True, and routes
-(a) and (c), the controller's own code runs eagerly ((a)'s solves are
-graphed inside `solve_batch_multistart`).
+JAX jits `_solve`. Here route (b), with a diagonal or a full covariance,
+runs its solver iterations after the first as replays of one CUDA graph
+captured for the solve (mpc/solver.py, `_run_graphed`); routes (a) and (c)
+run the controller's own code eagerly ((a)'s solves are graphed inside
+`solve_batch_multistart`).
 """
 
 from __future__ import annotations
@@ -74,8 +74,7 @@ def _solve(gp, state_dim, action_dim, x0, u_init, lb, ub, params: CostParams,
             return risk_sensitive_cost(params, means, covs, u_b)
 
         return first_lane(solve_trajectory_batched(
-            objective_b, u_init[None], lb, ub, solver_config,
-            _graph=not full_cov))
+            objective_b, u_init[None], lb, ub, solver_config))
 
     def objective(u):
         means, covs = rollout(cache, x0, u, full_cov=full_cov,

@@ -8,13 +8,14 @@ carry `LbfgsState`. JAX's `lax.while_loop` compiles the loop into one
 program on the device; here the loop stays on the host and reads `all(done)`
 once an iteration, so the iteration count is the JAX one. What runs each
 iteration depends on where it runs. On CUDA, with the objective's own
-autograd (the diagonal `solve_batch`, the multistart recipes,
-`solve_batch_staged` and the controller's batched route), iteration 1 runs
-eagerly and every later one is a replay of one CUDA graph captured from
-`_lbfgs_step`, one host launch an iteration (`_run_graphed`). On the CPU,
-with an external value-and-grad, and where the caller says `_graph=False`
-(full covariance, `solve_trajectory`), each iteration runs its torch ops
-from Python (`_run_eager`). Both run the same kernels on the same inputs.
+autograd (`solve_batch` with a diagonal or a full covariance, the
+multistart recipes, `solve_batch_staged` and the controller's batched
+route), iteration 1 runs eagerly and every later one is a replay of one
+CUDA graph captured from `_lbfgs_step`, one host launch an iteration
+(`_run_graphed`). On the CPU, with an external value-and-grad, and where
+the caller says `_graph=False` (`solve_trajectory`), each iteration runs
+its torch ops from Python (`_run_eager`). Both run the same kernels on the
+same inputs.
 
 `solve_trajectory`: one solve of objective(u) -> scalar, by projected L-BFGS
 (method='lbfgs', the batched solver at B = 1: JAX's single-scenario L-BFGS
@@ -390,10 +391,12 @@ def solve_trajectory_batched(objective_b: Optional[Callable[[torch.Tensor],
     On CUDA the iterations after the first run as replays of one captured
     CUDA graph (`_run_graphed`), unless val_and_grad is given (an external
     oracle, with collectives inside) or the caller passes _graph=False
-    (internal: for an objective that waits on the host, such as
-    full_cov=True's PSD clip). Elsewhere, and on the CPU, the loop runs
-    eagerly. A capture that fails raises; it never turns into the eager
-    loop."""
+    (internal: `solve_trajectory`'s loop, whose single-scenario objective is
+    not held to capture). The objective must then read nothing on the host:
+    the full-covariance rollout's PSD clip runs the sync-free eigensolver
+    (ops/kernels/eigh_small.py) for that. Elsewhere, and on the CPU, the
+    loop runs eagerly. A capture that fails raises; it never turns into the
+    eager loop."""
     dt = u_init.dtype
     dev = u_init.device
     b = u_init.shape[0]
@@ -439,8 +442,8 @@ def solve_trajectory(objective: Callable[[torch.Tensor], torch.Tensor],
 def _solve_lbfgs(objective, u_init, lb, ub, config: SolverConfig) -> SolveResult:
     """The lockstep solver at B = 1: the single JAX solve's acceptance, step
     size, history, restarts, stop and result, lane for lane. Its loop runs
-    eagerly: the single-scenario objective may wait on the host (its full
-    covariance does)."""
+    eagerly: it takes any objective, and one that reads a value on the host
+    cannot be captured."""
     return first_lane(solve_trajectory_batched(
         lambda u_b: objective(u_b[0])[None], u_init[None], lb, ub, config,
         _graph=False))

@@ -116,10 +116,11 @@ def solve_batch(gp: GPState, state_dim: int, action_dim: int,
     otherwise. 'fused' with a method other than L-BFGS raises ValueError.
 
     On CUDA the fused route runs its iterations after the first as replays
-    of one captured CUDA graph (mpc/solver.py, `_run_graphed`), as do the
-    multistart recipes and `solve_batch_staged` below. full_cov=True runs
-    eagerly: its PSD clip (dynamics._psd_clip, torch.linalg.eigh) waits on
-    the host every step, which a capture cannot hold. So does 'vmap'."""
+    of one captured CUDA graph (mpc/solver.py, `_run_graphed`), with a
+    diagonal or a full covariance (whose PSD clip runs the sync-free
+    eigensolver of ops/kernels/eigh_small.py), as do the multistart recipes
+    and `solve_batch_staged` below. 'vmap' runs `solve_trajectory`'s loop
+    eagerly."""
     if impl not in ('auto', 'fused', 'vmap'):
         raise ValueError(f'unknown impl {impl!r}')
     if impl == 'fused' and solver.method != 'lbfgs':
@@ -138,7 +139,7 @@ def solve_batch(gp: GPState, state_dim: int, action_dim: int,
     if impl == 'fused':
         return solve_trajectory_batched(
             batch_objective(cache, x0s, params, delta, full_cov), u_init, lb,
-            ub, solver, _graph=not full_cov)
+            ub, solver)
     return _stack_results([
         _single_solve(cache, _gather_params(params, i), x0s[i], u_init[i],
                       lb, ub, solver, full_cov, delta)

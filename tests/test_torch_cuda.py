@@ -18,7 +18,7 @@ import torch
 import chip_smoke
 
 from gpmpc_tpu_torch.benchmarks.chain import kernel_args
-from gpmpc_tpu_torch.ops.kernels import probe
+from gpmpc_tpu_torch.ops.kernels import eigh_small, probe
 from gpmpc_tpu_torch.ops.kernels import variance_trace as tvt
 
 torch.set_num_threads(1)
@@ -878,7 +878,7 @@ def test_cuda_exp_table_within_one_ulp():
 def _launches():
     return {'K1': tvt.LAUNCHES, 'K1 f64': tvt.LAUNCHES_F64,
             'K2': tvt.LAUNCHES_UNTIED, 'K3': tvt.LAUNCHES_BLOCK,
-            'K4': tvt.LAUNCHES_SYM}
+            'K4': tvt.LAUNCHES_SYM, 'eigh': eigh_small.LAUNCHES_EIGH}
 
 
 def _eager_then_graphed(monkeypatch, solve):
@@ -898,11 +898,12 @@ def _eager_then_graphed(monkeypatch, solve):
     return out
 
 
-def _swing_up_solve(dev):
+def _swing_up_solve(dev, full_cov=False):
     """The swing-up controller of chip_smoke.py phase 7 (f64, N = 512,
     delta dynamics) on the stored 250 transitions with their trained,
     untied hyperparameters: one control step, the B = 1 route through K2
-    at (1, 512, 3, 2). Returns (solve, H, kernel)."""
+    at (1, 512, 3, 2), with a diagonal or a full covariance. Returns
+    (solve, H, kernel)."""
     import os
     from gpmpc_tpu_torch.mpc.controller import RiskSensitiveMPC
     from gpmpc_tpu_torch.mpc.solver import SolverConfig
@@ -914,7 +915,7 @@ def _swing_up_solve(dev):
         Q=np.diag([8.0, 1.0]), R=0.001 * np.eye(1),
         R_delta=0.001 * np.eye(1), capacity=512, delta_dynamics=True,
         dtype=torch.float64, solver=SolverConfig(max_iters=60, tol=1e-4),
-        device=dev)
+        full_cov=full_cov, device=dev)
     mpc.set_ub([5.0])
     mpc.set_lb([-5.0])
     mpc.dynamics.append_train_data(ref['states'], ref['actions'],
@@ -932,22 +933,24 @@ def _swing_up_solve(dev):
     return solve, 8, 'K2'
 
 
-def _batch_solve(case, dev, iters=40):
-    """The plain solve_batch at the headline (B = 256, f32) or on suite
-    config 3b (B = 256, M = 128, (d, E) = (5, 4), f32). Returns (solve, H,
-    kernel)."""
+def _batch_solve(case, dev, iters=40, full_cov=False):
+    """The plain solve_batch at the headline (B = 256, f32), on suite
+    config 3b (B = 256, M = 128, (d, E) = (5, 4), f32) or on config 4
+    ('4': B = 64, H = 50, M = 128, (d, E) = (3, 2), f32), with a diagonal or
+    a full covariance. Returns (solve, H, kernel)."""
     from gpmpc_tpu_torch.mpc.solver import SolverConfig
     from gpmpc_tpu_torch.parallel.batch import solve_batch
     from gpmpc_tpu_torch.problems import make_headline_problem, sparse_problem
     if case == 'headline':
-        p, ds = make_headline_problem(b=256, dtype=torch.float32,
-                                      device=dev), 2
+        p = make_headline_problem(b=256, dtype=torch.float32, device=dev)
     else:
-        p, ds = sparse_problem('3b_sparse_cartpole', dtype=torch.float32,
-                               device=dev), 4
+        p = sparse_problem({'3b': '3b_sparse_cartpole',
+                            '4': '4_sparse_fullcov'}[case],
+                           dtype=torch.float32, device=dev)
     cfg = SolverConfig(max_iters=iters, tol=1e-4)
-    return (lambda: solve_batch(p.gp, ds, 1, p.x0s, p.params, p.horizon,
-                                p.lb, p.ub, cfg)), p.horizon, 'K1 f64'
+    return (lambda: solve_batch(p.gp, p.state_dim, 1, p.x0s, p.params,
+                                p.horizon, p.lb, p.ub, cfg,
+                                full_cov=full_cov)), p.horizon, 'K1 f64'
 
 
 @pytest.mark.cuda
@@ -999,13 +1002,37 @@ def test_cuda_graphed_solve_counts_each_replay(monkeypatch):
 
 
 @pytest.mark.cuda
-def test_cuda_forced_capture_of_full_cov_raises():
-    """full_cov=True waits on the host in its PSD clip (torch.linalg.eigh),
-    so its solves run eagerly; a capture forced on it raises, and never
-    turns into the eager loop."""
+@pytest.mark.parametrize('case', ['headline', '4', 'swing_up'])
+def test_cuda_graphed_full_cov_solve_equals_eager_to_the_bit(monkeypatch,
+                                                             case):
+    """Full covariance through the graphed lockstep loop against the eager
+    loop: u, cost, iters, pg_norm and converged equal to the bit at the
+    headline (K1 f64 at B = 256), config 4 (K1 f64 at (64, 128, 3, 2),
+    H = 50, 5 iterations) and the swing-up's B = 1 control step (K2 at
+    (1, 512, 3, 2)); each call launches its kernel and the eigensolver
+    exactly H * (1 + iters) times each by the counters, and no other."""
+    dev = _cuda()
+    if case == 'swing_up':
+        solve, h, kernel = _swing_up_solve(dev, full_cov=True)
+    else:
+        solve, h, kernel = _batch_solve(case, dev, full_cov=True,
+                                        iters=5 if case == '4' else 40)
+    (res_e, n_e), (res_g, n_g) = _eager_then_graphed(monkeypatch, solve)
+    chip_smoke.same_bits(f'{case} full_cov', res_e, res_g)
+    want = h * (1 + int(res_g.iters.max()))
+    assert int(res_g.iters.max()) > 1         # the graph was replayed
+    for n in (n_e, n_g):
+        assert n[kernel] == want and n['eigh'] == want
+        assert sum(n.values()) == want * (3 if kernel == 'K1 f64' else 2)
+
+
+@pytest.mark.cuda
+def test_cuda_forced_capture_of_full_cov_equals_eager():
+    """A capture forced on the full-covariance objective succeeds (its PSD
+    clip reads nothing on the host) and equals the eager loop to the bit;
+    its graph holds H K1 f64 and H eigensolver launches a replay."""
     from gpmpc_tpu_torch.dynamics import build_rollout_cache
-    from gpmpc_tpu_torch.mpc.solver import (SolverConfig,
-                                            solve_trajectory_batched)
+    from gpmpc_tpu_torch.mpc import solver
     from gpmpc_tpu_torch.parallel.batch import batch_objective
     from gpmpc_tpu_torch.problems import make_headline_problem
     dev = _cuda()
@@ -1013,8 +1040,125 @@ def test_cuda_forced_capture_of_full_cov_raises():
     obj = batch_objective(build_rollout_cache(p.gp, 2, 1), p.x0s, p.params,
                           full_cov=True)
     u0 = torch.zeros((8, p.horizon, 1), dtype=torch.float32, device=dev)
-    with pytest.raises(RuntimeError):
-        solve_trajectory_batched(obj, u0, p.lb, p.ub,
-                                 SolverConfig(max_iters=5, tol=0.0),
-                                 _graph=True)
+    cfg = solver.SolverConfig(max_iters=5, tol=0.0)
+    graphs = []
+    capture = solver._capture_step
+
+    def noted(prob, s):
+        graph, counts = capture(prob, s)
+        graphs.append(counts.launches)
+        return graph, counts
+
+    res_g = None
+    try:
+        solver._capture_step = noted
+        res_g = solver.solve_trajectory_batched(obj, u0, p.lb, p.ub, cfg,
+                                                _graph=True)
+    finally:
+        solver._capture_step = capture
+    graphed = solver._run_graphed
+    try:
+        solver._run_graphed = solver._run_eager
+        res_e = solver.solve_trajectory_batched(obj, u0, p.lb, p.ub, cfg,
+                                                _graph=True)
+    finally:
+        solver._run_graphed = graphed
     torch.cuda.synchronize()
+    chip_smoke.same_bits('forced full_cov capture', res_e, res_g)
+    assert graphs == [{'LAUNCHES': p.horizon, 'LAUNCHES_F64': p.horizon,
+                       'LAUNCHES_EIGH': p.horizon}]
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_full_cov_counts_each_replay(monkeypatch):
+    """A graphed solve_batch(full_cov=True) at the headline, cut at 5
+    iterations: its one graph holds H K1 f64 and H eigensolver launches by
+    its own kernel nodes, and LAUNCHES_EIGH counts H * (1 + iters), the
+    capture nothing and each replay the graph's H."""
+    from gpmpc_tpu_torch.mpc import solver
+    dev = _cuda()
+    solve, h, _ = _batch_solve('headline', dev, iters=5, full_cov=True)
+    graphs = []
+    capture = solver._capture_step
+
+    def noted(p, s):
+        graph, counts = capture(p, s)
+        graphs.append(counts.launches)
+        return graph, counts
+
+    monkeypatch.setattr(solver, '_capture_step', noted)
+    before = eigh_small.LAUNCHES_EIGH
+    res = solve()
+    torch.cuda.synchronize()
+    assert int(res.iters.max()) == 5
+    assert graphs == [{'LAUNCHES': h, 'LAUNCHES_F64': h,
+                       'LAUNCHES_EIGH': h}]
+    assert eigh_small.LAUNCHES_EIGH - before == h * 6
+
+
+# ------------------------------------------------ the small eigensolver --
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('d', [1, 2, 3, 4, 5, 8])
+@pytest.mark.parametrize('kind', ['definite', 'indefinite',
+                                  'near-degenerate', 'diagonal'])
+def test_cuda_eigh_small_matches_plain_version(kind, d, dtype):
+    """The eigensolver kernel against its plain version on the card and
+    torch.linalg.eigh: kernel and plain version within 4 ulps of ||A||_F
+    (the same IEEE operations in the same order: equal to the bit but for
+    the library's own rounding); eigenvalues within 16 d eps ||A||_F of
+    torch.linalg.eigh's; ||V diag(w) V^T - A|| within 16 d eps ||A||_F and
+    ||V^T V - I|| within 16 d eps, eps the dtype's."""
+    dev = _cuda()
+    a = torch.tensor(chip_smoke.sym_inputs(kind, 300, d, dtype, seed=d), device=dev)
+    w, v = eigh_small.eigh(a)
+    wp, vp = eigh_small.eigh_reference(a)
+    torch.cuda.synchronize()
+    chip_smoke.check_eigh(f'{kind} d={d}', a, w, v, wp, vp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', chip_smoke.EIGH_PATH_SHAPES)
+def test_cuda_eigh_small_at_path_shapes(shape):
+    """The kernel at the shapes the paths launch it at, on the covariance
+    matrices of the f64 headline full-covariance rollout (and random
+    definite ones beside them), at the bars of the test above."""
+    dev = _cuda()
+    for dtype in (torch.float32, torch.float64):
+        a = torch.tensor(chip_smoke.sym_inputs('definite', shape[0], shape[1], dtype,
+                                     seed=shape[0]), device=dev)
+        w, v = eigh_small.eigh(a)
+        wp, vp = eigh_small.eigh_reference(a)
+        chip_smoke.check_eigh(f'{shape} {dtype}', a, w, v, wp, vp)
+
+
+@pytest.mark.cuda
+def test_cuda_eigh_small_gradient_matches_plain():
+    """The eigensolver's backward on the card against the same backward on
+    the CPU on the same inputs (rtol 1e-10, f64), through the PSD clip."""
+    from gpmpc_tpu_torch.dynamics import _psd_clip
+    dev = _cuda()
+    a = torch.tensor(chip_smoke.sym_inputs('indefinite', 64, 2, torch.float64, 3))
+    g = torch.tensor(np.random.default_rng(4).normal(size=(64, 2, 2)))
+    out = []
+    for where in ('cpu', dev):
+        x = a.to(where).requires_grad_()
+        (ga,) = torch.autograd.grad((_psd_clip(x) * g.to(where)).sum(), x)
+        out.append(ga.cpu())
+    np.testing.assert_allclose(out[1].numpy(), out[0].numpy(), rtol=1e-10,
+                               atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_cuda_eigh_small_refuses_what_it_cannot_take():
+    """d = 9 raises ValueError; so do a non-square and a non-contiguous
+    operand at the launch, and an integer dtype TypeError."""
+    dev = _cuda()
+    with pytest.raises(ValueError, match='d <= 8'):
+        eigh_small.eigh(torch.eye(9, device=dev))
+    with pytest.raises(ValueError):
+        eigh_small.launch(torch.zeros((3, 2, 3), device=dev))
+    with pytest.raises(ValueError):
+        eigh_small.launch(torch.zeros((4, 4), device=dev).t()[:2, :2])
+    with pytest.raises(TypeError):
+        eigh_small.launch(torch.zeros((2, 2), dtype=torch.int32, device=dev))

@@ -339,10 +339,11 @@ def _spy(module):
 @pytest.mark.parametrize('case', ['diag', 'full_cov', 'vmap', 'adam',
                                   'staged', 'multistart'])
 def test_route_rule_batch(case):
-    """(d) Who asks for a captured loop: the diagonal solve_batch, the
-    multistart recipes and solve_batch_staged do; full_cov=True (its PSD
-    clip waits on the host) does not; impl='vmap' runs solve_trajectory's
-    L-BFGS, which does not; Adam runs no lockstep solve."""
+    """(d) Who asks for a captured loop: solve_batch with a diagonal or a
+    full covariance (its PSD clip runs the sync-free eigensolver), the
+    multistart recipes and solve_batch_staged do; impl='vmap' runs
+    solve_trajectory's L-BFGS, which does not; Adam runs no lockstep
+    solve."""
     p = make_headline_problem(b=2, n_train=24, capacity=32, horizon=3,
                               dtype=torch.float64, device='cpu')
     args = (p.gp, 2, 1, p.x0s, p.params, p.horizon, p.lb, p.ub)
@@ -361,7 +362,7 @@ def test_route_rule_batch(case):
                                          frozen_rounds=1, shift_set=(1,),
                                          shift_iters=1)
     want = {'diag': ([True], []), 'staged': ([True], []),
-            'multistart': ([True], []), 'full_cov': ([False], []),
+            'multistart': ([True], []), 'full_cov': ([True], []),
             'vmap': ([], [False]), 'adam': ([], [])}[case]
     assert (sorted(set(fused)), sorted(set(single))) == want
 
@@ -369,7 +370,7 @@ def test_route_rule_batch(case):
 @pytest.mark.parametrize('full_cov', [False, True])
 def test_route_rule_controller(full_cov):
     """(d) The controller's route (b) asks for capture with a diagonal
-    covariance, not with full_cov=True."""
+    covariance and with full_cov=True."""
     mpc = controller.RiskSensitiveMPC(
         gamma=0.3, horizon=3, state_dim=2, input_dim=1, Q=np.eye(2),
         R=0.1 * np.eye(1), capacity=32, dtype=torch.float64,
@@ -380,7 +381,7 @@ def test_route_rule_controller(full_cov):
                                    rng.uniform(-1, 1, (20, 2)))
     with _spy(controller) as seen:
         mpc.get_optimal_trajectory(np.array([0.1, -0.2]))
-    assert seen == [not full_cov]
+    assert seen == [True]
 
 
 def test_route_rule_external_val_and_grad():
