@@ -140,22 +140,34 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 profiler pass (of a 4-iteration solve, as every profiler
                 pass here but phase 5e's, of one value-and-grad, phase 5f's
                 graphed one, of ITERS, and phase 7's, of one control step).
-                Every solve here and below runs as its caller runs it: the
-                lockstep loop's iterations after the first as replays of one
-                captured CUDA graph (mpc/solver.py), full covariance (5e, 7b,
-                8b) included, except the sharded value-and-grad (6), which
-                runs eagerly; each replay counts the kernel launches that the
-                graph's own kernel nodes hold (utils/replay_counts.py).
-  5f. graph     the lockstep loop graphed against eager, the plain
+                Every solve here and below runs as its caller runs it, full
+                covariance (5e, 7b, 8b) included, except the sharded
+                value-and-grad (6), which runs eagerly: through the solver's
+                kept program (mpc/solver.py), whose first call runs the
+                first value-and-grad and iteration 1 eagerly and captures
+                two CUDA graphs, the init and the step, and whose later
+                calls with the same key replay them, capturing nothing; each
+                replay counts the kernel launches that the graph's own
+                kernel nodes hold (utils/replay_counts.py). The timed phases
+                (5f, 5e, 5c, 7b, 8a, 8b) hold three executions of the loop
+                against each other (loop_mode): 'eager', 'graphed' (each
+                solve captures its program anew and drops it, the execution
+                before programs were kept) and 'reused' (as callers run it),
+                all equal to the bit; a phase starts with an empty program
+                cache and fails unless its reused calls capture each key
+                once (two graphs a program), and logs the bytes the cache
+                holds.
+  5f. graph     the lockstep loop eager, graphed and reused, the plain
                 solve_batch at the headline (B=256, f32, K1 f64, 40
-                iterations): each counted as phase 5, the two results equal
-                to the bit (u, cost, iters, pg_norm, converged), the graph's
-                kernel nodes exactly H K1 f64 launches a replay; solves/s of
-                both over 3 fresh-x0 batches in turns, each pair equal to
-                the bit; host launch calls and the device's busy share of
-                each under the profiler (eager 4 iterations, graphed 40),
-                and in each device trace exactly H K1 kernels a
-                value-and-grad, the graph's replays included.
+                iterations): each counted as phase 5, the three results
+                equal to the bit (u, cost, iters, pg_norm, converged), each
+                program's step and init graphs exactly H K1 f64 launches a
+                replay; solves/s of the three over 3 fresh-x0 batches in
+                turns, all equal to the bit, the reused calls capturing
+                nothing; host launch calls and the device's busy share of
+                the eager and the reused solve under the profiler (eager 4
+                iterations, reused 40), and in each device trace exactly H
+                K1 kernels a value-and-grad, the graphs' replays included.
   5c. recipe    the main path: the production recipe
                 (solve_batch_multistart_retired with problems.RECIPE and
                 REFINE, ret_prod_nopre) on the same problem, counted: finite
@@ -165,19 +177,21 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 each rollout at a lane count that phase 3 checked K1 at, its
                 diag counters; its cost excess against the f64 reference
                 controls beside the JAX recipe's bar (fails at p90 >= 1 %);
-                quality-paired solves/s on a fresh-x0 batch, graphed and
-                eager in turns, the two equal to the bit.
+                quality-paired solves/s on a fresh-x0 batch, eager, graphed
+                and reused in turns, the three equal to the bit (one batch:
+                the eager recipe takes ~25 s); each key captured once over
+                the reused calls.
   5e. full cov  solve_batch(full_cov=True) on the same problem (B=256, H=20,
                 f32, 40 iterations), its PSD clip through the small
-                eigensolver: eagerly and graphed, each with finite costs, no
-                lane worse than its start, exactly H * (1 + iterations)
-                launches of K1's f64 instance and of the eigensolver and no
-                other kernel, the two equal to the bit, the graph's kernel
-                nodes exactly H K1 f64 and H eigensolver launches a replay;
-                solves/s of both on a fresh-x0 batch in turns, the pair
-                equal to the bit; the graphed solve at 2 iterations under
-                the profiler (busy share, host launch calls, H K1 kernels a
-                value-and-grad in the device trace). Its f64 objective at
+                eigensolver: eager, graphed and reused, each with finite
+                costs, no lane worse than its start, exactly H * (1 +
+                iterations) launches of K1's f64 instance and of the
+                eigensolver and no other kernel, the three equal to the
+                bit, each program's graphs exactly H K1 f64 and H
+                eigensolver launches a replay; solves/s of the three on a
+                fresh-x0 batch in turns, equal to the bit; the reused solve
+                at 2 iterations under the profiler (busy share, host launch
+                calls, H K1 kernels a value-and-grad in the device trace). Its f64 objective at
                 the reference controls (all lanes) and its gradient (the
                 reference file's eight grad_full_lanes) against JAX's
                 rollout_batched(full_cov=True) values in headline_ref.npz,
@@ -211,14 +225,16 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 test's criteria (|theta| < 0.15, |theta_dot| < 0.5, actions
                 in bounds, count 250 + steps); on the B = 1 route each step
                 launches exactly H * (1 + iters) K2 (one launch a trace for
-                all E outputs); then 3 steps from the last state eagerly and
-                3 graphed, in turns, each pair equal to the bit and each
-                graph's kernel nodes H K2 launches a replay; then one step
-                from the last state with full_cov=True on the same route
-                eagerly and one graphed, each launching H * (1 +
-                iters) K2 and eigensolver launches, each pair equal to the
-                bit and each graph's kernel nodes H K2 and H eigensolver
-                launches a replay; one step under
+                all E outputs), the episode's one key captured once (its
+                step p50 and captures logged); then 3 steps from the last
+                state in each of eager, graphed and reused, in turns, each
+                round equal to the bit and each graph's kernel nodes H K2
+                launches a replay, the reused steps capturing nothing (the
+                episode's program); then one step from the last state with
+                full_cov=True on the same route in each mode, each
+                launching H * (1 + iters) K2 and eigensolver launches, equal
+                to the bit and each graph's kernel nodes H K2 and H
+                eigensolver launches a replay; one step under
                 the profiler, its device trace exactly H K2 kernels a
                 value-and-grad; (c)
                 pretrain_pendulum's delta mode in f32 (300 transitions,
@@ -226,7 +242,9 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 10 steps; (d) pretrain_cartpole's delta mode, (d, E) =
                 (5, 4), for 10 steps: finite costs, actions in bounds; (e)
                 run_episode_on_device for 4 steps with tests/test_sim.py's
-                assertions.
+                assertions, its single-scenario L-BFGS solves through one
+                kept program (one key, two captures). Each episode's
+                captures are logged.
   3d. sparse kernels  K1 at the three shapes phase 8 launches it at:
                 (B, N, d, E) = (256, 128, 5, 4) (suite config 3b),
                 (64, 128, 3, 2) (config 4, full covariance) and (1, 512, 4, 2)
@@ -246,24 +264,25 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 quality_sparse_ref_3b_sparse_cartpole.npz) within rtol 1e-8
                 of JAX's (gpmpc_tpu_torch/data/sparse_ref.npz) and its
                 gradient within 1e-8 of the largest entry; the plain
-                solve_batch at 40 iterations, eager and graphed, each with
-                exactly H (1 + iters) K1 f64 launches and the two equal to
-                the bit, its cost excess
+                solve_batch at 40 iterations, eager, graphed and reused,
+                each with exactly H (1 + iters) K1 f64 launches and the
+                three equal to the bit, its cost excess
                 (fails at p90 >= 1 %) beside the JAX package's TPU figure
                 (benchmarks/results/quality_sparse.json), solves/s over 3
-                fresh-x0 batches, graphed and eager in turns; (b) config 4 (B = 64, H = 50, full
+                fresh-x0 batches in the three modes in turns; (b) config 4 (B = 64, H = 50, full
                 covariance): on JAX's posterior carried across, the f64
                 objective at 0 and u_ref within rtol 1e-8 of JAX's and the
                 gradient within 1e-8 (at 0) and 1e-5 (at u_ref) of its
                 largest entry; on the port's own fit, the posterior within
                 1e-6, J within 1e-7, the gradient within 1e-6 and 1e-4
                 (SPARSE_BARS); the f32 solve (its PSD clip through the
-                eigensolver) at 5 iterations eagerly and graphed, each
+                eigensolver) at 5 iterations eager, graphed and reused, each
                 counted (H (1 + iters) K1 f64 and eigensolver launches),
-                equal to the bit; then at the suite's 40 iterations graphed,
-                counted the same way, the graph's kernel nodes H K1 f64 and
-                H eigensolver launches a replay, timed, its cost excess
-                recorded beside the JAX package's p50 (no gate); (c)
+                equal to the bit; then at the suite's 40 iterations, counted
+                the same way, its program's graphs H K1 f64 and H
+                eigensolver launches a replay, timed in the three modes in
+                turns, its cost excess recorded beside the JAX package's
+                p50 (no gate); (c)
                 the per-scenario routes in f64, solve_batch with Adam
                 ('auto' -> 'vmap') on four headline lanes and solve_batch_gp
                 over three stack_gps draws, against JAX's stored results,
@@ -347,12 +366,15 @@ UNTIED_ITERS = 10
 # Cut from 5, as RECIPE_REPS from 2, to make room for the graphed
 # full-covariance phases within about 700 s on a slow host.
 GRAPH_REPS = 3
-# The two executions of the solver's loop that time_solves holds together.
-BOTH = ('eager', 'graphed')
+# The three executions of the solver's loop that the timed phases hold
+# together (loop_mode): eager, each solve captured anew, kept programs.
+MODES = ('eager', 'graphed', 'reused')
 # The profiled solves are cut to 4 iterations: the profiler's own
 # processing takes ~1 s per 1,000 device kernels (~3,000 a value-and-grad),
 # ~45 s at 10 iterations on a slow host.
 PROFILE_ITERS = 4
+# Traces a counted profile may take to get one that lost no device record.
+PROFILE_TRACES = 4
 WORKER_TIMEOUT_S = 600
 PG_TIMEOUT_S = 300.0
 # The lane counts at which the recipe (problems.RECIPE at B = 256) launches
@@ -489,25 +511,112 @@ def eager_loop():
 
 
 @contextlib.contextmanager
+def loop_mode(mode: str):
+    """The execution of every lockstep solve in a block: 'eager'
+    (eager_loop), 'graphed' (each solve captures its program anew and drops
+    it, in a cache of its own: the execution before programs were kept) or
+    'reused' (as callers run it: the program cache kept across calls)."""
+    from gpmpc_tpu_torch.mpc import solver
+    if mode == 'eager':
+        with eager_loop():
+            yield
+        return
+    if mode != 'graphed':
+        yield
+        return
+    kept, run = solver._PROGRAMS, solver._run_graphed
+    solver._PROGRAMS = type(kept)()
+
+    def anew(p, u0):
+        solver.clear_programs()
+        return run(p, u0)
+
+    solver._run_graphed = anew
+    try:
+        yield
+    finally:
+        solver.clear_programs()
+        solver._PROGRAMS, solver._run_graphed = kept, run
+
+
+def cache_note(tag, captures: int, capture_s: float) -> dict:
+    """The program cache after a phase's 'reused' calls, which took
+    `captures` captures in all: each key must have been captured once (two
+    graphs a program, its step and its init); its programs and bytes,
+    logged."""
+    from gpmpc_tpu_torch.mpc import solver
+    stats = solver.program_stats()
+    if captures != 2 * stats['programs']:
+        raise AssertionError(f'{tag}: the reused calls took {captures} '
+                             f'captures for {stats["programs"]} programs, '
+                             'expected one capture of each program\'s step '
+                             'and init')
+    log(f'[{tag}] reused: {stats["programs"]} programs, each key captured '
+        f'once ok ({captures} graphs, {capture_s:.3f} s of capture); the '
+        f'cache holds {stats["bytes"]} bytes ({stats["pool_bytes"]} in '
+        'graph pools)')
+    return dict(stats, captures=captures, capture_s=capture_s)
+
+
+def reused_captures(r) -> tuple:
+    """The captures and capture seconds of time_solves' 'reused' calls (r:
+    its 'reused' entry)."""
+    return sum(r['captures']), float(sum(r['capture_s']))
+
+
+def counted_modes(tag, desc, solve, x0s, key, horizon, cost0, want,
+                  also=()):
+    """One counted solve (solve_checked) in each of MODES, the program
+    cache emptied first: the three equal to the bit; 'graphed' and 'reused'
+    each capture two graphs (step and init) whose kernel nodes hold `want`
+    launches a replay, 'eager' none. Returns ({mode: result}, launches,
+    loop iterations, {mode: capture_note})."""
+    from gpmpc_tpu_torch.mpc import solver
+    solver.clear_programs()
+    res, notes = {}, {}
+    for mode in MODES:
+        with loop_mode(mode), capture_walls() as walls:
+            t0 = time.perf_counter()
+            res[mode], launches, iters = solve_checked(
+                f'{tag} {mode}', desc, solve, x0s, key, 1, horizon, cost0,
+                also=also)
+            notes[mode] = capture_note(walls, time.perf_counter() - t0)
+    for mode in MODES[1:]:
+        same_bits(f'{tag} {MODES[0]} vs {mode}', res[MODES[0]], res[mode])
+    graphs = {m: n['replay_launches'] for m, n in notes.items()}
+    if graphs != {'eager': [], 'graphed': [want] * 2, 'reused': [want] * 2}:
+        raise AssertionError(f'{tag}: the graphs hold {graphs} kernel '
+                             f'launches a replay, expected two of {want} '
+                             'graphed and reused, none eager')
+    log(f'[{tag}] eager, graphed and reused equal to the bit (u, cost, '
+        f'iters, pg_norm, converged) ok; each program\'s step and init '
+        f'graphs hold {want} launches a replay ok; capture '
+        f'{1e3 * notes["reused"]["capture_s"]:.1f} ms '
+        f'({100 * notes["reused"]["capture_share"]:.1f} % of the first '
+        'reused solve)')
+    return res, launches, iters, notes
+
+
+@contextlib.contextmanager
 def capture_walls():
     """Each CUDA-graph capture the solver takes in a block (mpc/solver.py's
-    _capture_step: recording one iteration, reading its kernel nodes and
-    instantiating the graph): yields the list of (host seconds, kernel
+    _capture: recording a program's step or init, reading its kernel nodes
+    and instantiating the graph): yields the list of (host seconds, kernel
     launches a replay by the graph's nodes) they go to."""
     from gpmpc_tpu_torch.mpc import solver
-    capture, walls = solver._capture_step, []
+    capture, walls = solver._capture, []
 
-    def timed(p, s):
+    def timed(record, s, pool=None):
         t0 = time.perf_counter()
-        graph, counts = capture(p, s)
+        graph, counts = capture(record, s, pool)
         walls.append((time.perf_counter() - t0, counts.launches))
         return graph, counts
 
-    solver._capture_step = timed
+    solver._capture = timed
     try:
         yield walls
     finally:
-        solver._capture_step = capture
+        solver._capture = capture
 
 
 def capture_note(walls, wall) -> dict:
@@ -1434,62 +1543,74 @@ def solve_checked(tag, desc, solve, x0s, key, per_trace, horizon,
     return res, counts[key], loop_iters
 
 
-def score_and_time(tag, b, solve, res, j64, j_uref, reps, dev, both=False):
+def score_and_time(tag, b, solve, res, j64, j_uref, reps, dev, modes=None):
     """Cost excess of `res` against the f64 reference controls, then
-    solves/s over fresh x0s (graphed, as the solve runs; with `both` also
-    eagerly, in turns, under 'eager')."""
+    solves/s over fresh x0s (as the solve runs; with `modes`, in each of
+    them in turns: time_solves)."""
     from gpmpc_tpu_torch.problems import cost_excess
     quality = cost_excess(j64, res.u, j_uref)
     log(f'[{tag}] cost excess vs f64 u_ref (J64): p50 {quality["p50"]:.4%} '
         f'p90 {quality["p90"]:.4%} max {quality["max"]:.4%}, lanes >1% '
         f'{quality["lanes_above_1pct"]}/{b}')
-    if both:
-        timed = time_solves(tag, b, solve, reps, dev, modes=BOTH)
-        return dict(quality=quality, **timed['graphed'], eager=timed['eager'])
+    if modes:
+        timed = time_solves(tag, b, solve, reps, dev, modes=modes)
+        return dict(quality=quality, **timed['reused'],
+                    **{m: timed[m] for m in modes if m != 'reused'})
     return dict(quality=quality, **time_solves(tag, b, solve, reps, dev))
 
 
 def time_solves(tag, b, solve, reps, dev, draw_x0s=None, modes=None):
     """Solves/s over `reps` batches of fresh x0s (the median); draw_x0s(rng)
     gives a batch (numpy), by default the headline's U(-1, 1)^(B, 2). With
-    modes=('eager', 'graphed') each batch is solved both ways in turns
-    (eager first on even batches; 'eager' under eager_loop), the two
-    results equal to the bit (same_bits), and the result is {mode: ...}."""
+    modes (of MODES) each batch is solved in each mode in turns, the order
+    rotating by one each batch (loop_mode), all results equal to the bit
+    (same_bits), and the result is {mode: ...}: each mode's walls, solves/s
+    and each call's captures and capture seconds (capture_walls)."""
     import torch
     rng = np.random.default_rng(123)
-    order = modes or (None,)
+    order = tuple(modes or (None,))
     walls = {mode: [] for mode in order}
+    caps = {mode: [] for mode in order}
     iters = []
     for rep in range(reps):
         x0s = torch.tensor(rng.uniform(-1, 1, (b, 2)) if draw_x0s is None
                            else draw_x0s(rng), dtype=torch.float32,
                            device=dev)
         res = {}
-        for mode in order if rep % 2 == 0 else order[::-1]:
-            with eager_loop() if mode == 'eager' else contextlib.nullcontext():
+        k = rep % len(order)
+        for mode in order[k:] + order[:k]:
+            with (loop_mode(mode) if mode else contextlib.nullcontext(),
+                  capture_walls() as cw):
                 sync(dev)
                 t0 = time.perf_counter()
                 res[mode] = solve(x0s)
                 sync(dev)
                 walls[mode].append(time.perf_counter() - t0)
-        if modes:
-            same_bits(f'{tag} batch {rep}', *(res[m] for m in modes))
+            caps[mode].append((len(cw), float(sum(w for w, _ in cw))))
+        for mode in order[1:]:
+            same_bits(f'{tag} batch {rep} {order[0]} vs {mode}',
+                      res[order[0]], res[mode])
         iters.append(int(res[order[-1]].iters.max()))
     out = {}
     for mode, w in walls.items():
         rate = [b / x for x in w]
         out[mode] = dict(walls=w, solves_per_s=float(np.median(rate)),
-                         iters_timed=iters)
+                         iters_timed=iters,
+                         captures=[n for n, _ in caps[mode]],
+                         capture_s=[s for _, s in caps[mode]])
         log(f'[{tag}]{"" if mode is None else " " + mode} wall s per batch '
             f'{[round(x, 4) for x in w]}, loop iterations {iters}; solves/s '
             f'median {float(np.median(rate)):.2f} (min {min(rate):.2f}, max '
-            f'{max(rate):.2f})')
+            f'{max(rate):.2f}); captures per call '
+            f'{out[mode]["captures"]} '
+            f'({[round(s, 4) for s in out[mode]["capture_s"]]} s)')
     if not modes:
         return out[None]
-    log(f'[{tag}] {reps} batches, {" and ".join(modes)} in turns: equal to '
-        f'the bit (u, cost, iters, pg_norm, converged) ok; '
-        f'{modes[-1]} / {modes[0]} solves/s '
-        f'{out[modes[-1]]["solves_per_s"] / out[modes[0]]["solves_per_s"]:.2f}')
+    log(f'[{tag}] {reps} batches, {", ".join(modes)} in turns: equal to the '
+        f'bit (u, cost, iters, pg_norm, converged) ok; solves/s '
+        + ', '.join(f'{m} / {modes[0]} '
+                    f'{out[m]["solves_per_s"] / out[modes[0]]["solves_per_s"]:.2f}'
+                    for m in modes[1:]))
     return out
 
 
@@ -1563,27 +1684,33 @@ def phase_untied(dev, b, key='K2'):
 
 def tally(counts: dict):
     """A dict of counts, made visible to CUDA-graph replays
-    (utils/replay_counts.py): a call captured in the solver's graph counts
-    once per replay. A context manager."""
+    (utils/replay_counts.py): a call captured in a solver's program counts
+    once per replay; the program cache is emptied first. A context
+    manager."""
+    from gpmpc_tpu_torch.mpc import solver
     from gpmpc_tpu_torch.utils import replay_counts
 
     def add(delta):
         for k, n in delta.items():
             counts[k] = counts.get(k, 0) + n
+    # A tally sees the replays of the graphs captured while it is
+    # registered: the programs kept from before go.
+    solver.clear_programs()
     return replay_counts.registered(lambda: dict(counts), add)
 
 
 def phase_graph(dev, b, card, out_dir):
-    """Phase 5f: the lockstep loop as replays of one captured CUDA graph,
-    held against the eager loop on the plain solve_batch at the headline
-    (B = 256, f32, K1 f64, ITERS iterations): each counted (exactly
-    H * (1 + iters) K1 f64 launches, the graphed call's replays included)
-    and the two equal to the bit; the graph's own kernel nodes hold
-    exactly H K1 f64 launches a replay; solves/s of both over GRAPH_REPS
-    fresh-x0 batches in turns (time_solves); the eager solve (PROFILE_ITERS)
-    and the graphed one (ITERS) under the profiler: host launch calls, the
-    device's busy share, and exactly H K1 kernels a value-and-grad in the
-    device trace, the graph's replays included."""
+    """Phase 5f: the lockstep loop eager, graphed (each solve captures its
+    program anew) and reused (the program kept across calls), on the plain
+    solve_batch at the headline (B = 256, f32, K1 f64, ITERS iterations):
+    each counted (exactly H * (1 + iters) K1 f64 launches, replays
+    included; counted_modes) and the three equal to the bit, each program's
+    step and init graphs exactly H K1 f64 launches a replay; solves/s of
+    the three over GRAPH_REPS fresh-x0 batches in turns (time_solves), the
+    reused calls capturing nothing; the eager solve (PROFILE_ITERS) and the
+    reused one, both at PROFILE_ITERS, under the profiler: host launch
+    calls, the device's busy share, and exactly H K1 kernels a
+    value-and-grad in the device trace, the graphs' replays included."""
     from gpmpc_tpu_torch.parallel.batch import solve_batch
     p, cfg, cost0 = headline_solve_setup(dev, b)
 
@@ -1591,50 +1718,45 @@ def phase_graph(dev, b, card, out_dir):
         return solve_batch(p.gp, 2, 1, x0s, p.params, p.horizon, p.lb, p.ub,
                            cfg.replace(max_iters=iters))
 
-    desc = f'B={b} H={p.horizon} max_iters={ITERS}'
-    with eager_loop():
-        res_e, _, _ = solve_checked('graph: eager', desc, solve, p.x0s,
-                                    'K1 f64', 1, p.horizon, cost0)
-    with capture_walls() as walls:
-        t0 = time.perf_counter()
-        res_g, launches, iters = solve_checked('graph: graphed', desc, solve,
-                                               p.x0s, 'K1 f64', 1, p.horizon,
-                                               cost0)
-        capture = capture_note(walls, time.perf_counter() - t0)
-    same_bits('graph headline', res_e, res_g)
     want = {'LAUNCHES': p.horizon, 'LAUNCHES_F64': p.horizon}
-    if capture['replay_launches'] != [want]:
-        raise AssertionError(f'graph headline: the graph holds '
-                             f'{capture["replay_launches"]} kernel launches '
-                             f'a replay, expected one graph of {want}')
-    log(f'[graph] headline: eager and graphed equal to the bit (u, cost, '
-        f'iters, pg_norm, converged) ok; the graph\'s kernel nodes hold '
-        f'{want} launches a replay ok')
+    _, launches, iters, capture = counted_modes(
+        'graph', f'B={b} H={p.horizon} max_iters={ITERS}', solve, p.x0s,
+        'K1 f64', p.horizon, cost0, want)
     timed = time_solves('graph headline', b, solve, GRAPH_REPS, dev,
-                        modes=BOTH)
+                        modes=MODES)
+    n, secs = reused_captures(timed['reused'])
+    if n:
+        raise AssertionError(f'graph: the timed reused calls captured {n} '
+                             'graphs, expected none')
+    cache = cache_note('graph', 2 + n, capture['reused']['capture_s'] + secs)
     with eager_loop():
         prof_e = profile_solve('graph eager', lambda x: solve(x, PROFILE_ITERS),
                                p.x0s, 'rw_tied', out_dir, per_eval=p.horizon)
-    prof_g = profile_solve('graph graphed', solve, p.x0s, 'rw_tied', out_dir,
-                           per_eval=p.horizon)
+    # At PROFILE_ITERS too: a trace of 40 back-to-back replays (~125,000
+    # device kernels in ~0.6 s) has lost a quarter of its kernel records
+    # (617 K1 kernels of 820); the smaller a trace, the fewer it loses.
+    prof_g = profile_solve('graph reused',
+                           lambda x: solve(x, PROFILE_ITERS), p.x0s,
+                           'rw_tied', out_dir, per_eval=p.horizon)
     out = dict(launches=launches, loop_iters=iters, profile_eager=prof_e,
-               profile_graphed=prof_g, capture=capture, **timed)
+               profile_reused=prof_g, capture=capture, cache=cache, **timed)
     if prof_e and prof_g:
-        replayed = prof_g['evaluations'] - 2
         log(f'[graph] on {card}: solves/s eager '
             f'{timed["eager"]["solves_per_s"]:.2f}, graphed '
-            f'{timed["graphed"]["solves_per_s"]:.2f}; host launch calls: '
+            f'{timed["graphed"]["solves_per_s"]:.2f}, reused '
+            f'{timed["reused"]["solves_per_s"]:.2f}; host launch calls: '
             f'eager {prof_e["kernel_launches"] / prof_e["evaluations"]:.0f} '
-            f'kernels a value-and-grad; graphed '
-            f'{prof_g["graph_launches"]} graph launches for its {replayed} '
-            f'replayed iterations, and {prof_g["kernel_launches"]} kernel '
-            f'launches (the first value-and-grad, iteration 1 and the '
-            f'capture); device busy {100 * prof_e["device_busy_s"] / prof_e["wall_s"]:.1f}'
+            f'kernels a value-and-grad; reused '
+            f'{prof_g["graph_launches"]} graph launches for its '
+            f'{prof_g["evaluations"]} value-and-grads (the init graph and '
+            f'one step graph an iteration), and {prof_g["kernel_launches"]} '
+            f'kernel launches (the inputs\' copies and the result\'s); '
+            f'device busy {100 * prof_e["device_busy_s"] / prof_e["wall_s"]:.1f}'
             f' % of the eager solve, '
             f'{100 * prof_g["device_busy_s"] / prof_g["wall_s"]:.1f} % of '
-            f'the graphed one; its {capture["captures"]} capture '
-            f'{1e3 * capture["capture_s"]:.1f} ms '
-            f'({100 * capture["capture_share"]:.1f} % of the solve)')
+            f'the reused one; the first reused solve\'s 2 captures '
+            f'{1e3 * capture["reused"]["capture_s"]:.1f} ms '
+            f'({100 * capture["reused"]["capture_share"]:.1f} % of it)')
     return out
 
 
@@ -1668,7 +1790,9 @@ def phase_recipe(dev, b, j64, j_uref, card, lane_counts=RECIPE_WIDTHS):
     rollout and no other kernel, each rollout at one of `lane_counts` (the
     B = 256 ones phase 3 checked; None, at another B, skips that check); its
     diag counters, its cost excess against the f64 reference controls (fails
-    at p90 >= RECIPE_P90_MAX) and its solves/s over fresh x0s."""
+    at p90 >= RECIPE_P90_MAX) and its solves/s over fresh x0s eager, graphed
+    and reused in turns, equal to the bit; over its reused calls each key
+    is captured once (cache_note)."""
     import torch
     from gpmpc_tpu_torch.mpc.solver import SolverConfig
     from gpmpc_tpu_torch.parallel.batch import solve_batch_multistart_retired
@@ -1714,7 +1838,15 @@ def phase_recipe(dev, b, j64, j_uref, card, lane_counts=RECIPE_WIDTHS):
         f'{capture["capture_s"]:.3f} s ({100 * capture["capture_share"]:.1f} '
         f'%, median {1e3 * capture["capture_median_s"]:.2f} ms)')
     out = score_and_time('recipe', b, solve, res, j64, j_uref, RECIPE_REPS,
-                         dev, both=True)
+                         dev, modes=MODES)
+    n, secs = reused_captures(out)
+    cache = cache_note('recipe', capture['captures'] + n,
+                       capture['capture_s'] + secs)
+    log(f'[recipe] solves/s on {RECIPE_REPS} fresh batch (the eager recipe '
+        f'costs ~25 s a batch, so every mode is timed on one): eager '
+        f'{out["eager"]["solves_per_s"]:.3f}, graphed '
+        f'{out["graphed"]["solves_per_s"]:.3f}, reused '
+        f'{out["solves_per_s"]:.3f}; the reused call captured {n} graphs')
     q = out['quality']
     log(f'[recipe] beside the JAX recipe on a TPU (BENCH_r05.json): p90 '
         f'{q["p90"]:.4%} (JAX {JAX_RECIPE_BAR["p90"]:.2%}), lanes >1% '
@@ -1727,18 +1859,18 @@ def phase_recipe(dev, b, j64, j_uref, card, lane_counts=RECIPE_WIDTHS):
                              f'below {RECIPE_P90_MAX:.0%}')
     return dict(launches=counts['K1 f64'], propagated_rollouts=rollouts,
                 rollout_lanes=widths, diag=diag, first_wall_s=wall,
-                capture=capture, **out)
+                capture=capture, cache=cache, **out)
 
 
 def phase_full_cov(dev, b, ref, card, out_dir):
     """Phase 5e: the full-covariance headline solve, solve_batch(full_cov=
     True): its f64 objective and gradient against the JAX package's (K1 f64
     and the eigensolver, H launches each a rollout); then the f32 solve at
-    ITERS iterations, eagerly (eager_loop) and graphed, each counted (H (1 +
-    iters) launches of K1 f64 and of the eigensolver and no other kernel),
-    the two equal to the bit and the graph's kernel nodes exactly H K1 f64
-    and H eigensolver launches a replay; solves/s of both over
-    FULL_COV_REPS fresh-x0 batches in turns; the graphed solve at
+    ITERS iterations eager, graphed and reused (counted_modes), each
+    counted (H (1 + iters) launches of K1 f64 and of the eigensolver and no
+    other kernel), the three equal to the bit and each program's graphs
+    exactly H K1 f64 and H eigensolver launches a replay; solves/s of the
+    three over FULL_COV_REPS fresh-x0 batches in turns; the reused solve at
     FULL_COV_PROFILE_ITERS under the profiler (H K1 kernels a
     value-and-grad in the device trace)."""
     import torch
@@ -1788,47 +1920,76 @@ def phase_full_cov(dev, b, ref, card, out_dir):
 
     desc = (f'solve_batch(full_cov=True) B={b} H={p.horizon} '
             f'max_iters={ITERS}')
-    with eager_loop():
-        res_e, _, _ = solve_checked('full cov eager', desc, solve, p.x0s,
-                                    'K1 f64', 1, p.horizon, cost0,
-                                    also=('eigh',))
-    with capture_walls() as walls:
-        t0 = time.perf_counter()
-        res, launches, loop_iters = solve_checked(
-            'full cov', desc, solve, p.x0s, 'K1 f64', 1, p.horizon, cost0,
-            also=('eigh',))
-        capture = capture_note(walls, time.perf_counter() - t0)
-    same_bits('full cov headline', res_e, res)
     want = {'LAUNCHES': p.horizon, 'LAUNCHES_F64': p.horizon,
             'LAUNCHES_EIGH': p.horizon}
-    if capture['replay_launches'] != [want]:
-        raise AssertionError(f'full cov: the graph holds '
-                             f'{capture["replay_launches"]} kernel launches '
-                             f'a replay, expected one graph of {want}')
-    log(f'[full cov] eager and graphed equal to the bit (u, cost, iters, '
-        f'pg_norm, converged) ok; the graph\'s kernel nodes hold {want} '
-        f'launches a replay ok; its capture {1e3 * capture["capture_s"]:.1f}'
-        f' ms ({100 * capture["capture_share"]:.1f} % of the graphed solve)')
+    _, launches, loop_iters, capture = counted_modes(
+        'full cov', desc, solve, p.x0s, 'K1 f64', p.horizon, cost0, want,
+        also=('eigh',))
     log('[full cov] no f64 reference solve exists for the full-covariance '
         'objective: no cost excess is recorded')
-    timed = time_solves('full cov', b, solve, FULL_COV_REPS, dev, modes=BOTH)
+    timed = time_solves('full cov', b, solve, FULL_COV_REPS, dev, modes=MODES)
+    n, secs = reused_captures(timed['reused'])
+    cache = cache_note('full cov', 2 + n,
+                       capture['reused']['capture_s'] + secs)
     prof = profile_solve(
-        'full cov graphed', lambda x0s: solve(x0s, FULL_COV_PROFILE_ITERS),
+        'full cov reused', lambda x0s: solve(x0s, FULL_COV_PROFILE_ITERS),
         p.x0s, 'rw_tied', out_dir, per_eval=p.horizon)
     if prof:
         log(f'[full cov] on {card}: solves/s eager '
             f'{timed["eager"]["solves_per_s"]:.2f}, graphed '
-            f'{timed["graphed"]["solves_per_s"]:.2f}; the graphed solve at '
-            f'{FULL_COV_PROFILE_ITERS} iterations: device busy '
-            f'{100 * prof["device_busy_s"] / prof["wall_s"]:.1f} % of its '
-            f'wall, {prof["kernel_launches"]} host kernel launches (the '
-            f'first value-and-grad, iteration 1 and the capture), '
+            f'{timed["graphed"]["solves_per_s"]:.2f}, reused '
+            f'{timed["reused"]["solves_per_s"]:.2f}; the reused solve at '
+            f'{FULL_COV_PROFILE_ITERS} iterations (its own program): device '
+            f'busy {100 * prof["device_busy_s"] / prof["wall_s"]:.1f} % of '
+            f'its wall, {prof["kernel_launches"]} host kernel launches, '
             f'{prof["graph_launches"]} graph launches')
     return dict(launches=launches, eigh_launches=launches,
                 loop_iters=loop_iters, rel_j=rel_j, rel_g=rel_g,
                 penalised_lanes_at_uref=penalised, capture=capture,
-                profile_graphed=prof, **timed['graphed'],
-                eager=timed['eager'])
+                cache=cache, profile_reused=prof, **timed['reused'],
+                eager=timed['eager'], graphed=timed['graphed'])
+
+
+def _demangle(name: str) -> str:
+    """A C++ symbol as the profiler names its kernel (the mangled name if
+    libstdc++ cannot demangle it)."""
+    import ctypes
+    try:
+        f = ctypes.CDLL('libstdc++.so.6').__cxa_demangle
+    except (OSError, AttributeError):
+        return name
+    f.restype = ctypes.c_char_p
+    status = ctypes.c_int(-1)
+    out = f(name.encode(), None, None, ctypes.byref(status))
+    return out.decode() if status.value == 0 and out else name
+
+
+def replayed_nodes(before: dict, after: dict) -> dict:
+    """The kernel nodes run by the replays between two
+    `replay_counts.replays_run()` snapshots, by the name the profiler gives
+    a kernel."""
+    from collections import Counter
+    nodes = Counter()
+    for graph, n in after.items():
+        times = n - before.get(graph, 0)
+        for name, k in (graph.names.items() if times else ()):
+            nodes[_demangle(name)] += k * times
+    return nodes
+
+
+def _trace(solve, x0s):
+    """One solve under torch.profiler: the profiler, the result, the wall,
+    and the kernel nodes that the replays of captured graphs ran in it, by
+    name."""
+    from torch.profiler import ProfilerActivity, profile
+    from gpmpc_tpu_torch.utils import replay_counts
+    before = replay_counts.replays_run()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = solve(x0s)
+        sync(x0s.device)
+        wall = time.perf_counter() - t0
+    return prof, res, wall, replayed_nodes(before, replay_counts.replays_run())
 
 
 def profile_solve(tag, solve, x0s, kernel, out_dir, per_eval=None):
@@ -1838,29 +1999,48 @@ def profile_solve(tag, solve, x0s, kernel, out_dir, per_eval=None):
     each also per value-and-grad (1 + iterations of them a solve). With
     per_eval, raises unless the device ran exactly per_eval x (1 +
     iterations) of `kernel` (replays of a captured graph included: the
-    profiler traces each kernel node a replay runs). The table goes to
-    out_dir/chip_smoke_profile_<tag>.txt."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    profiler traces each kernel node a replay runs). The profiler can lose
+    device records (a trace of 40 replays, ~125,000 kernels, has lost a
+    quarter), so that count is read only from a trace that lost none that
+    can be told: none of the kernel nodes its replays ran (by name,
+    utils/replay_counts.replays_run), and, where nothing was replayed, none
+    of the kernels the host launched. With per_eval, a trace that lost
+    some is taken again, up to PROFILE_TRACES in all, and none whole
+    raises. The table goes to out_dir/chip_smoke_profile_<tag>.txt."""
+    from collections import Counter
     dev = x0s.device
     solve(x0s)
     sync(dev)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        res = solve(x0s)
-        sync(dev)
-        wall = time.perf_counter() - t0
+    for trace in range(1, PROFILE_TRACES + 1):
+        prof, res, wall, nodes = _trace(solve, x0s)
+        events = [e for e in prof.events() if e.device_type.name == 'CUDA']
+        # The host's launch calls (cudaLaunchKernel*, cuLaunchKernel*):
+        # kernels, and graphs (cudaGraphLaunch).
+        launch_calls = {}
+        for e in prof.events():
+            if (e.device_type.name == 'CPU' and e.name.startswith('cu')
+                    and 'Launch' in e.name):
+                launch_calls[e.name] = launch_calls.get(e.name, 0) + 1
+        graph_launches = sum(n for k, n in launch_calls.items()
+                             if 'Graph' in k)
+        kernel_launches = sum(launch_calls.values()) - graph_launches
+        seen = Counter(e.name for e in events
+                       if not e.name.startswith(('Memcpy', 'Memset')))
+        n_kernels = sum(seen.values())
+        if nodes:
+            lost = sum(max(0, n - seen[k]) for k, n in nodes.items())
+        else:
+            lost = max(0, kernel_launches - n_kernels)
+        if lost == 0 or per_eval is None or not events:
+            break
+        log(f'[profile] {tag}: trace {trace} lost {lost} of the '
+            f'{sum(nodes.values()) or kernel_launches} kernels that '
+            f'{"its replays" if nodes else "the host"} ran; tracing again')
+    if per_eval is not None and events and lost:
+        raise AssertionError(f'{tag}: each of {PROFILE_TRACES} traces lost '
+                             f'kernel records (the last {lost}): the count '
+                             f'of {kernel} cannot be read')
     evals = 1 + int(res.iters.max())
-    events = [e for e in prof.events() if e.device_type.name == 'CUDA']
-    # The host's launch calls (cudaLaunchKernel*, cuLaunchKernel*): kernels,
-    # and graphs (cudaGraphLaunch).
-    launch_calls = {}
-    for e in prof.events():
-        if (e.device_type.name == 'CPU' and e.name.startswith('cu')
-                and 'Launch' in e.name):
-            launch_calls[e.name] = launch_calls.get(e.name, 0) + 1
-    graph_launches = sum(n for k, n in launch_calls.items() if 'Graph' in k)
-    kernel_launches = sum(launch_calls.values()) - graph_launches
     busy_us = sum(e.time_range.elapsed_us() for e in events)
     k_events = [e for e in events if kernel in e.name]
     k_us = sum(e.time_range.elapsed_us() for e in k_events)
@@ -1883,8 +2063,11 @@ def profile_solve(tag, solve, x0s, kernel, out_dir, per_eval=None):
     if per_eval is not None and len(k_events) != per_eval * evals:
         raise AssertionError(f'{tag}: the device ran {len(k_events)} '
                              f'{kernel} kernels, expected {per_eval} x '
-                             f'{evals} value-and-grads')
-    out = dict(evaluations=evals, wall_s=wall, device_busy_s=busy_us / 1e6,
+                             f'{evals} value-and-grads (the trace holds '
+                             f'{len(events)} device kernels in {wall:.4f} s)')
+    out = dict(evaluations=evals, traces=trace, lost_kernels=lost,
+               replayed_kernels=sum(nodes.values()), wall_s=wall,
+               device_busy_s=busy_us / 1e6,
                device_kernels=len(events), kernel_s=k_us / 1e6,
                kernel_calls=len(k_events),
                collective_calls=coll_calls,
@@ -1894,7 +2077,9 @@ def profile_solve(tag, solve, x0s, kernel, out_dir, per_eval=None):
     log(f'[profile] {tag}, one solve of {evals} value-and-grads under the '
         f'profiler: wall {wall:.4f} s, device busy {busy_us / 1e6:.4f} s '
         f'({100 * busy_us / 1e6 / wall:.1f}%), {len(events)} device kernels '
-        f'({len(events) / evals:.0f} a value-and-grad), {len(k_events)} '
+        f'({len(events) / evals:.0f} a value-and-grad; {n_kernels} '
+        f'kernels: {sum(nodes.values())} replayed, {kernel_launches} host '
+        f'launches, {lost} lost; trace {trace}), {len(k_events)} '
         f'{kernel}{"" if per_eval is None else f" (= {per_eval} x {evals} ok)"}'
         f' {k_us / 1e6:.4f} s ({100 * k_us / max(busy_us, 1):.1f}% of busy); '
         f'all_reduce calls {coll_calls}, host time {coll_host_us / 1e6:.4f} s;'
@@ -2330,15 +2515,17 @@ def count_steps(mpc, steps: list, horizon: int):
 
 
 def check_loop_step(tag, mpc, x, horizon, reps, dev, full_cov=False):
-    """One control step of `mpc` from state x, `reps` times with the
-    solver's loop eager (eager_loop) and `reps` times graphed, in turns, the
-    controller's last trajectory (u_prev) reset before each: every step
-    launches exactly H * (1 + iters) of K1 (tied) or K2 (untied) on the
-    B = 1 route, and with full_cov (the controller's full covariance, for
-    these steps) as many of the eigensolver; each graphed step's graph
-    holds exactly H of each a replay by its kernel nodes, and each pair's
-    results are equal to the bit. Returns the step walls (synchronized) of
-    each mode and their p50."""
+    """One control step of `mpc` from state x, `reps` times in each of MODES
+    (loop_mode), in turns, the order rotating each round, the controller's
+    last trajectory (u_prev) reset before each: every step launches exactly
+    H * (1 + iters) of K1 (tied) or K2 (untied) on the B = 1 route, and with
+    full_cov (the controller's full covariance, for these steps) as many of
+    the eigensolver; each round's three results are equal to the bit; each
+    graphed step captures its program's two graphs, each holding exactly H
+    of each a replay by its kernel nodes; the reused steps capture the
+    key's two graphs once in all (none where the key is kept already, as
+    the episode's own). Returns the step walls (synchronized) of each mode,
+    their p50 and their captures."""
     import torch
     traj, own_cov = mpc.last_traj.copy(), mpc.full_cov
     mpc.full_cov = full_cov
@@ -2349,24 +2536,19 @@ def check_loop_step(tag, mpc, x, horizon, reps, dev, full_cov=False):
                                      else {})})
     if full_cov:
         each['LAUNCHES_EIGH'] = horizon
-    walls = {'eager': [], 'graphed': []}
-    captures = {'eager': [], 'graphed': []}
-    launched = {'eager': [], 'graphed': []}
-    captured = 0
+    walls = {m: [] for m in MODES}
+    captures = {m: [] for m in MODES}
+    launched = {m: [] for m in MODES}
     for rep in range(reps):
         res = {}
-        for mode in (('eager', 'graphed') if rep % 2 == 0
-                     else ('graphed', 'eager')):
+        k = rep % len(MODES)
+        for mode in MODES[k:] + MODES[:k]:
             mpc.last_traj = traj.copy()
             reset_counts()
-            with (eager_loop() if mode == 'eager' else contextlib.nullcontext(),
-                  capture_walls() as cap):
+            with loop_mode(mode), capture_walls() as cap:
                 _, wall = _timed(lambda: mpc.get_optimal_trajectory(x), dev)
-            captures[mode].extend(cap)
+            captures[mode].append(cap)
             r = res[mode] = mpc.last_result
-            if mode == 'graphed':
-                # A solve captures a graph where it runs past iteration 1.
-                captured += int(r.iters) >= 2
             got, want = _loop_launches(), horizon * (1 + int(r.iters))
             if (got[kernel] != want or got['eigh'] != want * full_cov
                     or sum(got.values()) != want * (1 + full_cov)):
@@ -2375,42 +2557,51 @@ def check_loop_step(tag, mpc, x, horizon, reps, dev, full_cov=False):
                                      + (' and eigh' if full_cov else ''))
             walls[mode].append(wall)
             launched[mode].append(got)
-        same_bits(f'{tag} step {rep}', res['eager'], res['graphed'])
+        for mode in MODES[1:]:
+            same_bits(f'{tag} step {rep} {MODES[0]} vs {mode}',
+                      res[MODES[0]], res[mode])
     mpc.last_traj, mpc.full_cov = traj, own_cov
-    if captures['eager']:
-        raise AssertionError(f'{tag}: eager steps captured a graph')
+    graphs = {m: [n for cap in c for _, n in cap] for m, c in captures.items()}
+    if (graphs['eager'] or graphs['graphed'] != [each] * 2 * reps
+            or graphs['reused'] not in ([], [each] * 2)
+            or any(captures['reused'][1:])):
+        raise AssertionError(f'{tag}: the steps\' graphs hold {graphs} kernel '
+                             f'launches a replay, expected none eager, two of '
+                             f'{each} each graphed step, and two or none in '
+                             'all, on the first, reused')
     out = {mode: dict(walls=w, wall_p50_s=float(np.median(w)),
-                      launches=launched[mode])
+                      launches=launched[mode],
+                      capture=capture_note([c for cap in captures[mode]
+                                            for c in cap], sum(w)))
            for mode, w in walls.items()}
-    out['graphed']['capture'] = capture_note(captures['graphed'],
-                                             sum(walls['graphed']))
-    graphs = out['graphed']['capture']['replay_launches']
-    if len(graphs) != captured or any(n != each for n in graphs):
-        raise AssertionError(f'{tag}: the graphed steps\' graphs hold '
-                             f'{graphs} kernel launches a replay, expected '
-                             f'{captured} of {each}')
-    log(f'[loop {tag}] one step from the last state, eager and graphed in '
+    log(f'[loop {tag}] one step from the last state, {", ".join(MODES)} in '
         f'turns, {reps} each: {kernel}{" and eigh" if full_cov else ""} = '
         f'H * (1 + iters) each, each graph\'s kernel nodes {each} a replay, '
-        f'equal to the bit ok; wall p50 eager {out["eager"]["wall_p50_s"]:.4f} s, graphed '
-        f'{out["graphed"]["wall_p50_s"]:.4f} s (walls eager '
-        f'{[round(w, 4) for w in walls["eager"]]}, graphed '
-        f'{[round(w, 4) for w in walls["graphed"]]}); a graphed step\'s '
-        f'capture median '
-        f'{1e3 * out["graphed"]["capture"]["capture_median_s"]:.2f} ms '
-        f'({100 * out["graphed"]["capture"]["capture_share"]:.1f} % of the '
-        f'graphed walls)')
+        f'equal to the bit ok; wall p50 '
+        + ', '.join(f'{m} {out[m]["wall_p50_s"]:.4f} s' for m in MODES)
+        + f' (walls {dict((m, [round(w, 4) for w in walls[m]]) for m in MODES)}'
+        f'); captures: graphed {len(graphs["graphed"])} (median '
+        f'{1e3 * out["graphed"]["capture"]["capture_median_s"]:.2f} ms), '
+        f'reused {len(graphs["reused"])}')
     return out
 
 
-def _log_steps(tag, steps):
+def _log_steps(tag, steps, walls):
+    """Each step's log line; the episode's step p50 and max, K1 and K2
+    launches, and its captures (walls: capture_walls of the episode)."""
     for i, r in enumerate(steps):
         log(f'[loop {tag}] step {i}: {r["wall_s"]:.3f} s, iters {r["iters"]}, '
             f'K1 {r["K1"]} K2 {r["K2"]}, u0 {r["u0"]:+.4f}')
-    walls = [r['wall_s'] for r in steps]
-    return dict(steps=steps, wall_p50_s=float(np.median(walls)),
-                wall_max_s=float(np.max(walls)),
-                k1=sum(r['K1'] for r in steps), k2=sum(r['K2'] for r in steps))
+    step_walls = [r['wall_s'] for r in steps]
+    out = dict(steps=steps, wall_p50_s=float(np.median(step_walls)),
+               wall_max_s=float(np.max(step_walls)),
+               k1=sum(r['K1'] for r in steps), k2=sum(r['K2'] for r in steps),
+               captures=len(walls),
+               capture_s=float(sum(w for w, _ in walls)))
+    log(f'[loop {tag}] {len(steps)} steps: step wall p50 '
+        f'{out["wall_p50_s"]:.4f} s, max {out["wall_max_s"]:.4f} s; '
+        f'{len(walls)} captures in the episode ({out["capture_s"]:.3f} s)')
+    return out
 
 
 def _timed(fn, dev):
@@ -2500,7 +2691,11 @@ def phase_closed_loop(dev, checked, ref_path, out_dir):
         count_steps(mpc, steps, 8)
         env = PendulumEnv(params=params, device=dev,
                           init_state={'th_init': 1.0, 'thdot_init': 0.5})
-        ep = Simulator(mpc, env, num_iters=SWING_STEPS).run()
+        with capture_walls() as ep_walls:
+            ep = Simulator(mpc, env, num_iters=SWING_STEPS).run()
+        if len(ep_walls) != 2:
+            raise AssertionError(f'swing-up: the episode took {len(ep_walls)}'
+                                 ' captures, expected its one key\'s two')
         n_ref = ref['ep_actions'].shape[0]
         np.testing.assert_allclose(ep.actions[:n_ref], ref['ep_actions'],
                                    rtol=0, atol=LOOP_ACTION_ATOL,
@@ -2547,7 +2742,7 @@ def phase_closed_loop(dev, checked, ref_path, out_dir):
             iters_vs_jax=[ep.iters[:n_ref].tolist(), ref['ep_iters'].tolist()],
             profile=prof, graph_step=graph_step,
             graph_step_full_cov=graph_step_full,
-            **_log_steps('swing-up', steps))
+            **_log_steps('swing-up', steps, ep_walls))
         r = out['swing_up']
         log(f'[loop swing-up] f64 N=512: train_gp(80) {train_s:.3f} s, {res.iters}'
             f' iters (JAX {int(ref["train_iters"])}), hyperparameters vs JAX '
@@ -2569,14 +2764,15 @@ def phase_closed_loop(dev, checked, ref_path, out_dir):
         append_s, at = time_append(mpc, dev)
         steps = []
         count_steps(mpc, steps, 8)
-        ep = Simulator(mpc, env, num_iters=PRETRAIN_STEPS).run()
+        with capture_walls() as ep_walls:
+            ep = Simulator(mpc, env, num_iters=PRETRAIN_STEPS).run()
         if not (np.all(np.isfinite(ep.costs))
                 and np.all(np.abs(ep.actions) <= params.max_torque + 1e-6)):
             raise AssertionError(f'pretrain_pendulum: costs {ep.costs}, '
                                  f'actions {ep.actions.ravel()}')
         out['pretrain_pendulum'] = dict(train_s=train_s, train_iters=res.iters,
                                         append_refit_s=append_s, append_at=at,
-                                        **_log_steps('pendulum', steps))
+                                        **_log_steps('pendulum', steps, ep_walls))
         r = out['pretrain_pendulum']
         log(f'[loop pendulum] f32 multistart n_starts={LOOP_N_STARTS}: '
             f'train_gp(150) {train_s:.3f} s ({res.iters} iters), '
@@ -2592,14 +2788,15 @@ def phase_closed_loop(dev, checked, ref_path, out_dir):
         append_s, at = time_append(mpc, dev)
         steps = []
         count_steps(mpc, steps, 5)
-        ep = Simulator(mpc, env, num_iters=PRETRAIN_STEPS).run()
+        with capture_walls() as ep_walls:
+            ep = Simulator(mpc, env, num_iters=PRETRAIN_STEPS).run()
         if not (np.all(np.isfinite(ep.costs))
                 and np.all(np.abs(ep.actions) <= 1.0 + 1e-6)):
             raise AssertionError(f'pretrain_cartpole: costs {ep.costs}, '
                                  f'actions {ep.actions.ravel()}')
         out['pretrain_cartpole'] = dict(train_s=train_s, train_iters=res.iters,
                                         append_refit_s=append_s, append_at=at,
-                                        **_log_steps('cartpole', steps))
+                                        **_log_steps('cartpole', steps, ep_walls))
         r = out['pretrain_cartpole']
         log(f'[loop cartpole] f32: train_gp(150) {train_s:.3f} s '
             f'({res.iters} iters), append-and-refit {append_s * 1e3:.2f} ms; '
@@ -2623,11 +2820,12 @@ def phase_closed_loop(dev, checked, ref_path, out_dir):
                         gamma=torch.tensor(0.0, **f64),
                         x_ref=torch.zeros(2, **f64), u_ref=torch.zeros(1, **f64))
         reset_counts()
-        (gp_f, outs), wall = _timed(lambda: run_episode_on_device(
-            gp, lambda st, u: pendulum.step(st, u, p),
-            torch.tensor([0.5, 0.0], **f64), cp, horizon=3,
-            num_steps=DEVICE_EPISODE_STEPS, lb=-3.0, ub=3.0,
-            solver=SolverConfig(max_iters=25), delta_dynamics=True), dev)
+        with capture_walls() as ep_walls:
+            (gp_f, outs), wall = _timed(lambda: run_episode_on_device(
+                gp, lambda st, u: pendulum.step(st, u, p),
+                torch.tensor([0.5, 0.0], **f64), cp, horizon=3,
+                num_steps=DEVICE_EPISODE_STEPS, lb=-3.0, ub=3.0,
+                solver=SolverConfig(max_iters=25), delta_dynamics=True), dev)
         if not (outs['state'].shape == (DEVICE_EPISODE_STEPS, 2)
                 and bool(torch.isfinite(outs['state']).all())
                 and int(gp_f.count) == 20 + DEVICE_EPISODE_STEPS
@@ -2635,11 +2833,17 @@ def phase_closed_loop(dev, checked, ref_path, out_dir):
                 and outs['state'].device == gp.x.device):
             raise AssertionError(f'run_episode_on_device: {outs}, count '
                                  f'{int(gp_f.count)}')
-        out['device_episode'] = dict(wall_s=wall, **_loop_launches())
+        if len(ep_walls) != 2:
+            raise AssertionError(f'run_episode_on_device: {len(ep_walls)} '
+                                 'captures, expected its one key\'s two')
+        out['device_episode'] = dict(wall_s=wall, captures=len(ep_walls),
+                                     **_loop_launches())
         log(f'[loop on device] run_episode_on_device {DEVICE_EPISODE_STEPS} '
             f'steps: states finite on the card, count {int(gp_f.count)} = 20 + '
             f'{DEVICE_EPISODE_STEPS}, actions in bounds ok; {wall:.3f} s '
-            f'(the single-scenario rollout: launches {_loop_launches()})')
+            f'(the single-scenario rollout: launches {_loop_launches()}); its '
+            f'L-BFGS solves through one kept program: {len(ep_walls)} '
+            'captures in the episode')
     unchecked = {k: v for k, v in shapes.items() if k not in checked}
     if unchecked:
         raise AssertionError(f'closed loop: K1/K2 launched at shapes phase 3c '
@@ -2983,7 +3187,8 @@ def phase_sparse_3b(dev, ref, jax_tpu):
     f64 parity, then the plain solve_batch at SPARSE_ITERS, counted (exactly
     H (1 + iters) K1 f64 launches and no other kernel), scored against the
     f64 reference controls (fails at p90 >= 1 %) and timed over fresh
-    x0s."""
+    x0s, eager, graphed and reused in turns (counted_modes, time_solves),
+    each key captured once over the reused calls."""
     import torch
     from gpmpc_tpu_torch.dynamics import build_rollout_cache
     from gpmpc_tpu_torch.mpc.solver import SolverConfig
@@ -3004,21 +3209,10 @@ def phase_sparse_3b(dev, ref, jax_tpu):
                            cfg)
 
     desc = f'solve_batch B={b} H={p.horizon} M=128 max_iters={SPARSE_ITERS}'
-    with eager_loop():
-        res_e, _, _ = solve_checked('sparse 3b eager', desc, solve, p.x0s,
-                                    'K1 f64', 1, p.horizon, cost0)
-    with capture_walls() as walls:
-        res, launches, loop_iters = solve_checked(
-            'sparse 3b', desc, solve, p.x0s, 'K1 f64', 1, p.horizon, cost0)
-    same_bits('sparse 3b', res_e, res)
     want = {'LAUNCHES': p.horizon, 'LAUNCHES_F64': p.horizon}
-    if [n for _, n in walls] != [want]:
-        raise AssertionError(f'sparse 3b: the graph holds '
-                             f'{[n for _, n in walls]} kernel launches a '
-                             f'replay, expected one graph of {want}')
-    log(f'[sparse 3b] eager and graphed equal to the bit (u, cost, iters, '
-        f'pg_norm, converged) ok; the graph\'s kernel nodes hold {want} '
-        f'launches a replay ok')
+    res_m, launches, loop_iters, capture = counted_modes(
+        'sparse 3b', desc, solve, p.x0s, 'K1 f64', p.horizon, cost0, want)
+    res = res_m['reused']
     quality = cost_excess(j64, res.u, j_uref)
     log(f'[sparse 3b] cost excess vs f64 u_ref: p50 {quality["p50"]:.4%} p90 '
         f'{quality["p90"]:.4%} max {quality["max"]:.4%}, lanes >1% '
@@ -3031,21 +3225,27 @@ def phase_sparse_3b(dev, ref, jax_tpu):
                              f' not below {SPARSE_P90_MAX:.0%}')
     timed = time_solves('sparse 3b', b, solve, SPARSE_REPS, dev,
                         lambda rng: rng.uniform(-0.2, 0.2, (b, 4)),
-                        modes=BOTH)
+                        modes=MODES)
+    n, secs = reused_captures(timed['reused'])
+    cache = cache_note('sparse 3b', 2 + n,
+                       capture['reused']['capture_s'] + secs)
     return dict(launches=launches, loop_iters=loop_iters, quality=quality,
-                parity=parity, **timed['graphed'], eager=timed['eager'])
+                parity=parity, capture=capture, cache=cache,
+                **timed['reused'], eager=timed['eager'],
+                graphed=timed['graphed'])
 
 
 def phase_sparse_fullcov(dev, ref, jax_tpu):
     """Phase 8b: suite config 4 (B = 64, H = 50, the FITC GP of M = 128,
     (d, E) = (3, 2), gamma = -0.01, full covariance): the f64 objective and
     gradient at u_ref against JAX's; the f32 solve at FULLCOV_BITS_ITERS
-    eagerly and graphed, each counted (H (1 + iters) launches of K1 f64 and
-    of the eigensolver, no other kernel), equal to the bit; then the suite's
-    FULLCOV_H50_ITERS-iteration solve graphed, counted the same way, its
-    graph's kernel nodes H K1 f64 and H eigensolver launches a replay,
-    timed, its cost excess recorded beside the JAX package's (no gate: the
-    JAX package's own solve reads p50 347 % on a TPU, VERDICT.md)."""
+    eager, graphed and reused, each counted (H (1 + iters) launches of K1
+    f64 and of the eigensolver, no other kernel), equal to the bit; then
+    the suite's FULLCOV_H50_ITERS-iteration solve as callers run it,
+    counted the same way, its program's graphs H K1 f64 and H eigensolver
+    launches a replay, timed in the three modes in turns, its cost excess
+    recorded beside the JAX package's (no gate: the JAX package's own solve
+    reads p50 347 % on a TPU, VERDICT.md)."""
     import torch
     from gpmpc_tpu_torch.dynamics import build_rollout_cache
     from gpmpc_tpu_torch.mpc.solver import SolverConfig
@@ -3075,38 +3275,43 @@ def phase_sparse_fullcov(dev, ref, jax_tpu):
     def bits_solve(x0s):
         return solve(x0s, FULLCOV_BITS_ITERS)
 
-    with eager_loop():
-        res_e, _, _ = solve_checked(
-            'sparse 4 eager', desc(FULLCOV_BITS_ITERS), bits_solve, p.x0s,
-            'K1 f64', 1, p.horizon, cost0, also=('eigh',))
-    res_g, _, _ = solve_checked(
-        'sparse 4 graphed', desc(FULLCOV_BITS_ITERS), bits_solve, p.x0s,
-        'K1 f64', 1, p.horizon, cost0, also=('eigh',))
-    same_bits('sparse 4', res_e, res_g)
-    log(f'[sparse 4] at {FULLCOV_BITS_ITERS} iterations eager and graphed '
-        f'equal to the bit (u, cost, iters, pg_norm, converged) ok')
+    want = {'LAUNCHES': p.horizon, 'LAUNCHES_F64': p.horizon,
+            'LAUNCHES_EIGH': p.horizon}
+    _, _, _, bits_capture = counted_modes(
+        'sparse 4', desc(FULLCOV_BITS_ITERS), bits_solve, p.x0s, 'K1 f64',
+        p.horizon, cost0, want, also=('eigh',))
     with capture_walls() as walls:
         (res, launches, loop_iters), wall = _timed(lambda: solve_checked(
             'sparse 4', desc(FULLCOV_H50_ITERS), solve, p.x0s, 'K1 f64', 1,
             p.horizon, cost0, also=('eigh',)), dev)
     capture = capture_note(walls, wall)
-    want = {'LAUNCHES': p.horizon, 'LAUNCHES_F64': p.horizon,
-            'LAUNCHES_EIGH': p.horizon}
-    if capture['replay_launches'] != [want]:
-        raise AssertionError(f'sparse 4: the graph holds '
+    if capture['replay_launches'] != [want] * 2:
+        raise AssertionError(f'sparse 4: the graphs hold '
                              f'{capture["replay_launches"]} kernel launches '
-                             f'a replay, expected one graph of {want}')
+                             f'a replay, expected two of {want}')
+    timed = time_solves('sparse 4', b, solve, 1, dev,
+                        lambda rng: p.x0s.cpu().numpy(), modes=MODES)
+    n, secs = reused_captures(timed['reused'])
+    cache = cache_note('sparse 4', 4 + n,
+                       bits_capture['reused']['capture_s']
+                       + capture['capture_s'] + secs)
     quality = cost_excess(j64, res.u, j_uref)
-    log(f'[sparse 4] the graph\'s kernel nodes hold {want} launches a '
-        f'replay ok; one graphed solve {wall:.3f} s ({b / wall:.2f} solves/s,'
-        f' {1e3 * wall / (1 + loop_iters):.1f} ms a value-and-grad, its '
-        f'capture {1e3 * capture["capture_s"]:.1f} ms); cost excess vs f64 '
+    log(f'[sparse 4] the program\'s graphs hold {want} launches a replay '
+        f'ok; the first solve {wall:.3f} s ({b / wall:.2f} solves/s, its two '
+        f'captures {1e3 * capture["capture_s"]:.1f} ms); then eager '
+        f'{timed["eager"]["walls"][0]:.3f} s, graphed '
+        f'{timed["graphed"]["walls"][0]:.3f} s, reused '
+        f'{timed["reused"]["walls"][0]:.3f} s ('
+        f'{1e3 * timed["reused"]["walls"][0] / (1 + loop_iters):.1f} ms a '
+        f'value-and-grad); cost excess vs f64 '
         f'u_ref: p50 {quality["p50"]:.4%} p90 {quality["p90"]:.4%}, lanes >1%'
         f' {quality["lanes_above_1pct"]}/{b} (no gate; the JAX package at 40 '
         f'iterations on a TPU v5e: p50 {jax_tpu["excess_p50"]:.2%})')
     return dict(launches=launches, eigh_launches=launches,
-                loop_iters=loop_iters, wall_s=wall, solves_per_s=b / wall,
-                capture=capture, quality=quality, parity=parity)
+                loop_iters=loop_iters, first_wall_s=wall, capture=capture,
+                cache=cache, quality=quality, parity=parity,
+                **timed['reused'], eager=timed['eager'],
+                graphed=timed['graphed'])
 
 
 def phase_vmap_routes(dev, ref):
@@ -3509,8 +3714,8 @@ def main() -> int:
             plain_ms=t['plain_ms'], bound_ms=t['bound'][0],
             bound_by=t['bound'][1], library_ms=None))
     # The eigensolver's rows (phase 3e): its instance at each shape a path
-    # launches it at, with that path's launches (phase 7b's over its eager
-    # and graphed full-covariance steps).
+    # launches it at, with that path's launches (phase 7b's over its eager,
+    # graphed and reused full-covariance steps).
     loop_full = loop['swing_up']['graph_step_full_cov']
     for (bb, d), dt, part, launches in (
             ((256, 2), f32, 'the headline full-covariance solve, phase 5e',
@@ -3519,7 +3724,7 @@ def main() -> int:
              'solve, phase 8b', sparse['4']['eigh_launches']),
             ((1, 2), f64, "the swing-up controller's route (b) with "
              'full_cov=True, phase 7b',
-             sum(r['eigh'] for mode in BOTH
+             sum(r['eigh'] for mode in MODES
                  for r in loop_full[mode]['launches']))):
         dtn = _DT_NAME[str(dt)]
         t = eigh_times[f'eigh {dtn} B={bb} d={d}']

@@ -8,11 +8,15 @@ solve_batch at 40 iterations (tol 1e-4), with a diagonal covariance and
 with full_cov=True, over fresh x0s (U(-1, 1)^(B, 2) from one seed: the same
 batches in every child), one warm solve of each kind and mode first. Both
 are timed in each mode the child is given, in turns on every batch:
-'as-is' runs the checkout as its callers run it, 'eager' forces the
+'as-is' runs the checkout as its callers run it; 'eager' forces the
 solver's loop eager (mpc/solver.py's `_run_graphed` replaced by
-`_run_eager`, in a checkout that has them). The checkouts run in the order
-A, B, B, A, so that a drift of the card or its host shows as a spread
-between the two runs of one side; checkout B runs both modes, A 'as-is'.
+`_run_eager`, in a checkout that has them); 'graphed' captures each
+solve's program anew and drops it (in a program cache of its own, so the
+kept programs stay), and 'reused' keeps each program across calls (the
+solver's program cache, in a checkout that has one: 'reused' is its
+'as-is'). The checkouts run in the order A, B, B, A, so that a drift of the
+card or its host shows as a spread between the two runs of one side;
+checkout A runs 'as-is', checkout B eager, graphed and reused.
 Each solve reports its wall, its loop iterations and a digest of its
 result's bits (u, cost, iters, pg_norm, converged), so the runs can be
 held to computing the same thing: every diagonal batch across all runs and
@@ -58,6 +62,7 @@ dev = torch.device('cuda')
 p = make_headline_problem(b=b, dtype=torch.float32, device=dev)
 cfg = SolverConfig(max_iters=iters, tol=1e-4)
 graphed = getattr(solver, '_run_graphed', None)
+kept = getattr(solver, '_PROGRAMS', None)
 
 def digest(res):
     h = hashlib.sha256()
@@ -68,13 +73,18 @@ def digest(res):
 def solve(x0s, mode, full_cov):
     if graphed is not None:
         solver._run_graphed = solver._run_eager if mode == 'eager' else graphed
+    if mode == 'graphed':
+        solver._PROGRAMS = type(kept)()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = solve_batch(p.gp, 2, 1, x0s, p.params, p.horizon, p.lb, p.ub, cfg,
                       full_cov=full_cov)
     torch.cuda.synchronize()
-    return dict(wall_s=time.perf_counter() - t0,
-                iters=int(res.iters.max()), digest=digest(res))
+    wall = time.perf_counter() - t0
+    if mode == 'graphed':
+        solver.clear_programs()
+        solver._PROGRAMS = kept
+    return dict(wall_s=wall, iters=int(res.iters.max()), digest=digest(res))
 
 def x0s_of(rng):
     return torch.tensor(rng.uniform(-1, 1, (b, 2)), dtype=torch.float32,
@@ -122,10 +132,11 @@ def main() -> int:
     ap.add_argument('b', help='checkout B (e.g. the change)')
     ap.add_argument('--out', default=None)
     args = ap.parse_args()
+    modes_b = ['eager', 'graphed', 'reused']
     runs = []
     for tag, root, modes in (('A', args.a, ['as-is']),
-                             ('B', args.b, ['eager', 'as-is']),
-                             ('B', args.b, ['eager', 'as-is']),
+                             ('B', args.b, modes_b),
+                             ('B', args.b, modes_b),
                              ('A', args.a, ['as-is'])):
         res = time_checkout(root, modes)
         runs.append(dict(tag=tag, root=root, solves=res))

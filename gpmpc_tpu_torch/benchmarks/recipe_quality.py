@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from gpmpc_tpu_torch.device import resolve_device
+from gpmpc_tpu_torch.mpc import solver
 from gpmpc_tpu_torch.mpc.solver import SolverConfig
 from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
 from gpmpc_tpu_torch.parallel.batch import solve_batch_multistart_retired
@@ -89,13 +90,16 @@ class _Fwd64(torch.autograd.Function):
 @contextlib.contextmanager
 def tied_trace(fn):
     """The tied variance trace computed by `fn` for the length of the
-    block."""
+    block. A kept solve program replays the trace its capture recorded, so
+    the programs go on the way in and on the way out."""
     orig = vt.variance_trace_batched_tied
+    solver.clear_programs()
     vt.variance_trace_batched_tied = fn
     try:
         yield
     finally:
         vt.variance_trace_batched_tied = orig
+        solver.clear_programs()
 
 
 def run(device=None, b=256, seeds=(0, 1, 2)) -> dict:

@@ -50,6 +50,24 @@ class RolloutCache:
     # The GP's nominal mean model (GPConfig.nominal_fn), or None.
     nominal_fn: Optional[Callable] = None
 
+    def tensors(self) -> tuple:
+        """The tensor fields, in CACHE_TENSORS order."""
+        return tuple(getattr(self, k) for k in CACHE_TENSORS)
+
+    def static_key(self) -> tuple:
+        """The fields that are not tensors (hashable): with tensors() they
+        rebuild the cache (`cache_from`)."""
+        return (self.state_dim, self.action_dim, self.tied_lambdas,
+                self.nominal_fn)
+
+
+CACHE_TENSORS = ('x', 'mask', 'beta', 'b_lam', 'log_lambdas', 'log_sigma_f')
+
+
+def cache_from(static_key: tuple, tensors) -> RolloutCache:
+    """The RolloutCache of RolloutCache.static_key() and tensors()."""
+    return RolloutCache(*tensors, *static_key)
+
 
 def build_rollout_cache(gp: GPState, state_dim: int,
                         action_dim: int) -> RolloutCache:

@@ -17,11 +17,14 @@ the GP, the rollouts and the solve run in torch on the controller's device
       K2 (untied, e.g. after `train_gp`);
   (c) otherwise the single-scenario `dynamics.rollout` and
       `solver.solve_trajectory`.
-JAX jits `_solve`. Here route (b), with a diagonal or a full covariance,
-runs its solver iterations after the first as replays of one CUDA graph
-captured for the solve (mpc/solver.py, `_run_graphed`); routes (a) and (c)
-run the controller's own code eagerly ((a)'s solves are graphed inside
-`solve_batch_multistart`).
+JAX jits `_solve` and keeps the compiled program for every later step.
+Here route (b), with a diagonal or a full covariance, solves through the
+solver's kept program (mpc/solver.py, `_run_graphed`): the first step
+captures it and every later step with the same key replays it. `append`
+changes the GP's values, not its shapes, so the steps between two
+`train_gp` / `set_gp_hyperparams` calls that flip the tied lengthscales, or
+two `grow` calls, share one program. Route (a)'s solves keep theirs inside
+`solve_batch_multistart`; route (c) runs eagerly.
 """
 
 from __future__ import annotations
@@ -32,8 +35,7 @@ import numpy as np
 import torch
 
 from gpmpc_tpu_torch.device import resolve_device
-from gpmpc_tpu_torch.dynamics import (build_rollout_cache, rollout,
-                                      rollout_batched)
+from gpmpc_tpu_torch.dynamics import build_rollout_cache, rollout
 from gpmpc_tpu_torch.gp import state as gp_state
 from gpmpc_tpu_torch.mpc.cost import CostParams, risk_sensitive_cost
 from gpmpc_tpu_torch.mpc.solver import (SolverConfig, SolveResult,
@@ -67,14 +69,10 @@ def _solve(gp, state_dim, action_dim, x0, u_init, lb, ub, params: CostParams,
             extra_starts=u_init[None, None], **dict(recipe_kwargs)))
 
     if cache.nominal_fn is None and lbfgs:
-        def objective_b(u_b):                        # (1, H, da) -> (1,)
-            means, covs = rollout_batched(cache, x0[None], u_b,
-                                          full_cov=full_cov,
-                                          delta=delta_dynamics)
-            return risk_sensitive_cost(params, means, covs, u_b)
-
+        from gpmpc_tpu_torch.parallel.batch import batch_objective
         return first_lane(solve_trajectory_batched(
-            objective_b, u_init[None], lb, ub, solver_config))
+            batch_objective(cache, x0[None], params, delta_dynamics,
+                            full_cov), u_init[None], lb, ub, solver_config))
 
     def objective(u):
         means, covs = rollout(cache, x0, u, full_cov=full_cov,

@@ -58,6 +58,25 @@ def lane_params(params: CostParams, b: int) -> CostParams:
     return CostParams(**out)
 
 
+def params_key(params: CostParams) -> tuple:
+    """Which leaves are None: with `params_tensors` it rebuilds the params
+    (`params_from`)."""
+    return tuple(v is None for v in params)
+
+
+def params_tensors(params: CostParams, device) -> tuple:
+    """The leaves that are not None, as tensors on `device` (their dtypes
+    kept)."""
+    return tuple(torch.as_tensor(v, device=device) for v in params
+                 if v is not None)
+
+
+def params_from(key: tuple, tensors) -> CostParams:
+    """The CostParams of params_key() and params_tensors()."""
+    it = iter(tensors)
+    return CostParams(*(None if none else next(it) for none in key))
+
+
 def _stage_state_cost(q, gamma, x, sig, x_ref):
     """Risk term per (lane, step): q (B, 1, ds, ds); gamma (B, 1);
     x (B, T, ds); sig (B, T, ds, ds); x_ref (B, 1, ds) -> (B, T).

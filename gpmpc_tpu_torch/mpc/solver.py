@@ -5,17 +5,23 @@ solves. Every lane has its own acceptance, step size, history and
 convergence; lanes that are done freeze while the loop runs on until all are
 done or the iteration cap. One iteration is `_lbfgs_step`, a function of the
 carry `LbfgsState`. JAX's `lax.while_loop` compiles the loop into one
-program on the device; here the loop stays on the host and reads `all(done)`
+program on the device, and jax.jit keeps that program for every later call
+of the same shapes; here the loop stays on the host and reads `all(done)`
 once an iteration, so the iteration count is the JAX one. What runs each
 iteration depends on where it runs. On CUDA, with the objective's own
 autograd (`solve_batch` with a diagonal or a full covariance, the
-multistart recipes, `solve_batch_staged` and the controller's batched
-route), iteration 1 runs eagerly and every later one is a replay of one
-CUDA graph captured from `_lbfgs_step`, one host launch an iteration
-(`_run_graphed`). On the CPU, with an external value-and-grad, and where
-the caller says `_graph=False` (`solve_trajectory`), each iteration runs
-its torch ops from Python (`_run_eager`). Both run the same kernels on the
-same inputs.
+multistart recipes, `solve_batch_staged`, the controller's batched route and
+the single-scenario episode of `run_episode_on_device`), the solve is a
+*program* (`_run_graphed`): the call that builds it runs the first
+value-and-grad and iteration 1 eagerly and captures two CUDA graphs, the
+init and the step; the program is kept in a cache keyed by what the captured
+code reads, and a later call of the same key replays the init graph and then
+the step graph once an iteration, capturing nothing. An
+objective given as an `Objective` (key, inputs, build) has its program
+kept; a plain closure gets one for its call only. On the CPU, with an
+external value-and-grad, and where the caller says `_graph=False`
+(`solve_trajectory`), each iteration runs its torch ops from Python
+(`_run_eager`). All run the same kernels on the same inputs.
 
 `solve_trajectory`: one solve of objective(u) -> scalar, by projected L-BFGS
 (method='lbfgs', the batched solver at B = 1: JAX's single-scenario L-BFGS
@@ -27,8 +33,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
+from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, Hashable, NamedTuple, Optional
 
 import torch
 
@@ -133,6 +141,10 @@ class _Problem(NamedTuple):
     ub: torch.Tensor
     zero: torch.Tensor
     config: SolverConfig
+    # What the program cache keeps the solve under (`_run_graphed`), or
+    # None (a closure, or an eager solve): (key, inputs, build), where
+    # build(*inputs) gives a val_and_grad.
+    program: Optional[tuple] = None
 
 
 def _proj(p: _Problem, u):
@@ -297,35 +309,54 @@ def _go_on(s: LbfgsState, t: int, max_iters: int) -> bool:
     return t < max_iters and not bool(s.done.all())
 
 
-def _run_eager(p: _Problem, s: LbfgsState) -> LbfgsState:
-    t = 0
+def _loop_from(p: _Problem, s: LbfgsState, t: int, step) -> LbfgsState:
+    """The rest of the loop from iteration t: step() runs one iteration."""
     while _go_on(s, t, p.config.max_iters):
-        s = _lbfgs_step(p, s)
+        s = step(s)
         t += 1
     return s
+
+
+def _run_eager(p: _Problem, u0) -> LbfgsState:
+    """The loop from u0 (B, n), its first value-and-grad included, every
+    iteration's torch ops run from Python."""
+    return _loop_from(p, _lbfgs_init(p, u0), 0,
+                      lambda s: _lbfgs_step(p, s))
 
 
 def _step_in_place(p: _Problem, s: LbfgsState) -> None:
     """One `_lbfgs_step` written back into s's own tensors (`copy_`), which
     must not alias one another: the code a capture records."""
-    out = _lbfgs_step(p, s)
-    for dst, src in zip(s, out):
-        if src is not dst:
-            dst.copy_(src)
+    _write(s, _lbfgs_step(p, s))
 
 
-def _capture_step(p: _Problem, s: LbfgsState):
-    """A CUDA graph of `_step_in_place` on the static buffers s, on the
-    current stream (a side stream that has run the step eagerly: its lazy
-    initialisation is done). Capture records and runs nothing. Returns the
+def _init_in_place(p: _Problem, u0, s: LbfgsState) -> None:
+    """`_lbfgs_init` from u0 written into s's own tensors: the code of a
+    program's init graph (its f_best and u_best are copies, not aliases, of
+    f and u)."""
+    _write(s, _lbfgs_init(p, u0))
+
+
+def _write(dst: LbfgsState, src: LbfgsState) -> None:
+    for d, v in zip(dst, src):
+        if v is not d:
+            d.copy_(v)
+
+
+def _capture(record: Callable[[LbfgsState], None], s: LbfgsState,
+             pool=None):
+    """A CUDA graph of record(s), which writes the static buffers s in
+    place, on the current stream (a side stream that has run the code
+    eagerly: its lazy initialisation is done), into the memory pool `pool`
+    (a new one if None). Capture records and runs nothing. Returns the
     instantiated graph and its counts (utils/replay_counts.Replays: the
-    kernel launches of a replay read from the graph's nodes). A step that
+    kernel launches of a replay read from the graph's nodes). Code that
     waits on the host raises here."""
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     before = replay_counts.snapshot()
-    graph.capture_begin()
+    graph.capture_begin(pool=pool)
     try:
-        _step_in_place(p, s)
+        record(s)
     except BaseException:
         # The capture is broken already: end it, and raise the cause.
         with contextlib.suppress(RuntimeError):
@@ -339,85 +370,259 @@ def _capture_step(p: _Problem, s: LbfgsState):
     return graph, counts
 
 
-def _run_graphed(p: _Problem, s: LbfgsState) -> LbfgsState:
-    """The loop of `_run_eager`, its iterations after the first replays of
-    one captured graph of `_lbfgs_step`, run on a side stream: iteration 1
-    eagerly (the warm-up capture needs), then one capture into static
-    buffers, then one replay and one read of done an iteration. Same
-    kernels on the same inputs, so the same bits and iterations; each
-    replay counts the launches of the graph's kernel nodes
-    (utils/replay_counts.py). The graph and its memory pool go when the
-    call returns."""
-    max_iters = p.config.max_iters
-    dev = s.u.device
+# ------------------------------------------------------------- programs --
+# A program is the port's counterpart of one entry of jax.jit's cache: the
+# captured solve of one objective at one shape, kept and replayed on every
+# later call with the same key. It owns static copies of the objective's
+# input tensors, of u_init, lb and ub, the objective built once on those
+# copies, a static LbfgsState, two CUDA graphs (`_init_in_place` and
+# `_step_in_place`) with their counts, a side stream and a memory pool.
+#
+# A call copies its inputs into the program's buffers, replays the init
+# graph, then the step graph once an iteration while `_go_on` holds, and
+# copies the result out on the caller's stream: no result is a view of a
+# program's buffer. Programs stay, least recently used first, while the
+# cache holds at most MAX_PROGRAM_BYTES (their pools' reserved bytes,
+# measured around the captures, and their static buffers): a third of an
+# H100's 80 GB, which holds the recipe's six programs (~1.0 GB) or
+# thirteen full-covariance headline ones (~1.8 GB each) (PERF.md).
+# `clear_programs()` (jax.clear_caches()) drops them all. A program replays
+# the code its capture recorded: a block that swaps a function the
+# objective calls (a diagnostic trace, a counting wrapper) is in no key, so
+# it drops the programs first.
+MAX_PROGRAM_BYTES = 24 * 2 ** 30
+_PROGRAMS: 'OrderedDict[Hashable, _Program]' = OrderedDict()
+
+
+def _nbytes(ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+class _Program:
+    """One solve's captured program (see above). Built by the call that
+    misses: the call runs its first value-and-grad and iteration 1 eagerly
+    on the program's buffers (the warm-up a capture needs), captures the
+    step and, if `keep`, the init, then replays the step for the rest of
+    its iterations. `state` is the static LbfgsState a call leaves its
+    result in."""
+
+    def __init__(self, p: _Problem, u0, main, keep: bool):
+        dev = u0.device
+        self.side = torch.cuda.Stream(device=dev)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs = []
+        self.side.wait_stream(main)
+        with torch.cuda.device(dev), torch.cuda.stream(self.side):
+            if p.program is None:
+                self.inputs, vg = (), p.val_and_grad
+            else:
+                _, inputs, build = p.program
+                # empty_like keeps a dense input's strides (they are in the
+                # key); copy_ fills it.
+                self.inputs = tuple(None if x is None
+                                    else torch.empty_like(x).copy_(x)
+                                    for x in inputs)
+                vg = build(*self.inputs)
+            self.u0 = u0.clone()
+            self.p = _Problem(val_and_grad=vg, lb=p.lb.clone(),
+                              ub=p.ub.clone(), zero=p.zero.clone(),
+                              config=p.config)
+            s = _lbfgs_init(self.p, self.u0)
+            t = 0
+            if _go_on(s, t, p.config.max_iters):
+                s = _lbfgs_step(self.p, s)
+                t = 1
+            # Distinct buffers: a field may alias another (f_best is f
+            # until the noise mode moves it).
+            self.state = s = LbfgsState(*(x.clone() for x in s))
+            reserved = torch.cuda.memory_reserved(dev)
+            self.step, self.step_counts = _capture(
+                lambda st: _step_in_place(self.p, st), s, self.pool)
+            self.graphs.append(self.step)
+            if keep:
+                self.init, self.init_counts = _capture(
+                    lambda st: _init_in_place(self.p, self.u0, st), s,
+                    self.pool)
+                self.graphs.append(self.init)
+            self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+            self._replay_steps(s, t)
+        self.bytes = self.pool_bytes + _nbytes(
+            (*self.inputs, self.u0, self.p.lb, self.p.ub, self.p.zero, *s))
+
+    def _replay_steps(self, s, t) -> None:
+        def step(st):
+            self.step.replay()
+            self.step_counts.replayed()
+            return st
+        _loop_from(self.p, s, t, step)
+
+    def run(self, p: _Problem, u0, main) -> None:
+        """A later call: this call's inputs, u0, lb and ub into the
+        program's buffers, the init graph, then the step graph while the
+        loop goes on."""
+        self.side.wait_stream(main)
+        with torch.cuda.device(u0.device), torch.cuda.stream(self.side):
+            for dst, src in zip(self.inputs, p.program[1]):
+                if dst is not None:
+                    dst.copy_(src)
+            self.u0.copy_(u0)
+            self.p.lb.copy_(p.lb)
+            self.p.ub.copy_(p.ub)
+            self.init.replay()
+            self.init_counts.replayed()
+            self._replay_steps(self.state, 0)
+
+    def release(self) -> None:
+        """Its graphs and their pool go (after its last work ends)."""
+        self.side.synchronize()
+        for g in self.graphs:
+            g.reset()
+        self.graphs = []
+
+
+def _program_key(p: _Problem, u0) -> Hashable:
+    """The key of p's program: the caller's key, each input's shape,
+    strides, dtype and device, u0's, lb's and ub's broadcast shapes (in
+    p.program's key), the solver config, and the K4 opt-in that the trace
+    reads on every call (ops/kernels/variance_trace.py)."""
+    key, inputs, _ = p.program
+    sig = tuple(None if x is None else (tuple(x.shape), x.stride(), x.dtype,
+                                        x.device) for x in inputs)
+    return (key, sig, tuple(u0.shape), u0.dtype, u0.device, p.config,
+            os.environ.get('GPMPC_SYM_KERNEL'))
+
+
+def clear_programs() -> None:
+    """Drop every kept program (the counterpart of jax.clear_caches())."""
+    while _PROGRAMS:
+        _PROGRAMS.popitem(last=False)[1].release()
+
+
+def program_stats() -> dict:
+    """The programs the cache holds and their bytes (pools and static
+    buffers)."""
+    return dict(programs=len(_PROGRAMS),
+                bytes=sum(prog.bytes for prog in _PROGRAMS.values()),
+                pool_bytes=sum(prog.pool_bytes for prog in _PROGRAMS.values()))
+
+
+def _evict() -> None:
+    """The least recently used programs go while the cache holds more than
+    MAX_PROGRAM_BYTES; the newest stays."""
+    while (len(_PROGRAMS) > 1
+           and program_stats()['bytes'] > MAX_PROGRAM_BYTES):
+        _PROGRAMS.popitem(last=False)[1].release()
+
+
+def _run_graphed(p: _Problem, u0) -> LbfgsState:
+    """The loop of `_run_eager` as replays of captured CUDA graphs, on the
+    program's side stream: the same kernels on the same inputs, so the same
+    bits and iterations; each replay counts the launches of its graph's
+    kernel nodes (utils/replay_counts.py). With p.program, the solve's
+    program is kept (above): a call that finds it replays its init and step
+    graphs and captures nothing. A closure (p.program None) gets a program
+    for this call only, whose graph and pool go when it returns. The result
+    is a copy, made on the caller's stream."""
+    dev = u0.device
     main = torch.cuda.current_stream(dev)
-    side = torch.cuda.Stream(device=dev)
-    side.wait_stream(main)
-    with torch.cuda.device(dev), torch.cuda.stream(side):
-        t = 0
-        if _go_on(s, t, max_iters):
-            s = _lbfgs_step(p, s)
-            t += 1
-        if _go_on(s, t, max_iters):
-            # Distinct buffers: a field may alias another (f_best is f until
-            # the noise mode moves it).
-            s = LbfgsState(*(x.clone() for x in s))
-            graph, counts = _capture_step(p, s)
-            try:
-                while _go_on(s, t, max_iters):
-                    graph.replay()
-                    counts.replayed()
-                    t += 1
-            finally:
-                graph.reset()
-    main.wait_stream(side)
-    return s
+    key = None if p.program is None else _program_key(p, u0)
+    prog = _PROGRAMS.get(key) if key is not None else None
+    if prog is None:
+        prog = _Program(p, u0, main, keep=key is not None)
+        if key is not None:
+            _PROGRAMS[key] = prog
+            _evict()
+    else:
+        _PROGRAMS.move_to_end(key)
+        prog.run(p, u0, main)
+    main.wait_stream(prog.side)
+    out = LbfgsState(*(x.clone() for x in prog.state))
+    if key is None:
+        prog.release()
+    return out
 
 
-def solve_trajectory_batched(objective_b: Optional[Callable[[torch.Tensor],
-                                                             torch.Tensor]],
-                             u_init: torch.Tensor, lb, ub,
+def _can_graph(device) -> bool:
+    """Whether a solve on `device` may run its loop as captured graphs."""
+    return device.type == 'cuda'
+
+
+class Objective(NamedTuple):
+    """A per-lane objective (B, H, da) -> (B,) given by what it is built
+    from, so that a solve can keep its captured program: build(*inputs)
+    returns the objective. `key` holds every Python value that the built
+    code reads (hashable; the solver adds the inputs' shapes, strides,
+    dtypes and devices); `inputs` the tensors it reads (entries may be
+    None). A kept program copies each call's inputs into its own buffers
+    and replays code built once on those buffers, so `build` must read its
+    inputs only inside the objective it returns: a tensor derived from them
+    outside it would be stale on the next call. Called on u, an Objective
+    builds on its own inputs and evaluates."""
+    key: Hashable
+    inputs: tuple
+    build: Callable[..., Callable[[torch.Tensor], torch.Tensor]]
+
+    def __call__(self, u):
+        return self.build(*self.inputs)(u)
+
+
+def solve_trajectory_batched(objective_b, u_init: torch.Tensor, lb, ub,
                              config: SolverConfig = SolverConfig(),
                              val_and_grad: Optional[Callable] = None,
                              _graph: bool = True) -> SolveResult:
     """objective_b: (B, H, da) -> (B,) independent per-lane objectives,
-    differentiable by autograd. lb/ub broadcast against u_init.
+    differentiable by autograd: an `Objective` (its program is kept and
+    reused across calls), or any callable. lb/ub broadcast against u_init.
 
     val_and_grad, if given, replaces autograd of objective_b (which may then
     be None): an external (f, g) oracle taking u (B, H, da) and returning
     f (B,) and g (B, H, da), e.g. the collective program of
     parallel/model_sharded.py.
 
-    On CUDA the iterations after the first run as replays of one captured
-    CUDA graph (`_run_graphed`), unless val_and_grad is given (an external
-    oracle, with collectives inside) or the caller passes _graph=False
-    (internal: `solve_trajectory`'s loop, whose single-scenario objective is
-    not held to capture). The objective must then read nothing on the host:
-    the full-covariance rollout's PSD clip runs the sync-free eigensolver
+    On CUDA the loop runs as replays of captured CUDA graphs
+    (`_run_graphed`), unless val_and_grad is given (an external oracle, with
+    collectives inside), the caller passes _graph=False (internal:
+    `solve_trajectory`'s loop for an objective not held to capture), or
+    config.max_iters is 0 (no loop: the first value-and-grad only). The
+    objective must then read nothing on the host: the full-covariance
+    rollout's PSD clip runs the sync-free eigensolver
     (ops/kernels/eigh_small.py) for that. Elsewhere, and on the CPU, the
-    loop runs eagerly. A capture that fails raises; it never turns into the
-    eager loop."""
+    loop runs eagerly (`_run_eager`). A capture that fails raises; it never
+    turns into the eager loop."""
     dt = u_init.dtype
     dev = u_init.device
     b = u_init.shape[0]
     shape = u_init.shape
     n = u_init[0].numel()
-    lb_f = torch.as_tensor(lb, dtype=dt, device=dev).broadcast_to(shape).reshape(b, n)
-    ub_f = torch.as_tensor(ub, dtype=dt, device=dev).broadcast_to(shape).reshape(b, n)
+    lb_t, ub_t = (torch.as_tensor(v, dtype=dt, device=dev) for v in (lb, ub))
+    lb_f = lb_t.broadcast_to(shape).reshape(b, n)
+    ub_f = ub_t.broadcast_to(shape).reshape(b, n)
 
-    if val_and_grad is None:
+    def vg_of(obj):
         def vg(u):
-            return _value_and_grad(objective_b, u, shape)
-    else:
+            return _value_and_grad(obj, u, shape)
+        return vg
+
+    program = None
+    if val_and_grad is not None:
         def vg(u):
             f, g = val_and_grad(u.reshape(shape))
             return f.detach(), g.detach().reshape(b, n)
+    elif isinstance(objective_b, Objective):
+        def build(*inputs):
+            return vg_of(objective_b.build(*inputs))
+        program = ((objective_b.key, tuple(shape), tuple(lb_t.shape),
+                    tuple(ub_t.shape)), objective_b.inputs, build)
+        vg = build(*objective_b.inputs)
+    else:
+        vg = vg_of(objective_b)
 
     p = _Problem(val_and_grad=vg, lb=lb_f, ub=ub_f,
-                 zero=torch.zeros((), dtype=dt, device=dev), config=config)
-    s = _lbfgs_init(p, u_init.reshape(b, n))
-    graphed = _graph and val_and_grad is None and dev.type == 'cuda'
-    s = (_run_graphed if graphed else _run_eager)(p, s)
+                 zero=torch.zeros((), dtype=dt, device=dev), config=config,
+                 program=program)
+    graphed = (_graph and val_and_grad is None and _can_graph(dev)
+               and config.max_iters > 0)
+    s = (_run_graphed if graphed else _run_eager)(p, u_init.reshape(b, n))
     if config.noise_rel > 0.0:
         # Best-seen iterate; pg_norm belongs to the last iterate.
         return SolveResult(u=s.u_best.reshape(shape), cost=s.f_best,

@@ -32,12 +32,14 @@ import numpy as np
 import torch
 
 from gpmpc_tpu_torch.device import ensure_true_f32
-from gpmpc_tpu_torch.dynamics import (RolloutCache, build_rollout_cache,
+from gpmpc_tpu_torch.dynamics import (CACHE_TENSORS, RolloutCache,
+                                      build_rollout_cache, cache_from,
                                       rollout, rollout_batched)
 from gpmpc_tpu_torch.gp.state import GPState
 from gpmpc_tpu_torch.mpc.cost import (CostParams, is_lane_leaf,
+                                      params_from, params_key, params_tensors,
                                       risk_sensitive_cost)
-from gpmpc_tpu_torch.mpc.solver import (SolverConfig, SolveResult,
+from gpmpc_tpu_torch.mpc.solver import (Objective, SolverConfig, SolveResult,
                                         solve_trajectory,
                                         solve_trajectory_batched)
 from gpmpc_tpu_torch.parallel.mesh import BATCH_AXIS, gather_lanes, lane_slice
@@ -46,19 +48,41 @@ from gpmpc_tpu_torch.parallel.mesh import BATCH_AXIS, gather_lanes, lane_slice
 def batch_objective(cache: RolloutCache, x0s: torch.Tensor,
                     params: CostParams, delta: bool = False,
                     full_cov: bool = False, mean_only: bool = False,
-                    frozen_cov_diag: Optional[torch.Tensor] = None):
+                    frozen_cov_diag: Optional[torch.Tensor] = None,
+                    action_var: float = 1e-3,
+                    init_state_var: float = 1e-3) -> Objective:
     """The per-lane objective J: (B, H, da) -> (B,), the uncertain rollout
     from x0s followed by the risk-sensitive cost. mean_only and
     frozen_cov_diag (B, H+1, ds) give the multistart recipe's cheap
-    surrogates (dynamics.rollout_batched). The closure holds this call's
-    arguments, so objectives made in a loop keep their own data."""
-    def objective_b(u):
-        means, covs = rollout_batched(cache, x0s, u, delta=delta,
-                                      full_cov=full_cov, mean_only=mean_only,
-                                      frozen_cov_diag=frozen_cov_diag)
-        return risk_sensitive_cost(params, means, covs, u)
+    surrogates; action_var and init_state_var are the rollout's
+    (dynamics.rollout_batched).
 
-    return objective_b
+    An `Objective` (mpc/solver.py): its key holds the Python values the
+    rollout and the cost read (the cache's dims, tied lengthscales and
+    nominal model, the flags, the two variances, which cost leaves are
+    None); its inputs are the rollout cache's tensors, x0s, frozen_cov_diag
+    and the cost leaves, so a solve keeps its captured program and reuses
+    it for later calls with other values. Called on u, it evaluates J."""
+    static, p_key = cache.static_key(), params_key(params)
+    n_c = len(CACHE_TENSORS)
+
+    def build(*inputs):
+        c = cache_from(static, inputs[:n_c])
+        x0, cov_d = inputs[n_c:n_c + 2]
+        p = params_from(p_key, inputs[n_c + 2:])
+
+        def objective_b(u):
+            means, covs = rollout_batched(
+                c, x0, u, init_state_var=init_state_var,
+                action_var=action_var, delta=delta, full_cov=full_cov,
+                mean_only=mean_only, frozen_cov_diag=cov_d)
+            return risk_sensitive_cost(p, means, covs, u)
+        return objective_b
+
+    key = ('batch_objective', static, delta, full_cov, mean_only,
+           frozen_cov_diag is not None, action_var, init_state_var, p_key)
+    return Objective(key, (*cache.tensors(), x0s, frozen_cov_diag,
+                           *params_tensors(params, x0s.device)), build)
 
 
 def _check_device(gp: GPState, x0s: torch.Tensor) -> None:

@@ -8,7 +8,11 @@ actions, rewards, solve wall times, costs and solver iterations.
 `run_episode_on_device` runs a whole episode with its carry on the GP's
 device: the GP state, the state x, the previous action and the last
 trajectory; the plant is a torch function and the GP append happens there,
-with no numpy round trip. JAX's `lax.scan` is a Python loop here.
+with no numpy round trip. JAX's `lax.scan` is a Python loop here: the
+solver reads `done` on the host once an iteration. Each step's L-BFGS solve
+(without a nominal model) runs the solver's kept program (mpc/solver.py):
+the append changes the GP's values, not its shapes, so every step after the
+first replays the first step's program.
 """
 
 from __future__ import annotations
@@ -19,12 +23,16 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from gpmpc_tpu_torch.dynamics import build_rollout_cache, rollout
+from gpmpc_tpu_torch.dynamics import (CACHE_TENSORS, RolloutCache,
+                                      build_rollout_cache, cache_from,
+                                      rollout)
 from gpmpc_tpu_torch.gp import state as gp_state
 from gpmpc_tpu_torch.mpc.controller import single_cost
-from gpmpc_tpu_torch.mpc.cost import CostParams
-from gpmpc_tpu_torch.mpc.solver import (SolverConfig, first_lane,
-                                        solve_trajectory)
+from gpmpc_tpu_torch.mpc.cost import (CostParams, params_from, params_key,
+                                      params_tensors)
+from gpmpc_tpu_torch.mpc.solver import (Objective, SolverConfig, first_lane,
+                                        solve_trajectory,
+                                        solve_trajectory_batched)
 
 
 class EpisodeLog(NamedTuple):
@@ -91,6 +99,34 @@ class Simulator:
                           costs=np.asarray(costs), iters=np.asarray(iters))
 
 
+def single_objective(cache: RolloutCache, x0: torch.Tensor,
+                     params: CostParams, full_cov: bool = False,
+                     delta: bool = False) -> Objective:
+    """The single-scenario rollout from x0 (ds,) and the risk-sensitive cost
+    as a per-lane objective of one lane, (1, H, da) -> (1,): the objective
+    of `solve_trajectory`'s L-BFGS (the lockstep solver at B = 1), given as
+    an `Objective` so that a solve keeps its program (mpc/solver.py). Its
+    key holds the cache's dims, tied lengthscales and nominal model, the
+    flags and which cost leaves are None; its inputs the cache's tensors,
+    x0 and the cost leaves."""
+    static, p_key = cache.static_key(), params_key(params)
+    n_c = len(CACHE_TENSORS)
+
+    def build(*inputs):
+        c = cache_from(static, inputs[:n_c])
+        x, p = inputs[n_c], params_from(p_key, inputs[n_c + 1:])
+
+        def objective_b(u_b):
+            means, covs = rollout(c, x, u_b[0], full_cov=full_cov,
+                                  delta=delta)
+            return single_cost(p, means, covs, u_b[0])[None]
+        return objective_b
+
+    return Objective(('single_objective', static, full_cov, delta, p_key),
+                     (*cache.tensors(), x0,
+                      *params_tensors(params, x0.device)), build)
+
+
 def run_episode_on_device(gp: gp_state.GPState, plant_step: Callable,
                           x0: torch.Tensor, params: CostParams, horizon: int,
                           num_steps: int, lb, ub,
@@ -103,7 +139,9 @@ def run_episode_on_device(gp: gp_state.GPState, plant_step: Callable,
     plant_step: (state (ds,), action (da,)) -> (next_state, reward), torch.
     Returns (final GPState, {state, action, reward, cost, iters: stacked
     per-step tensors}). Each step solves from u = 0 by the single-scenario
-    rollout, or with solver_recipe='multistart' (L-BFGS, diagonal
+    rollout (L-BFGS without a nominal model: the lockstep solver at B = 1 on
+    `single_objective`, as solve_trajectory runs it, through the kept
+    program on CUDA), or with solver_recipe='multistart' (L-BFGS, diagonal
     covariance) by `solve_batch_multistart` with the shifted last trajectory
     as an extra start."""
     ds = params.Q.shape[0]
@@ -123,6 +161,10 @@ def run_episode_on_device(gp: gp_state.GPState, plant_step: Callable,
                                          extra_starts=u_warm[None, None])
             return first_lane(res)
         cache = build_rollout_cache(gp_t, ds, da)
+        if solver.method == 'lbfgs' and cache.nominal_fn is None:
+            return first_lane(solve_trajectory_batched(
+                single_objective(cache, x, p, full_cov, delta_dynamics),
+                x.new_zeros((1, horizon, da)), lb, ub, solver))
 
         def objective(u):
             means, covs = rollout(cache, x, u, full_cov=full_cov,

@@ -4,7 +4,7 @@ A wrapper counts a kernel launch in Python, where it enqueues the launch. A
 replay of a captured graph runs the kernels again without that Python, so a
 counter sees a captured call once, at capture, where it launched nothing.
 
-Who captures and replays a graph (mpc/solver.py's graphed loop) therefore
+Who captures and replays a graph (mpc/solver.py's programs) therefore
 counts for the wrappers. It snapshots every registered counter before and
 after the capture, reads what the graph itself will launch, and builds a
 `Replays`. That object takes back what the capture counted, checks the
@@ -19,12 +19,24 @@ graph against it, and adds the graph's launches once per replay.
 - Tallies (`register`: a script's own counts of Python calls, e.g. of the
   rollouts a solve runs). A replay runs no Python, so for them the
   capture's difference is what each replay repeats.
+
+Each graph's replays are also counted by graph (`replays_run`), and each
+`Replays` keeps its graph's kernel names: what replays ran over a span,
+by kernel name, is what a profiler's trace of that span must hold at
+least.
+
+A graph may outlive the block that captured it (mpc/solver.py keeps a
+solve's init and step graphs and replays them on later calls). Its replays
+count in the counters registered at its capture that are still registered;
+a tally registered after the capture sees none of them, so a script that
+registers one drops the kept graphs first (solver.clear_programs()).
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import weakref
 from collections import Counter
 from typing import Callable, Dict, Hashable, List, NamedTuple, Optional
 
@@ -40,6 +52,9 @@ class _Source(NamedTuple):
 
 
 _SOURCES: List[_Source] = []
+# Replays run, by graph (its Replays; gone with it).
+_REPLAYS_RUN: 'weakref.WeakKeyDictionary[Replays, int]' = (
+    weakref.WeakKeyDictionary())
 
 
 def register(read: Callable[[], Counts], add: Callable[[Counts], None]):
@@ -97,6 +112,7 @@ class Replays:
             raise RuntimeError('a counter was registered or removed during a '
                                'capture')
         self.per_replay = []
+        self.names = Counter(kernel_names)
         for (entry, b), (_, a) in zip(before, after):
             captured = _delta(b, a)
             if entry.classify is None:
@@ -126,10 +142,18 @@ class Replays:
         return out
 
     def replayed(self) -> None:
-        """Count one replay of the graph."""
+        """Count one replay of the graph, in the counters still
+        registered, and in `replays_run`."""
+        _REPLAYS_RUN[self] = _REPLAYS_RUN.get(self, 0) + 1
         for entry, each in self.per_replay:
-            if each:
+            if each and entry in _SOURCES:
                 entry.add(each)
+
+
+def replays_run() -> Dict['Replays', int]:
+    """The replays counted so far, by graph (of the graphs still alive):
+    {Replays: n}, whose `names` are the graph's kernel nodes (mangled)."""
+    return dict(_REPLAYS_RUN)
 
 
 # ------------------------------------------- a graph's nodes, by the driver --

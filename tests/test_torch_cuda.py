@@ -883,13 +883,16 @@ def _launches():
 
 def _eager_then_graphed(monkeypatch, solve):
     """solve() with the solver's loop forced eager, then as its caller runs
-    it (graphed): [(result, launches counted during the call)] x 2."""
+    it (graphed, its program captured anew): [(result, launches counted
+    during the call)] x 2."""
     from gpmpc_tpu_torch.mpc import solver
     out = []
     for eager in (True, False):
         with monkeypatch.context() as m:
             if eager:
                 m.setattr(solver, '_run_graphed', solver._run_eager)
+            else:
+                solver.clear_programs()
             before = _launches()
             res = solve()
             torch.cuda.synchronize()
@@ -898,18 +901,52 @@ def _eager_then_graphed(monkeypatch, solve):
     return out
 
 
+def _noted_captures(monkeypatch):
+    """The kernel launches a replay of each graph the solver captures
+    (by its nodes), in a list; the program cache emptied first."""
+    from gpmpc_tpu_torch.mpc import solver
+    solver.clear_programs()
+    graphs = []
+    capture = solver._capture
+
+    def noted(record, s, pool=None):
+        graph, counts = capture(record, s, pool)
+        graphs.append(counts.launches)
+        return graph, counts
+
+    monkeypatch.setattr(solver, '_capture', noted)
+    return graphs
+
+
 def _swing_up_solve(dev, full_cov=False):
+    """One control step of `_swing_up_controller`, the B = 1 route through
+    K2 at (1, 512, 3, 2), from the stored episode's second state, with a
+    diagonal or a full covariance. Returns (solve, H, kernel)."""
+    mpc = _swing_up_controller(dev, full_cov)
+    traj = mpc.last_traj.copy()
+    state = _closed_loop_ref()['ep_states'][1]
+
+    def solve():
+        mpc.last_traj = traj.copy()
+        mpc.get_optimal_trajectory(state)
+        return mpc.last_result
+    return solve, 8, 'K2'
+
+
+def _closed_loop_ref():
+    import os
+    return np.load(os.path.join(os.path.dirname(__file__), '..',
+                                'gpmpc_tpu_torch', 'data',
+                                'closed_loop_ref.npz'))
+
+
+def _swing_up_controller(dev, full_cov=False):
     """The swing-up controller of chip_smoke.py phase 7 (f64, N = 512,
     delta dynamics) on the stored 250 transitions with their trained,
-    untied hyperparameters: one control step, the B = 1 route through K2
-    at (1, 512, 3, 2), with a diagonal or a full covariance. Returns
-    (solve, H, kernel)."""
-    import os
+    untied hyperparameters, bounds +-5."""
     from gpmpc_tpu_torch.mpc.controller import RiskSensitiveMPC
     from gpmpc_tpu_torch.mpc.solver import SolverConfig
-    ref = np.load(os.path.join(os.path.dirname(__file__), '..',
-                               'gpmpc_tpu_torch', 'data',
-                               'closed_loop_ref.npz'))
+    ref = _closed_loop_ref()
     mpc = RiskSensitiveMPC(
         gamma=0.0, horizon=8, state_dim=2, input_dim=1,
         Q=np.diag([8.0, 1.0]), R=0.001 * np.eye(1),
@@ -924,13 +961,7 @@ def _swing_up_solve(dev, full_cov=False):
                            sigma_f=np.exp(ref['log_sigma_f']),
                            sigma_n=np.exp(ref['log_sigma_n']))
     assert not mpc.gp.config.tied_lambdas
-    traj = mpc.last_traj.copy()
-
-    def solve():
-        mpc.last_traj = traj.copy()
-        mpc.get_optimal_trajectory(ref['ep_states'][1])
-        return mpc.last_result
-    return solve, 8, 'K2'
+    return mpc
 
 
 def _batch_solve(case, dev, iters=40, full_cov=False):
@@ -977,28 +1008,21 @@ def test_cuda_graphed_solve_equals_eager_to_the_bit(monkeypatch, case):
 @pytest.mark.cuda
 def test_cuda_graphed_solve_counts_each_replay(monkeypatch):
     """A graphed solve_batch at the headline, at a cap that ends it before
-    convergence (iters = 5): its one graph holds H K1 f64 launches by its
-    own kernel nodes, and the counters count H * (1 + iters), the capture
-    nothing and each replay the graph's H."""
-    from gpmpc_tpu_torch.mpc import solver
+    convergence (iters = 5), twice: its program's two graphs (step and init)
+    hold H K1 f64 launches each by their own kernel nodes and are captured
+    once, and the counters count H * (1 + iters) on each call, the captures
+    nothing and each replay its graph's H."""
     dev = _cuda()
     solve, h, _ = _batch_solve('headline', dev, iters=5)
-    graphs = []
-    capture = solver._capture_step
-
-    def noted(p, s):
-        graph, counts = capture(p, s)
-        graphs.append(counts.launches)
-        return graph, counts
-
-    monkeypatch.setattr(solver, '_capture_step', noted)
-    before = (tvt.LAUNCHES, tvt.LAUNCHES_F64)
-    res = solve()
-    torch.cuda.synchronize()
-    assert int(res.iters.max()) == 5
-    assert graphs == [{'LAUNCHES': h, 'LAUNCHES_F64': h}]
-    assert (tvt.LAUNCHES - before[0], tvt.LAUNCHES_F64 - before[1]) == (
-        h * 6, h * 6)
+    graphs = _noted_captures(monkeypatch)
+    for call in range(2):
+        before = (tvt.LAUNCHES, tvt.LAUNCHES_F64)
+        res = solve()
+        torch.cuda.synchronize()
+        assert int(res.iters.max()) == 5
+        assert graphs == [{'LAUNCHES': h, 'LAUNCHES_F64': h}] * 2
+        assert (tvt.LAUNCHES - before[0], tvt.LAUNCHES_F64 - before[1]) == (
+            h * 6, h * 6)
 
 
 @pytest.mark.cuda
@@ -1027,10 +1051,11 @@ def test_cuda_graphed_full_cov_solve_equals_eager_to_the_bit(monkeypatch,
 
 
 @pytest.mark.cuda
-def test_cuda_forced_capture_of_full_cov_equals_eager():
+def test_cuda_forced_capture_of_full_cov_equals_eager(monkeypatch):
     """A capture forced on the full-covariance objective succeeds (its PSD
     clip reads nothing on the host) and equals the eager loop to the bit;
-    its graph holds H K1 f64 and H eigensolver launches a replay."""
+    its program's two graphs hold H K1 f64 and H eigensolver launches a
+    replay each."""
     from gpmpc_tpu_torch.dynamics import build_rollout_cache
     from gpmpc_tpu_torch.mpc import solver
     from gpmpc_tpu_torch.parallel.batch import batch_objective
@@ -1041,21 +1066,9 @@ def test_cuda_forced_capture_of_full_cov_equals_eager():
                           full_cov=True)
     u0 = torch.zeros((8, p.horizon, 1), dtype=torch.float32, device=dev)
     cfg = solver.SolverConfig(max_iters=5, tol=0.0)
-    graphs = []
-    capture = solver._capture_step
-
-    def noted(prob, s):
-        graph, counts = capture(prob, s)
-        graphs.append(counts.launches)
-        return graph, counts
-
-    res_g = None
-    try:
-        solver._capture_step = noted
-        res_g = solver.solve_trajectory_batched(obj, u0, p.lb, p.ub, cfg,
-                                                _graph=True)
-    finally:
-        solver._capture_step = capture
+    graphs = _noted_captures(monkeypatch)
+    res_g = solver.solve_trajectory_batched(obj, u0, p.lb, p.ub, cfg,
+                                            _graph=True)
     graphed = solver._run_graphed
     try:
         solver._run_graphed = solver._run_eager
@@ -1066,34 +1079,229 @@ def test_cuda_forced_capture_of_full_cov_equals_eager():
     torch.cuda.synchronize()
     chip_smoke.same_bits('forced full_cov capture', res_e, res_g)
     assert graphs == [{'LAUNCHES': p.horizon, 'LAUNCHES_F64': p.horizon,
-                       'LAUNCHES_EIGH': p.horizon}]
+                       'LAUNCHES_EIGH': p.horizon}] * 2
 
 
 @pytest.mark.cuda
 def test_cuda_graphed_full_cov_counts_each_replay(monkeypatch):
     """A graphed solve_batch(full_cov=True) at the headline, cut at 5
-    iterations: its one graph holds H K1 f64 and H eigensolver launches by
-    its own kernel nodes, and LAUNCHES_EIGH counts H * (1 + iters), the
-    capture nothing and each replay the graph's H."""
-    from gpmpc_tpu_torch.mpc import solver
+    iterations, twice: its program's two graphs hold H K1 f64 and H
+    eigensolver launches each by their own kernel nodes and are captured
+    once, and LAUNCHES_EIGH counts H * (1 + iters) on each call, the
+    captures nothing and each replay its graph's H."""
     dev = _cuda()
     solve, h, _ = _batch_solve('headline', dev, iters=5, full_cov=True)
-    graphs = []
-    capture = solver._capture_step
+    graphs = _noted_captures(monkeypatch)
+    for call in range(2):
+        before = eigh_small.LAUNCHES_EIGH
+        res = solve()
+        torch.cuda.synchronize()
+        assert int(res.iters.max()) == 5
+        assert graphs == [{'LAUNCHES': h, 'LAUNCHES_F64': h,
+                           'LAUNCHES_EIGH': h}] * 2
+        assert eigh_small.LAUNCHES_EIGH - before == h * 6
 
-    def noted(p, s):
-        graph, counts = capture(p, s)
-        graphs.append(counts.launches)
-        return graph, counts
 
-    monkeypatch.setattr(solver, '_capture_step', noted)
-    before = eigh_small.LAUNCHES_EIGH
-    res = solve()
-    torch.cuda.synchronize()
-    assert int(res.iters.max()) == 5
-    assert graphs == [{'LAUNCHES': h, 'LAUNCHES_F64': h,
-                       'LAUNCHES_EIGH': h}]
-    assert eigh_small.LAUNCHES_EIGH - before == h * 6
+# ------------------------------------------------ kept solve programs --
+def _three_modes(solve, calls):
+    """Each of `calls` (zero-arg callables run in order, each a list of
+    solves) under the three executions of the solver's loop: 'reused' (the
+    program cache kept across all of them), 'fresh' (emptied before each
+    solve) and 'eager' (the loop swapped for the eager one); returns
+    {mode: [results]} and the captures 'reused' took."""
+    from gpmpc_tpu_torch.mpc import solver
+    out, captured = {}, {}
+    for mode in ('reused', 'fresh', 'eager'):
+        solver.clear_programs()
+        graphs = []
+        capture, graphed = solver._capture, solver._run_graphed
+
+        def noted(record, s, pool=None):
+            graph, counts = capture(record, s, pool)
+            graphs.append(counts.launches)
+            return graph, counts
+
+        solver._capture = noted
+        if mode == 'eager':
+            solver._run_graphed = solver._run_eager
+        try:
+            out[mode] = [solve(call, fresh=mode == 'fresh') for call in calls]
+        finally:
+            solver._capture, solver._run_graphed = capture, graphed
+        torch.cuda.synchronize()
+        captured[mode] = graphs
+    assert not captured['eager']
+    return out, captured
+
+
+def _fresh_solve(fn, fresh):
+    from gpmpc_tpu_torch.mpc import solver
+    if fresh:
+        solver.clear_programs()
+    return fn()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('full_cov', [False, True])
+def test_cuda_reused_program_equals_fresh_and_eager(full_cov):
+    """The headline solve_batch (B = 256, f32, K1 f64; 40 iterations, 5 with
+    a full covariance) on three batches of x0s: reused, fresh-capture and
+    eager equal to the bit on each; the reused program is captured once
+    (a step and an init graph, H K1 f64 launches a replay each, and H
+    eigensolver launches with a full covariance) for all three calls."""
+    from gpmpc_tpu_torch.mpc.solver import SolverConfig
+    from gpmpc_tpu_torch.parallel.batch import solve_batch
+    from gpmpc_tpu_torch.problems import make_headline_problem
+    dev = _cuda()
+    p = make_headline_problem(b=256, dtype=torch.float32, device=dev)
+    cfg = SolverConfig(max_iters=5 if full_cov else 40, tol=1e-4)
+    rng = np.random.default_rng(7)
+    batches = [torch.tensor(rng.uniform(-1, 1, (256, 2)), dtype=torch.float32,
+                            device=dev) for _ in range(3)]
+
+    def solve(x0s, fresh):
+        return _fresh_solve(lambda: solve_batch(
+            p.gp, 2, 1, x0s, p.params, p.horizon, p.lb, p.ub, cfg,
+            full_cov=full_cov), fresh)
+
+    out, captured = _three_modes(solve, batches)
+    for k in range(3):
+        for mode in ('fresh', 'eager'):
+            chip_smoke.same_bits(f'batch {k} {mode}', out['reused'][k],
+                                 out[mode][k])
+    h = p.horizon
+    each = {'LAUNCHES': h, 'LAUNCHES_F64': h,
+            **({'LAUNCHES_EIGH': h} if full_cov else {})}
+    assert captured['reused'] == [each] * 2
+    assert captured['fresh'] == [each] * 6
+
+
+@pytest.mark.cuda
+def test_cuda_reused_recipe_equals_fresh_and_eager():
+    """One call of the production recipe (solve_batch_multistart_retired
+    with problems.RECIPE and REFINE, at B = 64), then a second on other
+    x0s: reused, fresh-capture and eager equal to the bit on both; in
+    'reused' every key is captured once over the two calls (a step and an
+    init graph a program), the second call capturing nothing."""
+    from gpmpc_tpu_torch.mpc.solver import SolverConfig
+    from gpmpc_tpu_torch.parallel.batch import solve_batch_multistart_retired
+    from gpmpc_tpu_torch.problems import (RECIPE, REFINE,
+                                          make_headline_problem)
+    dev = _cuda()
+    p = make_headline_problem(b=64, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(8)
+    batches = [p.x0s, torch.tensor(rng.uniform(-1, 1, (64, 2)),
+                                   dtype=torch.float32, device=dev)]
+    seen = []
+
+    def solve(x0s, fresh):
+        from gpmpc_tpu_torch.mpc import solver
+        res = solve_batch_multistart_retired(
+            p.gp, 2, 1, x0s, p.params, p.horizon, p.lb, p.ub,
+            SolverConfig(**REFINE), **RECIPE)
+        seen.append(len(solver._PROGRAMS))
+        return res
+
+    out, captured = _three_modes(solve, batches)
+    for k in range(2):
+        for mode in ('fresh', 'eager'):
+            chip_smoke.same_bits(f'recipe call {k} {mode}', out['reused'][k],
+                                 out[mode][k])
+    programs = seen[1]
+    assert seen[0] == programs > 1
+    assert len(captured['reused']) == 2 * programs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('full_cov', [False, True])
+def test_cuda_swing_up_sequence_reuses_one_program(full_cov):
+    """Five swing-up control steps (the controller of chip_smoke's phase
+    7b, f64, N = 512, the B = 1 route through K2, the pendulum stepped and
+    each transition appended between steps): reused, fresh-capture and
+    eager give the same actions, states, costs and iterations to the bit;
+    in 'reused' the one key is captured once for all five steps (its step
+    and init graphs H K2 launches a replay each, and H eigensolver
+    launches with a full covariance)."""
+    from gpmpc_tpu_torch.envs.pendulum import PendulumEnv, PendulumParams
+    from gpmpc_tpu_torch.sim.simulator import Simulator
+    dev = _cuda()
+    params = PendulumParams(g=10.0, max_torque=5.0)
+    logs = {}
+
+    def episode(_, fresh):
+        mpc = _swing_up_controller(dev, full_cov)
+        if fresh:
+            orig = mpc.get_optimal_trajectory
+            mpc.get_optimal_trajectory = lambda x: _fresh_solve(
+                lambda: orig(x), True)
+        env = PendulumEnv(params=params, device=dev,
+                          init_state={'th_init': 1.0, 'thdot_init': 0.5})
+        return Simulator(mpc, env, num_iters=5).run()
+
+    out, captured = _three_modes(episode, [None])
+    ref = out['reused'][0]
+    for mode in ('fresh', 'eager'):
+        got = out[mode][0]
+        for name in ('actions', 'states', 'costs', 'iters'):
+            np.testing.assert_array_equal(getattr(got, name),
+                                          getattr(ref, name), err_msg=mode)
+    each = {'LAUNCHES_UNTIED': 8, **({'LAUNCHES_EIGH': 8} if full_cov
+                                     else {})}
+    assert captured['reused'] == [each] * 2
+    assert captured['fresh'] == [each] * 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('full_cov', [False, True])
+def test_cuda_single_route_capture_equals_eager(full_cov):
+    """The audit of run_episode_on_device's single-scenario route: its
+    L-BFGS solves run the kept program (a capture of the single-scenario
+    rollout, which must read nothing on the host) and equal the eager loop
+    to the bit over a 4-step episode (chip_smoke phase 7e's settings);
+    one key, captured once (no kernel in its graphs with a diagonal
+    covariance, H eigensolver launches a replay each with a full one)."""
+    from gpmpc_tpu_torch.envs import pendulum
+    from gpmpc_tpu_torch.gp import state as gp_state
+    from gpmpc_tpu_torch.mpc.cost import CostParams
+    from gpmpc_tpu_torch.mpc.solver import SolverConfig
+    from gpmpc_tpu_torch.sim.simulator import run_episode_on_device
+    dev = _cuda()
+    pp = pendulum.PendulumParams(max_torque=3.0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    s, a, ns = pendulum.sample_transitions(gen, 20, pp, dtype=torch.float64,
+                                           device=dev)
+    gp = gp_state.make_gp(
+        gp_state.GPConfig(capacity=32, x_dim=3, out_dim=2),
+        torch.cat([s, a], 1).cpu().numpy(), (ns - s).cpu().numpy(),
+        log_lambdas=np.log(np.full((2, 3), 3.0)),
+        log_sigma_n=np.log(np.full(2, 0.05)), dtype=torch.float64,
+        device=dev)
+    f64 = dict(dtype=torch.float64, device=dev)
+    cp = CostParams(Q=2 * torch.eye(2, **f64), R=0.1 * torch.eye(1, **f64),
+                    gamma=torch.tensor(0.0, **f64),
+                    x_ref=torch.zeros(2, **f64), u_ref=torch.zeros(1, **f64))
+
+    def episode(_, fresh):
+        return run_episode_on_device(
+            gp, lambda st, u: pendulum.step(st, u, pp),
+            torch.tensor([0.5, 0.0], **f64), cp, horizon=3, num_steps=4,
+            lb=-3.0, ub=3.0, solver=SolverConfig(max_iters=25),
+            delta_dynamics=True, full_cov=full_cov)[1]
+
+    out, captured = _three_modes(episode, [None])
+    for mode in ('fresh', 'eager'):
+        for name, v in out['reused'][0].items():
+            chip_smoke.same_bits(f'episode {name} {mode}',
+                                 _Bits(v), _Bits(out[mode][0][name]))
+    each = {'LAUNCHES_EIGH': 3} if full_cov else {}
+    assert captured['reused'] == [each] * 2
+
+
+class _Bits:
+    """One tensor as chip_smoke.same_bits reads a SolveResult."""
+    def __init__(self, t):
+        self.u = self.cost = self.iters = self.pg_norm = self.converged = t
 
 
 # ------------------------------------------------ the small eigensolver --

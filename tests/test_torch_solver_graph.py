@@ -23,7 +23,8 @@ from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
 from gpmpc_tpu_torch.parallel import batch, model_sharded
 from gpmpc_tpu_torch.problems import make_headline_problem
 from gpmpc_tpu_torch.utils import replay_counts
-from torch_port_common import assert_same_solve, jit_solve
+from torch_port_common import (REPLAYING, assert_same_solve, jit_solve,
+                               use_stand_in_graphs)
 
 torch.set_num_threads(2)
 
@@ -88,7 +89,7 @@ def test_eager_loop_matches_jax_f64(mode):
                                     SolverConfig(**cfg))
     assert_same_solve(tres, jres)
     p, s = _init(SolverConfig(**cfg), trap)
-    s = solver._run_eager(p, s)
+    s = solver._run_eager(p, torch.tensor(_u0(trap)).reshape(B, -1))
     if trap:
         assert int(s.resets[0]) == 2 and bool(s.done[0])
         assert int(s.resets[1:].max()) == 0
@@ -129,7 +130,7 @@ def test_step_on_done_state_is_a_fixed_point(mode):
 @pytest.mark.parametrize('mode', list(MODES))
 def test_in_place_step_equals_rebinding(mode):
     """(c) The static-buffer form, `_step_in_place` on distinct buffers
-    (the code a CUDA graph records, after _run_graphed's clone), equals
+    (the code a CUDA graph records, on a program's static state), equals
     `s = _lbfgs_step(p, s)` bit for bit at every iteration."""
     p, s = _init(SolverConfig(max_iters=40, tol=1e-9, **MODES[mode]))
     s = solver._lbfgs_step(p, s)
@@ -140,74 +141,38 @@ def test_in_place_step_equals_rebinding(mode):
         _same_bits(static, s)
 
 
-_REPLAYING = [False]
-
-
-class _StandInGraph:
-    """What _run_graphed asks of a CUDA graph, on the CPU: capture runs the
-    step's host calls and changes no buffer; each replay runs the recorded
-    step on the static buffers and none of its Python (_REPLAYING)."""
-
-    def __init__(self, p, s):
-        self.p, self.s = p, s
-
-    def replay(self):
-        _REPLAYING[0] = True
-        try:
-            solver._step_in_place(self.p, self.s)
-        finally:
-            _REPLAYING[0] = False
-
-    def reset(self):
-        pass
-
-
-def _stand_in_capture(p, s):
-    before = replay_counts.snapshot()
-    solver._step_in_place(p, LbfgsState(*(x.clone() for x in s)))
-    return _StandInGraph(p, s), replay_counts.Replays(
-        before, replay_counts.snapshot(), [])
-
-
 @pytest.mark.parametrize('max_iters', [0, 1, 2, 40])
 @pytest.mark.parametrize('mode', ['monotone', 'noise'])
 def test_graphed_loop_control_flow(monkeypatch, mode, max_iters):
-    """_run_graphed with a stand-in for the graph (the CPU has none): the
-    same state as the eager loop, bit for bit, and a counter that the
-    objective bumps in Python counts one value-and-grad an iteration (after
-    _init's), as the eager loop's, though the step's Python runs once
-    after iteration 1 (at capture) and the replays add the rest."""
+    """_run_graphed on a closure (a program for one call) with stand-ins
+    for the graphs (the CPU has none): the same state as the eager loop,
+    bit for bit, and a counter that the objective bumps in Python counts
+    the init's value-and-grad and one an iteration, as the eager loop's,
+    though the step's Python runs once after iteration 1 (at capture) and
+    the replays add the rest."""
     calls = {'vg': 0}
     cfg = SolverConfig(max_iters=max_iters, tol=1e-9, **MODES[mode])
     obj = _objective(torch)
 
     def counted(u):
-        if not _REPLAYING[0]:
+        if not REPLAYING[0]:
             calls['vg'] += 1
         return obj(u)
 
     def run(loop):
         calls['vg'] = 0
-        p, s = _init(cfg)
+        p, _ = _init(cfg)
         p = p._replace(val_and_grad=lambda x: solver._value_and_grad(
             counted, x, (B, H, DA)))
         with replay_counts.registered(lambda: dict(calls), _add(calls)):
-            s = loop(p, s)
+            s = loop(p, torch.tensor(_u0()).reshape(B, -1))
         return s, calls['vg']
 
-    fake = type('FakeStream', (), {'wait_stream': lambda self, other: None})
-    monkeypatch.setattr(torch.cuda, 'current_stream',
-                        lambda device=None: fake())
-    monkeypatch.setattr(torch.cuda, 'Stream', lambda device=None: fake())
-    monkeypatch.setattr(torch.cuda, 'stream',
-                        lambda st: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, 'device',
-                        lambda dev: contextlib.nullcontext())
-    monkeypatch.setattr(solver, '_capture_step', _stand_in_capture)
+    use_stand_in_graphs(monkeypatch)
     s_e, n_e = run(solver._run_eager)
     s_g, n_g = run(solver._run_graphed)
     _same_bits(s_g, s_e)
-    assert n_g == n_e == int(s_e.t)
+    assert n_g == n_e == 1 + int(s_e.t)
     assert int(s_e.t) == max_iters or bool(s_e.done.all())
 
 
