@@ -541,16 +541,18 @@ def loop_mode(mode: str):
 
 def cache_note(tag, captures: int, capture_s: float) -> dict:
     """The program cache after a phase's 'reused' calls, which took
-    `captures` captures in all: each key must have been captured once (two
-    graphs a program, its step and its init); its programs and bytes,
-    logged."""
+    `captures` captures in all: each key must have been captured once (each
+    graph a program holds, its step and its init, and Adam's polish step,
+    once);
+    its programs and bytes, logged."""
     from gpmpc_tpu_torch.mpc import solver
     stats = solver.program_stats()
-    if captures != 2 * stats['programs']:
+    graphs = sum(len(prog.graphs) for prog in solver._PROGRAMS.values())
+    if captures != graphs:
         raise AssertionError(f'{tag}: the reused calls took {captures} '
-                             f'captures for {stats["programs"]} programs, '
-                             'expected one capture of each program\'s step '
-                             'and init')
+                             f'captures for {stats["programs"]} programs of '
+                             f'{graphs} graphs, expected one capture of '
+                             'each program\'s graphs')
     log(f'[{tag}] reused: {stats["programs"]} programs, each key captured '
         f'once ok ({captures} graphs, {capture_s:.3f} s of capture); the '
         f'cache holds {stats["bytes"]} bytes ({stats["pool_bytes"]} in '
@@ -640,11 +642,13 @@ def _bits(t):
 
 def same_bits(tag, res_a, res_b) -> None:
     """Raises unless two SolveResults are equal to the bit in u, cost,
-    iters, pg_norm and converged."""
+    iters, pg_norm and converged (None on both for Adam)."""
     import torch
     for k in ('u', 'cost', 'iters', 'pg_norm', 'converged'):
         a, b = getattr(res_a, k), getattr(res_b, k)
-        if not (a.dtype == b.dtype and a.shape == b.shape
+        if a is None and b is None:
+            continue
+        if a is None or b is None or not (a.dtype == b.dtype and a.shape == b.shape
                 and torch.equal(_bits(a), _bits(b))):
             raise AssertionError(f'{tag}: eager and graphed {k} differ '
                                  f'(max abs diff '
@@ -2896,6 +2900,24 @@ SPARSE_BARS = {
 # equal; the bars leave the card's f64 arithmetic about two decades.
 VMAP_U_ATOL = 1e-8
 VMAP_COST_RTOL = 1e-9
+# Phase 8c at full width, the per-scenario routes as one lockstep solve of
+# all lanes: (b) solve_batch_gp over VMAP_LANES exact-GP draws (the headline
+# data of seeds 0..255, f32, H = 20, gamma swept, L-BFGS 40 iterations at
+# tol 1e-4) and (c) solve_batch's projected Adam on the headline (the Adam
+# config of the stored reference), each timed graphed and reused over
+# VMAP_REPS fresh-x0 batches and eager on the first (an eager call at B =
+# 256 takes ~45 s: ~48,000 kernels a value-and-grad launched from Python);
+# (b)'s f32 controls scored against f64 solves of the same lanes and x0s
+# (VMAP_F64_LANES of them); the lanes route with a full
+# covariance (its PSD clip through the eigensolver's vmap rule) at
+# VMAP_FULL_COV_LANES lanes for VMAP_FULL_COV_ITERS iterations; (d)
+# ROUTE_C_STEPS Adam control steps of the swing-up controller (route (c)).
+VMAP_LANES = 256
+VMAP_REPS = 2
+VMAP_F64_LANES = 256
+VMAP_FULL_COV_LANES = 64
+VMAP_FULL_COV_ITERS = 5
+ROUTE_C_STEPS = 4
 # The uncertainty experiment (phase 8d) against the stored JAX results: on
 # the CPU the port's controls read within 1.8e-6 of JAX's at gamma = -1
 # after 112 iterations to JAX's 110 (the trace cancels and sigma_n = 1e-5
@@ -2982,11 +3004,16 @@ def record_eigh_operands():
 def eigh_path_operands(dev) -> dict:
     """{(B, d): [(tag, operands (B, 2, 2)), ...]}: the pre-clip covariances
     the paths hand the eigensolver, from full-covariance rollouts at u = 0:
-    the headline (f32, B = 256, 20 steps), config 4 (f32, B = 64, 50 steps)
-    and the swing-up controller's route (b) (f64, B = 1, H = 8, its stored
-    transitions and trained hyperparameters, delta dynamics)."""
+    the headline (f32, B = 256, 20 steps), config 4 (f32, B = 64, 50 steps),
+    the lanes route (the headline's first VMAP_FULL_COV_LANES lanes, f32,
+    20 steps of dynamics.rollout_lanes: what the eigensolver's vmap rule
+    hands the kernel) and the swing-up controller's route (b) (f64, B = 1,
+    H = 8, its stored transitions and trained hyperparameters, delta
+    dynamics)."""
     import torch
-    from gpmpc_tpu_torch.dynamics import build_rollout_cache, rollout_batched
+    from gpmpc_tpu_torch.dynamics import (build_rollout_cache, rollout_batched,
+                                          rollout_lanes)
+    from gpmpc_tpu_torch.ops.kernels import eigh_small
     from gpmpc_tpu_torch.mpc.controller import RiskSensitiveMPC
     from gpmpc_tpu_torch.problems import make_headline_problem, sparse_problem
     ref = np.load(CLOSED_LOOP_REF)
@@ -3013,6 +3040,24 @@ def eigh_path_operands(dev) -> dict:
                                                  1)), full_cov=True)
             out.setdefault((p.x0s.shape[0], 2), []).extend(
                 (f'{tag} step {k + 1}', a) for k, a in enumerate(seen))
+        lanes = make_headline_problem(b=VMAP_FULL_COV_LANES,
+                                      dtype=torch.float32, device=dev)
+        forward, seen = eigh_small._forward, []
+
+        def rec(a):
+            seen.append(a.detach().clone())
+            return forward(a)
+
+        eigh_small._forward = rec
+        try:
+            rollout_lanes(build_rollout_cache(lanes.gp, 2, 1), lanes.x0s,
+                          lanes.x0s.new_zeros((VMAP_FULL_COV_LANES,
+                                               lanes.horizon, 1)),
+                          full_cov=True)
+        finally:
+            eigh_small._forward = forward
+        out.setdefault((VMAP_FULL_COV_LANES, 2), []).extend(
+            (f'lanes route f32 step {k + 1}', a) for k, a in enumerate(seen))
         x0 = torch.tensor(ref['ep_states'][1], dtype=torch.float64,
                           device=dev)[None]
         with record_eigh_operands() as seen:
@@ -3315,11 +3360,13 @@ def phase_sparse_fullcov(dev, ref, jax_tpu):
 
 
 def phase_vmap_routes(dev, ref):
-    """Phase 8c: the per-scenario routes in f64 against JAX's stored
-    results, with no kernel launched (the single-scenario rollout): (1)
-    solve_batch with projected Adam ('auto' -> 'vmap') on four headline
-    lanes; (2) solve_batch_gp over stack_gps of three headline data draws.
-    u within VMAP_U_ATOL, costs VMAP_COST_RTOL, iterations equal."""
+    """Phase 8c: the per-scenario routes, each one lockstep solve of all
+    its lanes on the single-scenario rollout mapped over the lanes. (a) In
+    f64 against JAX's stored results, with no kernel launched: (1)
+    solve_batch with projected Adam ('auto' -> 'vmap') on two headline
+    lanes; (2) solve_batch_gp over stack_gps of three headline data draws;
+    u within VMAP_U_ATOL, costs VMAP_COST_RTOL, iterations equal. (b)-(d)
+    are phase_vmap_full."""
     import torch
     from gpmpc_tpu_torch.mpc.solver import SolverConfig
     from gpmpc_tpu_torch.parallel.batch import (solve_batch, solve_batch_gp,
@@ -3363,8 +3410,257 @@ def phase_vmap_routes(dev, ref):
         log(f'[vmap {key}] {len(iters)} lanes: u max abs err vs JAX {u_err:.2e}'
             f' (atol {VMAP_U_ATOL}), costs {cost_rel:.2e} (rtol '
             f'{VMAP_COST_RTOL}), iterations {iters.tolist()} equal ok; no '
-            f'kernel launched; {wall:.3f} s')
+            f'kernel launched; {wall:.3f} s (one lockstep solve of its '
+            'lanes)')
     return out
+
+
+def phase_vmap_full(dev, ref):
+    """Phase 8c at full width (the constants above): (b) solve_batch_gp
+    over 256 GP draws, (c) Adam on the headline, the lanes route with a
+    full covariance, (d) route (c)'s control steps."""
+    cfgs = json.loads(str(ref['configs']))
+    return dict(gp_full=phase_vmap_gp_full(dev),
+                adam_full=phase_vmap_adam_full(dev, cfgs['adam']),
+                full_cov=phase_vmap_full_cov(dev),
+                route_c=phase_route_c(dev, cfgs['adam']))
+
+
+def _program_nodes() -> dict:
+    """The kernel nodes of each graph of the one kept program: what a
+    replay of its init (one value-and-grad and the solver's init), step
+    (one value-and-grad and an iteration) and polish (one value-and-grad
+    and a polish step) graphs launches."""
+    from gpmpc_tpu_torch.mpc import solver
+    (prog,) = solver._PROGRAMS.values()
+    out = {'init': prog.init_counts, 'step': prog.step_counts}
+    if prog.polish is not None:
+        out['polish'] = prog.polish_counts
+    return {k: sum(c.names.values()) for k, c in out.items()}
+
+
+def timed_lanes_route(tag, b, solve, x0s, dev):
+    """A per-scenario route at full width, the counts set to 0 just before
+    and read just after (no kernel may launch): a first call on x0s as the
+    callers run it (it captures the program), then 'graphed' and 'reused'
+    in turns over VMAP_REPS fresh-x0 batches, then 'eager' beside 'reused'
+    on the first of them (time_solves: every batch equal to the bit across
+    the modes); each key captured once (the first call's captures are the
+    program's graphs); the program's bytes and its graphs' kernel nodes.
+    Returns (result on x0s, the record)."""
+    from gpmpc_tpu_torch.mpc import solver
+    solver.clear_programs()
+    reset_counts()
+    with capture_walls() as walls:
+        first, first_s = _timed(lambda: solve(x0s), dev)
+    timed = time_solves(tag, b, solve, VMAP_REPS, dev,
+                        modes=('graphed', 'reused'))
+    timed['eager'] = time_solves(f'{tag} eager', b, solve, 1, dev,
+                                 modes=('eager', 'reused'))['eager']
+    launches = read_counts()
+    if any(launches.values()):
+        raise AssertionError(f'{tag}: launched {launches}')
+    n, secs = reused_captures(timed['reused'])
+    if n:
+        raise AssertionError(f'{tag}: the timed reused calls captured {n} '
+                             'graphs, expected none')
+    capture_s = sum(w for w, _ in walls)
+    cache = cache_note(tag, len(walls), capture_s)
+    nodes = _program_nodes()
+    log(f'[{tag}] no kernel launched ok; kernel nodes a replay: {nodes}; '
+        f'the first call {first_s:.2f} s (its {len(walls)} captures '
+        f'{capture_s:.2f} s); solves/s eager (one batch) '
+        f'{timed["eager"]["solves_per_s"]:.2f}, graphed '
+        f'{timed["graphed"]["solves_per_s"]:.2f}, reused '
+        f'{timed["reused"]["solves_per_s"]:.2f}; program '
+        f'{cache["bytes"] / 2 ** 30:.2f} GiB '
+        f'({cache["pool_bytes"] / 2 ** 30:.2f} GiB of graph pools)')
+    return first, dict(timed, first_s=first_s, cache=cache,
+                       graph_kernel_nodes=nodes)
+
+
+def _gp_draws(b, dtype, dev):
+    """stack_gps of the headline GP of seeds 0..b-1 (N = 200 in capacity
+    256, ds = 2, da = 1, E = 2): one exact GP a lane."""
+    from gpmpc_tpu_torch.parallel.batch import stack_gps
+    from gpmpc_tpu_torch.problems import make_headline_problem
+    return stack_gps([make_headline_problem(b=1, seed=s, dtype=dtype,
+                                            device=dev).gp
+                      for s in range(b)])
+
+
+def phase_vmap_gp_full(dev):
+    """Phase 8c (b): solve_batch_gp over VMAP_LANES GP draws at full width
+    (timed_lanes_route), then the f32 controls of its first call (the
+    headline's x0s) scored under the f64 objective of the same lanes
+    against f64 solves of the same lanes and x0s (cost_excess: p50, p90,
+    max, lanes above 1 %)."""
+    import torch
+    from gpmpc_tpu_torch.dynamics import build_rollout_cache
+    from gpmpc_tpu_torch.mpc import solver
+    from gpmpc_tpu_torch.mpc.solver import SolverConfig
+    from gpmpc_tpu_torch.parallel.batch import lanes_objective, solve_batch_gp
+    from gpmpc_tpu_torch.problems import cost_excess, make_headline_problem
+    b = VMAP_LANES
+    t0 = time.perf_counter()
+    gps = _gp_draws(b, torch.float32, dev)
+    sync(dev)
+    build_s = time.perf_counter() - t0
+    hp = make_headline_problem(b=b, dtype=torch.float32, device=dev)
+    cfg = SolverConfig(max_iters=ITERS, tol=1e-4)
+
+    def solve(x0s):
+        return solve_batch_gp(gps, 2, 1, x0s, hp.params, hp.horizon, hp.lb,
+                              hp.ub, cfg)
+
+    log(f'[vmap gp full] {b} GP draws built and stacked in {build_s:.1f} s')
+    res32, out = timed_lanes_route('vmap gp full', b, solve, hp.x0s, dev)
+    out['draws_build_s'] = build_s
+    solver.clear_programs()
+
+    # f32 quality: the f64 solve of the same lanes and x0s, and the f64
+    # objective of the same lanes at both controls.
+    m = VMAP_F64_LANES
+    gps64 = _gp_draws(m, torch.float64, dev)
+    x0s64 = hp.x0s[:m].double()
+    p64 = hp.params._replace(**{k: getattr(hp.params, k).double()
+                                for k in ('Q', 'R', 'x_ref', 'u_ref')},
+                             gamma=hp.params.gamma[:m].double())
+    res64, wall64 = _timed(lambda: solve_batch_gp(
+        gps64, 2, 1, x0s64, p64, hp.horizon, hp.lb, hp.ub, cfg), dev)
+    stats64 = solver.program_stats()
+    solver.clear_programs()
+    j64 = lanes_objective(build_rollout_cache(gps64, 2, 1), x0s64, p64)
+    quality = cost_excess(j64, res32.u[:m], res64.cost)
+    out['f32_quality'] = dict(quality, lanes=m, f64_wall_s=wall64,
+                              f64_program_bytes=stats64['bytes'])
+    log(f'[vmap gp full] f32 controls vs f64 solves of the same {m} lanes '
+        f'and x0s (J64): p50 {quality["p50"]:.4%} p90 {quality["p90"]:.4%} '
+        f'max {quality["max"]:.4%}, lanes >1% {quality["lanes_above_1pct"]}'
+        f'/{m}; the f64 solve {wall64:.1f} s, its program '
+        f'{stats64["bytes"] / 2 ** 30:.2f} GiB')
+    return out
+
+
+def phase_vmap_adam_full(dev, adam_cfg):
+    """Phase 8c (c): solve_batch with projected Adam ('auto' -> the lanes
+    route) on the headline (B = 256, f32), the stored reference's Adam
+    config, timed_lanes_route."""
+    import torch
+    from gpmpc_tpu_torch.mpc.solver import SolverConfig
+    from gpmpc_tpu_torch.parallel.batch import solve_batch
+    from gpmpc_tpu_torch.problems import make_headline_problem
+    hp = make_headline_problem(b=VMAP_LANES, dtype=torch.float32, device=dev)
+    cfg = SolverConfig(**adam_cfg)
+
+    def solve(x0s):
+        return solve_batch(hp.gp, 2, 1, x0s, hp.params, hp.horizon, hp.lb,
+                           hp.ub, cfg)
+
+    return timed_lanes_route('vmap adam full', VMAP_LANES, solve, hp.x0s,
+                             dev)[1]
+
+
+def phase_vmap_full_cov(dev):
+    """Phase 8c: solve_batch(impl='vmap', full_cov=True) on the headline's
+    first VMAP_FULL_COV_LANES lanes (f32, VMAP_FULL_COV_ITERS iterations),
+    counted: its PSD clip reaches the eigensolver through the kernel's vmap
+    rule, exactly H launches at (B, 2, 2) a value-and-grad and no other
+    kernel; eager and reused equal to the bit."""
+    import torch
+    from gpmpc_tpu_torch.mpc import solver
+    from gpmpc_tpu_torch.mpc.solver import SolverConfig
+    from gpmpc_tpu_torch.parallel.batch import solve_batch
+    from gpmpc_tpu_torch.problems import make_headline_problem
+    b = VMAP_FULL_COV_LANES
+    hp = make_headline_problem(b=b, dtype=torch.float32, device=dev)
+    cfg = SolverConfig(max_iters=VMAP_FULL_COV_ITERS, tol=1e-4)
+    res, launches = {}, {}
+    for mode in ('eager', 'reused'):
+        solver.clear_programs()
+        with loop_mode(mode):
+            reset_counts()
+            res[mode], wall = _timed(lambda: solve_batch(
+                hp.gp, 2, 1, hp.x0s, hp.params, hp.horizon, hp.lb, hp.ub,
+                cfg, full_cov=True, impl='vmap'), dev)
+            launches[mode] = read_counts()
+        iters = int(res[mode].iters.max())
+        want = {k: (hp.horizon * (1 + iters) if k == 'eigh' else 0)
+                for k in launches[mode]}
+        if launches[mode] != want:
+            raise AssertionError(f'vmap full_cov {mode}: launched '
+                                 f'{launches[mode]}, expected {want}')
+        log(f'[vmap full_cov] {mode}: B={b} H={hp.horizon} {iters} '
+            f'iterations, {launches[mode]["eigh"]} eigensolver launches '
+            f'(H a value-and-grad, at ({b}, 2, 2)) and no other kernel ok; '
+            f'{wall:.2f} s')
+    solver.clear_programs()
+    same_bits('vmap full_cov eager vs reused', res['eager'], res['reused'])
+    if not bool(torch.isfinite(res['reused'].cost).all()):
+        raise AssertionError('vmap full_cov: a cost is not finite')
+    return dict(eigh_launches=launches['reused']['eigh'],
+                launches=launches, iters=iters)
+
+
+def phase_route_c(dev, adam_cfg):
+    """Phase 8c (d): the controller's route (c) over ROUTE_C_STEPS Adam
+    control steps of the swing-up controller (phase 7b's: f64, N = 512,
+    delta dynamics, its stored transitions and trained hyperparameters; the
+    stored reference's Adam config), the pendulum stepped and each
+    transition appended between steps: the first step captures its
+    program's three graphs, the later steps nothing; no kernel launched;
+    each step's wall."""
+    import torch
+    from gpmpc_tpu_torch.envs.pendulum import PendulumEnv, PendulumParams
+    from gpmpc_tpu_torch.mpc import solver
+    from gpmpc_tpu_torch.mpc.controller import RiskSensitiveMPC
+    from gpmpc_tpu_torch.mpc.solver import SolverConfig
+    from gpmpc_tpu_torch.sim.simulator import Simulator
+    ref = np.load(CLOSED_LOOP_REF)
+    params = PendulumParams(g=10.0, max_torque=5.0)
+    mpc = RiskSensitiveMPC(
+        gamma=0.0, horizon=8, state_dim=2, input_dim=1,
+        Q=np.diag([8.0, 1.0]), R=0.001 * np.eye(1),
+        R_delta=0.001 * np.eye(1), capacity=512, delta_dynamics=True,
+        dtype=torch.float64, solver=SolverConfig(**adam_cfg), device=dev)
+    mpc.set_ub([params.max_torque])
+    mpc.set_lb([-params.max_torque])
+    mpc.dynamics.append_train_data(ref['states'], ref['actions'],
+                                   ref['next_states'])
+    mpc.set_gp_hyperparams(lambdas=np.exp(ref['log_lambdas']),
+                           sigma_f=np.exp(ref['log_sigma_f']),
+                           sigma_n=np.exp(ref['log_sigma_n']))
+    env = PendulumEnv(params=params, device=dev,
+                      init_state={'th_init': 1.0, 'thdot_init': 0.5})
+    solver.clear_programs()
+    reset_counts()
+    per_step = []
+    orig = mpc.get_optimal_trajectory
+
+    def step(x):
+        with capture_walls() as walls:
+            u = orig(x)
+        per_step.append(len(walls))
+        return u
+
+    mpc.get_optimal_trajectory = step
+    ep = Simulator(mpc, env, num_iters=ROUTE_C_STEPS).run()
+    launches = read_counts()
+    solver.clear_programs()
+    if per_step != [3] + [0] * (ROUTE_C_STEPS - 1):
+        raise AssertionError(f'route (c): captures a step {per_step}, '
+                             'expected 3 at the first and none after')
+    if any(launches.values()):
+        raise AssertionError(f'route (c): launched {launches}')
+    if not (np.isfinite(ep.actions).all() and np.isfinite(ep.costs).all()):
+        raise AssertionError('route (c): a non-finite action or cost')
+    log(f'[route c] {ROUTE_C_STEPS} Adam steps of the swing-up controller: '
+        f'captures a step {per_step} (the first step captures its program, '
+        f'the later steps replay it) ok; no kernel launched; step walls '
+        f'{[round(w, 4) for w in ep.solve_times.tolist()]} s; iterations '
+        f'{ep.iters.tolist()}')
+    return dict(captures=per_step, solve_s=ep.solve_times.tolist(),
+                iters=ep.iters.tolist(), actions=ep.actions.tolist())
 
 
 def phase_uncertainty(dev, ref):
@@ -3533,8 +3829,9 @@ def phase_sparse(dev, checked, out_dir):
     """Phase 8: the sparse GP, the per-scenario routes and the remaining
     modules, each part with the counts set to 0 just before it and read just
     after, every K1 launch at a shape phase 3d checked: (a) config 3b, (b)
-    config 4, (c) the per-scenario routes, (d) the uncertainty experiment,
-    (e) hs071, checkpoints and the native solver."""
+    config 4, (c) the per-scenario routes (against JAX's stored results,
+    then at full width), (d) the uncertainty experiment, (e) hs071,
+    checkpoints and the native solver."""
     from gpmpc_tpu_torch.problems import SPARSE_REF_FILE
     ref = np.load(SPARSE_REF_FILE)
     with open(os.path.join(ROOT, 'benchmarks', 'results',
@@ -3547,7 +3844,8 @@ def phase_sparse(dev, checked, out_dir):
                 dev, ref, jax_tpu['3b_sparse_cartpole'])),
                         ('4', lambda: phase_sparse_fullcov(
                             dev, ref, jax_tpu['4_sparse_fullcov'])),
-                        ('vmap', lambda: phase_vmap_routes(dev, ref))):
+                        ('vmap', lambda: phase_vmap_routes(dev, ref)),
+                        ('vmap_full', lambda: phase_vmap_full(dev, ref))):
             t0 = time.perf_counter()
             out[key] = fn()
             out[key + '_phase_s'] = time.perf_counter() - t0
@@ -3722,6 +4020,9 @@ def main() -> int:
              full_cov['eigh_launches']),
             ((64, 2), f32, 'suite config 4, the full-covariance H = 50 '
              'solve, phase 8b', sparse['4']['eigh_launches']),
+            ((VMAP_FULL_COV_LANES, 2), f32, 'the lanes route with '
+             "full_cov=True through the kernel's vmap rule, phase 8c",
+             sparse['vmap_full']['full_cov']['eigh_launches']),
             ((1, 2), f64, "the swing-up controller's route (b) with "
              'full_cov=True, phase 7b',
              sum(r['eigh'] for mode in MODES

@@ -22,7 +22,10 @@ the `Simulator` and `run_episode_on_device`, and the experiments
 (`python -m gpmpc_tpu_torch.experiments.<name>`); the FITC sparse GP
 (gp/sparse.py), which the batched solves run through the same kernels, the
 per-scenario routes (`solve_batch(impl='vmap')`, `solve_batch_gp` over
-`stack_gps` draws), the augmented-Lagrangian `mpc.constrained`, the
+`stack_gps` draws: one lockstep solve, `solve_trajectory_batched`, of
+every lane's single-scenario rollout, `rollout_lanes`, by L-BFGS or
+projected Adam),
+the augmented-Lagrangian `mpc.constrained`, the
 reference's class facades (`compat`), checkpoints and metrics (utils/), the
 native box solver (`native`, built from native/box_solver.cpp) and the
 episode renderers (sim/render.py). The variance
@@ -42,7 +45,7 @@ from gpmpc_tpu_torch.gp.train import train_hyperparams
 from gpmpc_tpu_torch.gp.sparse import fit_sparse
 from gpmpc_tpu_torch.dynamics import (RolloutCache, build_rollout_cache,
                                       rollout, rollout_batched,
-                                      rollout_from_gp)
+                                      rollout_from_gp, rollout_lanes)
 from gpmpc_tpu_torch.mpc.cost import CostParams, risk_sensitive_cost
 from gpmpc_tpu_torch.mpc.controller import RiskSensitiveMPC
 from gpmpc_tpu_torch.mpc.solver import (SolverConfig, solve_trajectory,

@@ -14,10 +14,19 @@ eigensolver of ops/kernels/eigh_small.py (one kernel launch a step on CUDA,
 no host read, so that a full-covariance step can be captured in a CUDA
 graph); the clamp and the product stay torch ops, JAX's expression.
 
+`rollout_lanes` is `rollout` mapped over B lanes by torch.func.vmap, JAX's
+vmap of the single-scenario rollout: `_step` stays the one place where a
+lane's arithmetic lives, and every op runs once for all lanes (no op of the
+step takes functorch's per-lane fallback). Its cache is shared by the lanes,
+or carries a leading (B,) axis on every tensor: one GP a lane
+(`build_rollout_cache` of a stacked GPState), told apart by the rank of x.
+
 A GP with a nominal mean model (GPConfig.nominal_fn: (n, D) -> (n, E)) fits
-the residual; `rollout` adds the nominal part back by first-order (EKF)
-propagation, exact for an affine model. `rollout_batched` raises on one, as
-the JAX package does.
+the residual; `rollout` and `rollout_lanes` add the nominal part back by
+first-order (EKF) propagation, exact for an affine model. Under vmap the
+model sees batched tensors: it must read no value on the host (such a
+model raises there). `rollout_batched` raises on one, as the JAX package
+does.
 """
 
 from __future__ import annotations
@@ -71,10 +80,16 @@ def cache_from(static_key: tuple, tensors) -> RolloutCache:
 
 def build_rollout_cache(gp: GPState, state_dim: int,
                         action_dim: int) -> RolloutCache:
+    """The rollout cache of gp. A GPState stacked over B lanes
+    (parallel.batch.stack_gps: a leading (B,) axis on every tensor, x of
+    rank 3) gives every cache tensor that axis, the lanes' variance caches
+    made in one batched call; the fields that are not tensors come from the
+    shared config."""
     x, beta = gp.x.detach(), gp.beta.detach()
     ll, lsf = gp.log_lambdas.detach(), gp.log_sigma_f.detach()
-    b_lam = moments.make_variance_cache(x, beta, gp.kinv.detach(), ll, lsf,
-                                        gp.mask)
+    make = (torch.func.vmap(moments.make_variance_cache) if x.ndim == 3
+            else moments.make_variance_cache)
+    b_lam = make(x, beta, gp.kinv.detach(), ll, lsf, gp.mask)
     return RolloutCache(x=x, mask=gp.mask, beta=beta,
                         b_lam=b_lam.contiguous(), log_lambdas=ll,
                         log_sigma_f=lsf, state_dim=state_dim,
@@ -178,6 +193,30 @@ def rollout(cache: RolloutCache, x0, actions, init_state_var: float = 1e-3,
         means.append(mean)
         covs.append(cov)
     return torch.stack(means), torch.stack(covs)
+
+
+def rollout_lanes(cache: RolloutCache, x0s, actions, full_cov: bool = False,
+                  delta: bool = False):
+    """`rollout` of B lanes at once: x0s (B, ds); actions (B, H, da) ->
+    (means (B, H+1, ds), covs (B, H+1, ds, ds)), lane b equal to
+    rollout(cache_b, x0s[b], actions[b]) (rollout's default variances). The cache is shared (x of rank
+    2), or its every tensor carries the lanes' (B,) axis (x of rank 3: one
+    GP a lane; another lane count raises ValueError). torch.func.vmap of
+    `rollout`: each op of the step runs once over all lanes."""
+    b = x0s.shape[0]
+    lane_cache = cache.x.ndim == 3
+    if lane_cache and cache.x.shape[0] != b:
+        raise ValueError(f'rollout_lanes of {b} lanes takes a cache of one '
+                         f'GP a lane or a shared one, got x of shape '
+                         f'{tuple(cache.x.shape)}')
+    static = cache.static_key()
+
+    def one(tensors, x0, u):
+        return rollout(cache_from(static, tensors), x0, u, full_cov=full_cov,
+                       delta=delta)
+
+    return torch.func.vmap(one, in_dims=(0 if lane_cache else None, 0, 0))(
+        cache.tensors(), x0s, actions)
 
 
 def rollout_from_gp(gp: GPState, state_dim: int, action_dim: int, x0,

@@ -25,7 +25,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from gpmpc_tpu_torch.mpc.solver import SolverConfig, _solve_lbfgs
+from gpmpc_tpu_torch.mpc.solver import SolverConfig, solve_trajectory
 
 
 class ConstrainedResult(NamedTuple):
@@ -93,8 +93,9 @@ def solve_constrained(objective: Callable[[torch.Tensor], torch.Tensor],
     mu = torch.tensor(mu0, dtype=dt, device=dev)
     prev_v = torch.tensor(float('inf'), dtype=dt, device=dev)
     for _ in range(outer_iters):
-        u = _solve_lbfgs(lambda w, le=lam_eq, li=lam_in, m=mu: al(w, le, li, m),
-                         u, lb, ub, config).u.detach()
+        u = solve_trajectory(
+            lambda w, le=lam_eq, li=lam_in, m=mu: al(w, le, li, m), u, lb, ub,
+            config.replace(method='lbfgs')).u.detach()
         with torch.no_grad():
             v = viol(u)
             if m_eq:

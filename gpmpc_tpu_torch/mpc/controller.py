@@ -15,16 +15,19 @@ the GP, the rollouts and the solve run in torch on the controller's device
   (b) L-BFGS without a nominal model: the batched rollout and the lockstep
       solver at B = 1, whose variance trace runs K1 (tied lengthscales) or
       K2 (untied, e.g. after `train_gp`);
-  (c) otherwise the single-scenario `dynamics.rollout` and
-      `solver.solve_trajectory`.
+  (c) otherwise (Adam, or a nominal model) the single-scenario rollout
+      and the lockstep solver of the configured method at B = 1
+      (`parallel.batch.lanes_objective`, `solver.solve_trajectory_batched`).
 JAX jits `_solve` and keeps the compiled program for every later step.
-Here route (b), with a diagonal or a full covariance, solves through the
-solver's kept program (mpc/solver.py, `_run_graphed`): the first step
-captures it and every later step with the same key replays it. `append`
-changes the GP's values, not its shapes, so the steps between two
+Here routes (b) and (c), with a diagonal or a full covariance, solve
+through the solver's kept program (mpc/solver.py, `_run_graphed`): the
+first step captures it and every later step with the same key replays it.
+`append` changes the GP's values, not its shapes, so the steps between two
 `train_gp` / `set_gp_hyperparams` calls that flip the tied lengthscales, or
 two `grow` calls, share one program. Route (a)'s solves keep theirs inside
-`solve_batch_multistart`; route (c) runs eagerly.
+`solve_batch_multistart`. A nominal model is captured like the rest of the
+step: one that reads a value on the host raises; the step never falls back
+to an eager loop.
 """
 
 from __future__ import annotations
@@ -35,12 +38,11 @@ import numpy as np
 import torch
 
 from gpmpc_tpu_torch.device import resolve_device
-from gpmpc_tpu_torch.dynamics import build_rollout_cache, rollout
+from gpmpc_tpu_torch.dynamics import build_rollout_cache
 from gpmpc_tpu_torch.gp import state as gp_state
 from gpmpc_tpu_torch.mpc.cost import CostParams, risk_sensitive_cost
 from gpmpc_tpu_torch.mpc.solver import (SolverConfig, SolveResult,
-                                        first_lane, solve_trajectory,
-                                        solve_trajectory_batched)
+                                        first_lane, solve_trajectory_batched)
 
 
 def single_cost(params: CostParams, means, covs, u) -> torch.Tensor:
@@ -68,18 +70,14 @@ def _solve(gp, state_dim, action_dim, x0, u_init, lb, ub, params: CostParams,
             lb, ub, solver_config, n_starts=n_starts, delta=delta_dynamics,
             extra_starts=u_init[None, None], **dict(recipe_kwargs)))
 
+    from gpmpc_tpu_torch.parallel.batch import batch_objective, lanes_objective
     if cache.nominal_fn is None and lbfgs:
-        from gpmpc_tpu_torch.parallel.batch import batch_objective
         return first_lane(solve_trajectory_batched(
             batch_objective(cache, x0[None], params, delta_dynamics,
                             full_cov), u_init[None], lb, ub, solver_config))
-
-    def objective(u):
-        means, covs = rollout(cache, x0, u, full_cov=full_cov,
-                              delta=delta_dynamics)
-        return single_cost(params, means, covs, u)
-
-    return solve_trajectory(objective, u_init, lb, ub, solver_config)
+    return first_lane(solve_trajectory_batched(
+        lanes_objective(cache, x0[None], params, delta_dynamics, full_cov),
+        u_init[None], lb, ub, solver_config))
 
 
 class _DynamicsHandle:

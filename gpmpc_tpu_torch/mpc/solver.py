@@ -1,7 +1,7 @@
 """Box-constrained trajectory solvers (port of gpmpc_tpu/mpc/solver.py).
 
-`solve_trajectory_batched`: lockstep projected L-BFGS over B independent
-solves. Every lane has its own acceptance, step size, history and
+`solve_trajectory_batched`: a lockstep solve of B independent problems by
+config.method, projected L-BFGS (below) or projected Adam. Every lane has its own acceptance, step size, history and
 convergence; lanes that are done freeze while the loop runs on until all are
 done or the iteration cap. One iteration is `_lbfgs_step`, a function of the
 carry `LbfgsState`. JAX's `lax.while_loop` compiles the loop into one
@@ -23,10 +23,17 @@ external value-and-grad, and where the caller says `_graph=False`
 (`solve_trajectory`), each iteration runs its torch ops from Python
 (`_run_eager`). All run the same kernels on the same inputs.
 
-`solve_trajectory`: one solve of objective(u) -> scalar, by projected L-BFGS
-(method='lbfgs', the batched solver at B = 1: JAX's single-scenario L-BFGS
-is the same recurrence lane for lane) or by projected Adam with a fixed step
-and an optional polish of normalized-gradient steps (method='adam').
+Projected Adam (method='adam') takes a fixed step and an optional polish of
+normalized-gradient steps, with JAX's vmapped-while semantics: a lane's carry freezes once its
+projected-gradient residual is below tol, the loop runs until every lane is
+done or the cap, and iterations, the polish's max|g|, the final cost and
+pg_norm are per lane. Both methods run through the same machinery (a
+method is an (init, step, polish) triple, `_METHODS`), programs included.
+
+`solve_trajectory`: one solve of objective(u) -> scalar, the lockstep
+solver of its method at B = 1 (JAX's single-scenario L-BFGS and Adam are the
+same recurrences lane for lane), its loop run eagerly: it takes any
+closure, and one that reads a value on the host cannot be captured.
 """
 
 from __future__ import annotations
@@ -68,7 +75,7 @@ class SolverConfig:
     noise_rel: float = 0.0
     progress_window: int = 12
     # Projected steps along the normalized gradient after the main loop, the
-    # step decaying by 2^(-1/4) each (solve_trajectory with Adam).
+    # step decaying by 2^(-1/4) each (Adam).
     polish_iters: int = 0
 
     def replace(self, **changes) -> 'SolverConfig':
@@ -86,8 +93,9 @@ class SolveResult(NamedTuple):
 
 
 def first_lane(res: SolveResult) -> SolveResult:
-    """Lane 0 of a batched result, shaped as a single solve's."""
-    return SolveResult(*(t[0] for t in res))
+    """Lane 0 of a batched result, shaped as a single solve's (converged
+    stays None where it is)."""
+    return SolveResult(*(None if t is None else t[0] for t in res))
 
 
 def _value_and_grad(objective_b, u_flat, shape):
@@ -145,6 +153,8 @@ class _Problem(NamedTuple):
     # None (a closure, or an eager solve): (key, inputs, build), where
     # build(*inputs) gives a val_and_grad.
     program: Optional[tuple] = None
+    # The method (a key of _METHODS) whose init, step and polish run.
+    method: str = 'lbfgs'
 
 
 def _proj(p: _Problem, u):
@@ -303,6 +313,106 @@ def _lbfgs_step(p: _Problem, s: LbfgsState) -> LbfgsState:
         done=done | (newly_done & live), t=t)
 
 
+class AdamState(NamedTuple):
+    """Projected Adam's lockstep carry (B lanes, n = H * da): the iterate u
+    (B, n), its value f (B,) and gradient g (B, n) as the value-and-grad
+    gives it (the steps read it with non-finite entries as 0; the result's
+    pg_norm reads it as it is, as JAX's does), the moments m, v (B, n),
+    each lane's iterations iters_b (its own Adam step count) and stop done,
+    the loop's iteration index t and the polish steps taken i_pol (int64
+    scalars)."""
+    u: torch.Tensor
+    f: torch.Tensor
+    g: torch.Tensor
+    m: torch.Tensor
+    v: torch.Tensor
+    iters_b: torch.Tensor
+    done: torch.Tensor
+    t: torch.Tensor
+    i_pol: torch.Tensor
+
+
+def _finite(p: _Problem, g):
+    return torch.where(torch.isfinite(g), g, p.zero)
+
+
+def _adam_init(p: _Problem, u_init) -> AdamState:
+    """u_init (B, n) projected onto the box, one value-and-grad there, zero
+    moments."""
+    b = u_init.shape[0]
+    u = _proj(p, u_init)
+    f, g = p.val_and_grad(u)
+    zero = torch.zeros((), dtype=torch.long, device=u.device)
+    return AdamState(u=u, f=f, g=g, m=torch.zeros_like(u),
+                     v=torch.zeros_like(u),
+                     iters_b=torch.zeros((b,), dtype=torch.long,
+                                         device=u.device),
+                     done=torch.zeros((b,), dtype=torch.bool, device=u.device),
+                     t=zero, i_pol=zero.clone())
+
+
+def _adam_step(p: _Problem, s: AdamState) -> AdamState:
+    """One lockstep Adam iteration, JAX's body on every live lane: the
+    moments, the bias correction at the lane's own step count, the projected
+    step, one value-and-grad; a lane is done once its residual is below
+    tol, and a done lane keeps every field (vmapped-while semantics). Reads
+    no value on the host."""
+    cfg = p.config
+    live = ~s.done
+    g = _finite(p, s.g)
+    m = cfg.b1 * s.m + (1.0 - cfg.b1) * g
+    v = cfg.b2 * s.v + (1.0 - cfg.b2) * g * g
+    t1 = s.iters_b + 1
+    tf = t1.to(s.u.dtype)[:, None]
+    mhat = m / (1.0 - torch.pow(cfg.b1, tf))
+    vhat = v / (1.0 - torch.pow(cfg.b2, tf))
+    u_new = _proj(p, s.u - cfg.learning_rate * mhat
+                  / (torch.sqrt(vhat) + cfg.eps))
+    f_new, g_new = p.val_and_grad(u_new)
+    done = _pg_res(p, u_new, _finite(p, g_new)) < cfg.tol
+    keep = live[:, None]
+    return s._replace(
+        u=torch.where(keep, u_new, s.u), f=torch.where(live, f_new, s.f),
+        g=torch.where(keep, g_new, s.g), m=torch.where(keep, m, s.m),
+        v=torch.where(keep, v, s.v), iters_b=torch.where(live, t1, s.iters_b),
+        done=torch.where(live, done, s.done), t=s.t + live.any())
+
+
+def _adam_polish(p: _Problem, s: AdamState) -> AdamState:
+    """Polish step i_pol on every lane: u moves by lr 2^(-i/4) g /
+    (max|g| + eps) (the lane's own max|g|, g read with non-finite entries
+    as 0) and is projected, then one value-and-grad at the new u. The
+    carried g is the gradient at u, so after `polish_iters` steps f and g
+    are the final cost and gradient that JAX evaluates afresh."""
+    cfg = p.config
+    g = _finite(p, s.g)
+    step = cfg.learning_rate * torch.pow(0.5, s.i_pol.to(s.u.dtype) / 4.0)
+    u = _proj(p, s.u - step * g / (torch.amax(torch.abs(g), dim=1,
+                                              keepdim=True) + cfg.eps))
+    f, g_new = p.val_and_grad(u)
+    return s._replace(u=u, f=f, g=g_new, i_pol=s.i_pol + 1)
+
+
+class _Method(NamedTuple):
+    """A lockstep solver: init(p, u0 (B, n)) -> state and step(p, state) ->
+    state (a state with every lane done is a fixed point) for the loop,
+    and polish(p, state) -> state, run config.polish_iters times after it
+    (None: no polish). Each reads nothing on the host, so that a program
+    can capture it."""
+    init: Callable
+    step: Callable
+    polish: Optional[Callable] = None
+
+
+_METHODS = {'lbfgs': _Method(_lbfgs_init, _lbfgs_step),
+            'adam': _Method(_adam_init, _adam_step, _adam_polish)}
+
+
+def _polish_iters(p: _Problem) -> int:
+    """The polish steps p's solve takes after its loop."""
+    return p.config.polish_iters if _METHODS[p.method].polish else 0
+
+
 def _go_on(s: LbfgsState, t: int, max_iters: int) -> bool:
     """The loop's condition, JAX's while_loop cond: below the cap and a lane
     not done (one read on the host an iteration)."""
@@ -317,27 +427,37 @@ def _loop_from(p: _Problem, s: LbfgsState, t: int, step) -> LbfgsState:
     return s
 
 
-def _run_eager(p: _Problem, u0) -> LbfgsState:
-    """The loop from u0 (B, n), its first value-and-grad included, every
-    iteration's torch ops run from Python."""
-    return _loop_from(p, _lbfgs_init(p, u0), 0,
-                      lambda s: _lbfgs_step(p, s))
+def _run_eager(p: _Problem, u0):
+    """The loop of p's method from u0 (B, n), its first value-and-grad and
+    its polish steps included, every iteration's torch ops run from
+    Python."""
+    m = _METHODS[p.method]
+    s = _loop_from(p, m.init(p, u0), 0, lambda s: m.step(p, s))
+    for _ in range(_polish_iters(p)):
+        s = m.polish(p, s)
+    return s
 
 
-def _step_in_place(p: _Problem, s: LbfgsState) -> None:
-    """One `_lbfgs_step` written back into s's own tensors (`copy_`), which
-    must not alias one another: the code a capture records."""
-    _write(s, _lbfgs_step(p, s))
+def _step_in_place(p: _Problem, s) -> None:
+    """One step of p's method written back into s's own tensors (`copy_`),
+    which must not alias one another: the code a capture records."""
+    _write(s, _METHODS[p.method].step(p, s))
 
 
-def _init_in_place(p: _Problem, u0, s: LbfgsState) -> None:
-    """`_lbfgs_init` from u0 written into s's own tensors: the code of a
-    program's init graph (its f_best and u_best are copies, not aliases, of
-    f and u)."""
-    _write(s, _lbfgs_init(p, u0))
+def _init_in_place(p: _Problem, u0, s) -> None:
+    """The init of p's method from u0 written into s's own tensors: the
+    code of a program's init graph (L-BFGS's f_best and u_best are copies,
+    not aliases, of f and u)."""
+    _write(s, _METHODS[p.method].init(p, u0))
 
 
-def _write(dst: LbfgsState, src: LbfgsState) -> None:
+def _polish_in_place(p: _Problem, s) -> None:
+    """One polish step of p's method written into s's own tensors: the
+    code of a program's polish graph."""
+    _write(s, _METHODS[p.method].polish(p, s))
+
+
+def _write(dst, src) -> None:
     for d, v in zip(dst, src):
         if v is not d:
             d.copy_(v)
@@ -372,20 +492,23 @@ def _capture(record: Callable[[LbfgsState], None], s: LbfgsState,
 
 # ------------------------------------------------------------- programs --
 # A program is the port's counterpart of one entry of jax.jit's cache: the
-# captured solve of one objective at one shape, kept and replayed on every
-# later call with the same key. It owns static copies of the objective's
-# input tensors, of u_init, lb and ub, the objective built once on those
-# copies, a static LbfgsState, two CUDA graphs (`_init_in_place` and
-# `_step_in_place`) with their counts, a side stream and a memory pool.
+# captured solve of one objective at one shape by one method, kept and
+# replayed on every later call with the same key. It owns static copies of
+# the objective's input tensors, of u_init, lb and ub, the objective built
+# once on those copies, a static state of its method (LbfgsState,
+# AdamState), its CUDA graphs (`_init_in_place`, `_step_in_place` and, for
+# a solve with polish steps, `_polish_in_place`) with their counts, a side
+# stream and a memory pool.
 #
 # A call copies its inputs into the program's buffers, replays the init
-# graph, then the step graph once an iteration while `_go_on` holds, and
-# copies the result out on the caller's stream: no result is a view of a
-# program's buffer. Programs stay, least recently used first, while the
-# cache holds at most MAX_PROGRAM_BYTES (their pools' reserved bytes,
-# measured around the captures, and their static buffers): a third of an
-# H100's 80 GB, which holds the recipe's six programs (~1.0 GB) or
-# thirteen full-covariance headline ones (~1.8 GB each) (PERF.md).
+# graph, then the step graph once an iteration while `_go_on` holds, then
+# the polish graph once a polish step, and copies the result out on the
+# caller's stream: no
+# result is a view of a program's buffer. Programs stay, least recently used
+# first, while the cache holds at most MAX_PROGRAM_BYTES (their pools'
+# reserved bytes, measured around the captures, and their static buffers): a
+# third of an H100's 80 GB, which holds the recipe's six programs (~1.0 GB)
+# or thirteen full-covariance headline ones (~1.8 GB each) (PERF.md).
 # `clear_programs()` (jax.clear_caches()) drops them all. A program replays
 # the code its capture recorded: a block that swaps a function the
 # objective calls (a diagnostic trace, a counting wrapper) is in no key, so
@@ -398,19 +521,27 @@ def _nbytes(ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
+def _clone(s):
+    """A state whose every field is a tensor of its own."""
+    return type(s)(*(x.clone() for x in s))
+
+
 class _Program:
     """One solve's captured program (see above). Built by the call that
     misses: the call runs its first value-and-grad and iteration 1 eagerly
     on the program's buffers (the warm-up a capture needs), captures the
     step and, if `keep`, the init, then replays the step for the rest of
-    its iterations. `state` is the static LbfgsState a call leaves its
-    result in."""
+    its iterations; a solve with polish steps runs one eagerly on a copy
+    (its warm-up), captures it and replays it once a polish step. `state`
+    is the static state a call leaves its result in."""
 
     def __init__(self, p: _Problem, u0, main, keep: bool):
         dev = u0.device
+        method = _METHODS[p.method]
         self.side = torch.cuda.Stream(device=dev)
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs = []
+        self.polish = None
         self.side.wait_stream(main)
         with torch.cuda.device(dev), torch.cuda.stream(self.side):
             if p.program is None:
@@ -424,17 +555,17 @@ class _Program:
                                     for x in inputs)
                 vg = build(*self.inputs)
             self.u0 = u0.clone()
-            self.p = _Problem(val_and_grad=vg, lb=p.lb.clone(),
-                              ub=p.ub.clone(), zero=p.zero.clone(),
-                              config=p.config)
-            s = _lbfgs_init(self.p, self.u0)
+            self.p = p._replace(val_and_grad=vg, lb=p.lb.clone(),
+                                ub=p.ub.clone(), zero=p.zero.clone(),
+                                program=None)
+            s = method.init(self.p, self.u0)
             t = 0
             if _go_on(s, t, p.config.max_iters):
-                s = _lbfgs_step(self.p, s)
+                s = method.step(self.p, s)
                 t = 1
             # Distinct buffers: a field may alias another (f_best is f
             # until the noise mode moves it).
-            self.state = s = LbfgsState(*(x.clone() for x in s))
+            self.state = s = _clone(s)
             reserved = torch.cuda.memory_reserved(dev)
             self.step, self.step_counts = _capture(
                 lambda st: _step_in_place(self.p, st), s, self.pool)
@@ -444,8 +575,14 @@ class _Program:
                     lambda st: _init_in_place(self.p, self.u0, st), s,
                     self.pool)
                 self.graphs.append(self.init)
-            self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
             self._replay_steps(s, t)
+            if _polish_iters(self.p):
+                method.polish(self.p, _clone(s))
+                self.polish, self.polish_counts = _capture(
+                    lambda st: _polish_in_place(self.p, st), s, self.pool)
+                self.graphs.append(self.polish)
+                self._replay_polish()
+            self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.bytes = self.pool_bytes + _nbytes(
             (*self.inputs, self.u0, self.p.lb, self.p.ub, self.p.zero, *s))
 
@@ -456,10 +593,15 @@ class _Program:
             return st
         _loop_from(self.p, s, t, step)
 
+    def _replay_polish(self) -> None:
+        for _ in range(_polish_iters(self.p)):
+            self.polish.replay()
+            self.polish_counts.replayed()
+
     def run(self, p: _Problem, u0, main) -> None:
         """A later call: this call's inputs, u0, lb and ub into the
         program's buffers, the init graph, then the step graph while the
-        loop goes on."""
+        loop goes on, then the polish graph once a polish step."""
         self.side.wait_stream(main)
         with torch.cuda.device(u0.device), torch.cuda.stream(self.side):
             for dst, src in zip(self.inputs, p.program[1]):
@@ -471,6 +613,7 @@ class _Program:
             self.init.replay()
             self.init_counts.replayed()
             self._replay_steps(self.state, 0)
+            self._replay_polish()
 
     def release(self) -> None:
         """Its graphs and their pool go (after its last work ends)."""
@@ -481,15 +624,15 @@ class _Program:
 
 
 def _program_key(p: _Problem, u0) -> Hashable:
-    """The key of p's program: the caller's key, each input's shape,
-    strides, dtype and device, u0's, lb's and ub's broadcast shapes (in
-    p.program's key), the solver config, and the K4 opt-in that the trace
-    reads on every call (ops/kernels/variance_trace.py)."""
+    """The key of p's program: the caller's key and the method, each
+    input's shape, strides, dtype and device, u0's, lb's and ub's broadcast
+    shapes (in p.program's key), the solver config, and the K4 opt-in that
+    the trace reads on every call (ops/kernels/variance_trace.py)."""
     key, inputs, _ = p.program
     sig = tuple(None if x is None else (tuple(x.shape), x.stride(), x.dtype,
                                         x.device) for x in inputs)
-    return (key, sig, tuple(u0.shape), u0.dtype, u0.device, p.config,
-            os.environ.get('GPMPC_SYM_KERNEL'))
+    return ((p.method, *key), sig, tuple(u0.shape), u0.dtype, u0.device,
+            p.config, os.environ.get('GPMPC_SYM_KERNEL'))
 
 
 def clear_programs() -> None:
@@ -514,7 +657,7 @@ def _evict() -> None:
         _PROGRAMS.popitem(last=False)[1].release()
 
 
-def _run_graphed(p: _Problem, u0) -> LbfgsState:
+def _run_graphed(p: _Problem, u0):
     """The loop of `_run_eager` as replays of captured CUDA graphs, on the
     program's side stream: the same kernels on the same inputs, so the same
     bits and iterations; each replay counts the launches of its graph's
@@ -536,7 +679,7 @@ def _run_graphed(p: _Problem, u0) -> LbfgsState:
         _PROGRAMS.move_to_end(key)
         prog.run(p, u0, main)
     main.wait_stream(prog.side)
-    out = LbfgsState(*(x.clone() for x in prog.state))
+    out = _clone(prog.state)
     if key is None:
         prog.release()
     return out
@@ -570,14 +713,18 @@ def solve_trajectory_batched(objective_b, u_init: torch.Tensor, lb, ub,
                              config: SolverConfig = SolverConfig(),
                              val_and_grad: Optional[Callable] = None,
                              _graph: bool = True) -> SolveResult:
-    """objective_b: (B, H, da) -> (B,) independent per-lane objectives,
+    """One lockstep solve of B lanes by config.method: L-BFGS, or projected
+    Adam (each lane its own moments, step count and stop, then the polish
+    on every lane; converged is None, as JAX's Adam gives none).
+    objective_b: (B, H, da) -> (B,) independent per-lane objectives,
     differentiable by autograd: an `Objective` (its program is kept and
     reused across calls), or any callable. lb/ub broadcast against u_init.
 
     val_and_grad, if given, replaces autograd of objective_b (which may then
     be None): an external (f, g) oracle taking u (B, H, da) and returning
     f (B,) and g (B, H, da), e.g. the collective program of
-    parallel/model_sharded.py.
+    parallel/model_sharded.py; L-BFGS only (Adam raises ValueError, as
+    does an unknown method).
 
     On CUDA the loop runs as replays of captured CUDA graphs
     (`_run_graphed`), unless val_and_grad is given (an external oracle, with
@@ -589,6 +736,12 @@ def solve_trajectory_batched(objective_b, u_init: torch.Tensor, lb, ub,
     (ops/kernels/eigh_small.py) for that. Elsewhere, and on the CPU, the
     loop runs eagerly (`_run_eager`). A capture that fails raises; it never
     turns into the eager loop."""
+    method = config.method
+    if method not in _METHODS:
+        raise ValueError(f'unknown method {method!r}')
+    if method != 'lbfgs' and val_and_grad is not None:
+        raise ValueError(f'an external val_and_grad runs under L-BFGS only, '
+                         f'not method={method!r}')
     dt = u_init.dtype
     dev = u_init.device
     b = u_init.shape[0]
@@ -619,87 +772,30 @@ def solve_trajectory_batched(objective_b, u_init: torch.Tensor, lb, ub,
 
     p = _Problem(val_and_grad=vg, lb=lb_f, ub=ub_f,
                  zero=torch.zeros((), dtype=dt, device=dev), config=config,
-                 program=program)
+                 program=program, method=method)
     graphed = (_graph and val_and_grad is None and _can_graph(dev)
                and config.max_iters > 0)
     s = (_run_graphed if graphed else _run_eager)(p, u_init.reshape(b, n))
+    pg_norm = _pg_res(p, s.u, s.g)
+    if method == 'adam':
+        return SolveResult(u=s.u.reshape(shape), cost=s.f, iters=s.iters_b,
+                           pg_norm=pg_norm)
     if config.noise_rel > 0.0:
         # Best-seen iterate; pg_norm belongs to the last iterate.
         return SolveResult(u=s.u_best.reshape(shape), cost=s.f_best,
-                           iters=s.iters_b, pg_norm=_pg_res(p, s.u, s.g),
+                           iters=s.iters_b, pg_norm=pg_norm,
                            converged=s.done)
     return SolveResult(u=s.u.reshape(shape), cost=s.f, iters=s.iters_b,
-                       pg_norm=_pg_res(p, s.u, s.g), converged=s.done)
+                       pg_norm=pg_norm, converged=s.done)
 
 
 def solve_trajectory(objective: Callable[[torch.Tensor], torch.Tensor],
                      u_init: torch.Tensor, lb, ub,
                      config: SolverConfig = SolverConfig()) -> SolveResult:
     """Minimize objective(u) (u (H, da) -> scalar, differentiable by
-    autograd) over the box [lb, ub] (broadcast against u)."""
-    if config.method == 'lbfgs':
-        return _solve_lbfgs(objective, u_init, lb, ub, config)
-    if config.method == 'adam':
-        return _solve_adam(objective, u_init, lb, ub, config)
-    raise ValueError(f'unknown method {config.method!r}')
-
-
-def _solve_lbfgs(objective, u_init, lb, ub, config: SolverConfig) -> SolveResult:
-    """The lockstep solver at B = 1: the single JAX solve's acceptance, step
-    size, history, restarts, stop and result, lane for lane. Its loop runs
-    eagerly: it takes any objective, and one that reads a value on the host
-    cannot be captured."""
+    autograd) over the box [lb, ub] (broadcast against u):
+    `solve_trajectory_batched` at B = 1, its loop run eagerly (the closure
+    may read the host)."""
     return first_lane(solve_trajectory_batched(
         lambda u_b: objective(u_b[0])[None], u_init[None], lb, ub, config,
         _graph=False))
-
-
-def _solve_adam(objective, u_init, lb, ub, config: SolverConfig) -> SolveResult:
-    """Projected Adam, one gradient an iteration, stopped at the projected-
-    gradient residual < tol or the cap; then `polish_iters` steps of
-    lr 2^(-i/4) g / (max|g| + eps). Non-finite gradients count as 0 in the
-    steps; the returned pg_norm reads the final gradient as it is (NaN where
-    it is not finite), as JAX's does."""
-    dt, dev = u_init.dtype, u_init.device
-    lb = torch.as_tensor(lb, dtype=dt, device=dev).broadcast_to(u_init.shape)
-    ub = torch.as_tensor(ub, dtype=dt, device=dev).broadcast_to(u_init.shape)
-    lr = config.learning_rate
-
-    def proj(u):
-        return torch.minimum(torch.maximum(u, lb), ub)
-
-    def grad(u, finite=True):
-        u_var = u.detach().requires_grad_(True)
-        with torch.enable_grad():
-            (g,) = torch.autograd.grad(objective(u_var), u_var)
-        if not finite:
-            return g
-        return torch.where(torch.isfinite(g), g, torch.zeros_like(g))
-
-    def pg_residual(u, g):
-        return torch.amax(torch.abs(u - proj(u - g)))
-
-    u = proj(u_init)
-    g = grad(u)
-    m = torch.zeros_like(u)
-    v = torch.zeros_like(u)
-    t = 0
-    done = False
-    while t < config.max_iters and not done:
-        m = config.b1 * m + (1.0 - config.b1) * g
-        v = config.b2 * v + (1.0 - config.b2) * g * g
-        t += 1
-        mhat = m / (1.0 - config.b1 ** t)
-        vhat = v / (1.0 - config.b2 ** t)
-        u = proj(u - lr * mhat / (torch.sqrt(vhat) + config.eps))
-        g = grad(u)
-        done = bool(pg_residual(u, g) < config.tol)
-    for i in range(config.polish_iters):
-        gp = grad(u)
-        step = lr * 0.5 ** (i / 4.0)
-        u = proj(u - step * gp / (torch.amax(torch.abs(gp)) + config.eps))
-    with torch.no_grad():
-        cost = objective(u)
-    return SolveResult(u=u, cost=cost,
-                       iters=torch.tensor(t, dtype=torch.int32, device=dev),
-                       pg_norm=pg_residual(u, grad(u, finite=False)))

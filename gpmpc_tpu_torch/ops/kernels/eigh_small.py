@@ -229,12 +229,22 @@ def _forward(a):
 
 
 class _Eigh(torch.autograd.Function):
+    """The eigensolver with JAX's gradient. Under torch.func.vmap the
+    mapped axis moves to the front and one call serves every lane (the
+    kernel takes (..., d, d)): the `vmap` rule, so that a lanes rollout
+    launches the kernel once a step for all its lanes."""
 
     @staticmethod
-    def forward(ctx, a):
-        w, v = _forward(a.contiguous())
-        ctx.save_for_backward(w, v)
-        return w, v
+    def forward(a):
+        return _forward(a.contiguous())
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*output)
+
+    @staticmethod
+    def vmap(info, in_dims, a):
+        return _Eigh.apply(a.movedim(in_dims[0], 0)), (0, 0)
 
     @staticmethod
     def backward(ctx, gw, gv):

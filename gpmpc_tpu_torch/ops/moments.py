@@ -40,15 +40,24 @@ class _TiedHypergradGuard(torch.autograd.Function):
     The tied paths share ONE exp chain across the E outputs, so per-output
     lengthscale cotangents are not attributable; this turns silent smearing
     into a loud NaN. The rollout detaches the GP state, so the backward never
-    runs there."""
+    runs there. Under torch.func.vmap it maps to itself on the batched
+    tensor (the `vmap` rule), so a lanes rollout may reach it."""
 
     @staticmethod
-    def forward(ctx, log_lambdas):
+    def forward(log_lambdas):
         return log_lambdas.view_as(log_lambdas)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
 
     @staticmethod
     def backward(ctx, ct):
         return torch.full_like(ct, math.nan)
+
+    @staticmethod
+    def vmap(info, in_dims, log_lambdas):
+        return _TiedHypergradGuard.apply(log_lambdas), in_dims[0]
 
 
 def _tied_hypergrad_guard(log_lambdas):
@@ -274,7 +283,23 @@ def covariance_prop_multi_batched(u, S, x, beta, log_lambdas, log_sigma_f,
 
 # ------------------------------------------------------- single input --
 # Shapes (one output): u (d,), S (d, d), x (N, d), beta (N,), kinv (N, N),
-# log_lambdas (d,), log_sigma_f (), mask (N,).
+# log_lambdas (d,), log_sigma_f (), mask (N,). Each op runs under
+# torch.func.vmap too (dynamics.rollout_lanes), where each lane's value is
+# the unmapped one's.
+def _pair_dot(a, b):
+    """sum(a * b) over the last axis, in pairs: adjacent products first,
+    then the pair sums (a zero pads an odd length). Written as the same ops
+    for one input and under vmap; the tests check a lane's mean against
+    the unmapped one to the bit on the CPU only for compat's nominal
+    models, and elsewhere (the card included) at rtol 1e-12. On the CPU
+    tests' problems it reads nearer JAX's f64 dot than a flat sum, which
+    keeps two JAX-parity tests inside their bars (PERF.md §7)."""
+    p = a * b
+    if p.shape[-1] % 2:
+        p = torch.cat([p, torch.zeros_like(p[..., :1])], dim=-1)
+    return p.reshape(*p.shape[:-1], -1, 2).sum(-1).sum(-1)
+
+
 def mean_prop(u, S, x, beta, log_lambdas, log_sigma_f, mask):
     """Predictive mean under a Gaussian input (eqs. 21/31):
     m = beta . l, l_j = sigma_f^2 det(Lambda^{-1} S + I)^{-1/2}
@@ -284,7 +309,7 @@ def mean_prop(u, S, x, beta, log_lambdas, log_sigma_f, mask):
     q = torch.sum(diff.T * _solve_psd(spl, diff.T), dim=0)      # (N,)
     log_det_corr = -0.5 * (_logdet_psd(spl) - torch.sum(log_lambdas))
     l = torch.exp(2.0 * log_sigma_f + log_det_corr - 0.5 * q) * mask.to(q.dtype)
-    return torch.dot(beta, l), l
+    return _pair_dot(beta, l), l
 
 
 def input_output_cov(u, S, x, beta, l, log_lambdas):

@@ -7,10 +7,15 @@ stack of GP draws, `stack_gps`).
 The unit of work is one full trajectory optimization. Initial states and
 per-lane cost parameters (a gamma sweep, say) fan out over a leading (B,)
 axis; the rollout cache is built once and shared by every lane. The
-per-scenario route (`impl='vmap'`, and `solve_batch_gp`, whose lanes each
-carry their own GP) solves lane by lane with the single-scenario rollout and
-`solve_trajectory`, as JAX's vmap of one solve does: each lane has its own
-line search, history and stop, and the variance runs no kernel.
+per-scenario routes (`impl='vmap'`, any solver method and nominal models,
+and `solve_batch_gp`, whose lanes each carry their own GP) are one lockstep
+solve over all B lanes (mpc/solver.py's `solve_trajectory_batched`, by the
+configured method) of `lanes_objective`,
+the single-scenario rollout mapped over the lanes (dynamics.rollout_lanes),
+as JAX's vmap of one solve is: each lane has its own line search (or Adam
+moments), history and stop, and the variance runs no kernel (a lane's own
+b_lam is nothing the shared-cache trace kernels serve). On CUDA the solve
+is a kept program, as the fused route's.
 `solve_batch_sharded` splits the lanes over the batch axis of a process mesh
 (parallel/mesh.py): each rank solves its lanes against the replicated GP with
 no collective inside the solve, and the results are gathered.
@@ -34,13 +39,12 @@ import torch
 from gpmpc_tpu_torch.device import ensure_true_f32
 from gpmpc_tpu_torch.dynamics import (CACHE_TENSORS, RolloutCache,
                                       build_rollout_cache, cache_from,
-                                      rollout, rollout_batched)
+                                      rollout_batched, rollout_lanes)
 from gpmpc_tpu_torch.gp.state import GPState
 from gpmpc_tpu_torch.mpc.cost import (CostParams, is_lane_leaf,
                                       params_from, params_key, params_tensors,
                                       risk_sensitive_cost)
 from gpmpc_tpu_torch.mpc.solver import (Objective, SolverConfig, SolveResult,
-                                        solve_trajectory,
                                         solve_trajectory_batched)
 from gpmpc_tpu_torch.parallel.mesh import BATCH_AXIS, gather_lanes, lane_slice
 
@@ -100,24 +104,42 @@ def _setup(gp: GPState, x0s: torch.Tensor, state_dim: int,
     return build_rollout_cache(gp, state_dim, action_dim)
 
 
-def _single_solve(cache: RolloutCache, params: CostParams, x0, u_init, lb, ub,
-                  solver: SolverConfig, full_cov: bool,
-                  delta: bool = False) -> SolveResult:
-    """One lane's solve: the single-scenario rollout from x0 (ds,) and
-    `solve_trajectory` from u_init (H, da); params are shared-rank."""
-    def objective(u):
-        means, covs = rollout(cache, x0, u, full_cov=full_cov, delta=delta)
-        return risk_sensitive_cost(params, means[None], covs[None], u[None])[0]
+def lanes_objective(cache: RolloutCache, x0s: torch.Tensor,
+                    params: CostParams, delta: bool = False,
+                    full_cov: bool = False) -> Objective:
+    """The per-lane objective J: (B, H, da) -> (B,) of the per-scenario
+    routes: the single-scenario rollout of every lane from x0s
+    (dynamics.rollout_lanes; any covariance, delta or nominal model, a
+    shared cache or one GP a lane), then the risk-sensitive cost, whose
+    per-lane leaves follow the rank rule (a per-lane gamma is a (B,) leaf).
+    At B = 1 it is the objective of one single-scenario solve (the
+    controller's route (c), the device episode).
 
-    return solve_trajectory(objective, u_init, lb, ub, solver)
+    An `Objective` (mpc/solver.py): its key holds the cache's static key,
+    delta, full_cov and which cost leaves are None; its inputs are the
+    cache's tensors (stacked for one GP a lane: the inputs' shapes in the
+    program key tell the two caches apart), x0s and the cost leaves, so a
+    solve keeps its captured program and reuses it for later calls with
+    other values. A nominal model is captured with the rest: one that reads
+    a value on the host raises (under vmap, and in a capture); it never
+    falls back to an eager loop."""
+    static, p_key = cache.static_key(), params_key(params)
+    n_c = len(CACHE_TENSORS)
 
+    def build(*inputs):
+        c = cache_from(static, inputs[:n_c])
+        x0 = inputs[n_c]
+        p = params_from(p_key, inputs[n_c + 1:])
 
-def _stack_results(results: Sequence[SolveResult]) -> SolveResult:
-    """Per-lane results stacked along a leading (B,) axis; `converged` stays
-    None where the solver gives none (Adam)."""
-    return SolveResult(*(None if results[0][k] is None
-                         else torch.stack([r[k] for r in results])
-                         for k in range(len(SolveResult._fields))))
+        def objective_b(u):
+            means, covs = rollout_lanes(c, x0, u, full_cov=full_cov,
+                                        delta=delta)
+            return risk_sensitive_cost(p, means, covs, u)
+        return objective_b
+
+    key = ('lanes_objective', static, delta, full_cov, p_key)
+    return Objective(key, (*cache.tensors(), x0s,
+                           *params_tensors(params, x0s.device)), build)
 
 
 def solve_batch(gp: GPState, state_dim: int, action_dim: int,
@@ -134,17 +156,17 @@ def solve_batch(gp: GPState, state_dim: int, action_dim: int,
 
     impl: 'fused' runs the explicitly-batched rollout and the lockstep
     L-BFGS (the production path, through the variance-trace kernels);
-    'vmap' solves each lane on its own with the single-scenario rollout and
-    `solve_trajectory` (the oracle twin; any solver method, nominal models);
-    'auto' picks 'fused' for L-BFGS without a nominal model and 'vmap'
-    otherwise. 'fused' with a method other than L-BFGS raises ValueError.
+    'vmap' runs one lockstep solve of every lane's single-scenario rollout
+    (`lanes_objective`, by config.method: the oracle twin; any method,
+    nominal models); 'auto' picks 'fused' for L-BFGS without a nominal
+    model and 'vmap' otherwise. 'fused' with a method other than L-BFGS
+    raises ValueError.
 
-    On CUDA the fused route runs its iterations after the first as replays
-    of one captured CUDA graph (mpc/solver.py, `_run_graphed`), with a
-    diagonal or a full covariance (whose PSD clip runs the sync-free
-    eigensolver of ops/kernels/eigh_small.py), as do the multistart recipes
-    and `solve_batch_staged` below. 'vmap' runs `solve_trajectory`'s loop
-    eagerly."""
+    On CUDA both routes run as kept programs (mpc/solver.py,
+    `_run_graphed`): iterations after the first are replays of one captured
+    CUDA graph, with a diagonal or a full covariance (whose PSD clip runs
+    the sync-free eigensolver of ops/kernels/eigh_small.py), as do the
+    multistart recipes and `solve_batch_staged` below."""
     if impl not in ('auto', 'fused', 'vmap'):
         raise ValueError(f'unknown impl {impl!r}')
     if impl == 'fused' and solver.method != 'lbfgs':
@@ -164,10 +186,9 @@ def solve_batch(gp: GPState, state_dim: int, action_dim: int,
         return solve_trajectory_batched(
             batch_objective(cache, x0s, params, delta, full_cov), u_init, lb,
             ub, solver)
-    return _stack_results([
-        _single_solve(cache, _gather_params(params, i), x0s[i], u_init[i],
-                      lb, ub, solver, full_cov, delta)
-        for i in range(b)])
+    return solve_trajectory_batched(
+        lanes_objective(cache, x0s, params, delta, full_cov), u_init, lb, ub,
+        solver)
 
 
 def _map_lane_leaves(params: CostParams, fn) -> CostParams:
@@ -921,19 +942,20 @@ def solve_batch_gp(gps: GPState, state_dim: int, action_dim: int,
                    lb, ub, solver: SolverConfig = SolverConfig(),
                    full_cov: bool = False) -> SolveResult:
     """B solves, each against its own GP draw (gps has a leading (B,) axis
-    on every tensor, see stack_gps), lane by lane on the single-scenario
-    route. gamma may be (B,); the other cost leaves are shared."""
+    on every tensor, see stack_gps): one lockstep solve, by config.method,
+    over the lanes' single-scenario rollouts, each on its lane's rollout
+    cache (built for all lanes at once). gamma may be (B,); the other cost
+    leaves are shared. On CUDA a kept program, as solve_batch's."""
     _check_device(gps, x0s)
     b = x0s.shape[0]
+    if gps.x.ndim != 3 or gps.x.shape[0] != b:
+        raise ValueError(f'solve_batch_gp: {b} lanes take a GPState stacked '
+                         f'over {b} draws, got x of shape '
+                         f'{tuple(gps.x.shape)}')
     u_init = x0s.new_zeros((b, horizon, action_dim))
     gamma = torch.as_tensor(params.gamma)
     gamma_b = gamma if gamma.ndim == 1 else gamma.expand(b)
-    results = []
-    for i in range(b):
-        gp_i = dataclasses.replace(
-            gps, **{name: getattr(gps, name)[i] for name in _GP_TENSORS})
-        cache = build_rollout_cache(gp_i, state_dim, action_dim)
-        results.append(_single_solve(cache, params._replace(gamma=gamma_b[i]),
-                                     x0s[i], u_init[i], lb, ub, solver,
-                                     full_cov))
-    return _stack_results(results)
+    cache = build_rollout_cache(gps, state_dim, action_dim)
+    return solve_trajectory_batched(
+        lanes_objective(cache, x0s, params._replace(gamma=gamma_b),
+                        full_cov=full_cov), u_init, lb, ub, solver)

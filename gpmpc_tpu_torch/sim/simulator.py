@@ -9,10 +9,10 @@ actions, rewards, solve wall times, costs and solver iterations.
 device: the GP state, the state x, the previous action and the last
 trajectory; the plant is a torch function and the GP append happens there,
 with no numpy round trip. JAX's `lax.scan` is a Python loop here: the
-solver reads `done` on the host once an iteration. Each step's L-BFGS solve
-(without a nominal model) runs the solver's kept program (mpc/solver.py):
-the append changes the GP's values, not its shapes, so every step after the
-first replays the first step's program.
+solver reads `done` on the host once an iteration. Each step's solve runs
+the solver's kept program (mpc/solver.py): the append changes the GP's
+values, not its shapes, so every step after the first replays the first
+step's program.
 """
 
 from __future__ import annotations
@@ -23,15 +23,10 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from gpmpc_tpu_torch.dynamics import (CACHE_TENSORS, RolloutCache,
-                                      build_rollout_cache, cache_from,
-                                      rollout)
+from gpmpc_tpu_torch.dynamics import build_rollout_cache
 from gpmpc_tpu_torch.gp import state as gp_state
-from gpmpc_tpu_torch.mpc.controller import single_cost
-from gpmpc_tpu_torch.mpc.cost import (CostParams, params_from, params_key,
-                                      params_tensors)
-from gpmpc_tpu_torch.mpc.solver import (Objective, SolverConfig, first_lane,
-                                        solve_trajectory,
+from gpmpc_tpu_torch.mpc.cost import CostParams
+from gpmpc_tpu_torch.mpc.solver import (SolverConfig, first_lane,
                                         solve_trajectory_batched)
 
 
@@ -99,34 +94,6 @@ class Simulator:
                           costs=np.asarray(costs), iters=np.asarray(iters))
 
 
-def single_objective(cache: RolloutCache, x0: torch.Tensor,
-                     params: CostParams, full_cov: bool = False,
-                     delta: bool = False) -> Objective:
-    """The single-scenario rollout from x0 (ds,) and the risk-sensitive cost
-    as a per-lane objective of one lane, (1, H, da) -> (1,): the objective
-    of `solve_trajectory`'s L-BFGS (the lockstep solver at B = 1), given as
-    an `Objective` so that a solve keeps its program (mpc/solver.py). Its
-    key holds the cache's dims, tied lengthscales and nominal model, the
-    flags and which cost leaves are None; its inputs the cache's tensors,
-    x0 and the cost leaves."""
-    static, p_key = cache.static_key(), params_key(params)
-    n_c = len(CACHE_TENSORS)
-
-    def build(*inputs):
-        c = cache_from(static, inputs[:n_c])
-        x, p = inputs[n_c], params_from(p_key, inputs[n_c + 1:])
-
-        def objective_b(u_b):
-            means, covs = rollout(c, x, u_b[0], full_cov=full_cov,
-                                  delta=delta)
-            return single_cost(p, means, covs, u_b[0])[None]
-        return objective_b
-
-    return Objective(('single_objective', static, full_cov, delta, p_key),
-                     (*cache.tensors(), x0,
-                      *params_tensors(params, x0.device)), build)
-
-
 def run_episode_on_device(gp: gp_state.GPState, plant_step: Callable,
                           x0: torch.Tensor, params: CostParams, horizon: int,
                           num_steps: int, lb, ub,
@@ -139,11 +106,11 @@ def run_episode_on_device(gp: gp_state.GPState, plant_step: Callable,
     plant_step: (state (ds,), action (da,)) -> (next_state, reward), torch.
     Returns (final GPState, {state, action, reward, cost, iters: stacked
     per-step tensors}). Each step solves from u = 0 by the single-scenario
-    rollout (L-BFGS without a nominal model: the lockstep solver at B = 1 on
-    `single_objective`, as solve_trajectory runs it, through the kept
-    program on CUDA), or with solver_recipe='multistart' (L-BFGS, diagonal
-    covariance) by `solve_batch_multistart` with the shifted last trajectory
-    as an extra start."""
+    rollout (the lockstep solver of the configured method at B = 1 on
+    `parallel.batch.lanes_objective`, through the kept program on CUDA,
+    nominal models included), or with solver_recipe='multistart' (L-BFGS,
+    diagonal covariance) by `solve_batch_multistart` with the shifted last
+    trajectory as an extra start."""
     ds = params.Q.shape[0]
     da = params.R.shape[0]
     use_ms = (solver_recipe == 'multistart' and not full_cov
@@ -160,19 +127,11 @@ def run_episode_on_device(gp: gp_state.GPState, plant_step: Callable,
                                          delta=delta_dynamics,
                                          extra_starts=u_warm[None, None])
             return first_lane(res)
-        cache = build_rollout_cache(gp_t, ds, da)
-        if solver.method == 'lbfgs' and cache.nominal_fn is None:
-            return first_lane(solve_trajectory_batched(
-                single_objective(cache, x, p, full_cov, delta_dynamics),
-                x.new_zeros((1, horizon, da)), lb, ub, solver))
-
-        def objective(u):
-            means, covs = rollout(cache, x, u, full_cov=full_cov,
-                                  delta=delta_dynamics)
-            return single_cost(p, means, covs, u)
-
-        return solve_trajectory(objective, x.new_zeros((horizon, da)), lb, ub,
-                                solver)
+        from gpmpc_tpu_torch.parallel.batch import lanes_objective
+        return first_lane(solve_trajectory_batched(
+            lanes_objective(build_rollout_cache(gp_t, ds, da), x[None], p,
+                            delta_dynamics, full_cov),
+            x.new_zeros((1, horizon, da)), lb, ub, solver))
 
     gp_t, x = gp, x0
     u_prev = x0.new_zeros((da,))

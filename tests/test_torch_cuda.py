@@ -1298,6 +1298,141 @@ def test_cuda_single_route_capture_equals_eager(full_cov):
     assert captured['reused'] == [each] * 2
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize('route', ['vmap', 'adam', 'gp_draws',
+                                   'vmap_full_cov'])
+def test_cuda_lanes_route_reused_equals_fresh_and_eager(route):
+    """The per-scenario routes as one lockstep solve of all lanes
+    (dynamics.rollout_lanes; f32, 16 headline lanes): impl='vmap' by L-BFGS
+    with a diagonal and a full covariance, projected Adam and
+    solve_batch_gp over 16 GP draws, on two batches of x0s: reused,
+    fresh-capture and eager equal to the bit; 'reused' captures its
+    program once (a step and an init graph, and Adam's polish step) for both
+    calls, no kernel in its graphs but the eigensolver's H launches (at
+    (16, 2, 2), through its vmap rule) with a full covariance."""
+    from gpmpc_tpu_torch.mpc.solver import SolverConfig
+    from gpmpc_tpu_torch.parallel.batch import (solve_batch, solve_batch_gp,
+                                                stack_gps)
+    from gpmpc_tpu_torch.problems import make_headline_problem
+    dev = _cuda()
+    b = 16
+    p = make_headline_problem(b=b, dtype=torch.float32, device=dev)
+    gps = (stack_gps([make_headline_problem(b=1, seed=s, dtype=torch.float32,
+                                            device=dev).gp for s in range(b)])
+           if route == 'gp_draws' else None)
+    cfg = (SolverConfig(method='adam', max_iters=20, tol=1e-4,
+                        learning_rate=0.05, polish_iters=3)
+           if route == 'adam' else SolverConfig(max_iters=20, tol=1e-4))
+    rng = np.random.default_rng(9)
+    batches = [p.x0s, torch.tensor(rng.uniform(-1, 1, (b, 2)),
+                                   dtype=torch.float32, device=dev)]
+
+    def solve(x0s, fresh):
+        if route == 'gp_draws':
+            return _fresh_solve(lambda: solve_batch_gp(
+                gps, 2, 1, x0s, p.params, p.horizon, p.lb, p.ub, cfg), fresh)
+        return _fresh_solve(lambda: solve_batch(
+            p.gp, 2, 1, x0s, p.params, p.horizon, p.lb, p.ub, cfg,
+            full_cov=route == 'vmap_full_cov', impl='vmap'), fresh)
+
+    out, captured = _three_modes(solve, batches)
+    for k in range(2):
+        for mode in ('fresh', 'eager'):
+            chip_smoke.same_bits(f'{route} batch {k} {mode}',
+                                 out['reused'][k], out[mode][k])
+        assert bool(torch.isfinite(out['reused'][k].cost).all())
+    each = ({'LAUNCHES_EIGH': p.horizon} if route == 'vmap_full_cov'
+            else {})
+    graphs = 3 if route == 'adam' else 2
+    assert captured['reused'] == [each] * graphs
+    assert captured['fresh'] == [each] * (2 * graphs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['shared', 'shared_full_cov', 'gp_draws'])
+def test_cuda_lanes_equal_rollout_lane_by_lane(kind):
+    """On the card, in f64: lane b of dynamics.rollout_lanes (a shared
+    cache with a diagonal or a full covariance, or one GP draw a lane)
+    equals rollout of lane b alone, means and covariances, at rtol 1e-12
+    of each one's scale (the covariances of sigma_f^2), the bar of the
+    CPU test in test_torch_lanes.py."""
+    from gpmpc_tpu_torch.dynamics import build_rollout_cache, rollout
+    from gpmpc_tpu_torch.dynamics import rollout_lanes
+    from gpmpc_tpu_torch.parallel.batch import stack_gps
+    from gpmpc_tpu_torch.problems import make_headline_problem
+    dev = _cuda()
+    b, h = 8, 6
+    f64 = dict(dtype=torch.float64, device=dev)
+    p = make_headline_problem(b=b, horizon=h, **f64)
+    gps = ([make_headline_problem(b=1, seed=s, **f64).gp for s in range(b)]
+           if kind == 'gp_draws' else [p.gp] * b)
+    cache = build_rollout_cache(stack_gps(gps) if kind == 'gp_draws'
+                                else p.gp, 2, 1)
+    u = torch.tensor(np.random.default_rng(3).uniform(-1, 1, (b, h, 1)),
+                     **f64)
+    full_cov = kind == 'shared_full_cov'
+    means, covs = rollout_lanes(cache, p.x0s, u, full_cov=full_cov)
+    for i in range(b):
+        ci = build_rollout_cache(gps[i], 2, 1)
+        mi, vi = rollout(ci, p.x0s[i], u[i], full_cov=full_cov)
+        sf2 = float(torch.exp(2.0 * ci.log_sigma_f).max())
+        for name, got, want, scale in (
+                ('means', means[i], mi, float(mi.abs().max())),
+                ('covs', covs[i], vi, max(float(vi.abs().max()), sf2))):
+            np.testing.assert_allclose(
+                got.cpu().numpy(), want.cpu().numpy(), rtol=1e-12,
+                atol=1e-12 * scale, err_msg=f'lane {i} {name}')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('method', ['lbfgs', 'adam'])
+def test_cuda_route_c_nominal_model_forced_capture(method):
+    """The controller's route (c) on a GP with the pendulum's nominal
+    model (models/pendulum.py, its Jacobian by torch.func.jacrev inside the
+    lanes map): three control steps with appends between them, reused,
+    fresh-capture and eager equal to the bit; 'reused' captures its one
+    program once."""
+    from gpmpc_tpu_torch.gp import state as gp_state
+    from gpmpc_tpu_torch.models import pendulum
+    from gpmpc_tpu_torch.mpc.controller import RiskSensitiveMPC
+    from gpmpc_tpu_torch.mpc.solver import SolverConfig
+    dev = _cuda()
+    cfg = (SolverConfig(method='adam', max_iters=20, tol=1e-4,
+                        learning_rate=0.05, polish_iters=3)
+           if method == 'adam' else SolverConfig(max_iters=30, tol=1e-6))
+    rng = np.random.default_rng(2)
+    s, a = rng.uniform(-1, 1, (40, 2)), rng.uniform(-2, 2, (40, 1))
+    xs = np.concatenate([s, a], 1)
+    nxt = pendulum.nominal_residual_fn(torch.tensor(xs)).numpy() + 0.05 * s
+
+    def episode(_, fresh):
+        mpc = RiskSensitiveMPC(gamma=0.2, horizon=5, state_dim=2,
+                               input_dim=1, Q=np.eye(2), R=0.1 * np.eye(1),
+                               capacity=64, dtype=torch.float64, solver=cfg,
+                               device=dev)
+        mpc.gp = gp_state.make_gp(gp_state.GPConfig(
+            capacity=64, x_dim=3, out_dim=2,
+            nominal_fn=pendulum.nominal_residual_fn), dtype=torch.float64,
+            device=dev)
+        mpc.set_ub([2.0])
+        mpc.set_lb([-2.0])
+        mpc.dynamics.append_train_data(s, a, nxt)
+        x, us = np.array([0.5, -0.3]), []
+        for _ in range(3):
+            u = _fresh_solve(lambda: mpc.get_optimal_trajectory(x), fresh)
+            us.append(u)
+            x_next = x + 0.1 * np.array([x[1], u[0, 0]])
+            mpc.dynamics.append_train_data(x, u[0], x_next)
+            x = x_next
+        return np.stack(us)
+
+    out, captured = _three_modes(episode, [None])
+    for mode in ('fresh', 'eager'):
+        np.testing.assert_array_equal(out[mode][0], out['reused'][0],
+                                      err_msg=mode)
+    assert captured['reused'] == [{}] * (3 if method == 'adam' else 2)
+
+
 class _Bits:
     """One tensor as chip_smoke.same_bits reads a SolveResult."""
     def __init__(self, t):

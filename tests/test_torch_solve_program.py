@@ -24,7 +24,7 @@ from gpmpc_tpu_torch.mpc.solver import SolverConfig
 from gpmpc_tpu_torch.parallel import batch
 from gpmpc_tpu_torch.problems import make_headline_problem
 from gpmpc_tpu_torch.utils import replay_counts
-from torch_port_common import (REPLAYING, gp_data, stand_in_capture,
+from torch_port_common import (REPLAYING, StandInGraph, gp_data,
                                untied_log_lambdas, use_stand_in_graphs)
 
 torch.set_num_threads(2)
@@ -53,8 +53,20 @@ def _bits(t):
 
 def _same(a, b):
     for name, x, y in zip(a._fields, a, b):
+        if x is None or y is None:
+            assert x is None and y is None, name
+            continue
         assert x.dtype == y.dtype and x.shape == y.shape, name
         assert torch.equal(_bits(x), _bits(y)), name
+
+
+def _stand_in_capture(record, s, pool=None):
+    """torch_port_common.stand_in_capture for a state of any method
+    (LbfgsState, AdamState): the host calls run once on a copy."""
+    before = replay_counts.snapshot()
+    record(type(s)(*(x.clone() for x in s)))
+    return StandInGraph(record, s), replay_counts.Replays(
+        before, replay_counts.snapshot(), [])
 
 
 @pytest.fixture
@@ -65,7 +77,7 @@ def captures(monkeypatch):
 
     def counted(record, s, pool=None):
         seen.append(record)
-        return stand_in_capture(record, s, pool)
+        return _stand_in_capture(record, s, pool)
 
     monkeypatch.setattr(solver, '_capture', counted)
     yield seen
@@ -344,3 +356,161 @@ def test_controller_steps_on_one_program_match_jax(captures):
             mpc.dynamics.append_train_data(x0, uj[0], nxt)
         x0 = nxt
     assert int(t.gp.count) == 23
+
+
+# ------------------------------------------------ the per-scenario routes --
+ADAM = SolverConfig(method='adam', max_iters=12, tol=1e-3,
+                    learning_rate=0.05, polish_iters=3)
+
+
+def _gp_draws(b):
+    """b GP draws of the small headline problem (seeds 0..b-1), stacked."""
+    return batch.stack_gps([make_headline_problem(
+        b=1, seed=s, n_train=24, capacity=32, horizon=3, dtype=F64,
+        device='cpu').gp for s in range(b)])
+
+
+ROUTES = ('vmap', 'adam', 'gp_draws', 'vmap_full_cov')
+
+
+def _route_solve(route, p, x0s, gps=None):
+    if route == 'gp_draws':
+        return batch.solve_batch_gp(gps, 2, 1, x0s, p.params, p.horizon,
+                                    p.lb, p.ub, CFG)
+    return batch.solve_batch(p.gp, 2, 1, x0s, p.params, p.horizon, p.lb,
+                             p.ub, ADAM if route == 'adam' else CFG,
+                             full_cov=route == 'vmap_full_cov', impl='vmap')
+
+
+@pytest.mark.parametrize('route', ROUTES)
+def test_lanes_route_program_reused(captures, route):
+    """The per-scenario routes, one lockstep solve of all lanes on
+    lanes_objective (impl='vmap' by L-BFGS, with a diagonal and a full
+    covariance, projected Adam, solve_batch_gp over GP draws), over three
+    calls with other x0s: one program, captured once (a step and an init
+    graph, and Adam's polish step), hit by the later calls; each call equals a
+    fresh capture and the eager loop to the bit."""
+    p = _problem()
+    gps = _gp_draws(4) if route == 'gp_draws' else None
+    rng = np.random.default_rng(5)
+    graphs = 3 if route == 'adam' else 2
+    for call in range(3):
+        x0s = p.x0s if call == 0 else torch.tensor(rng.uniform(-1, 1, (4, 2)))
+        n0 = len(captures)
+        res = _route_solve(route, p, x0s, gps)
+        assert len(captures) == n0 + (graphs if call == 0 else 0), call
+        assert bool(torch.isfinite(res.cost).all())
+        _same(res, _three_ways(lambda: _route_solve(route, p, x0s, gps)))
+    (prog,) = solver._PROGRAMS.values()
+    assert len(prog.graphs) == graphs
+    assert (res.converged is None) == (route == 'adam')
+
+
+def _lanes_solve(field, gps, p):
+    """A solve through lanes_objective with one key field changed from the
+    base ('base' changes none; 'lane_cache' takes one GP a lane in place of
+    the shared one)."""
+    cache = build_rollout_cache(gps if field == 'lane_cache' else p.gp, 2, 1)
+    params = p.params
+    if field == 'R_delta':
+        params = params._replace(R_delta=0.1 * torch.eye(1, dtype=F64))
+    obj = batch.lanes_objective(
+        cache, p.x0s, params, delta=field == 'delta',
+        full_cov=field == 'full_cov')
+    u0 = p.x0s.new_zeros((4, p.horizon, 1))
+    return solver.solve_trajectory_batched(obj, u0, p.lb, p.ub,
+                                           ADAM if field == 'adam' else CFG)
+
+
+LANES_KEY_FIELDS = ('full_cov', 'delta', 'lane_cache', 'R_delta', 'adam')
+
+
+@pytest.mark.parametrize('field', LANES_KEY_FIELDS)
+def test_lanes_objective_key_makes_a_program(captures, field):
+    """lanes_objective's key is complete: the base solve twice is one
+    program; a change of one of its fields (full_cov, delta, R_delta set),
+    of the cache's kind (one GP a lane, told apart by its inputs' shapes)
+    or of the method makes a second program whose result equals a fresh
+    solve and the eager loop to the bit."""
+    p, gps = _problem(), _gp_draws(4)
+    _lanes_solve('base', gps, p)
+    _lanes_solve('base', gps, p)
+    assert len(solver._PROGRAMS) == 1 and len(captures) == 2
+    res = _lanes_solve(field, gps, p)
+    assert len(solver._PROGRAMS) == 2
+    assert bool(torch.isfinite(res.cost).all())
+    _same(res, _three_ways(lambda: _lanes_solve(field, gps, p)))
+
+
+@pytest.mark.parametrize('field', ['full_cov', 'delta'])
+def test_lanes_key_without_a_field_replays_a_stale_program(captures, field):
+    """The check above has teeth: a copy of lanes_objective whose key drops
+    full_cov (or delta) replays the base program for a call that changes
+    it, and its result differs from the fresh solve. (A cache of one GP a
+    lane needs no key field: it has a rank more in every input, so the
+    inputs' shapes in the key tell the two apart.)"""
+    p, gps = _problem(), _gp_draws(4)
+    orig = batch.lanes_objective
+
+    def dropped(*args, **kw):
+        obj = orig(*args, **kw)
+        key = tuple(v for i, v in enumerate(obj.key)
+                    if i != {'delta': 2, 'full_cov': 3}[field])
+        return obj._replace(key=key)
+
+    _lanes_solve('base', gps, p)
+    batch.lanes_objective = dropped
+    try:
+        _lanes_solve('base', gps, p)
+        stale = _lanes_solve(field, gps, p)
+    finally:
+        batch.lanes_objective = orig
+    assert len(solver._PROGRAMS) == 2
+    solver.clear_programs()
+    fresh = _lanes_solve(field, gps, p)
+    assert not torch.equal(_bits(stale.u), _bits(fresh.u))
+
+
+@pytest.mark.parametrize('case', ['adam', 'nominal'])
+def test_route_c_steps_on_one_program(captures, case):
+    """Three control steps of the controller's route (c) (Adam, or L-BFGS
+    on a GP with the pendulum's nominal model) with an append between
+    them: one program, captured at the first step and replayed at the
+    others, each step equal to the eager loop to the bit."""
+    from gpmpc_tpu_torch.models import pendulum
+    cfg = ADAM if case == 'adam' else CFG
+    x, ns = gp_data(n=20)
+
+    def controller():
+        mpc = TMPC(gamma=0.3, horizon=3, state_dim=2, input_dim=1,
+                   Q=np.diag([2.0, 1.0]), R=0.1 * np.eye(1),
+                   R_delta=0.05 * np.eye(1), capacity=32, dtype=F64,
+                   solver=cfg, device='cpu')
+        if case == 'nominal':
+            mpc.gp = gp_state.make_gp(gp_state.GPConfig(
+                capacity=32, x_dim=3, out_dim=2,
+                nominal_fn=pendulum.nominal_residual_fn), dtype=F64,
+                device='cpu')
+        mpc.set_ub([1.5])
+        mpc.set_lb([-1.5])
+        mpc.dynamics.append_train_data(x[:, :2], x[:, 2], ns)
+        return mpc
+
+    kept, eager = controller(), controller()
+    x0 = np.array([0.4, -0.2])
+    graphed = solver._run_graphed
+    for step in range(3):
+        u = kept.get_optimal_trajectory(x0)
+        solver._run_graphed = solver._run_eager
+        try:
+            ue = eager.get_optimal_trajectory(x0)
+        finally:
+            solver._run_graphed = graphed
+        np.testing.assert_array_equal(u, ue, err_msg=f'step {step}')
+        _same(kept.last_result, eager.last_result)
+        assert len(solver._PROGRAMS) == 1
+        assert len(captures) == (3 if case == 'adam' else 2)
+        nxt = x0 + 0.1 * np.array([x0[1], u[0, 0]])
+        for mpc in (kept, eager):
+            mpc.dynamics.append_train_data(x0, u[0], nxt)
+        x0 = nxt

@@ -7,6 +7,7 @@ control flow and counts (with a stand-in for the graph, on the CPU); and
 which callers ask for a captured loop."""
 
 import contextlib
+import dataclasses
 
 import numpy as np
 import pytest
@@ -16,6 +17,7 @@ import jax.numpy as jnp
 
 from gpmpc_tpu.mpc.solver import SolverConfig as JSolverConfig
 from gpmpc_tpu.mpc.solver import solve_trajectory_batched as jsolve
+from gpmpc_tpu_torch.gp import state as gp_state
 from gpmpc_tpu_torch.mpc import controller, solver
 from gpmpc_tpu_torch.mpc.solver import (LbfgsState, SolverConfig,
                                         solve_trajectory_batched)
@@ -282,17 +284,23 @@ def test_replay_counts_tally_repeats_the_capture():
 
 @contextlib.contextmanager
 def _spy(module):
-    """The `_graph` argument of each solve_trajectory_batched call made
-    through `module`."""
+    """(asks for a captured loop, objective kind, method, lanes) of each
+    solve_trajectory_batched call made through `module`: the kind is an
+    Objective's key[0] ('batch_objective', 'lanes_objective'), else
+    None."""
     seen = []
     orig = module.solve_trajectory_batched
 
-    def spy(*args, **kw):
+    def spy(objective_b, u_init, lb, ub, config=SolverConfig(),
+            val_and_grad=None, _graph=True):
         # solve_trajectory_batched's rule, CUDA aside: graphed unless
         # _graph=False or an external val_and_grad.
-        seen.append(kw.get('_graph', True) and kw.get('val_and_grad') is None
-                    and len(args) < 6)
-        return orig(*args, **kw)
+        kind = (objective_b.key[0]
+                if isinstance(objective_b, solver.Objective) else None)
+        seen.append((_graph and val_and_grad is None, kind, config.method,
+                     u_init.shape[0]))
+        return orig(objective_b, u_init, lb, ub, config, val_and_grad,
+                    _graph=_graph)
 
     module.solve_trajectory_batched = spy
     try:
@@ -302,34 +310,42 @@ def _spy(module):
 
 
 @pytest.mark.parametrize('case', ['diag', 'full_cov', 'vmap', 'adam',
-                                  'staged', 'multistart'])
+                                  'staged', 'multistart', 'gp_draws'])
 def test_route_rule_batch(case):
     """(d) Who asks for a captured loop: solve_batch with a diagonal or a
     full covariance (its PSD clip runs the sync-free eigensolver), the
-    multistart recipes and solve_batch_staged do; impl='vmap' runs
-    solve_trajectory's L-BFGS, which does not; Adam runs no lockstep
-    solve."""
+    multistart recipes and solve_batch_staged do, through the lockstep
+    L-BFGS on batch_objective; impl='vmap', Adam ('auto' -> 'vmap') and
+    solve_batch_gp do too, as one lockstep solve of all B lanes of their
+    method on lanes_objective, and none of them calls a per-lane solve
+    (solve_trajectory's solve_trajectory_batched at B = 1)."""
     p = make_headline_problem(b=2, n_train=24, capacity=32, horizon=3,
                               dtype=torch.float64, device='cpu')
     args = (p.gp, 2, 1, p.x0s, p.params, p.horizon, p.lb, p.ub)
     cfg = SolverConfig(max_iters=2)
-    with _spy(batch) as fused, _spy(solver) as single:
+    with _spy(batch) as calls, _spy(solver) as single:
         if case in ('diag', 'full_cov'):
             batch.solve_batch(*args, cfg, full_cov=case == 'full_cov')
         elif case == 'vmap':
             batch.solve_batch(*args, cfg, impl='vmap')
         elif case == 'adam':
             batch.solve_batch(*args, cfg.replace(method='adam'))
+        elif case == 'gp_draws':
+            batch.solve_batch_gp(batch.stack_gps([p.gp, p.gp]), *args[1:],
+                                 cfg)
         elif case == 'staged':
             batch.solve_batch_staged(*args, cfg, budget1=1, budget_total=2)
         else:
             batch.solve_batch_multistart(*args, cfg, n_starts=2,
                                          frozen_rounds=1, shift_set=(1,),
                                          shift_iters=1)
-    want = {'diag': ([True], []), 'staged': ([True], []),
-            'multistart': ([True], []), 'full_cov': ([True], []),
-            'vmap': ([], [False]), 'adam': ([], [])}[case]
-    assert (sorted(set(fused)), sorted(set(single))) == want
+    if case in ('vmap', 'adam', 'gp_draws'):
+        method = 'adam' if case == 'adam' else 'lbfgs'
+        assert calls == [(True, 'lanes_objective', method, 2)]
+    else:
+        assert calls and all(c[0] and c[1] != 'lanes_objective'
+                             and c[2] == 'lbfgs' for c in calls)
+    assert single == []
 
 
 @pytest.mark.parametrize('full_cov', [False, True])
@@ -346,7 +362,33 @@ def test_route_rule_controller(full_cov):
                                    rng.uniform(-1, 1, (20, 2)))
     with _spy(controller) as seen:
         mpc.get_optimal_trajectory(np.array([0.1, -0.2]))
-    assert seen == [True]
+    assert seen == [(True, 'batch_objective', 'lbfgs', 1)]
+
+
+@pytest.mark.parametrize('case', ['adam', 'nominal'])
+def test_route_rule_controller_route_c(case):
+    """(d) The controller's route (c), Adam or a nominal model: one lockstep
+    solve of one lane on lanes_objective that asks for capture, and no
+    eager per-lane solve (solve_trajectory)."""
+    from gpmpc_tpu_torch.models import pendulum
+    cfg = SolverConfig(max_iters=2, method='adam' if case == 'adam'
+                       else 'lbfgs')
+    mpc = controller.RiskSensitiveMPC(
+        gamma=0.3, horizon=3, state_dim=2, input_dim=1, Q=np.eye(2),
+        R=0.1 * np.eye(1), capacity=32, dtype=torch.float64, solver=cfg,
+        device='cpu')
+    if case == 'nominal':
+        mpc.gp = gp_state.make_gp(dataclasses.replace(
+            mpc.gp.config, nominal_fn=pendulum.nominal_residual_fn),
+            dtype=torch.float64, device='cpu')
+    rng = np.random.default_rng(0)
+    mpc.dynamics.append_train_data(rng.uniform(-1, 1, (20, 2)),
+                                   rng.uniform(-1, 1, (20, 1)),
+                                   rng.uniform(-1, 1, (20, 2)))
+    with _spy(controller) as lanes, _spy(solver) as per_lane:
+        mpc.get_optimal_trajectory(np.array([0.1, -0.2]))
+    assert per_lane == []
+    assert lanes == [(True, 'lanes_objective', cfg.method, 1)]
 
 
 def test_route_rule_external_val_and_grad():
@@ -367,4 +409,4 @@ def test_route_rule_external_val_and_grad():
                 p.horizon, p.lb, p.ub, SolverConfig(max_iters=2))
     finally:
         dist.destroy_process_group()
-    assert seen == [False]
+    assert seen == [(False, None, 'lbfgs', 2)]
