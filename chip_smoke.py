@@ -248,7 +248,9 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
   3d. sparse kernels  K1 at the three shapes phase 8 launches it at:
                 (B, N, d, E) = (256, 128, 5, 4) (suite config 3b),
                 (64, 128, 3, 2) (config 4, full covariance) and (1, 512, 4, 2)
-                (the uncertainty experiment, 400 valid rows), on the JAX
+                (the uncertainty experiment, 400 valid rows), and at suite
+                config 3's (256, 1,024, 5, 4) (1,000 valid rows), which no
+                path runs yet (its plain version in lane chunks), on the JAX
                 kernel test's inputs with the padded rows zeroed, at phase
                 3c's bars; the f64 instance timed at each by events and
                 graph slope beside its plain version, bound and launch plan
@@ -286,7 +288,14 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 the per-scenario routes in f64, solve_batch with Adam
                 ('auto' -> 'vmap') on four headline lanes and solve_batch_gp
                 over three stack_gps draws, against JAX's stored results,
-                launching no kernel; (d) experiments/uncertainty.py at its
+                launching no kernel; then at full width, f32, in three
+                modes: solve_batch_gp over 256 GP draws, its controls held
+                to a p90 cost excess below 1 % against f64 solves of the
+                same lanes and x0s (fault F4), a fresh-x0 batch's, the
+                fused solve_batch's and Adam's readings logged beside it;
+                Adam on the headline; the
+                lanes route with a full covariance; route (c)'s Adam
+                control steps; (d) experiments/uncertainty.py at its
                 published settings, both gammas against JAX's stored f64
                 controls and means (atol 1e-4), exactly H (1 + iters) K1 f64
                 launches each, walls; (e) hs071 by solve_constrained (x*, f*
@@ -1563,13 +1572,15 @@ def score_and_time(tag, b, solve, res, j64, j_uref, reps, dev, modes=None):
     return dict(quality=quality, **time_solves(tag, b, solve, reps, dev))
 
 
-def time_solves(tag, b, solve, reps, dev, draw_x0s=None, modes=None):
+def time_solves(tag, b, solve, reps, dev, draw_x0s=None, modes=None,
+                keep=None):
     """Solves/s over `reps` batches of fresh x0s (the median); draw_x0s(rng)
     gives a batch (numpy), by default the headline's U(-1, 1)^(B, 2). With
     modes (of MODES) each batch is solved in each mode in turns, the order
     rotating by one each batch (loop_mode), all results equal to the bit
     (same_bits), and the result is {mode: ...}: each mode's walls, solves/s
-    and each call's captures and capture seconds (capture_walls)."""
+    and each call's captures and capture seconds (capture_walls). `keep`, a
+    list, gets each batch's (x0s, the result of its first mode)."""
     import torch
     rng = np.random.default_rng(123)
     order = tuple(modes or (None,))
@@ -1595,6 +1606,8 @@ def time_solves(tag, b, solve, reps, dev, draw_x0s=None, modes=None):
             same_bits(f'{tag} batch {rep} {order[0]} vs {mode}',
                       res[order[0]], res[mode])
         iters.append(int(res[order[-1]].iters.max()))
+        if keep is not None:
+            keep.append((x0s, res[order[0]]))
     out = {}
     for mode, w in walls.items():
         rate = [b / x for x in w]
@@ -2406,7 +2419,10 @@ def time_shapes(dev, shapes, tag, rng, bodies=True):
     """The f64 instances of K1 / K2 / K3 at (kernel, B, N, valid rows, d, E)
     `shapes` (K3: the first N / 2 output rows, one rank of a (1, 2) mesh):
     CUDA events over 50 host-enqueued calls, CUDA-graph slope, the plain
-    version's events time, the bound and the launch plan. With `bodies`,
+    version's events time, the bound (`bound`, of every row of the
+    capacity: the kernel is not told the valid count and computes them
+    all; `bound_valid`, of the valid rows only) and the launch plan. With
+    `bodies`,
     a tied launch is also timed by graph slope in each body, 'scalar' (the
     plan before the tensor-core body, `graph_ms_scalar`) and 'mma'
     (`graph_ms_mma`), whatever its route: the evidence for the route."""
@@ -2430,7 +2446,9 @@ def time_shapes(dev, shapes, tag, rng, bodies=True):
         plan = rw_plan(key, b, n_out, n, d, e, args[0].dtype, dev)
         res[name] = dict(ms=cuda_ms(fns[name], 50),
                          plain_ms=cuda_ms(lambda p=plain, a=args: p(*a), 50),
-                         bound=bound, plan=plan)
+                         bound=bound, plan=plan, bound_valid=bound_ms(
+                             b, min(n_out, n_valid), n_valid, d, e,
+                             1 if tied else e, f64=True)[0])
     for name, ms in graph_ms(fns, dev).items():
         base, _, body = name.rpartition(' ')
         if body in BODIES and base in res:
@@ -2441,7 +2459,8 @@ def time_shapes(dev, shapes, tag, rng, bodies=True):
         log(f'[{tag}] {name}: {r["ms"]:.4f} ms by events, '
             f'{r["graph_ms"]:.4f} ms by graph slope{bodies_note(r)}, plain '
             f'{r["plain_ms"]:.4f} ms, bound '
-            f'{r["bound"][0]:.5f} ms ({r["bound"][1]}); plan '
+            f'{r["bound"][0]:.5f} ms ({r["bound"][1]}; of the valid rows '
+            f'{r["bound_valid"]:.5f} ms); plan '
             + ', '.join(f'{k} {v}' for k, v in r['plan'].items()
                         if k != 'body'))
     return res
@@ -2867,6 +2886,15 @@ def phase_closed_loop(dev, checked, ref_path, out_dir):
 # fails on a K1 launch at any other.
 SPARSE_SHAPES = ((256, 128, 128, 5, 4), (64, 128, 128, 3, 2),
                  (1, 512, 400, 4, 2))
+# K1 at suite config 3's shape (benchmarks/suite.py config 3: the exact-GP
+# cartpole, N = 1,000 in capacity 1,024, B = 256, d = 5, E = 4), which no
+# path of the port runs yet: phase 3d checks and times it beside
+# SPARSE_SHAPES (the tensor-core body's route: 16 row tiles x 128 scenario
+# groups at S_max = 2), its plain f64 version taken in CONFIG3_CHUNK-lane
+# chunks under activation checkpointing (whole, its (B, E, N, N) f64
+# intermediates are 8.6 GB each).
+CONFIG3_SHAPE = (256, 1024, 1000, 5, 4)
+CONFIG3_CHUNK = 32
 # Config 3b's solve (benchmarks/suite.py config3b): the plain solve_batch at
 # 40 iterations, f32; three fresh-x0 batches timed; the cost-excess gate of
 # phase 5c.
@@ -2908,13 +2936,18 @@ VMAP_COST_RTOL = 1e-9
 # VMAP_REPS fresh-x0 batches and eager on the first (an eager call at B =
 # 256 takes ~45 s: ~48,000 kernels a value-and-grad launched from Python);
 # (b)'s f32 controls scored against f64 solves of the same lanes and x0s
-# (VMAP_F64_LANES of them); the lanes route with a full
-# covariance (its PSD clip through the eigensolver's vmap rule) at
+# (VMAP_F64_LANES of them), failing at a p90 cost excess >= VMAP_P90_MAX
+# (fault F4: the single-input trace in f64), with three readings logged
+# beside it, ungated: (b) on the first fresh-x0 batch, the fused
+# solve_batch on the headline (f32 with K1's f64 trace) and (c)'s Adam,
+# each against f64 solves of the same lanes and x0s; the lanes route with a
+# full covariance (its PSD clip through the eigensolver's vmap rule) at
 # VMAP_FULL_COV_LANES lanes for VMAP_FULL_COV_ITERS iterations; (d)
 # ROUTE_C_STEPS Adam control steps of the swing-up controller (route (c)).
 VMAP_LANES = 256
-VMAP_REPS = 2
+VMAP_REPS = 1
 VMAP_F64_LANES = 256
+VMAP_P90_MAX = 0.01
 VMAP_FULL_COV_LANES = 64
 VMAP_FULL_COV_ITERS = 5
 ROUTE_C_STEPS = 4
@@ -2929,33 +2962,53 @@ HS071_X_STAR = (1.00000000, 4.74299963, 3.82114998, 1.37940829)
 HS071_F_STAR = 17.0140173
 
 
+def chunked(ref, lanes):
+    """`ref` (u, m2, x, blam) -> (B, E) taken `lanes` lanes at a time, each
+    chunk under activation checkpointing, so that its backward too holds one
+    chunk's intermediates at a time."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+
+    def fn(u, m2, x, blam):
+        return torch.cat([checkpoint(ref, u[i:i + lanes], m2[i:i + lanes], x,
+                                     blam, use_reentrant=False)
+                          for i in range(0, u.shape[0], lanes)])
+    return fn
+
+
 def phase_sparse_kernels(dev):
-    """Phase 3d: K1 at the shapes of phase 8 (SPARSE_SHAPES), on the JAX
-    kernel test's inputs with the padded rows zeroed: the f32 instance
-    against the plain f64 version at that test's bars (forward and
-    backward), both instances at check_conditioned's bars; then the f64
-    instance timed at each (time_shapes: events, graph slope, plain, bound,
-    launch plan). Returns (the set of (kernel, instance, B, N, d, E)
-    checked, the max abs errors per shape, the timings)."""
+    """Phase 3d: K1 at the shapes of phase 8 (SPARSE_SHAPES) and at suite
+    config 3's (CONFIG3_SHAPE), on the JAX kernel test's inputs with the
+    padded rows zeroed: the f32 instance against the plain f64 version at
+    that test's bars (forward and backward), both instances at
+    check_conditioned's bars; then the f64 instance timed at each
+    (time_shapes: events, graph slope in both bodies, plain, bound, launch
+    plan). Returns (the set of (kernel, instance, B, N, d, E) checked, the
+    max abs errors per shape, the timings)."""
     import torch
     rng = np.random.default_rng(17)
     fn, ref = trace_fns(True)
     checked, errs = set(), {}
-    for b, n, n_valid, d, e in SPARSE_SHAPES:
+    for shape in SPARSE_SHAPES + (CONFIG3_SHAPE,):
+        b, n, n_valid, d, e = shape
         tag = f'K1 B={b} N={n} d={d} E={e}'
+        r = ref if shape != CONFIG3_SHAPE else chunked(ref, CONFIG3_CHUNK)
         ins = loop_inputs(rng, b, n, n_valid, d, e, True, dev)
-        err = {'f32 bars': check_trace(f'{tag} ({n_valid} valid)', fn, ref,
+        err = {'f32 bars': check_trace(f'{tag} ({n_valid} valid)', fn, r,
                                        *ins)}
         for dtype, rtol in ((torch.float32, 5e-5), (torch.float64, 1e-12)):
             err[_DT_NAME[str(dtype)]] = check_conditioned(
-                tag, fn, ref, *(t.detach() for t in ins[:4]), dtype, rtol)[0]
+                tag, fn, r, *(t.detach() for t in ins[:4]), dtype, rtol)[0]
         errs[tag] = err
         checked |= {('K1', dt, b, n, d, e) for dt in ('f32', 'f64')}
-        log(f'[sparse kernels] {tag} ({n_valid} valid rows): f32 vs plain '
-            f'f64 max abs err {err["f32 bars"]:.3e} (fwd rtol 5e-5 atol 5e-5, '
-            f'bwd rtol 2e-3 atol 2e-4); conditioned bar f32 {err["f32"]:.3e}, '
-            f'f64 {err["f64"]:.3e} ok')
-    times = time_shapes(dev, [('K1', *shape) for shape in SPARSE_SHAPES],
+        what = ('suite config 3, no path yet' if shape == CONFIG3_SHAPE
+                else 'phase 8')
+        log(f'[sparse kernels] {tag} ({n_valid} valid rows; {what}): f32 vs '
+            f'plain f64 max abs err {err["f32 bars"]:.3e} (fwd rtol 5e-5 atol '
+            f'5e-5, bwd rtol 2e-3 atol 2e-4); conditioned bar f32 '
+            f'{err["f32"]:.3e}, f64 {err["f64"]:.3e} ok')
+    times = time_shapes(dev, [('K1', *shape) for shape in
+                              SPARSE_SHAPES + (CONFIG3_SHAPE,)],
                         'sparse kernels', np.random.default_rng(19))
     return checked, errs, times
 
@@ -3447,14 +3500,16 @@ def timed_lanes_route(tag, b, solve, x0s, dev):
     on the first of them (time_solves: every batch equal to the bit across
     the modes); each key captured once (the first call's captures are the
     program's graphs); the program's bytes and its graphs' kernel nodes.
-    Returns (result on x0s, the record)."""
+    Returns (result on x0s, the record, the first fresh batch's (x0s,
+    result))."""
     from gpmpc_tpu_torch.mpc import solver
     solver.clear_programs()
     reset_counts()
     with capture_walls() as walls:
         first, first_s = _timed(lambda: solve(x0s), dev)
+    fresh = []
     timed = time_solves(tag, b, solve, VMAP_REPS, dev,
-                        modes=('graphed', 'reused'))
+                        modes=('graphed', 'reused'), keep=fresh)
     timed['eager'] = time_solves(f'{tag} eager', b, solve, 1, dev,
                                  modes=('eager', 'reused'))['eager']
     launches = read_counts()
@@ -3476,7 +3531,7 @@ def timed_lanes_route(tag, b, solve, x0s, dev):
         f'{cache["bytes"] / 2 ** 30:.2f} GiB '
         f'({cache["pool_bytes"] / 2 ** 30:.2f} GiB of graph pools)')
     return first, dict(timed, first_s=first_s, cache=cache,
-                       graph_kernel_nodes=nodes)
+                       graph_kernel_nodes=nodes), fresh[0]
 
 
 def _gp_draws(b, dtype, dev):
@@ -3489,18 +3544,57 @@ def _gp_draws(b, dtype, dev):
                       for s in range(b)])
 
 
+def f32_quality(tag, n, dev, *runs) -> dict:
+    """Each run (label, j64, u32, solve64): the f32 controls u32 of n lanes
+    scored under the f64 objective j64 against the f64 solve of the same
+    lanes and x0s (solve64(); the runs share one kept program, dropped
+    after): cost_excess, the f64 solve's wall and its program's bytes;
+    logged. Returns {label: ...}."""
+    from gpmpc_tpu_torch.mpc import solver
+    from gpmpc_tpu_torch.problems import cost_excess
+    solver.clear_programs()
+    out = {}
+    for label, j64, u32, solve64 in runs:
+        res64, wall64 = _timed(solve64, dev)
+        out[label] = dict(cost_excess(j64, u32, res64.cost), lanes=n,
+                          f64_wall_s=wall64)
+    stats64 = solver.program_stats()
+    solver.clear_programs()
+    for label, q in out.items():
+        q['f64_program_bytes'] = stats64['bytes']
+        log(f'[{tag}] {label}: f32 controls vs f64 solves of the same {n} '
+            f'lanes and x0s (J64): p50 {q["p50"]:.4%} p90 {q["p90"]:.4%} max '
+            f'{q["max"]:.4%}, lanes >1% {q["lanes_above_1pct"]}/{n}; the f64 '
+            f'solve {q["f64_wall_s"]:.1f} s, its program '
+            f'{stats64["bytes"] / 2 ** 30:.2f} GiB')
+    return out
+
+
+def f64_headline(b, dev):
+    """The headline problem of b lanes in f64 and its objective J64."""
+    import torch
+    from gpmpc_tpu_torch.problems import headline_j64, make_headline_problem
+    return (make_headline_problem(b=b, dtype=torch.float64, device=dev),
+            headline_j64(b, dev))
+
+
 def phase_vmap_gp_full(dev):
     """Phase 8c (b): solve_batch_gp over VMAP_LANES GP draws at full width
     (timed_lanes_route), then the f32 controls of its first call (the
     headline's x0s) scored under the f64 objective of the same lanes
-    against f64 solves of the same lanes and x0s (cost_excess: p50, p90,
-    max, lanes above 1 %)."""
+    against f64 solves of the same lanes and x0s (f32_quality); fails at a
+    p90 >= VMAP_P90_MAX (F4). Beside it, ungated: the same score on the
+    first fresh-x0 batch that the timed modes solved, and the fused
+    solve_batch's f32 controls on the headline (K1's f64 trace) against its
+    f64 solves, what the arithmetic alone costs a solve of ITERS
+    iterations."""
     import torch
     from gpmpc_tpu_torch.dynamics import build_rollout_cache
     from gpmpc_tpu_torch.mpc import solver
     from gpmpc_tpu_torch.mpc.solver import SolverConfig
-    from gpmpc_tpu_torch.parallel.batch import lanes_objective, solve_batch_gp
-    from gpmpc_tpu_torch.problems import cost_excess, make_headline_problem
+    from gpmpc_tpu_torch.parallel.batch import (lanes_objective, solve_batch,
+                                                solve_batch_gp)
+    from gpmpc_tpu_torch.problems import make_headline_problem
     b = VMAP_LANES
     t0 = time.perf_counter()
     gps = _gp_draws(b, torch.float32, dev)
@@ -3514,38 +3608,52 @@ def phase_vmap_gp_full(dev):
                               hp.ub, cfg)
 
     log(f'[vmap gp full] {b} GP draws built and stacked in {build_s:.1f} s')
-    res32, out = timed_lanes_route('vmap gp full', b, solve, hp.x0s, dev)
+    res32, out, (x0s_fresh, res_fresh) = timed_lanes_route(
+        'vmap gp full', b, solve, hp.x0s, dev)
     out['draws_build_s'] = build_s
     solver.clear_programs()
 
-    # f32 quality: the f64 solve of the same lanes and x0s, and the f64
-    # objective of the same lanes at both controls.
     m = VMAP_F64_LANES
     gps64 = _gp_draws(m, torch.float64, dev)
-    x0s64 = hp.x0s[:m].double()
+    cache64 = build_rollout_cache(gps64, 2, 1)
     p64 = hp.params._replace(**{k: getattr(hp.params, k).double()
                                 for k in ('Q', 'R', 'x_ref', 'u_ref')},
                              gamma=hp.params.gamma[:m].double())
-    res64, wall64 = _timed(lambda: solve_batch_gp(
-        gps64, 2, 1, x0s64, p64, hp.horizon, hp.lb, hp.ub, cfg), dev)
-    stats64 = solver.program_stats()
-    solver.clear_programs()
-    j64 = lanes_objective(build_rollout_cache(gps64, 2, 1), x0s64, p64)
-    quality = cost_excess(j64, res32.u[:m], res64.cost)
-    out['f32_quality'] = dict(quality, lanes=m, f64_wall_s=wall64,
-                              f64_program_bytes=stats64['bytes'])
-    log(f'[vmap gp full] f32 controls vs f64 solves of the same {m} lanes '
-        f'and x0s (J64): p50 {quality["p50"]:.4%} p90 {quality["p90"]:.4%} '
-        f'max {quality["max"]:.4%}, lanes >1% {quality["lanes_above_1pct"]}'
-        f'/{m}; the f64 solve {wall64:.1f} s, its program '
-        f'{stats64["bytes"] / 2 ** 30:.2f} GiB')
+
+    def run(label, x0s, u32):
+        x0s64 = x0s[:m].double()
+        return (label, lanes_objective(cache64, x0s64, p64), u32[:m],
+                lambda: solve_batch_gp(gps64, 2, 1, x0s64, p64, hp.horizon,
+                                       hp.lb, hp.ub, cfg))
+
+    quality = f32_quality('vmap gp full', m, dev,
+                          run('headline x0s', hp.x0s, res32.u),
+                          run('fresh x0s', x0s_fresh, res_fresh.u))
+    out['f32_quality'] = quality['headline x0s']
+    out['f32_quality_fresh'] = quality['fresh x0s']
+
+    hp64, j64 = f64_headline(b, dev)
+    fused = solve_batch(hp.gp, 2, 1, hp.x0s, hp.params, hp.horizon, hp.lb,
+                        hp.ub, cfg)
+    out['fused_f32_quality'] = f32_quality(
+        'vmap gp full: yardstick, fused solve_batch on the headline', b, dev,
+        ('headline x0s', j64, fused.u, lambda: solve_batch(
+            hp64.gp, 2, 1, hp64.x0s, hp64.params, hp64.horizon, hp64.lb,
+            hp64.ub, cfg)))['headline x0s']
+    p90 = out['f32_quality']['p90']
+    if not p90 < VMAP_P90_MAX:
+        raise AssertionError(f'vmap gp full: f32 p90 cost excess {p90:.4%} '
+                             f'against the f64 solves, limit '
+                             f'{VMAP_P90_MAX:.0%} (F4)')
+    log(f'[vmap gp full] f32 p90 {p90:.4%} < {VMAP_P90_MAX:.0%} ok (F4)')
     return out
 
 
 def phase_vmap_adam_full(dev, adam_cfg):
     """Phase 8c (c): solve_batch with projected Adam ('auto' -> the lanes
     route) on the headline (B = 256, f32), the stored reference's Adam
-    config, timed_lanes_route."""
+    config, timed_lanes_route; its first call's f32 controls scored against
+    f64 Adam solves of the same lanes and x0s (f32_quality, ungated)."""
     import torch
     from gpmpc_tpu_torch.mpc.solver import SolverConfig
     from gpmpc_tpu_torch.parallel.batch import solve_batch
@@ -3557,8 +3665,15 @@ def phase_vmap_adam_full(dev, adam_cfg):
         return solve_batch(hp.gp, 2, 1, x0s, hp.params, hp.horizon, hp.lb,
                            hp.ub, cfg)
 
-    return timed_lanes_route('vmap adam full', VMAP_LANES, solve, hp.x0s,
-                             dev)[1]
+    res32, out, _ = timed_lanes_route('vmap adam full', VMAP_LANES, solve,
+                                      hp.x0s, dev)
+    hp64, j64 = f64_headline(VMAP_LANES, dev)
+    out['f32_quality'] = f32_quality(
+        'vmap adam full', VMAP_LANES, dev,
+        ('headline x0s', j64, res32.u, lambda: solve_batch(
+            hp64.gp, 2, 1, hp64.x0s, hp64.params, hp64.horizon, hp64.lb,
+            hp64.ub, cfg)))['headline x0s']
+    return out
 
 
 def phase_vmap_full_cov(dev):
@@ -3947,7 +4062,11 @@ def main() -> int:
     sharded_11 = phase_sharded_11(dev, b, j64, j_uref, reps=3, out_dir=out_dir)
     sharded_12 = phase_sharded_12(dev, b, ref, out_dir)
     loop = phase_closed_loop(dev, loop_checked, CLOSED_LOOP_REF, out_dir)
-    sparse = phase_sparse(dev, sparse_checked, out_dir)
+    # Phase 8c (b)'s yardstick, the fused solve_batch on the headline,
+    # launches K1 at the headline's shape, which phase 3 checked.
+    sparse = phase_sparse(dev, sparse_checked | {
+        ('K1', dt, b, cache.x.shape[0], 3, cache.b_lam.shape[0])
+        for dt in ('f32', 'f64')}, out_dir)
 
     # One row a kernel instance that a path launches: K1's f32 instance (the
     # k1_f32 solve) and its f64 instance (the recipe, the main path); K2-K4
@@ -4011,6 +4130,20 @@ def main() -> int:
             max_abs_err=sparse_errs[f'K1 {shape}']['f64'], ms=t['ms'],
             plain_ms=t['plain_ms'], bound_ms=t['bound'][0],
             bound_by=t['bound'][1], library_ms=None))
+    # K1's f64 instance at suite config 3's shape (phase 3d), with the
+    # launches that phases 7 and 8 recorded at that shape.
+    b3, n3, _, d3, e3 = CONFIG3_SHAPE
+    shape = f'B={b3} N={n3} d={d3} E={e3}'
+    t = sparse_times[f'K1 f64 {shape}']
+    kernels.append(dict(
+        name=f'K1 f64 instance, suite config 3 ({shape}; launches: phases 7 '
+             'and 8 at this shape)', route='cuda', source=SOURCE_F64,
+        replaces=f'{TPU_FILE}:638',
+        launches=sum(part['launch_shapes'].get(f'K1 f64 {b3} {n3} {d3} {e3}',
+                                               0) for part in (loop, sparse)),
+        max_abs_err=sparse_errs[f'K1 {shape}']['f64'], ms=t['ms'],
+        plain_ms=t['plain_ms'], bound_ms=t['bound'][0],
+        bound_by=t['bound'][1], library_ms=None))
     # The eigensolver's rows (phase 3e): its instance at each shape a path
     # launches it at, with that path's launches (phase 7b's over its eager,
     # graphed and reused full-covariance steps).

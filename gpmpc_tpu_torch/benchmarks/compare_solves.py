@@ -5,9 +5,11 @@ Each checkout solves with its own code: a child process imports that
 checkout's package, builds the headline problem
 (problems.make_headline_problem: B = 256, f32, H = 20) and times the plain
 solve_batch at 40 iterations (tol 1e-4), with a diagonal covariance
-('diag') and with full_cov=True ('full_cov'), and (kind 'gp', with --kinds)
-solve_batch_gp over --gp-lanes GP draws (the headline GP of seeds 0.., one
-a lane, gamma swept over the lanes), over fresh x0s (U(-1, 1)^(B, 2) from
+('diag') and with full_cov=True ('full_cov'), and, with --kinds, (kind
+'gp') solve_batch_gp over --gp-lanes GP draws (the headline GP of seeds
+0.., one a lane, gamma swept over the lanes) and (kind 'adam') solve_batch
+with projected Adam (the per-scenario route, the Adam config of
+problems.SPARSE_REF_FILE), over fresh x0s (U(-1, 1)^(B, 2) from
 one seed: the same batches in every child), one warm solve of each kind and
 mode first. Each kind is timed in each mode the child is given, in turns on
 every batch:
@@ -24,14 +26,14 @@ Each solve reports its wall, its loop iterations and a digest of its
 result's bits (u, cost, iters, pg_norm, converged), so the runs can be
 held to computing the same thing: every diagonal batch across all runs and
 modes, and every full-covariance and GP-draw batch within each checkout
-(two checkouts with different PSD-clip eigensolvers, or a lane loop and a
-batched route, agree only to rounding).
+(two checkouts with different PSD-clip eigensolvers, a lane loop and a
+batched route, or different single-input traces, agree only to rounding).
 
 Run on the card's machine, from the root of checkout B, with checkout A
 unpacked beside it (e.g. `git archive <commit> | tar -x -C _checkout/a`):
 
     python -m gpmpc_tpu_torch.benchmarks.compare_solves _checkout/a . \
-        --out compare_out [--kinds gp --gp-lanes 16 --gp-reps 2]
+        --out compare_out [--kinds gp,adam --gp-lanes 16 --gp-reps 2]
 
 It prints each run's lines and writes DIR/compare_solves.json.
 """
@@ -50,6 +52,7 @@ B = 256
 ITERS = 40
 DIAG_REPS = 5
 FULL_COV_REPS = 3
+ADAM_REPS = 2
 
 CHILD = r'''
 import hashlib, json, sys, time
@@ -66,7 +69,11 @@ b, iters, gp_lanes = (int(v) for v in sys.argv[4:7])
 dev = torch.device('cuda')
 p = make_headline_problem(b=b, dtype=torch.float32, device=dev)
 cfg = SolverConfig(max_iters=iters, tol=1e-4)
-width = {'diag': b, 'full_cov': b, 'gp': gp_lanes}
+width = {'diag': b, 'full_cov': b, 'gp': gp_lanes, 'adam': b}
+if 'adam' in reps:
+    from gpmpc_tpu_torch.problems import SPARSE_REF_FILE
+    adam_cfg = SolverConfig(**json.loads(str(
+        np.load(SPARSE_REF_FILE)['configs']))['adam'])
 if 'gp' in reps:
     from gpmpc_tpu_torch.parallel.batch import solve_batch_gp, stack_gps
     gps = stack_gps([make_headline_problem(b=1, seed=s, dtype=torch.float32,
@@ -80,7 +87,9 @@ kept = getattr(solver, '_PROGRAMS', None)
 def digest(res):
     h = hashlib.sha256()
     for k in ('u', 'cost', 'iters', 'pg_norm', 'converged'):
-        h.update(getattr(res, k).detach().cpu().numpy().tobytes())
+        v = getattr(res, k)
+        if v is not None:  # Adam's converged
+            h.update(v.detach().cpu().numpy().tobytes())
     return h.hexdigest()[:16]
 
 def solve(x0s, mode, kind):
@@ -93,6 +102,9 @@ def solve(x0s, mode, kind):
     if kind == 'gp':
         res = solve_batch_gp(gps, 2, 1, x0s, gp_params, p.horizon, p.lb, p.ub,
                              cfg)
+    elif kind == 'adam':
+        res = solve_batch(p.gp, 2, 1, x0s, p.params, p.horizon, p.lb, p.ub,
+                          adam_cfg)
     else:
         res = solve_batch(p.gp, 2, 1, x0s, p.params, p.horizon, p.lb, p.ub,
                           cfg, full_cov=kind == 'full_cov')
@@ -111,7 +123,8 @@ out = {kind: {m: [] for m in modes} for kind in reps}
 for kind in reps:
     for m in modes:
         solve(p.x0s[:width[kind]], m, kind)
-for kind, seed in (('diag', 123), ('full_cov', 321), ('gp', 231)):
+for kind, seed in (('diag', 123), ('full_cov', 321), ('gp', 231),
+                   ('adam', 312)):
     rng = np.random.default_rng(seed)
     for rep in range(reps.get(kind, 0)):
         x0s = x0s_of(rng, width[kind])
@@ -150,7 +163,7 @@ def main() -> int:
     ap.add_argument('b', help='checkout B (e.g. the change)')
     ap.add_argument('--out', default=None)
     ap.add_argument('--kinds', default='diag,full_cov',
-                    help='comma-separated of diag, full_cov, gp')
+                    help='comma-separated of diag, full_cov, gp, adam')
     ap.add_argument('--gp-lanes', type=int, default=16,
                     help="lanes (GP draws) of kind 'gp'")
     ap.add_argument('--gp-reps', type=int, default=2,
@@ -158,8 +171,8 @@ def main() -> int:
     args = ap.parse_args()
     kinds = args.kinds.split(',')
     reps = {k: {'diag': DIAG_REPS, 'full_cov': FULL_COV_REPS,
-                'gp': args.gp_reps}[k] for k in kinds}
-    lanes = {'diag': B, 'full_cov': B, 'gp': args.gp_lanes}
+                'gp': args.gp_reps, 'adam': ADAM_REPS}[k] for k in kinds}
+    lanes = {'diag': B, 'full_cov': B, 'gp': args.gp_lanes, 'adam': B}
     modes_b = ['eager', 'graphed', 'reused']
     runs = []
     for tag, root, modes in (('A', args.a, ['as-is']),

@@ -20,6 +20,9 @@ lane's arithmetic lives, and every op runs once for all lanes (no op of the
 step takes functorch's per-lane fallback). Its cache is shared by the lanes,
 or carries a leading (B,) axis on every tensor: one GP a lane
 (`build_rollout_cache` of a stacked GPState), told apart by the rank of x.
+As in the batched rollouts, each step's variance trace is evaluated in f64
+whatever the dtype of the rollout (ops/moments.py `_single_trace`, the
+precision policy); the rest of the step runs in that dtype.
 
 A GP with a nominal mean model (GPConfig.nominal_fn: (n, D) -> (n, E)) fits
 the residual; `rollout` and `rollout_lanes` add the nominal part back by

@@ -566,25 +566,37 @@ class _Program:
             # Distinct buffers: a field may alias another (f_best is f
             # until the noise mode moves it).
             self.state = s = _clone(s)
-            reserved = torch.cuda.memory_reserved(dev)
-            self.step, self.step_counts = _capture(
-                lambda st: _step_in_place(self.p, st), s, self.pool)
+            self.pool_bytes = 0
+            self.step, self.step_counts = self._capture(
+                lambda st: _step_in_place(self.p, st), s, dev)
             self.graphs.append(self.step)
             if keep:
-                self.init, self.init_counts = _capture(
-                    lambda st: _init_in_place(self.p, self.u0, st), s,
-                    self.pool)
+                self.init, self.init_counts = self._capture(
+                    lambda st: _init_in_place(self.p, self.u0, st), s, dev)
                 self.graphs.append(self.init)
             self._replay_steps(s, t)
             if _polish_iters(self.p):
                 method.polish(self.p, _clone(s))
-                self.polish, self.polish_counts = _capture(
-                    lambda st: _polish_in_place(self.p, st), s, self.pool)
+                self.polish, self.polish_counts = self._capture(
+                    lambda st: _polish_in_place(self.p, st), s, dev)
                 self.graphs.append(self.polish)
                 self._replay_polish()
-            self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.bytes = self.pool_bytes + _nbytes(
             (*self.inputs, self.u0, self.p.lb, self.p.ub, self.p.zero, *s))
+
+    def _capture(self, record, s, dev):
+        """`_capture` into the program's pool, after freeing the
+        allocator's cached blocks: a capture cannot free them (no cudaFree
+        while a stream captures), so blocks cached by earlier work, by the
+        eager warm-up or by released programs' pools would stay out of
+        this pool's reach, and a capture of ~12 GB (the lanes routes at
+        256 lanes) runs out of memory behind them. Adds the pool's growth,
+        all that a capture allocates, to pool_bytes."""
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        out = _capture(record, s, self.pool)
+        self.pool_bytes += torch.cuda.memory_reserved(dev) - reserved
+        return out
 
     def _replay_steps(self, s, t) -> None:
         def step(st):

@@ -327,10 +327,10 @@ def rw_tied_body(b, n_out, n_c, d, e, dtype, sms=H100_SMS) -> str:
 
 
 # The shapes whose plans are compared with the library's at load: the
-# solve's lane counts, the closed loop's, ragged edges and split corners,
-# on an H100's SM count and a small card's.
+# solve's lane counts, the closed loop's, suite config 3's capacity (1,024),
+# ragged edges and split corners, on an H100's SM count and a small card's.
 _PLAN_CHECK_B = (1, 2, 3, 5, 7, 64, 256, 257)
-_PLAN_CHECK_N = (1, 17, 100, 128, 130, 256, 512)
+_PLAN_CHECK_N = (1, 17, 100, 128, 130, 256, 512, 1024)
 _PLAN_CHECK_DE = ((1, 1), (2, 1), (3, 2), (4, 2), (5, 4), (8, 8))
 _PLAN_CHECK_SMS = (H100_SMS, 16)
 
@@ -382,8 +382,8 @@ def _check_launch_plans(lib, sfx, dtype):
 
 def _check_mma_plans(lib):
     """Raise unless the f64 library's tensor-core plan and route equal
-    `rw_tied_mma_plan` and `rw_tied_body` at the _PLAN_CHECK_* shapes (and
-    at every (d, E))."""
+    `rw_tied_mma_plan` and `rw_tied_body` at the _PLAN_CHECK_* shapes (and,
+    at N = 512 and 1,024, at every (d, E))."""
     fn = lib.gpmpc_rw_tied_mma_plan_f64
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
     fn.restype = ctypes.c_int
@@ -393,7 +393,7 @@ def _check_mma_plans(lib):
     des = [(d, e) for d in range(1, MAX_D + 1) for e in range(1, MAX_E + 1)]
     for b in _PLAN_CHECK_B:
         for n in _PLAN_CHECK_N:
-            for d, e in (des if n == _PLAN_CHECK_N[-1] else _PLAN_CHECK_DE):
+            for d, e in (des if n >= 512 else _PLAN_CHECK_DE):
                 p = rw_tied_mma_plan(b, n, d, e)
                 want = [p.scenarios, *p.grid, p.smem_bytes]
                 if fn(b, n, d, e, out) != 0 or list(out) != want:

@@ -13,7 +13,12 @@ padded block. Three families:
     K2 untied); the cross-output covariance is torch ops, one (B, N, N) exp
     chain for the whole (E, E) block when tied;
   - single-input (`mean_prop`, `variance_prop_multi`, `covariance_prop`,
-    ...): plain torch, as the JAX package keeps them XLA-only.
+    ...): plain torch, as the JAX package keeps them XLA-only; the
+    per-scenario routes map them over lanes (dynamics.rollout_lanes). Their
+    variance trace follows the precision policy of
+    ops/kernels/variance_trace.py: it is evaluated in f64 whatever the
+    operands' dtype (`_single_trace`), since it cancels as the batched
+    traces do (PERF.md, fault F4).
 
 Small (d, d) solves and log-determinants go through the unrolled Cholesky of
 utils/smallchol; the non-symmetric R = S Lam* + I of eq. A14 through
@@ -320,18 +325,41 @@ def input_output_cov(u, S, x, beta, l, log_lambdas):
     return S @ _solve_psd(spl, w)
 
 
-def variance_prop_cached(u, S, x, b_lam, log_lambdas, log_sigma_f, mean):
-    """Predictive variance under a Gaussian input from one output's (N, N)
-    b_lam (make_variance_cache): sigma_f^2 - det_part d^T (b_lam o
-    exp(-P/4)) d - m^2, with P = diff (Lambda/2 + S)^{-1} diff^T and
-    d_i = exp(-P_ii / 8)."""
+def _single_trace(chain, u, S, x, b_lam, log_lambdas):
+    """The precision policy for one input: chain(u, S, x, b_lam,
+    log_lambdas) -> (t, log_det_part) evaluated in vt.TRACE_DTYPE whatever
+    the operands' dtype, both rounded back to it (the trace t cancels: on
+    the headline GP its terms sum to 1e3-1e6 times the variance). u, S, x
+    and log_lambdas are upcast, so hls, its solve and log-determinant, P, d
+    and the contraction run in f64; b_lam enters as stored, and its product
+    with the f64 exponent promotes it exactly, so no f64 copy of the
+    (..., N, N) cache is made or kept for the backward. The cotangents of u
+    and S come back through the casts, computed in f64 and rounded. f64
+    operands pass untouched: to() returns them, so the ops are the chain's
+    own, bit for bit."""
+    dt = u.dtype
+    t, log_det_part = chain(*(v.to(vt.TRACE_DTYPE) for v in (u, S, x)),
+                            b_lam, log_lambdas.to(vt.TRACE_DTYPE))
+    return t.to(dt), log_det_part.to(dt)
+
+
+def _trace_one(u, S, x, b_lam, log_lambdas):
+    """variance_prop_cached's chain: (t, log_det_part) of one output."""
     hls = torch.diag(torch.exp(log_lambdas) / 2.0) + S
     diff = u[None, :] - x                                       # (N, d)
     g = _solve_psd(hls, diff.T).T                               # (N, d)
     p = diff @ g.T                                              # (N, N)
     d_vec = torch.exp(-0.125 * torch.sum(g * diff, dim=1))
     t = d_vec @ (b_lam * torch.exp(-0.25 * p)) @ d_vec
-    log_det_part = -0.5 * (_logdet_psd(hls) - torch.sum(log_lambdas - _LOG2))
+    return t, -0.5 * (_logdet_psd(hls) - torch.sum(log_lambdas - _LOG2))
+
+
+def variance_prop_cached(u, S, x, b_lam, log_lambdas, log_sigma_f, mean):
+    """Predictive variance under a Gaussian input from one output's (N, N)
+    b_lam (make_variance_cache): sigma_f^2 - det_part d^T (b_lam o
+    exp(-P/4)) d - m^2, with P = diff (Lambda/2 + S)^{-1} diff^T and
+    d_i = exp(-P_ii / 8); the trace in f64 (`_single_trace`)."""
+    t, log_det_part = _single_trace(_trace_one, u, S, x, b_lam, log_lambdas)
     return (torch.exp(2.0 * log_sigma_f) - torch.exp(log_det_part) * t
             - mean ** 2)
 
@@ -343,10 +371,8 @@ def variance_prop(u, S, x, beta, kinv, log_lambdas, log_sigma_f, mask, mean):
     return variance_prop_cached(u, S, x, b_lam, log_lambdas, log_sigma_f, mean)
 
 
-def variance_prop_multi(u, S, x, b_lam, log_lambdas, log_sigma_f, means):
-    """All outputs' variances for one input: u (d,); S (d, d); x (N, d);
-    b_lam (E, N, N); log_lambdas (E, d); log_sigma_f (E,); means (E,)
-    -> (E,)."""
+def _trace_multi(u, S, x, b_lam, log_lambdas):
+    """variance_prop_multi's chain: (t, log_det_part) of all E outputs."""
     d = x.shape[1]
     hls = (torch.exp(log_lambdas) / 2.0)[:, :, None] * _eye(d, u) + S[None]
     log_det_part = -0.5 * (_logdet_psd(hls)
@@ -356,6 +382,14 @@ def variance_prop_multi(u, S, x, b_lam, log_lambdas, log_sigma_f, means):
     p = torch.einsum('nd,emd->enm', diff, g)                    # (E, N, N)
     d_vec = torch.exp(-0.125 * torch.sum(g * diff[None], dim=-1))  # (E, N)
     t = torch.einsum('en,enm,em->e', d_vec, b_lam * torch.exp(-0.25 * p), d_vec)
+    return t, log_det_part
+
+
+def variance_prop_multi(u, S, x, b_lam, log_lambdas, log_sigma_f, means):
+    """All outputs' variances for one input: u (d,); S (d, d); x (N, d);
+    b_lam (E, N, N); log_lambdas (E, d); log_sigma_f (E,); means (E,)
+    -> (E,); the traces in f64 (`_single_trace`)."""
+    t, log_det_part = _single_trace(_trace_multi, u, S, x, b_lam, log_lambdas)
     return (torch.exp(2.0 * log_sigma_f) - torch.exp(log_det_part) * t
             - means ** 2)
 

@@ -10,6 +10,7 @@ with the card and no JAX: from the repository root,
 """
 
 import functools
+import types
 
 import numpy as np
 import pytest
@@ -554,13 +555,17 @@ def test_cuda_closed_loop_matches_cpu():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('shape', [(256, 128, 128, 5, 4), (64, 128, 128, 3, 2),
-                                   (1, 512, 400, 4, 2)])
+                                   (1, 512, 400, 4, 2),
+                                   chip_smoke.CONFIG3_SHAPE])
 def test_cuda_k1_at_sparse_shapes(shape):
-    """K1 at the shapes of the sparse workloads and the uncertainty
-    experiment ((B, N, valid rows, d, E): suite config 3b, config 4, the
-    experiment's 400 points in capacity 512): the f32 instance against the
-    plain version in f64 at the JAX kernel test's bars, the f64 instance
-    within 1e-12 relative plus 16 ulps of the magnitude sum."""
+    """K1 at the shapes of the sparse workloads, the uncertainty experiment
+    and suite config 3 ((B, N, valid rows, d, E): config 3b, config 4, the
+    experiment's 400 points in capacity 512, config 3's 1,000 in 1,024):
+    the f32 instance against the plain version in f64 at the JAX kernel
+    test's bars, the f64 instance within 1e-12 relative plus 16 ulps of the
+    magnitude sum. Above N = 512 the plain version is taken in lane chunks
+    (chip_smoke.chunked): whole, its f64 intermediates at config 3's shape
+    are 8.6 GB each."""
     dev = _cuda()
     b, n, n_valid, d, e = shape
     u, m2, x, blam, ct = _problem(True, b, e, n, d, seed=31)
@@ -569,6 +574,8 @@ def test_cuda_k1_at_sparse_shapes(shape):
     blam[:, :, n_valid:] = 0.0
     tfn = functools.partial(tvt.variance_trace_batched_tied, native=True)
     rfn = tvt.variance_trace_batched_tied_reference
+    if n > 512:
+        rfn = chip_smoke.chunked(rfn, chip_smoke.CONFIG3_CHUNK)
 
     def run(fn, dtype, bl=blam):
         ut = torch.tensor(u, dtype=dtype, device=dev, requires_grad=True)
@@ -588,6 +595,23 @@ def test_cuda_k1_at_sparse_shapes(shape):
     mag = np.abs(run(rfn, torch.float64, np.abs(blam))[0])
     assert np.all(np.abs(k64 - r_out) <= 1e-12 * np.abs(r_out)
                   + 16 * np.finfo(np.float64).eps * mag)
+
+
+@pytest.mark.cuda
+def test_cuda_k1_bodies_at_config3_shape():
+    """At suite config 3's shape (chip_smoke.CONFIG3_SHAPE) the route takes
+    the tensor-core body, and rw in each body, forced, is within phase 3's
+    f64 bar."""
+    dev = _cuda()
+    b, n, _, d, e = chip_smoke.CONFIG3_SHAPE
+    assert tvt.rw_tied_body(b, n, n, d, e, torch.float64,
+                            tvt.device_sms(dev)) == 'mma'
+    args = _mma_args(b, n, n, d, e, dev, seed=33)
+    for body in ('mma', 'scalar'):
+        got, launched = tvt._launch(*args, body=body)
+        torch.cuda.synchronize()
+        assert launched
+        _assert_mma_bar(got, args, f'{body} B={b} N={n} d={d} E={e}')
 
 
 @pytest.mark.cuda
@@ -1346,6 +1370,46 @@ def test_cuda_lanes_route_reused_equals_fresh_and_eager(route):
     graphs = 3 if route == 'adam' else 2
     assert captured['reused'] == [each] * graphs
     assert captured['fresh'] == [each] * (2 * graphs)
+
+
+@pytest.mark.cuda
+def test_cuda_capture_after_the_cache_fills():
+    """A program's capture (mpc/solver.py `_Program._capture`) of code that
+    allocates 2 GiB, on a side stream as the solver captures, while the
+    allocator's cache holds all of the card's free memory but 1 GiB in
+    blocks of the default stream (as earlier work leaves it): a capture
+    cannot free cached blocks, so the solver frees them before it
+    captures. The capture succeeds, the pool's growth is counted, and a
+    replay computes what the code does."""
+    from gpmpc_tpu_torch.mpc import solver
+    dev = _cuda()
+    need, blk = 2 ** 31, 2 ** 28
+    s = (torch.zeros(1, device=dev),)
+
+    def record(st, n=need // 4):
+        st[0].copy_(torch.full((n,), 2.0, device=dev)[-1:])
+
+    prog = types.SimpleNamespace(pool=torch.cuda.graph_pool_handle(),
+                                 pool_bytes=0)
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        record(s, 1024)                    # the warm-up, small
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info(dev)
+    blocks = [torch.empty(blk, dtype=torch.uint8, device=dev)
+              for _ in range(max(free - need // 2, 0) // blk)]
+    del blocks
+    assert torch.cuda.mem_get_info(dev)[0] < need // 2 + blk
+    with torch.cuda.stream(side):
+        graph, _ = solver._Program._capture(prog, record, s, dev)
+    s[0].zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert float(s[0]) == 2.0
+    assert prog.pool_bytes >= need
+    graph.reset()
 
 
 @pytest.mark.cuda

@@ -5,7 +5,10 @@ a lane, a diagonal and a full covariance, delta dynamics and a nominal
 model; against JAX's jax.vmap(gpmpc_tpu.dynamics.rollout) (rtol 1e-8); with
 no op on functorch's per-lane fallback; the lanes cache of a stacked GP; and
 the vmap rules of the two autograd Functions it may reach (the eigensolver
-and the tied-lengthscale guard) against their unmapped forms."""
+and the tied-lengthscale guard) against their unmapped forms. And in f32 on
+the headline GP (fault F4): the variances of an f32 lanes rollout within
+F32_VAR_RTOL of the f64 lanes rollout of the same operands, where the plain
+f32 single-input trace misses."""
 
 import contextlib
 import dataclasses
@@ -21,12 +24,13 @@ import jax.numpy as jnp
 from gpmpc_tpu import dynamics as jdyn
 from gpmpc_tpu.gp import state as jgs
 from gpmpc_tpu.parallel import batch as jbatch
-from gpmpc_tpu_torch.dynamics import (build_rollout_cache, rollout,
-                                      rollout_lanes)
+from gpmpc_tpu_torch.dynamics import (build_rollout_cache, cache_from,
+                                      rollout, rollout_lanes)
 from gpmpc_tpu_torch.gp.state import GPConfig, make_gp
 from gpmpc_tpu_torch.ops import moments
 from gpmpc_tpu_torch.ops.kernels import eigh_small
 from gpmpc_tpu_torch.parallel.batch import _GP_TENSORS, stack_gps
+from gpmpc_tpu_torch.problems import make_headline_problem
 from torch_port_common import nominal_gp_pair, np_, t64
 
 torch.set_num_threads(2)
@@ -252,6 +256,48 @@ def test_tied_guard_vmap_rule_equals_unmapped():
     x = t64(np.ones((5, 3))).requires_grad_(True)
     (g0,) = torch.autograd.grad(moments._tied_hypergrad_guard(x).sum(), x)
     assert bool(torch.isnan(g0).all())
+
+
+# The f32 lanes rollout's variances against the f64 lanes rollout of the
+# same f32 operands, each step: a variance is sigma_f^2 - det t - m^2 with
+# terms up to ~1e3 times it (tests/diagnose_torch_f4.py), so the f32
+# rounding of those terms alone moves it ~1e-4 a step. Measured on the
+# headline GP (3 lanes, 8 steps): with the f64 single-input trace at most
+# 2.9e-4 (shared cache) and 2.7e-4 (one GP a lane); with the plain f32
+# trace 9.7e-3 and 7.6e-3.
+F32_VAR_RTOL = 1e-3
+
+
+@pytest.mark.parametrize('kind', ['shared', 'lanes'])
+def test_f32_lanes_variances_near_f64(monkeypatch, kind):
+    """An f32 rollout_lanes on the headline GP (kind 'shared') or on one
+    headline GP draw a lane (seeds 0-2, 'lanes'), 8 steps under uniform
+    controls: every variance within F32_VAR_RTOL of the f64 lanes rollout
+    of the same f32 cache, x0s and controls; the plain f32 single-input
+    trace (moments._single_trace bypassed) misses that bar."""
+    b, h = 3, 8
+    p = make_headline_problem(b=b, dtype=torch.float32, device='cpu')
+    gp = (p.gp if kind == 'shared' else stack_gps([
+        make_headline_problem(b=1, seed=s, dtype=torch.float32,
+                              device='cpu').gp for s in range(b)]))
+    cache = build_rollout_cache(gp, 2, 1)
+    u = torch.tensor(np.random.default_rng(2).uniform(-5, 5, (b, h, 1)),
+                     dtype=torch.float32)
+    cache64 = cache_from(cache.static_key(),
+                         [t.double() for t in cache.tensors()])
+    want = torch.diagonal(rollout_lanes(cache64, p.x0s.double(),
+                                        u.double())[1], dim1=-2, dim2=-1)
+
+    def rel_err():
+        got = torch.diagonal(rollout_lanes(cache, p.x0s, u)[1], dim1=-2,
+                             dim2=-1)
+        assert got.dtype == torch.float32
+        return float(((got.double() - want).abs() / want).max())
+
+    assert rel_err() <= F32_VAR_RTOL
+    monkeypatch.setattr(moments, '_single_trace',
+                        lambda chain, *ops: chain(*ops))
+    assert rel_err() > 5 * F32_VAR_RTOL
 
 
 def test_compat_nominal_models_run_in_the_lanes_rollout():
