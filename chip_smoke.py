@@ -122,6 +122,18 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 torch.linalg.eigh (library_ms; the port never calls it) and
                 its bound on these inputs (the rotations the plain version
                 counts).
+  3f. loop cond  the device loop's condition kernel (csrc/loop_cond.cu,
+                ops/kernels/loop_cond.py): the CUDA runtime and driver
+                versions and the loop form they give (fails unless 'while',
+                the conditional WHILE node); the kernel's plain launch
+                against its plain version (t < max_iters and a lane not
+                done) at 1 to 3,584 lanes, every done pattern and t around
+                the cap, equal; the loop graph over a captured counting
+                body against the host-read loop on the same graph (0
+                passes, the cap, one live lane, t at the cap), t and done
+                equal; its time by graph slope beside its plain version's
+                and its bytes bound, and a pass of the device loop against
+                an iteration of the host-read loop (wall slope).
   4. objective  the port's f64 objective on the card (the f64 kernel
                 instances) at the reference controls and at 0 against the
                 JAX package's values in gpmpc_tpu_torch/data/headline_ref.npz,
@@ -168,6 +180,21 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 the eager and the reused solve under the profiler (eager 4
                 iterations, reused 40), and in each device trace exactly H
                 K1 kernels a value-and-grad, the graphs' replays included.
+  5g. device loop  each kept route's loop on the device against its
+                host-read loop (check_device_loop: a miss on the device
+                loop, a miss on the host-read loop, a hit on the device
+                loop, equal to the bit; the hit captures nothing; the
+                device loop reads nothing in the solver's loop, the
+                host-read loop once an iteration, logged), after checking
+                that set_sync_debug_mode('error') raises on a host read:
+                the headline (40 iterations; at tol 1e9, a miss whose loop
+                runs 0 passes; at a cap of 5), full covariance, the recipe
+                at B = 64, config 3b, (b) solve_batch_gp and (c) Adam on 16
+                lanes, and a swing-up control step (route (b)). Every timed
+                phase runs the device loop, as callers do, and every timed
+                reused call (time_solves) and 5g's device hit run the kept
+                program's call under that mode (no_host_sync): a host sync
+                inside it fails the phase.
   5c. recipe    the main path: the production recipe
                 (solve_batch_multistart_retired with problems.RECIPE and
                 REFINE, ret_prod_nopre) on the same problem, counted: finite
@@ -282,14 +309,16 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 counted (H (1 + iters) K1 f64 and eigensolver launches),
                 equal to the bit; then at the suite's 40 iterations, counted
                 the same way, its program's graphs H K1 f64 and H
-                eigensolver launches a replay, timed in the three modes in
+                eigensolver launches a replay, timed graphed and reused in
                 turns, its cost excess recorded beside the JAX package's
                 p50 (no gate); (c)
                 the per-scenario routes in f64, solve_batch with Adam
                 ('auto' -> 'vmap') on four headline lanes and solve_batch_gp
                 over three stack_gps draws, against JAX's stored results,
-                launching no kernel; then at full width, f32, in three
-                modes: solve_batch_gp over 256 GP draws, its controls held
+                launching no kernel; then at full width, f32, a first call
+                equal to a reused call on its x0s, then reused (eager is
+                held to the bit at 16 lanes, tests/test_torch_cuda.py):
+                solve_batch_gp over 256 GP draws, its controls held
                 to a p90 cost excess below 1 % against f64 solves of the
                 same lanes and x0s (fault F4), a fresh-x0 batch's, the
                 fused solve_batch's and Adam's readings logged beside it;
@@ -470,14 +499,21 @@ def log(msg: str) -> None:
 
 
 def sync(dev) -> None:
+    """Wait for the card, then count the device loops that ran
+    (utils/replay_counts.settle)."""
     import torch
+    from gpmpc_tpu_torch.utils import replay_counts
     if dev.type == 'cuda':
         torch.cuda.synchronize(dev)
+    replay_counts.settle()
 
 
 def reset_counts() -> None:
-    from gpmpc_tpu_torch.ops.kernels import eigh_small, probe
+    from gpmpc_tpu_torch.ops.kernels import eigh_small, loop_cond, probe
     from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
+    from gpmpc_tpu_torch.utils import replay_counts
+    replay_counts.settle()
+    loop_cond.LAUNCHES_COND = 0
     for name in ('LAUNCHES', 'LAUNCHES_F64', *COUNTER.values()):
         setattr(vt, name, 0)
     probe.LAUNCHES_PROBE = 0
@@ -489,6 +525,8 @@ def read_counts() -> dict:
     of the probe kernel and 'eigh' of the small eigensolver."""
     from gpmpc_tpu_torch.ops.kernels import eigh_small, probe
     from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
+    from gpmpc_tpu_torch.utils import replay_counts
+    replay_counts.settle()
     return {'K1 f32': vt.LAUNCHES - vt.LAUNCHES_F64,
             'K1 f64': vt.LAUNCHES_F64,
             **{k: getattr(vt, name) for k, name in COUNTER.items()},
@@ -562,11 +600,22 @@ def cache_note(tag, captures: int, capture_s: float) -> dict:
                              f'captures for {stats["programs"]} programs of '
                              f'{graphs} graphs, expected one capture of '
                              'each program\'s graphs')
+    loop_s = loop_instantiate_s()
     log(f'[{tag}] reused: {stats["programs"]} programs, each key captured '
-        f'once ok ({captures} graphs, {capture_s:.3f} s of capture); the '
-        f'cache holds {stats["bytes"]} bytes ({stats["pool_bytes"]} in '
-        'graph pools)')
-    return dict(stats, captures=captures, capture_s=capture_s)
+        f'once ok ({captures} graphs, {capture_s:.3f} s of capture, of which '
+        f'{loop_s:.3f} s instantiating loop graphs); the cache holds '
+        f'{stats["bytes"]} bytes ({stats["pool_bytes"]} in graph pools)')
+    return dict(stats, captures=captures, capture_s=capture_s,
+                loop_instantiate_s=loop_s)
+
+
+def loop_instantiate_s() -> float:
+    """The seconds the kept programs' loop graphs took to instantiate (part
+    of their step's capture)."""
+    from gpmpc_tpu_torch.mpc import solver
+    return float(sum(prog.loop.instantiate_s
+                     for prog in solver._PROGRAMS.values()
+                     if prog.loop is not None))
 
 
 def reused_captures(r) -> tuple:
@@ -617,9 +666,9 @@ def capture_walls():
     from gpmpc_tpu_torch.mpc import solver
     capture, walls = solver._capture, []
 
-    def timed(record, s, pool=None):
+    def timed(record, s, pool=None, **kw):
         t0 = time.perf_counter()
-        graph, counts = capture(record, s, pool)
+        graph, counts = capture(record, s, pool, **kw)
         walls.append((time.perf_counter() - t0, counts.launches))
         return graph, counts
 
@@ -1579,7 +1628,8 @@ def time_solves(tag, b, solve, reps, dev, draw_x0s=None, modes=None,
     modes (of MODES) each batch is solved in each mode in turns, the order
     rotating by one each batch (loop_mode), all results equal to the bit
     (same_bits), and the result is {mode: ...}: each mode's walls, solves/s
-    and each call's captures and capture seconds (capture_walls). `keep`, a
+    and each call's captures and capture seconds (capture_walls). A kept
+    program's later calls run under no_host_sync (a host sync raises). `keep`, a
     list, gets each batch's (x0s, the result of its first mode)."""
     import torch
     rng = np.random.default_rng(123)
@@ -1595,7 +1645,8 @@ def time_solves(tag, b, solve, reps, dev, draw_x0s=None, modes=None,
         k = rep % len(order)
         for mode in order[k:] + order[:k]:
             with (loop_mode(mode) if mode else contextlib.nullcontext(),
-                  capture_walls() as cw):
+                  no_host_sync() if mode in (None, 'reused')
+                  else contextlib.nullcontext(), capture_walls() as cw):
                 sync(dev)
                 t0 = time.perf_counter()
                 res[mode] = solve(x0s)
@@ -1826,12 +1877,20 @@ def phase_recipe(dev, b, j64, j_uref, card, lane_counts=RECIPE_WIDTHS):
     diag = {}
     with count_propagated_rollouts() as widths, capture_walls() as walls:
         reset_counts()
+        reads0 = loop_counts()['host_reads']
         t0 = time.perf_counter()
         res = solve(p.x0s, diag)
         sync(dev)
         wall = time.perf_counter() - t0
         counts = read_counts()
+        loops = loop_counts()
     capture = capture_note(walls, wall)
+    loops['host_reads'] -= reads0
+    if not (loops['cond'] > 0 and loops['host_reads'] == 0):
+        raise AssertionError(f'recipe: condition kernel launches '
+                             f'{loops["cond"]}, host reads in the solver '
+                             f'loops {loops["host_reads"]}: expected the '
+                             'device loop')
     rollouts = sum(widths.values())
     expect = p.horizon * rollouts
     others = {k: v for k, v in counts.items() if k != 'K1 f64' and v}
@@ -1850,7 +1909,9 @@ def phase_recipe(dev, b, j64, j_uref, card, lane_counts=RECIPE_WIDTHS):
         f'propagated-variance rollouts ({{lanes: rollouts}} {widths}, each '
         f'lane count checked in phase 3 ok), K1 f64 launches '
         f'{counts["K1 f64"]} = H * rollouts ok, no other kernel; costs finite '
-        f'ok; max iters {int(res.iters.max())}; diag {diag}; wall {wall:.2f} '
+        f'ok; max iters {int(res.iters.max())}; device loops: '
+        f'{loops["cond"]} condition kernel launches, no host read in the '
+        f'solver loops ok; diag {diag}; wall {wall:.2f} '
         f's (the first solve), of it {capture["captures"]} graph captures '
         f'{capture["capture_s"]:.3f} s ({100 * capture["capture_share"]:.1f} '
         f'%, median {1e3 * capture["capture_median_s"]:.2f} ms)')
@@ -1874,7 +1935,8 @@ def phase_recipe(dev, b, j64, j_uref, card, lane_counts=RECIPE_WIDTHS):
     if not q['p90'] < RECIPE_P90_MAX:
         raise AssertionError(f'recipe: p90 cost excess {q["p90"]:.4%} is not '
                              f'below {RECIPE_P90_MAX:.0%}')
-    return dict(launches=counts['K1 f64'], propagated_rollouts=rollouts,
+    return dict(launches=counts['K1 f64'], cond_launches=loops['cond'],
+                propagated_rollouts=rollouts,
                 rollout_lanes=widths, diag=diag, first_wall_s=wall,
                 capture=capture, cache=cache, **out)
 
@@ -2023,13 +2085,20 @@ def profile_solve(tag, solve, x0s, kernel, out_dir, per_eval=None):
     utils/replay_counts.replays_run), and, where nothing was replayed, none
     of the kernels the host launched. With per_eval, a trace that lost
     some is taken again, up to PROFILE_TRACES in all, and none whole
-    raises. The table goes to out_dir/chip_smoke_profile_<tag>.txt."""
+    raises. The profiled solve runs the host-read loop (host_loop): the
+    profiler loses most kernel records of a conditional node's body (9,023
+    of 14,862 in each of four traces of a 4-iteration headline solve on the
+    device loop, one H100), so only a host-read solve's trace can be
+    counted; the kernels and graphs are the same. The table goes to
+    out_dir/chip_smoke_profile_<tag>.txt."""
     from collections import Counter
     dev = x0s.device
-    solve(x0s)
+    with host_loop():
+        solve(x0s)
     sync(dev)
     for trace in range(1, PROFILE_TRACES + 1):
-        prof, res, wall, nodes = _trace(solve, x0s)
+        with host_loop():
+            prof, res, wall, nodes = _trace(solve, x0s)
         events = [e for e in prof.events() if e.device_type.name == 'CUDA']
         # The host's launch calls (cudaLaunchKernel*, cuLaunchKernel*):
         # kernels, and graphs (cudaGraphLaunch).
@@ -2932,9 +3001,9 @@ VMAP_COST_RTOL = 1e-9
 # all lanes: (b) solve_batch_gp over VMAP_LANES exact-GP draws (the headline
 # data of seeds 0..255, f32, H = 20, gamma swept, L-BFGS 40 iterations at
 # tol 1e-4) and (c) solve_batch's projected Adam on the headline (the Adam
-# config of the stored reference), each timed graphed and reused over
-# VMAP_REPS fresh-x0 batches and eager on the first (an eager call at B =
-# 256 takes ~45 s: ~48,000 kernels a value-and-grad launched from Python);
+# config of the stored reference), each timed reused over VMAP_REPS
+# fresh-x0 batches (not eager: a call at B = 256 takes ~45-55 s, ~48,000
+# kernels a value-and-grad launched from Python);
 # (b)'s f32 controls scored against f64 solves of the same lanes and x0s
 # (VMAP_F64_LANES of them), failing at a p90 cost excess >= VMAP_P90_MAX
 # (fault F4: the single-input trace in f64), with three readings logged
@@ -3192,6 +3261,441 @@ def phase_eigh(dev):
     return worst, times
 
 
+# ------------------------------------------- the solver's loop on the card --
+# Phase 3f: the condition kernel of the device loop (csrc/loop_cond.cu)
+# against its plain version at LOOP_COND_LANES lanes, iteration indices
+# around the cap and every done pattern of LOOP_COND_PATTERNS; the loop
+# graph with a counting body (t += 1, a lane done at its own stop) against
+# the host-read loop on the same graph at each case of LOOP_GRAPH_CASES
+# ((lanes, t0, cap, stops): 0 passes, the cap, one live lane); its time by
+# graph slope beside the plain version's and the bytes bound; and a loop
+# pass of the counting body against a host-read iteration, by events, over
+# LOOP_PASSES passes. Phase 5g holds each route's device loop against its
+# host-read loop.
+LOOP_SOURCE = 'gpmpc_tpu_torch/ops/kernels/csrc/loop_cond.cu'
+LOOP_REPLACES = 'gpmpc_tpu/mpc/solver.py:484'
+LOOP_COND_LANES = (1, 5, 16, 64, 256, 1000, 3584)
+LOOP_COND_PATTERNS = ('none done', 'all done', 'first live', 'last live',
+                      'random')
+LOOP_GRAPH_CASES = ((256, 0, 40, 'all done'), (256, 0, 40, 'cap'),
+                    (256, 0, 40, 'one lane'), (256, 40, 40, 'one lane'),
+                    (1, 0, 7, 'cap'), (3584, 3, 300, 'spread'))
+LOOP_PASSES = (24, 96)
+
+
+def loop_counts() -> dict:
+    """The condition kernel's launches and the solver loops' host reads
+    so far (device loops settled)."""
+    from gpmpc_tpu_torch.ops.kernels import loop_cond
+    from gpmpc_tpu_torch.utils import replay_counts
+    replay_counts.settle()
+    return {'cond': loop_cond.LAUNCHES_COND,
+            'host_reads': replay_counts.HOST_READS}
+
+
+def host_loop():
+    """The kept programs built and run in a block take the host-read loop
+    (the step graph replayed once an iteration while the host reads
+    all(done)): the reference the device loop is held to
+    (solver._host_read_loop)."""
+    from gpmpc_tpu_torch.mpc import solver
+    return solver._host_read_loop()
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """Every later call of a kept program on the device loop in a block
+    (solver._Program.run: its input copies, init graph, loop launch and
+    polish graph) runs under torch.cuda.set_sync_debug_mode('error'), so a
+    host sync inside it (a read such as bool() or .item(), a blocking copy,
+    a synchronize) raises. Yields {'runs': the calls it guarded}."""
+    import torch
+    from gpmpc_tpu_torch.mpc import solver
+    run, seen = solver._Program.run, {'runs': 0}
+
+    def guarded(prog, *args, **kw):
+        if prog.loop is None:
+            return run(prog, *args, **kw)
+        was = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            run(prog, *args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(was)
+        seen['runs'] += 1
+
+    solver._Program.run = guarded
+    try:
+        yield seen
+    finally:
+        solver._Program.run = run
+
+
+def check_sync_guard(dev) -> None:
+    """The sync guard of no_host_sync catches a host read: bool() of a CUDA
+    tensor under set_sync_debug_mode('error') raises."""
+    import torch
+    was = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        bool(torch.ones(1, device=dev))
+    except RuntimeError:
+        return
+    finally:
+        torch.cuda.set_sync_debug_mode(was)
+    raise AssertionError('set_sync_debug_mode(\'error\') let a host read '
+                         'through')
+
+
+def _done_pattern(kind, b, rng):
+    import torch
+    done = torch.zeros(b, dtype=torch.bool)
+    if kind == 'all done':
+        done[:] = True
+    elif kind == 'first live':
+        done[1:] = True
+    elif kind == 'last live':
+        done[:-1] = True
+    elif kind == 'random':
+        done = torch.as_tensor(rng.random(b) < 0.5)
+    return done
+
+
+def _counting_step(b, case, dev):
+    """A stand-in solver state and its step, captured: t (int64 scalar) and
+    done (B bools) on the card, and a step that adds 1 to t and marks lane
+    i done once t reaches stop_i (the case: 'all done' every lane done
+    before the loop, 'cap' no lane ever, 'one lane' lane B - 1 alone live
+    until 30 passes, 'spread' the stops spread over 1..250). Returns (t,
+    done, stops, the captured step's CUDAGraph, the step), the step run
+    once eagerly."""
+    import torch
+    big = 10 ** 9
+    stops = {'all done': torch.zeros(b), 'cap': torch.full((b,), big),
+             'one lane': torch.cat([torch.zeros(b - 1), torch.tensor([30])]),
+             'spread': torch.arange(b) % 250 + 1}[case]
+    stops = stops.to(torch.long).to(dev)
+    t = torch.zeros((), dtype=torch.long, device=dev)
+    done = torch.zeros(b, dtype=torch.bool, device=dev)
+
+    def step():
+        t.add_(1)
+        done.logical_or_(stops <= t)
+
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        step()
+    return t, done, stops, graph, step
+
+
+def counting_loop(step, t, done, cap):
+    """The loop graph of a counting step (loop_cond.DeviceLoop), captured on
+    a side stream into a pool of its own."""
+    import torch
+    from gpmpc_tpu_torch.ops.kernels import loop_cond
+    dev = t.device
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        loop = loop_cond.DeviceLoop(step, t, done, cap,
+                                    torch.cuda.graph_pool_handle())
+    torch.cuda.current_stream(dev).wait_stream(side)
+    return loop
+
+
+def _reset_counting(t, done, stops, t0):
+    t.fill_(t0)
+    done.copy_(stops <= t0)
+
+
+def check_loop_cond_kernel(dev, lanes) -> tuple:
+    """The condition kernel's plain launch (loop_cond.go_on on CUDA
+    tensors) against its plain version at each B of `lanes`, every pattern
+    of LOOP_COND_PATTERNS and t around the cap 40; raises unless equal.
+    Returns (max abs error, cases)."""
+    import torch
+    from gpmpc_tpu_torch.ops.kernels import loop_cond
+    rng = np.random.default_rng(16)
+    err, cases = 0, 0
+    for b in lanes:
+        for kind in LOOP_COND_PATTERNS:
+            done = _done_pattern(kind, b, rng).to(dev)
+            for t0 in (0, 1, 39, 40, 41):
+                t = torch.tensor(t0, dtype=torch.long, device=dev)
+                got = loop_cond.go_on(t, done, 40)
+                want = loop_cond.go_on_reference(t, done, 40)
+                err = max(err, abs(int(got) - int(want)))
+                cases += 1
+    if err:
+        raise AssertionError(f'loop cond: the kernel differs from its plain '
+                             f'version by {err}')
+    return err, cases
+
+
+def check_loop_graph(dev, b, t0, cap, case) -> dict:
+    """The loop graph over the counting step (_counting_step, captured into
+    its body) from t0 at the cap against the host-read loop on the step's
+    own graph: t and done equal, or raises. Returns the case and its
+    passes."""
+    import torch
+    t, done, stops, graph, step = _counting_step(b, case, dev)
+    loop = counting_loop(step, t, done, cap)
+    try:
+        _reset_counting(t, done, stops, t0)
+        loop.launch()
+        dev_t, dev_done = int(t), done.clone()
+        _reset_counting(t, done, stops, t0)
+        host_t = t0
+        while host_t < cap and not bool(done.all()):
+            graph.replay()
+            host_t += 1
+    finally:
+        loop.reset()
+    if not (dev_t == host_t == int(t) and torch.equal(dev_done, done)):
+        raise AssertionError(f'loop cond: B={b} t0={t0} cap={cap} {case}: '
+                             f'the device loop ended at t {dev_t}, the '
+                             f'host-read loop at {host_t}')
+    log(f'[loop cond] loop graph B={b} t0={t0} cap={cap} ({case}): '
+        f'{dev_t - t0} passes, t and done equal to the host-read loop ok')
+    return dict(b=b, t0=t0, cap=cap, case=case, passes=dev_t - t0)
+
+
+def phase_loop_cond(dev) -> tuple:
+    """Phase 3f (see LOOP_SOURCE above). Returns (max abs error, times,
+    the graph cases)."""
+    import torch
+    from gpmpc_tpu_torch.mpc import solver
+    from gpmpc_tpu_torch.ops.kernels import loop_cond
+    rt, drv = loop_cond.versions()
+    form = solver.loop_form()
+    log(f'[loop cond] CUDA runtime {rt}, CUDA driver {drv}: the loop form is '
+        f'{form!r} (conditional WHILE nodes from {loop_cond.MIN_CUDA})')
+    if form != 'while':
+        raise AssertionError(f'loop cond: this card runs the {form!r} loop, '
+                             'expected the device loop')
+    err, cases = check_loop_cond_kernel(dev, LOOP_COND_LANES)
+    log(f'[loop cond] the kernel equals its plain version on {cases} cases '
+        f'(B in {LOOP_COND_LANES}, {", ".join(LOOP_COND_PATTERNS)}, t around '
+        'the cap 40) ok')
+    graph_cases = [check_loop_graph(dev, *case) for case in LOOP_GRAPH_CASES]
+    rng = np.random.default_rng(16)
+    out = torch.empty((), dtype=torch.int32, device=dev)
+    b = 256
+    done = _done_pattern('first live', b, rng).to(dev)
+    t = torch.zeros((), dtype=torch.long, device=dev)
+    key = f'cond B={b}'
+    g = graph_ms({key: lambda: loop_cond.launch(t, done, 40, out),
+                  'plain': lambda: loop_cond.go_on_reference(t, done, 40)},
+                 dev)
+    ms = cuda_ms(lambda: loop_cond.launch(t, done, 40, out), 200)
+    t_bytes = (b + 8 + 4) / PEAK_BYTES_PER_S
+    t_ops = (b + 2) / PEAK_F32_FLOPS
+    times = dict(ms=g[key], events_ms=ms, plain_ms=g['plain'],
+                 bound=(1e3 * max(t_bytes, t_ops),
+                        'bytes' if t_bytes >= t_ops else 'operations'))
+    # One loop pass of the counting body against one host-read iteration.
+    t, done, stops, graph, step = _counting_step(b, 'cap', dev)
+    loop = {n: counting_loop(step, t, done, n) for n in LOOP_PASSES}
+    walls = {}
+    try:
+        for form_name in ('while', 'host'):
+            for n in LOOP_PASSES:
+                best = float('inf')
+                for _ in range(5):
+                    _reset_counting(t, done, stops, 0)
+                    sync(dev)
+                    t0 = time.perf_counter()
+                    if form_name == 'while':
+                        loop[n].launch()
+                    else:
+                        k = 0
+                        while k < n and not bool(done.all()):
+                            graph.replay()
+                            k += 1
+                    sync(dev)
+                    best = min(best, time.perf_counter() - t0)
+                walls[(form_name, n)] = best
+    finally:
+        for lp in loop.values():
+            lp.reset()
+    lo, hi = LOOP_PASSES
+    per = {f: 1e3 * (walls[(f, hi)] - walls[(f, lo)]) / (hi - lo)
+           for f in ('while', 'host')}
+    times.update(pass_ms=per['while'], host_iteration_ms=per['host'])
+    log(f'[loop cond] {key}: {g[key]:.4f} ms by graph slope ({ms:.4f} ms by '
+        f'events), plain {g["plain"]:.4f} ms, bound {times["bound"][0]:.2e} '
+        f'ms ({times["bound"][1]}; the launch latency bounds it in '
+        f'practice); a loop pass of a one-kernel body {per["while"]:.4f} ms '
+        f'on the device loop against {per["host"]:.4f} ms a host-read '
+        'iteration (wall slope over '
+        f'{lo}-{hi} passes)')
+    return err, times, graph_cases
+
+
+def check_device_loop(tag, solve, dev) -> dict:
+    """A route's device loop against its host-read loop: (1) a miss on the
+    device loop (its captures, the step into the loop graph; iteration 1
+    eager, the rest one loop launch), (2) a miss on the host-read loop (a
+    program of its own, host_loop), (3) a hit on the device loop, under
+    no_host_sync. The three equal to the bit (u, cost, iters, pg_norm,
+    converged); (3) captures nothing and runs at least one guarded call
+    (a host sync in it raises); (1) and (3) make 0 reads in the solver's
+    loop, (2) one an iteration. Returns the host reads and
+    condition-kernel launches of each call."""
+    from gpmpc_tpu_torch.mpc import solver
+    solver.clear_programs()
+    res, reads, conds, caps = {}, {}, {}, {}
+    for call in ('device miss', 'host miss', 'device hit'):
+        before = loop_counts()
+        with (host_loop() if call == 'host miss' else contextlib.nullcontext(),
+              no_host_sync() as guard, capture_walls() as walls):
+            res[call] = solve()
+            sync(dev)
+        after = loop_counts()
+        reads[call] = after['host_reads'] - before['host_reads']
+        conds[call] = after['cond'] - before['cond']
+        caps[call] = len(walls)
+    loop_s = loop_instantiate_s()
+    solver.clear_programs()
+    for call in ('host miss', 'device hit'):
+        same_bits(f'{tag} device miss vs {call}', res['device miss'],
+                  res[call])
+    if caps['device hit'] or not guard['runs']:
+        raise AssertionError(f'{tag}: the device hit captured '
+                             f'{caps["device hit"]} graphs and ran '
+                             f'{guard["runs"]} guarded calls, expected none '
+                             'and at least one')
+    if reads['device miss'] or reads['device hit']:
+        raise AssertionError(f'{tag}: the device loop read the host {reads}')
+    if not (reads['host miss'] > 0 and conds['device hit'] > 0):
+        raise AssertionError(f'{tag}: host reads {reads}, condition kernel '
+                             f'launches {conds}')
+    iters = int(res['device hit'].iters.max())
+    log(f'[device loop] {tag}: device miss, host-read miss and device hit '
+        f'equal to the bit ok, {iters} iterations; host reads in the '
+        f'solver\'s loop a solve: host-read {reads["host miss"]}, device '
+        f'{reads["device hit"]}, no host sync in {guard["runs"]} guarded '
+        f'device-hit calls ok; condition kernel launches {conds}; '
+        f'captures {caps}; loop graphs instantiated in {loop_s:.3f} s')
+    return dict(iters=iters, host_reads=reads, cond_launches=conds,
+                captures=caps, guarded_runs=guard['runs'],
+                loop_instantiate_s=loop_s)
+
+
+DEVICE_LOOP_ROUTES = ('headline', 'headline, 0 passes', 'headline, cap 5',
+                      'full covariance', 'recipe B=64', 'config 3b',
+                      '(b) solve_batch_gp', '(c) Adam', 'controller step')
+
+
+def device_loop_routes(dev, lanes=16) -> dict:
+    """{name: solve()} of every kept route, at small widths: the headline
+    solve_batch (B = 256, 40 iterations; at tol 1e9, where iteration 1
+    leaves every lane done, so a miss's loop runs 0 passes; at a cap of 5
+    that ends it), full covariance (5 iterations), the recipe (B = 64),
+    config 3b, (b) solve_batch_gp over `lanes` GP draws, (c) projected Adam
+    on `lanes` headline lanes, and one control step of the swing-up
+    controller (route (b), B = 1, f64, K2), named as DEVICE_LOOP_ROUTES."""
+    import torch
+    from gpmpc_tpu_torch.mpc.solver import SolverConfig
+    from gpmpc_tpu_torch.parallel.batch import (solve_batch,
+                                                solve_batch_gp,
+                                                solve_batch_multistart_retired)
+    from gpmpc_tpu_torch.problems import (RECIPE, REFINE,
+                                          make_headline_problem,
+                                          sparse_problem)
+    f32 = torch.float32
+    hp = make_headline_problem(b=256, dtype=f32, device=dev)
+    h64 = make_headline_problem(b=64, dtype=f32, device=dev)
+    hl = make_headline_problem(b=lanes, dtype=f32, device=dev)
+    sp = sparse_problem('3b_sparse_cartpole', dtype=f32, device=dev)
+    gps = _gp_draws(lanes, f32, dev)
+
+    def batch(p, cfg, **kw):
+        return lambda: solve_batch(p.gp, p.state_dim, 1, p.x0s, p.params,
+                                   p.horizon, p.lb, p.ub, cfg, **kw)
+
+    cfg = SolverConfig(max_iters=ITERS, tol=1e-4)
+    routes = {
+        'headline': batch(hp, cfg),
+        'headline, 0 passes': batch(hp, SolverConfig(max_iters=ITERS,
+                                                     tol=1e9)),
+        'headline, cap 5': batch(hp, SolverConfig(max_iters=5, tol=1e-4)),
+        'full covariance': batch(hp, SolverConfig(max_iters=5, tol=1e-4),
+                                 full_cov=True),
+        'recipe B=64': lambda: solve_batch_multistart_retired(
+            h64.gp, 2, 1, h64.x0s, h64.params, h64.horizon, h64.lb, h64.ub,
+            SolverConfig(**REFINE), **RECIPE),
+        'config 3b': batch(sp, cfg),
+        '(b) solve_batch_gp': lambda: solve_batch_gp(
+            gps, 2, 1, hl.x0s, hl.params, hl.horizon, hl.lb, hl.ub,
+            SolverConfig(max_iters=20, tol=1e-4)),
+        '(c) Adam': batch(hl, SolverConfig(
+            method='adam', max_iters=20, tol=1e-4, learning_rate=0.05,
+            polish_iters=3)),
+    }
+    mpc, state = swing_up_step(dev)
+    routes['controller step'] = lambda: (
+        mpc.get_optimal_trajectory(state), mpc.last_result)[1]
+    return routes
+
+
+def swing_up_controller(dev, full_cov=False):
+    """The swing-up controller of phase 7b (f64, N = 512, delta dynamics,
+    K2 through its untied lengthscales) on the stored transitions
+    (CLOSED_LOOP_REF) with their trained hyperparameters, bounds +-5."""
+    import torch
+    from gpmpc_tpu_torch.mpc.controller import RiskSensitiveMPC
+    from gpmpc_tpu_torch.mpc.solver import SolverConfig
+    ref = np.load(CLOSED_LOOP_REF)
+    mpc = RiskSensitiveMPC(
+        gamma=0.0, horizon=8, state_dim=2, input_dim=1,
+        Q=np.diag([8.0, 1.0]), R=0.001 * np.eye(1),
+        R_delta=0.001 * np.eye(1), capacity=512, delta_dynamics=True,
+        dtype=torch.float64, solver=SolverConfig(max_iters=60, tol=1e-4),
+        full_cov=full_cov, device=dev)
+    mpc.set_ub([5.0])
+    mpc.set_lb([-5.0])
+    mpc.dynamics.append_train_data(ref['states'], ref['actions'],
+                                   ref['next_states'])
+    mpc.set_gp_hyperparams(lambdas=np.exp(ref['log_lambdas']),
+                           sigma_f=np.exp(ref['log_sigma_f']),
+                           sigma_n=np.exp(ref['log_sigma_n']))
+    return mpc
+
+
+def swing_up_step(dev):
+    """swing_up_controller and the stored episode's second state; each
+    call of get_optimal_trajectory(state) starts from the same warm
+    start."""
+    mpc = swing_up_controller(dev)
+    ref = np.load(CLOSED_LOOP_REF)
+    traj = mpc.last_traj.copy()
+    get = mpc.get_optimal_trajectory
+
+    def from_warm_start(x):
+        mpc.last_traj = traj.copy()
+        return get(x)
+
+    mpc.get_optimal_trajectory = from_warm_start
+    return mpc, ref['ep_states'][1]
+
+
+def phase_device_loop(dev) -> dict:
+    """Phase 5g: the sync guard catches a host read (check_sync_guard), then
+    every route of device_loop_routes held to its host-read loop
+    (check_device_loop)."""
+    check_sync_guard(dev)
+    log('[device loop] set_sync_debug_mode(\'error\') raises on a host read '
+        'ok')
+    return {name: check_device_loop(name, solve, dev)
+            for name, solve in device_loop_routes(dev).items()}
+
+
 def assert_close_to_max(name, got, want, tol) -> float:
     """|got - want| <= tol max |want| entrywise; returns the largest
     |got - want| / max |want|."""
@@ -3387,8 +3891,11 @@ def phase_sparse_fullcov(dev, ref, jax_tpu):
         raise AssertionError(f'sparse 4: the graphs hold '
                              f'{capture["replay_launches"]} kernel launches '
                              f'a replay, expected two of {want}')
+    # Eager is held to the bit at 5 iterations above; at 40 it is left out
+    # of the timing, a depth cut for the run's time limit.
     timed = time_solves('sparse 4', b, solve, 1, dev,
-                        lambda rng: p.x0s.cpu().numpy(), modes=MODES)
+                        lambda rng: p.x0s.cpu().numpy(),
+                        modes=('graphed', 'reused'))
     n, secs = reused_captures(timed['reused'])
     cache = cache_note('sparse 4', 4 + n,
                        bits_capture['reused']['capture_s']
@@ -3396,8 +3903,7 @@ def phase_sparse_fullcov(dev, ref, jax_tpu):
     quality = cost_excess(j64, res.u, j_uref)
     log(f'[sparse 4] the program\'s graphs hold {want} launches a replay '
         f'ok; the first solve {wall:.3f} s ({b / wall:.2f} solves/s, its two '
-        f'captures {1e3 * capture["capture_s"]:.1f} ms); then eager '
-        f'{timed["eager"]["walls"][0]:.3f} s, graphed '
+        f'captures {1e3 * capture["capture_s"]:.1f} ms); then graphed '
         f'{timed["graphed"]["walls"][0]:.3f} s, reused '
         f'{timed["reused"]["walls"][0]:.3f} s ('
         f'{1e3 * timed["reused"]["walls"][0] / (1 + loop_iters):.1f} ms a '
@@ -3408,8 +3914,7 @@ def phase_sparse_fullcov(dev, ref, jax_tpu):
     return dict(launches=launches, eigh_launches=launches,
                 loop_iters=loop_iters, first_wall_s=wall, capture=capture,
                 cache=cache, quality=quality, parity=parity,
-                **timed['reused'], eager=timed['eager'],
-                graphed=timed['graphed'])
+                **timed['reused'], graphed=timed['graphed'])
 
 
 def phase_vmap_routes(dev, ref):
@@ -3495,10 +4000,12 @@ def _program_nodes() -> dict:
 def timed_lanes_route(tag, b, solve, x0s, dev):
     """A per-scenario route at full width, the counts set to 0 just before
     and read just after (no kernel may launch): a first call on x0s as the
-    callers run it (it captures the program), then 'graphed' and 'reused'
-    in turns over VMAP_REPS fresh-x0 batches, then 'eager' beside 'reused'
-    on the first of them (time_solves: every batch equal to the bit across
-    the modes); each key captured once (the first call's captures are the
+    callers run it (it captures the program, its step into the loop graph),
+    a reused call on the same x0s equal to it to the bit, then 'reused'
+    over VMAP_REPS fresh-x0 batches (the 'graphed' and 'eager' modes are
+    left out at full width for the run's time limit: the first call shows
+    a capture's cost, and the card tests hold eager to the bit at 16
+    lanes); each key captured once (the first call's captures are the
     program's graphs); the program's bytes and its graphs' kernel nodes.
     Returns (result on x0s, the record, the first fresh batch's (x0s,
     result))."""
@@ -3507,11 +4014,14 @@ def timed_lanes_route(tag, b, solve, x0s, dev):
     reset_counts()
     with capture_walls() as walls:
         first, first_s = _timed(lambda: solve(x0s), dev)
+    with no_host_sync():
+        again, again_s = _timed(lambda: solve(x0s), dev)
+    same_bits(f'{tag} first call vs reused on its x0s', first, again)
+    log(f'[{tag}] the first call (a miss) and a reused call on its x0s '
+        f'({again_s:.3f} s) equal to the bit ok')
     fresh = []
-    timed = time_solves(tag, b, solve, VMAP_REPS, dev,
-                        modes=('graphed', 'reused'), keep=fresh)
-    timed['eager'] = time_solves(f'{tag} eager', b, solve, 1, dev,
-                                 modes=('eager', 'reused'))['eager']
+    timed = time_solves(tag, b, solve, VMAP_REPS, dev, modes=('reused',),
+                        keep=fresh)
     launches = read_counts()
     if any(launches.values()):
         raise AssertionError(f'{tag}: launched {launches}')
@@ -3524,10 +4034,9 @@ def timed_lanes_route(tag, b, solve, x0s, dev):
     nodes = _program_nodes()
     log(f'[{tag}] no kernel launched ok; kernel nodes a replay: {nodes}; '
         f'the first call {first_s:.2f} s (its {len(walls)} captures '
-        f'{capture_s:.2f} s); solves/s eager (one batch) '
-        f'{timed["eager"]["solves_per_s"]:.2f}, graphed '
-        f'{timed["graphed"]["solves_per_s"]:.2f}, reused '
-        f'{timed["reused"]["solves_per_s"]:.2f}; program '
+        f'{capture_s:.2f} s, of which instantiating its loop graph '
+        f'{cache["loop_instantiate_s"]:.2f} s); '
+        f'reused solves/s {timed["reused"]["solves_per_s"]:.2f}; program '
         f'{cache["bytes"] / 2 ** 30:.2f} GiB '
         f'({cache["pool_bytes"] / 2 ** 30:.2f} GiB of graph pools)')
     return first, dict(timed, first_s=first_s, cache=cache,
@@ -4032,6 +4541,7 @@ def main() -> int:
     loop_times = time_loop_kernels(dev, loop_lanes)
     sparse_checked, sparse_errs, sparse_times = phase_sparse_kernels(dev)
     eigh_errs, eigh_times = phase_eigh(dev)
+    cond_err, cond_times, cond_cases = phase_loop_cond(dev)
     times = {dt: time_kernels(dev, b, cache, 50, dt) for dt in (f32, f64)}
     k1_f64_wide = time_k1_f64_wide(dev, RECIPE_WIDTHS[-1], cache)
     k1_instr = instr_bound_ms(b, cache.x.shape[0], 3, cache.b_lam.shape[0],
@@ -4050,6 +4560,7 @@ def main() -> int:
     untied_launches = phase_untied(dev, b)
     os.makedirs(out_dir, exist_ok=True)
     graph = phase_graph(dev, b, card, out_dir)
+    device_loop = phase_device_loop(dev)
     prof = phase_profile(dev, b, out_dir)
     recipe = phase_recipe(dev, b, j64, j_uref, card)
     full_cov = phase_full_cov(dev, b, ref, card, out_dir)
@@ -4169,6 +4680,18 @@ def main() -> int:
             max_abs_err=eigh_errs[f'path B={bb} d={d} {dtn}']['max_abs_err'],
             ms=t['ms'], plain_ms=t['plain_ms'], bound_ms=t['bound'][0],
             bound_by=t['bound'][1], library_ms=t['library_ms']))
+    # The device loop's condition kernel (phase 3f): no TPU kernel; it takes
+    # the place of the host's read of all(done) where JAX runs
+    # lax.while_loop. Launches: the recipe solve's (phase 5c), once before
+    # each loop and once a pass.
+    kernels.append(dict(
+        name='loop_cond_kernel, the condition of the device loop (t < '
+             'max_iters and a lane live; launches: the recipe solve)',
+        route='cuda', source=LOOP_SOURCE, replaces=LOOP_REPLACES,
+        launches=recipe['cond_launches'], max_abs_err=float(cond_err),
+        ms=cond_times['ms'], plain_ms=cond_times['plain_ms'],
+        bound_ms=cond_times['bound'][0], bound_by=cond_times['bound'][1],
+        library_ms=None))
     # The probes' rows: `ms` is the kernel-only graph slope of P1's `full`
     # (K1's body) and of P2's `base` counterpart `tc_p`; `launches` counts the
     # probe's own wrapper calls in its run, not the solve's.
@@ -4196,6 +4719,9 @@ def main() -> int:
                   sparse_kernel_errs=sparse_errs,
                   sparse_kernel_times=sparse_times,
                   eigh_errs=eigh_errs, eigh_times=eigh_times,
+                  loop_cond=dict(max_abs_err=cond_err, times=cond_times,
+                                 graph_cases=cond_cases),
+                  device_loop=device_loop,
                   profile=prof, k1_instr_bound_ms=k1_instr,
                   precision=precision, k1_f64_wide=k1_f64_wide, sass=sass,
                   kernel_times={str(dt): r for dt, r in times.items()},

@@ -21,7 +21,10 @@ the GP, the rollouts and the solve run in torch on the controller's device
 JAX jits `_solve` and keeps the compiled program for every later step.
 Here routes (b) and (c), with a diagonal or a full covariance, solve
 through the solver's kept program (mpc/solver.py, `_run_graphed`): the
-first step captures it and every later step with the same key replays it.
+first step captures it and every later step with the same key replays it,
+its loop on the device (the solver's `loop_form()`): a solve reads nothing
+on the host until the step reads its result. Route (a) reads the host
+between its phases' solves (`solve_batch_multistart`).
 `append` changes the GP's values, not its shapes, so the steps between two
 `train_gp` / `set_gp_hyperparams` calls that flip the tied lengthscales, or
 two `grow` calls, share one program. Route (a)'s solves keep theirs inside

@@ -6,22 +6,30 @@ convergence; lanes that are done freeze while the loop runs on until all are
 done or the iteration cap. One iteration is `_lbfgs_step`, a function of the
 carry `LbfgsState`. JAX's `lax.while_loop` compiles the loop into one
 program on the device, and jax.jit keeps that program for every later call
-of the same shapes; here the loop stays on the host and reads `all(done)`
-once an iteration, so the iteration count is the JAX one. What runs each
-iteration depends on where it runs. On CUDA, with the objective's own
-autograd (`solve_batch` with a diagonal or a full covariance, the
-multistart recipes, `solve_batch_staged`, the controller's batched route and
-the single-scenario episode of `run_episode_on_device`), the solve is a
-*program* (`_run_graphed`): the call that builds it runs the first
-value-and-grad and iteration 1 eagerly and captures two CUDA graphs, the
-init and the step; the program is kept in a cache keyed by what the captured
-code reads, and a later call of the same key replays the init graph and then
-the step graph once an iteration, capturing nothing. An
+of the same shapes. What runs each iteration depends on where it runs. On
+CUDA, with the objective's own autograd (`solve_batch` with a diagonal or a
+full covariance, the per-scenario routes, the multistart recipes,
+`solve_batch_staged`, the controller's routes and the single-scenario
+episode of `run_episode_on_device`), the solve is a *program*
+(`_run_graphed`): the call that builds it runs the first value-and-grad and
+iteration 1 eagerly and captures two CUDA graphs, the init and the step;
+the program is kept in a cache keyed by what the captured code reads, and a
+later call of the same key captures nothing. Its loop runs on the device
+(`loop_form()` 'while': ops/kernels/loop_cond.py's loop graph, the step
+captured into the body of a conditional WHILE node that runs it while
+t < max_iters and a lane is live, read on the device): a call is its init
+graph, one loop launch and its polish graph, and reads nothing on the host
+until the caller reads the result, as JAX's jitted while_loop. Where the
+card's CUDA is older than 12.4 (`loop_form()` 'host'), and inside
+`_host_read_loop()` (the reference), the host replays the step graph and
+reads `all(done)` once an iteration (`_go_on`), the iteration count the
+same. An
 objective given as an `Objective` (key, inputs, build) has its program
 kept; a plain closure gets one for its call only. On the CPU, with an
 external value-and-grad, and where the caller says `_graph=False`
 (`solve_trajectory`), each iteration runs its torch ops from Python
-(`_run_eager`). All run the same kernels on the same inputs.
+(`_run_eager`) and the host reads `all(done)` once an iteration. All run
+the same kernels on the same inputs, so the same bits.
 
 Projected Adam (method='adam') takes a fixed step and an optional polish of
 normalized-gradient steps, with JAX's vmapped-while semantics: a lane's carry freezes once its
@@ -47,6 +55,7 @@ from typing import Callable, Hashable, NamedTuple, Optional
 
 import torch
 
+from gpmpc_tpu_torch.ops.kernels import loop_cond
 from gpmpc_tpu_torch.utils import replay_counts
 
 @dataclass(frozen=True)
@@ -414,9 +423,14 @@ def _polish_iters(p: _Problem) -> int:
 
 
 def _go_on(s: LbfgsState, t: int, max_iters: int) -> bool:
-    """The loop's condition, JAX's while_loop cond: below the cap and a lane
-    not done (one read on the host an iteration)."""
-    return t < max_iters and not bool(s.done.all())
+    """The host-read loop's condition, JAX's while_loop cond: below the cap
+    and a lane not done (one read on the host an iteration, counted in
+    utils/replay_counts.HOST_READS). Its device form is
+    ops/kernels/loop_cond.go_on."""
+    if t >= max_iters:
+        return False
+    replay_counts.host_read()
+    return not bool(s.done.all())
 
 
 def _loop_from(p: _Problem, s: LbfgsState, t: int, step) -> LbfgsState:
@@ -464,29 +478,39 @@ def _write(dst, src) -> None:
 
 
 def _capture(record: Callable[[LbfgsState], None], s: LbfgsState,
-             pool=None):
+             pool=None, loop_iters: Optional[int] = None):
     """A CUDA graph of record(s), which writes the static buffers s in
     place, on the current stream (a side stream that has run the code
     eagerly: its lazy initialisation is done), into the memory pool `pool`
-    (a new one if None). Capture records and runs nothing. Returns the
-    instantiated graph and its counts (utils/replay_counts.Replays: the
-    kernel launches of a replay read from the graph's nodes). Code that
-    waits on the host raises here."""
-    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    (a new one if None). Capture records and runs nothing. With
+    `loop_iters` (the device loop) the graph is a loop_cond.DeviceLoop:
+    record(s) captured straight into the body of a WHILE node that runs it
+    while s.t < loop_iters and a lane of s.done is live; else a
+    torch.cuda.CUDAGraph. Returns the graph, instantiated, and its counts
+    (utils/replay_counts.Replays: the kernel launches of a pass or replay
+    read from the graph's nodes). Code that waits on the host raises
+    here."""
     before = replay_counts.snapshot()
-    graph.capture_begin(pool=pool)
-    try:
-        record(s)
-    except BaseException:
-        # The capture is broken already: end it, and raise the cause.
-        with contextlib.suppress(RuntimeError):
-            graph.capture_end()
-        raise
-    graph.capture_end()
-    counts = replay_counts.Replays(
-        before, replay_counts.snapshot(),
-        replay_counts.graph_kernel_names(graph.raw_cuda_graph()))
-    graph.instantiate()
+    if loop_iters is not None:
+        graph = loop_cond.DeviceLoop(lambda: record(s), s.t, s.done,
+                                     loop_iters, pool)
+        nodes = graph.body
+    else:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        graph.capture_begin(pool=pool)
+        try:
+            record(s)
+        except BaseException:
+            # The capture is broken already: end it, and raise the cause.
+            with contextlib.suppress(RuntimeError):
+                graph.capture_end()
+            raise
+        graph.capture_end()
+        nodes = graph.raw_cuda_graph()
+    counts = replay_counts.Replays(before, replay_counts.snapshot(),
+                                   replay_counts.graph_kernel_names(nodes))
+    if loop_iters is None:
+        graph.instantiate()
     return graph, counts
 
 
@@ -498,23 +522,61 @@ def _capture(record: Callable[[LbfgsState], None], s: LbfgsState,
 # once on those copies, a static state of its method (LbfgsState,
 # AdamState), its CUDA graphs (`_init_in_place`, `_step_in_place` and, for
 # a solve with polish steps, `_polish_in_place`) with their counts, a side
-# stream and a memory pool.
+# stream and a memory pool. On the device loop the step is captured into the
+# body of the loop graph (loop_cond.DeviceLoop), which is the only copy of
+# it; on the host-read loop it is a graph of its own.
 #
 # A call copies its inputs into the program's buffers, replays the init
-# graph, then the step graph once an iteration while `_go_on` holds, then
-# the polish graph once a polish step, and copies the result out on the
-# caller's stream: no
-# result is a view of a program's buffer. Programs stay, least recently used
-# first, while the cache holds at most MAX_PROGRAM_BYTES (their pools'
-# reserved bytes, measured around the captures, and their static buffers): a
-# third of an H100's 80 GB, which holds the recipe's six programs (~1.0 GB)
-# or thirteen full-covariance headline ones (~1.8 GB each) (PERF.md).
+# graph, launches the loop (the device loop: one launch of the loop graph,
+# whose WHILE node runs the step; the host-read loop: the step graph once an
+# iteration while `_go_on` holds), replays the polish graph once a polish
+# step, and copies the result out on the caller's stream: no result is a
+# view of a program's buffer, and the device loop reads nothing on the
+# host. Programs stay, least recently used first, while the cache holds at
+# most MAX_PROGRAM_BYTES (their pools' reserved bytes, measured around the
+# captures, and their static buffers): a third of an H100's 80 GB, which
+# holds the recipe's six programs (~1.0 GB) or thirteen full-covariance
+# headline ones (~1.8 GB each) (PERF.md).
 # `clear_programs()` (jax.clear_caches()) drops them all. A program replays
 # the code its capture recorded: a block that swaps a function the
 # objective calls (a diagnostic trace, a counting wrapper) is in no key, so
 # it drops the programs first.
 MAX_PROGRAM_BYTES = 24 * 2 ** 30
 _PROGRAMS: 'OrderedDict[Hashable, _Program]' = OrderedDict()
+# Set only inside `_host_read_loop()`.
+_host_read = False
+
+
+def loop_form() -> str:
+    """The loop of a kept program on this card: 'while' (the device loop,
+    CUDA 12.4 or later) or 'host' (the host-read loop), chosen by version
+    (loop_cond.supported, read once). A loop graph that fails to build or
+    launch raises, and never turns into the host-read loop."""
+    return 'while' if loop_cond.supported() else 'host'
+
+
+@contextlib.contextmanager
+def _host_read_loop():
+    """Programs built and run in the block take the host-read loop (the
+    step graph replayed once an iteration while the host reads all(done)):
+    the reference the device loop is held to, and the loop a profiler can
+    trace. The loop is in a program's key, so these programs are kept
+    beside the device loop's."""
+    global _host_read
+    was, _host_read = _host_read, True
+    try:
+        yield
+    finally:
+        _host_read = was
+
+
+def _loop_of(device) -> str:
+    """The loop a program on `device` runs: 'while' on CUDA where
+    loop_form() is and outside `_host_read_loop()`, else 'host' (the CPU,
+    where tests stand graphs in, included)."""
+    if device.type == 'cuda' and not _host_read and loop_form() == 'while':
+        return 'while'
+    return 'host'
 
 
 def _nbytes(ts) -> int:
@@ -529,11 +591,15 @@ def _clone(s):
 class _Program:
     """One solve's captured program (see above). Built by the call that
     misses: the call runs its first value-and-grad and iteration 1 eagerly
-    on the program's buffers (the warm-up a capture needs), captures the
-    step and, if `keep`, the init, then replays the step for the rest of
-    its iterations; a solve with polish steps runs one eagerly on a copy
-    (its warm-up), captures it and replays it once a polish step. `state`
-    is the static state a call leaves its result in."""
+    on the program's buffers (the warm-up a capture needs; a state with
+    every lane done is a fixed point of the step, so iteration 1 runs
+    whatever the init left where max_iters > 0, and reads nothing on the
+    host), captures the step (on the device loop, into its loop graph) and,
+    if `keep`, the init, and runs the rest of the loop; a solve with polish
+    steps runs one eagerly on a copy (its warm-up), captures it and replays
+    it once a polish step. `state` is the static state a call leaves its
+    result in. A device loop's passes are summed on the device (`passes`)
+    and counted by `settle()` (utils/replay_counts.watch)."""
 
     def __init__(self, p: _Problem, u0, main, keep: bool):
         dev = u0.device
@@ -559,22 +625,28 @@ class _Program:
                                 ub=p.ub.clone(), zero=p.zero.clone(),
                                 program=None)
             s = method.init(self.p, self.u0)
-            t = 0
-            if _go_on(s, t, p.config.max_iters):
+            t = min(1, p.config.max_iters)
+            if t:
                 s = method.step(self.p, s)
-                t = 1
             # Distinct buffers: a field may alias another (f_best is f
             # until the noise mode moves it).
             self.state = s = _clone(s)
             self.pool_bytes = 0
+            device_loop = _loop_of(dev) == 'while'
             self.step, self.step_counts = self._capture(
-                lambda st: _step_in_place(self.p, st), s, dev)
+                lambda st: _step_in_place(self.p, st), s, dev,
+                loop_iters=p.config.max_iters if device_loop else None)
             self.graphs.append(self.step)
+            self.loop = self.step if device_loop else None
+            if device_loop:
+                self.passes = torch.zeros((), dtype=torch.long, device=dev)
+                self.launched = 0
+                replay_counts.watch(self)
             if keep:
                 self.init, self.init_counts = self._capture(
                     lambda st: _init_in_place(self.p, self.u0, st), s, dev)
                 self.graphs.append(self.init)
-            self._replay_steps(s, t)
+            self._loop(s, t)
             if _polish_iters(self.p):
                 method.polish(self.p, _clone(s))
                 self.polish, self.polish_counts = self._capture(
@@ -584,7 +656,7 @@ class _Program:
         self.bytes = self.pool_bytes + _nbytes(
             (*self.inputs, self.u0, self.p.lb, self.p.ub, self.p.zero, *s))
 
-    def _capture(self, record, s, dev):
+    def _capture(self, record, s, dev, loop_iters=None):
         """`_capture` into the program's pool, after freeing the
         allocator's cached blocks: a capture cannot free them (no cudaFree
         while a stream captures), so blocks cached by earlier work, by the
@@ -594,9 +666,34 @@ class _Program:
         all that a capture allocates, to pool_bytes."""
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
-        out = _capture(record, s, self.pool)
+        out = _capture(record, s, self.pool, loop_iters=loop_iters)
         self.pool_bytes += torch.cuda.memory_reserved(dev) - reserved
         return out
+
+    def _loop(self, s, t: int) -> None:
+        """The rest of the loop from s, whose iteration index is t: one
+        launch of the loop graph, or the host-read loop."""
+        if self.loop is None:
+            self._replay_steps(s, t)
+            return
+        # The passes it runs (t after less t before), summed on the device.
+        self.passes.sub_(s.t)
+        self.loop.launch()
+        self.passes.add_(s.t)
+        self.launched += 1
+
+    def settle(self) -> None:
+        """Count the passes the device loop ran since the last settle, in
+        the step's counts, and the condition kernel's launches (one a loop
+        launch, one a pass). Waits for the program's stream."""
+        if not self.launched:
+            return
+        with torch.cuda.stream(self.side):
+            n = int(self.passes)
+            self.passes.zero_()
+        launched, self.launched = self.launched, 0
+        self.step_counts.replayed(n)
+        loop_cond.add_launches(launched + n)
 
     def _replay_steps(self, s, t) -> None:
         def step(st):
@@ -612,8 +709,8 @@ class _Program:
 
     def run(self, p: _Problem, u0, main) -> None:
         """A later call: this call's inputs, u0, lb and ub into the
-        program's buffers, the init graph, then the step graph while the
-        loop goes on, then the polish graph once a polish step."""
+        program's buffers, the init graph, then the loop, then the polish
+        graph once a polish step."""
         self.side.wait_stream(main)
         with torch.cuda.device(u0.device), torch.cuda.stream(self.side):
             for dst, src in zip(self.inputs, p.program[1]):
@@ -624,12 +721,16 @@ class _Program:
             self.p.ub.copy_(p.ub)
             self.init.replay()
             self.init_counts.replayed()
-            self._replay_steps(self.state, 0)
+            self._loop(self.state, 0)
             self._replay_polish()
 
     def release(self) -> None:
-        """Its graphs and their pool go (after its last work ends)."""
+        """Its device loop counted, then its graphs and their pool go
+        (after its last work ends)."""
         self.side.synchronize()
+        if self.loop is not None:
+            self.settle()
+            self.loop = None
         for g in self.graphs:
             g.reset()
         self.graphs = []
@@ -638,13 +739,14 @@ class _Program:
 def _program_key(p: _Problem, u0) -> Hashable:
     """The key of p's program: the caller's key and the method, each
     input's shape, strides, dtype and device, u0's, lb's and ub's broadcast
-    shapes (in p.program's key), the solver config, and the K4 opt-in that
-    the trace reads on every call (ops/kernels/variance_trace.py)."""
+    shapes (in p.program's key), the solver config, the K4 opt-in that
+    the trace reads on every call (ops/kernels/variance_trace.py), and the
+    loop (`_loop_of`)."""
     key, inputs, _ = p.program
     sig = tuple(None if x is None else (tuple(x.shape), x.stride(), x.dtype,
                                         x.device) for x in inputs)
     return ((p.method, *key), sig, tuple(u0.shape), u0.dtype, u0.device,
-            p.config, os.environ.get('GPMPC_SYM_KERNEL'))
+            p.config, os.environ.get('GPMPC_SYM_KERNEL'), _loop_of(u0.device))
 
 
 def clear_programs() -> None:
@@ -738,11 +840,12 @@ def solve_trajectory_batched(objective_b, u_init: torch.Tensor, lb, ub,
     parallel/model_sharded.py; L-BFGS only (Adam raises ValueError, as
     does an unknown method).
 
-    On CUDA the loop runs as replays of captured CUDA graphs
-    (`_run_graphed`), unless val_and_grad is given (an external oracle, with
-    collectives inside), the caller passes _graph=False (internal:
-    `solve_trajectory`'s loop for an objective not held to capture), or
-    config.max_iters is 0 (no loop: the first value-and-grad only). The
+    On CUDA the solve runs as a kept program of captured CUDA graphs whose
+    loop runs on the device (`_run_graphed`, `loop_form()`), unless
+    val_and_grad is given (an external oracle, with collectives inside),
+    the caller passes _graph=False (internal: `solve_trajectory`'s loop for
+    an objective not held to capture), or config.max_iters is 0 (no loop:
+    the first value-and-grad only). The
     objective must then read nothing on the host: the full-covariance
     rollout's PSD clip runs the sync-free eigensolver
     (ops/kernels/eigh_small.py) for that. Elsewhere, and on the CPU, the

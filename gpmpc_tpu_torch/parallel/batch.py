@@ -15,14 +15,17 @@ the single-scenario rollout mapped over the lanes (dynamics.rollout_lanes),
 as JAX's vmap of one solve is: each lane has its own line search (or Adam
 moments), history and stop, and the variance runs no kernel (a lane's own
 b_lam is nothing the shared-cache trace kernels serve). On CUDA the solve
-is a kept program, as the fused route's.
+is a kept program, as the fused route's, whose loop runs on the device
+(mpc/solver.py `loop_form()`): a solve reads nothing on the host until its
+caller reads the result.
 `solve_batch_sharded` splits the lanes over the batch axis of a process mesh
 (parallel/mesh.py): each rank solves its lanes against the replicated GP with
 no collective inside the solve, and the results are gathered.
 
 The multistart drivers keep their state (u, cost, iters, pg_norm, converged)
 as tensors on the GP's device and do their gathers, scatters and sorts there;
-they read a count to the host only where they branch on it. Every scatter
+they read a count to the host only where they branch on it: between their
+phases' solves, never inside one. Every scatter
 writes each lane once: chunks padded with a repeated lane are cut back to
 their real lanes before the write. Work that needs no gradient runs under
 `torch.no_grad()`; the solver turns autograd on for its own value-and-grad.
@@ -163,10 +166,11 @@ def solve_batch(gp: GPState, state_dim: int, action_dim: int,
     raises ValueError.
 
     On CUDA both routes run as kept programs (mpc/solver.py,
-    `_run_graphed`): iterations after the first are replays of one captured
-    CUDA graph, with a diagonal or a full covariance (whose PSD clip runs
-    the sync-free eigensolver of ops/kernels/eigh_small.py), as do the
-    multistart recipes and `solve_batch_staged` below."""
+    `_run_graphed`): iterations after the first run one captured CUDA
+    graph under the device loop's WHILE node, with a diagonal or a full
+    covariance (whose PSD clip runs the sync-free eigensolver of
+    ops/kernels/eigh_small.py), as do the multistart recipes and
+    `solve_batch_staged` below."""
     if impl not in ('auto', 'fused', 'vmap'):
         raise ValueError(f'unknown impl {impl!r}')
     if impl == 'fused' and solver.method != 'lbfgs':

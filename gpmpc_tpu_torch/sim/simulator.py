@@ -8,11 +8,13 @@ actions, rewards, solve wall times, costs and solver iterations.
 `run_episode_on_device` runs a whole episode with its carry on the GP's
 device: the GP state, the state x, the previous action and the last
 trajectory; the plant is a torch function and the GP append happens there,
-with no numpy round trip. JAX's `lax.scan` is a Python loop here: the
-solver reads `done` on the host once an iteration. Each step's solve runs
-the solver's kept program (mpc/solver.py): the append changes the GP's
-values, not its shapes, so every step after the first replays the first
-step's program.
+with no numpy round trip. JAX's `lax.scan` is a Python loop here. Each
+step's solve runs the solver's kept program (mpc/solver.py), its loop on
+the device, with no host read inside the solve: the append changes the
+GP's values, not its shapes, so every step after the first replays the
+first step's program. Between solves the host still reads: the append's
+f64 fit searches its jitter on the host (gp/state.py), and the
+multistart recipe reads between its phases.
 """
 
 from __future__ import annotations

@@ -30,6 +30,20 @@ solve's init and step graphs and replays them on later calls). Its replays
 count in the counters registered at its capture that are still registered;
 a tally registered after the capture sees none of them, so a script that
 registers one drops the kept graphs first (solver.clear_programs()).
+
+A solve's loop on the device (ops/kernels/loop_cond.py) runs its step as
+often as its WHILE node says, which the host learns only by reading the
+device. So each program that runs such a loop sums its passes on the device
+(one scalar, added to after each loop) and is `watch`ed: `settle()` reads
+every watched sum and counts its passes, once, and keeps nothing a solve.
+Whatever reads the counters settles first: `snapshot`, `replays_run`,
+`unregister`, and the scripts' own reads of the kernels' LAUNCHES
+(chip_smoke.read_counts). That read waits for the device; it is the
+counters', not the solve's.
+
+`HOST_READS` counts the solver loop's own reads of a value on the host
+(`host_read()`: the host-read loop's `all(done)`, once an iteration): 0 a
+solve whose loop runs on the device.
 """
 
 from __future__ import annotations
@@ -52,6 +66,29 @@ class _Source(NamedTuple):
 
 
 _SOURCES: List[_Source] = []
+# The programs whose device loops count at settle() (gone with them).
+_LOOPS: 'weakref.WeakSet' = weakref.WeakSet()
+HOST_READS = 0
+
+
+def host_read() -> None:
+    """Count one read of a value on the host by a solver loop."""
+    global HOST_READS
+    HOST_READS += 1
+
+
+def watch(loop) -> None:
+    """Have settle() call loop.settle(), which counts what loop's device
+    loops ran since its last settle (mpc/solver.py's programs)."""
+    _LOOPS.add(loop)
+
+
+def settle() -> None:
+    """Count the passes of every watched device loop."""
+    for loop in list(_LOOPS):
+        loop.settle()
+
+
 # Replays run, by graph (its Replays; gone with it).
 _REPLAYS_RUN: 'weakref.WeakKeyDictionary[Replays, int]' = (
     weakref.WeakKeyDictionary())
@@ -77,6 +114,7 @@ def register_kernels(read: Callable[[], Counts], add: Callable[[Counts], None],
 
 
 def unregister(entry) -> None:
+    settle()
     _SOURCES.remove(entry)
 
 
@@ -91,7 +129,8 @@ def registered(read: Callable[[], Counts], add: Callable[[Counts], None]):
 
 
 def snapshot() -> list:
-    """Every registered counter's counts now."""
+    """Every registered counter's counts now (device loops settled)."""
+    settle()
     return [(entry, dict(entry.read())) for entry in _SOURCES]
 
 
@@ -141,18 +180,21 @@ class Replays:
                 out.update(each)
         return out
 
-    def replayed(self) -> None:
-        """Count one replay of the graph, in the counters still
-        registered, and in `replays_run`."""
-        _REPLAYS_RUN[self] = _REPLAYS_RUN.get(self, 0) + 1
+    def replayed(self, n: int = 1) -> None:
+        """Count n replays of the graph, in the counters still registered,
+        and in `replays_run`."""
+        if n == 0:
+            return
+        _REPLAYS_RUN[self] = _REPLAYS_RUN.get(self, 0) + n
         for entry, each in self.per_replay:
             if each and entry in _SOURCES:
-                entry.add(each)
+                entry.add({k: n * v for k, v in each.items()})
 
 
 def replays_run() -> Dict['Replays', int]:
     """The replays counted so far, by graph (of the graphs still alive):
     {Replays: n}, whose `names` are the graph's kernel nodes (mangled)."""
+    settle()
     return dict(_REPLAYS_RUN)
 
 

@@ -21,6 +21,7 @@ import chip_smoke
 from gpmpc_tpu_torch.benchmarks.chain import kernel_args
 from gpmpc_tpu_torch.ops.kernels import eigh_small, probe
 from gpmpc_tpu_torch.ops.kernels import variance_trace as tvt
+from gpmpc_tpu_torch.utils import replay_counts
 
 torch.set_num_threads(1)
 
@@ -541,8 +542,11 @@ def test_cuda_closed_loop_matches_cpu():
         mpc.set_lb([-1.0])
         mpc.dynamics.append_train_data(s, a, ns)
         res = mpc.train_gp(num_iters=20)
+        replay_counts.settle()
         before = tvt.LAUNCHES_UNTIED
         u = mpc.get_optimal_trajectory(np.array([0.5, -0.2]))
+        # The device loop's replays count once its passes are read.
+        replay_counts.settle()
         outs[str(where)] = (res.iters, mpc.gp.log_lambdas.cpu().numpy(), u,
                             tvt.LAUNCHES_UNTIED - before,
                             5 * (1 + int(mpc.last_result.iters)))
@@ -900,6 +904,9 @@ def test_cuda_exp_table_within_one_ulp():
 
 # ------------------------------------------- the graphed lockstep loop --
 def _launches():
+    """The kernels' launch counts, the device loops that ran counted first
+    (utils/replay_counts.settle)."""
+    replay_counts.settle()
     return {'K1': tvt.LAUNCHES, 'K1 f64': tvt.LAUNCHES_F64,
             'K2': tvt.LAUNCHES_UNTIED, 'K3': tvt.LAUNCHES_BLOCK,
             'K4': tvt.LAUNCHES_SYM, 'eigh': eigh_small.LAUNCHES_EIGH}
@@ -933,8 +940,8 @@ def _noted_captures(monkeypatch):
     graphs = []
     capture = solver._capture
 
-    def noted(record, s, pool=None):
-        graph, counts = capture(record, s, pool)
+    def noted(record, s, pool=None, **kw):
+        graph, counts = capture(record, s, pool, **kw)
         graphs.append(counts.launches)
         return graph, counts
 
@@ -965,25 +972,10 @@ def _closed_loop_ref():
 
 
 def _swing_up_controller(dev, full_cov=False):
-    """The swing-up controller of chip_smoke.py phase 7 (f64, N = 512,
-    delta dynamics) on the stored 250 transitions with their trained,
-    untied hyperparameters, bounds +-5."""
-    from gpmpc_tpu_torch.mpc.controller import RiskSensitiveMPC
-    from gpmpc_tpu_torch.mpc.solver import SolverConfig
-    ref = _closed_loop_ref()
-    mpc = RiskSensitiveMPC(
-        gamma=0.0, horizon=8, state_dim=2, input_dim=1,
-        Q=np.diag([8.0, 1.0]), R=0.001 * np.eye(1),
-        R_delta=0.001 * np.eye(1), capacity=512, delta_dynamics=True,
-        dtype=torch.float64, solver=SolverConfig(max_iters=60, tol=1e-4),
-        full_cov=full_cov, device=dev)
-    mpc.set_ub([5.0])
-    mpc.set_lb([-5.0])
-    mpc.dynamics.append_train_data(ref['states'], ref['actions'],
-                                   ref['next_states'])
-    mpc.set_gp_hyperparams(lambdas=np.exp(ref['log_lambdas']),
-                           sigma_f=np.exp(ref['log_sigma_f']),
-                           sigma_n=np.exp(ref['log_sigma_n']))
+    """chip_smoke.swing_up_controller: the swing-up controller of phase 7
+    (f64, N = 512, delta dynamics) on the stored 250 transitions with
+    their trained, untied hyperparameters, bounds +-5."""
+    mpc = chip_smoke.swing_up_controller(dev, full_cov)
     assert not mpc.gp.config.tied_lambdas
     return mpc
 
@@ -1040,9 +1032,11 @@ def test_cuda_graphed_solve_counts_each_replay(monkeypatch):
     solve, h, _ = _batch_solve('headline', dev, iters=5)
     graphs = _noted_captures(monkeypatch)
     for call in range(2):
+        replay_counts.settle()
         before = (tvt.LAUNCHES, tvt.LAUNCHES_F64)
         res = solve()
         torch.cuda.synchronize()
+        replay_counts.settle()
         assert int(res.iters.max()) == 5
         assert graphs == [{'LAUNCHES': h, 'LAUNCHES_F64': h}] * 2
         assert (tvt.LAUNCHES - before[0], tvt.LAUNCHES_F64 - before[1]) == (
@@ -1117,9 +1111,11 @@ def test_cuda_graphed_full_cov_counts_each_replay(monkeypatch):
     solve, h, _ = _batch_solve('headline', dev, iters=5, full_cov=True)
     graphs = _noted_captures(monkeypatch)
     for call in range(2):
+        replay_counts.settle()
         before = eigh_small.LAUNCHES_EIGH
         res = solve()
         torch.cuda.synchronize()
+        replay_counts.settle()
         assert int(res.iters.max()) == 5
         assert graphs == [{'LAUNCHES': h, 'LAUNCHES_F64': h,
                            'LAUNCHES_EIGH': h}] * 2
@@ -1140,8 +1136,8 @@ def _three_modes(solve, calls):
         graphs = []
         capture, graphed = solver._capture, solver._run_graphed
 
-        def noted(record, s, pool=None):
-            graph, counts = capture(record, s, pool)
+        def noted(record, s, pool=None, **kw):
+            graph, counts = capture(record, s, pool, **kw)
             graphs.append(counts.launches)
             return graph, counts
 
@@ -1569,3 +1565,175 @@ def test_cuda_eigh_small_refuses_what_it_cannot_take():
         eigh_small.launch(torch.zeros((4, 4), device=dev).t()[:2, :2])
     with pytest.raises(TypeError):
         eigh_small.launch(torch.zeros((2, 2), dtype=torch.int32, device=dev))
+
+
+# ------------------------------------------- the solver's loop on the card --
+@pytest.mark.cuda
+def test_cuda_loop_form_is_the_device_loop():
+    """This card's CUDA runtime and driver have conditional WHILE nodes, so
+    kept programs run their loop on the device (solver.loop_form())."""
+    from gpmpc_tpu_torch.mpc import solver
+    from gpmpc_tpu_torch.ops.kernels import loop_cond
+    _cuda()
+    assert min(loop_cond.versions()) >= loop_cond.MIN_CUDA
+    assert solver.loop_form() == 'while'
+
+
+@pytest.mark.cuda
+def test_cuda_loop_cond_matches_plain_version():
+    """The condition kernel's plain launch equals its plain version
+    (t < max_iters and a lane not done) at 1 to 3,584 lanes, every done
+    pattern and t around the cap."""
+    dev = _cuda()
+    err, cases = chip_smoke.check_loop_cond_kernel(dev,
+                                                   chip_smoke.LOOP_COND_LANES)
+    assert err == 0 and cases > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', chip_smoke.LOOP_GRAPH_CASES)
+def test_cuda_loop_graph_equals_host_read_loop(case):
+    """The loop graph over a captured counting body against the host-read
+    loop on the same graph: t and done equal, with 0 passes (every lane
+    done, t at the cap), the cap, one live lane and spread stops."""
+    dev = _cuda()
+    r = chip_smoke.check_loop_graph(dev, *case)
+    b, t0, cap, kind = case
+    if kind == 'all done' or t0 >= cap:
+        assert r['passes'] == 0
+    if kind == 'cap':
+        assert r['passes'] == cap - t0
+
+
+@pytest.mark.cuda
+def test_cuda_loop_graph_refuses_what_it_cannot_take():
+    """A loop graph takes a CUDA int64 scalar t and a contiguous bool done,
+    and captures on a side stream; on the CPU go_on takes its plain
+    version."""
+    from gpmpc_tpu_torch.ops.kernels import loop_cond
+    dev = _cuda()
+    t = torch.zeros((), dtype=torch.long, device=dev)
+    done = torch.zeros(4, dtype=torch.bool, device=dev)
+    pool = torch.cuda.graph_pool_handle()
+    with pytest.raises(ValueError):
+        loop_cond.DeviceLoop(lambda: None, t.int(), done, 5, pool)
+    with pytest.raises(ValueError):
+        loop_cond.DeviceLoop(lambda: None, t, done.view(2, 2).t(), 5, pool)
+    with pytest.raises(ValueError, match='side stream'):
+        loop_cond.DeviceLoop(lambda: None, t, done, 5, pool)
+    assert bool(loop_cond.go_on(t.cpu(), done.cpu(), 5))
+
+
+@pytest.fixture(scope='module')
+def loop_routes():
+    return chip_smoke.device_loop_routes(_cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('route', chip_smoke.DEVICE_LOOP_ROUTES)
+def test_cuda_device_loop_equals_host_read_loop(loop_routes, route):
+    """Each kept route's loop on the device against its host-read loop
+    (chip_smoke.check_device_loop): a miss on the device loop, a miss on
+    the host-read loop and a hit on the device loop equal to the bit in u,
+    cost, iters, pg_norm and converged; the hit captures nothing and syncs
+    nothing with the host (set_sync_debug_mode('error')); the device loop
+    makes 0 host reads in the solver's loop, the host-read loop at least
+    one. The headline at tol 1e9 runs its miss's loop for 0 passes; at a
+    cap of 5 it stops at the cap."""
+    dev = torch.device('cuda')
+    r = chip_smoke.check_device_loop(route, loop_routes[route], dev)
+    if route == 'headline, 0 passes':
+        assert r['iters'] == 1
+        # The miss: the condition kernel once, before a loop of 0 passes.
+        assert r['cond_launches']['device miss'] == 1
+    if route == 'headline, cap 5':
+        assert r['iters'] == 5
+        assert r['cond_launches']['device hit'] == 1 + 5
+        # A miss runs iteration 1 eagerly, then reads at t = 1..4.
+        assert r['host_reads']['host miss'] == 4
+    assert r['guarded_runs'] >= 1
+
+
+def _small_kept_solve(dev, cfg):
+    """A kept solve of 4 lanes of a smooth objective (H = 5, da = 2) on the
+    card: solve(u0) -> SolveResult."""
+    from gpmpc_tpu_torch.mpc import solver
+    rng = np.random.default_rng(16)
+    tg = torch.tensor(rng.uniform(-1.5, 1.5, (4, 5, 2)), device=dev)
+
+    def build(tg):
+        return lambda u: ((u - tg) ** 2
+                          + 0.3 * torch.sin(3.0 * u) * u.flip(-1)).sum((1, 2))
+
+    obj = solver.Objective(('small kept solve',), (tg,), build)
+    return lambda u0: solver.solve_trajectory_batched(obj, u0, -1.0, 1.0, cfg)
+
+
+@pytest.mark.cuda
+def test_cuda_sync_guard_fails_a_host_read_in_a_hit(monkeypatch):
+    """no_host_sync, which chip_smoke's device-loop gates run hits under,
+    raises where a kept program's call reads the host: the guard itself
+    (check_sync_guard), and a hit whose loop is made to read all(done)."""
+    from gpmpc_tpu_torch.mpc import solver
+    from gpmpc_tpu_torch.mpc.solver import SolverConfig
+    dev = _cuda()
+    chip_smoke.check_sync_guard(dev)
+    solver.clear_programs()
+    solve = _small_kept_solve(dev, SolverConfig(max_iters=20, tol=1e-6))
+    u0 = torch.zeros((4, 5, 2), dtype=torch.float64, device=dev)
+    solve(u0)
+    with chip_smoke.no_host_sync() as guard:
+        solve(u0)
+    assert guard['runs'] == 1
+    loop = solver._Program._loop
+
+    def reads(prog, s, t):
+        loop(prog, s, t)
+        bool(s.done.all())
+
+    monkeypatch.setattr(solver._Program, '_loop', reads)
+    with pytest.raises(RuntimeError), chip_smoke.no_host_sync():
+        solve(u0)
+    torch.cuda.synchronize()
+    solver.clear_programs()
+
+
+@pytest.mark.cuda
+def test_cuda_device_loop_counts_stay_bounded():
+    """10,000 hits of a kept solve on the device loop, no counter read
+    between them: the program is watched once and keeps one device sum of
+    its passes (no per-call state: the allocator holds what it held after
+    the first hits); settle() then counts every pass once, in the step's
+    replays and the condition kernel's launches."""
+    from gpmpc_tpu_torch.mpc import solver
+    from gpmpc_tpu_torch.mpc.solver import SolverConfig
+    from gpmpc_tpu_torch.ops.kernels import loop_cond
+    from gpmpc_tpu_torch.utils import replay_counts
+    dev = _cuda()
+    solver.clear_programs()
+    solve = _small_kept_solve(dev, SolverConfig(max_iters=20, tol=1e-6))
+    u0 = torch.zeros((4, 5, 2), dtype=torch.float64, device=dev)
+    solve(u0)
+    torch.cuda.synchronize()
+    (prog,) = solver._PROGRAMS.values()
+    replay_counts.settle()
+    cond0 = loop_cond.LAUNCHES_COND
+    steps0 = replay_counts.replays_run()[prog.step_counts]
+    iters = torch.zeros((), dtype=torch.long, device=dev)
+    calls = 10_000
+    for call in range(calls):
+        iters += solve(u0).iters.max()
+        if call == 100:
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated(dev)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(dev) <= held
+    assert list(replay_counts._LOOPS).count(prog) == 1
+    assert prog.launched == calls
+    # A hit's loop runs from t = 0: its passes are its iterations.
+    passes = int(iters)
+    replay_counts.settle()
+    assert prog.launched == 0
+    assert loop_cond.LAUNCHES_COND - cond0 == calls + passes
+    assert replay_counts.replays_run()[prog.step_counts] - steps0 == passes
+    solver.clear_programs()

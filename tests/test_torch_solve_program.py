@@ -24,7 +24,7 @@ from gpmpc_tpu_torch.mpc.solver import SolverConfig
 from gpmpc_tpu_torch.parallel import batch
 from gpmpc_tpu_torch.problems import make_headline_problem
 from gpmpc_tpu_torch.utils import replay_counts
-from torch_port_common import (REPLAYING, StandInGraph, gp_data,
+from torch_port_common import (REPLAYING, gp_data, stand_in_capture,
                                untied_log_lambdas, use_stand_in_graphs)
 
 torch.set_num_threads(2)
@@ -60,24 +60,15 @@ def _same(a, b):
         assert torch.equal(_bits(x), _bits(y)), name
 
 
-def _stand_in_capture(record, s, pool=None):
-    """torch_port_common.stand_in_capture for a state of any method
-    (LbfgsState, AdamState): the host calls run once on a copy."""
-    before = replay_counts.snapshot()
-    record(type(s)(*(x.clone() for x in s)))
-    return StandInGraph(record, s), replay_counts.Replays(
-        before, replay_counts.snapshot(), [])
-
-
 @pytest.fixture
 def captures(monkeypatch):
     """Stand-in graphs; yields the list of captures the solver takes."""
     use_stand_in_graphs(monkeypatch)
     seen = []
 
-    def counted(record, s, pool=None):
+    def counted(record, s, pool=None, loop_iters=None):
         seen.append(record)
-        return _stand_in_capture(record, s, pool)
+        return stand_in_capture(record, s, pool, loop_iters)
 
     monkeypatch.setattr(solver, '_capture', counted)
     yield seen

@@ -173,13 +173,28 @@ class StandInGraph:
         self.resets += 1
 
 
-def stand_in_capture(record, s, pool=None):
-    from gpmpc_tpu_torch.mpc.solver import LbfgsState
+class StandInLoop(StandInGraph):
+    """A device loop's loop graph (ops/kernels/loop_cond.DeviceLoop): a
+    launch replays the step while the condition's plain version holds."""
+
+    def __init__(self, record, s, max_iters):
+        super().__init__(record, s)
+        self.max_iters = max_iters
+
+    def launch(self):
+        from gpmpc_tpu_torch.ops.kernels import loop_cond
+        while bool(loop_cond.go_on_reference(self.s.t, self.s.done,
+                                             self.max_iters)):
+            self.replay()
+
+
+def stand_in_capture(record, s, pool=None, loop_iters=None):
     from gpmpc_tpu_torch.utils import replay_counts
     before = replay_counts.snapshot()
-    record(LbfgsState(*(x.clone() for x in s)))
-    return StandInGraph(record, s), replay_counts.Replays(
-        before, replay_counts.snapshot(), [])
+    record(type(s)(*(x.clone() for x in s)))
+    graph = (StandInGraph(record, s) if loop_iters is None
+             else StandInLoop(record, s, loop_iters))
+    return graph, replay_counts.Replays(before, replay_counts.snapshot(), [])
 
 
 class _FakeStream:
