@@ -230,8 +230,8 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 with one K4 launch a trace for all outputs.
   6. sharded    solve_batch_2d at the headline width: (a) a (1, 1) mesh on
                 NCCL in this process: finite costs, none above its start,
-                exactly H * (1 + iterations) K3 launches, solves/s, cost
-                excess and a profiler pass; (b) a (1, 2) mesh on gloo, two processes on the same
+                exactly H * (1 + iterations) K3 launches, solves/s (one
+                timed batch), cost excess and a profiler pass; (b) a (1, 2) mesh on gloo, two processes on the same
                 card started from here with a timeout: their f64 objective at
                 the reference controls against headline_ref.npz (rtol 1e-8)
                 and their gradient against this process's unsharded f64
@@ -270,7 +270,8 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 (5, 4), for 10 steps: finite costs, actions in bounds; (e)
                 run_episode_on_device for 4 steps with tests/test_sim.py's
                 assertions, its single-scenario L-BFGS solves through one
-                kept program (one key, two captures). Each episode's
+                kept program (one key, two captures), no host read after
+                its first step (solves and fits). Each episode's
                 captures are logged.
   3d. sparse kernels  K1 at the three shapes phase 8 launches it at:
                 (B, N, d, E) = (256, 128, 5, 4) (suite config 3b),
@@ -332,7 +333,30 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 trip of the uncertainty controller and its GP, and
                 native.solve_box built into gpmpc_tpu_torch/_build/ on the
                 integrator objective.
-  9. output     the card line, one `kernels` JSON line and the result line.
+  9. episode    whole episodes batched over initial states, JAX's
+                jit(vmap(run_episode_on_device)), at the JAX package's
+                episode harness (benchmarks/f32fit_episode.py: pendulum,
+                300 pretrain points in capacity 512, H = 8, f32, delta,
+                L-BFGS at 100 iterations) over 256 x0s: (a) K1's grouped
+                form at the path's shapes ((1,280, 512, 3, 2) in groups of
+                five, (256, 512, 3, 2) in groups of one) in each body
+                against the plain version of its order (1e-12 |rw| + 16
+                ulps of the terms' magnitude), timed by events and graph
+                slope (each body) beside its plain version and bound; (b)
+                the fit's jitter search as a kept loop graph against its
+                host-read form, jitters and fits equal to the bit at 0, 1,
+                3, 5 escalations and one that runs out; (c) the main path:
+                the multistart episode (n_starts = 4 and the warm start)
+                for EPISODE_STEPS of the workload's 40 steps, the counts
+                set to 0 just before it, steps after the first under
+                set_sync_debug_mode('error') with no host read, every lane
+                finite, count 300 + steps, actions within +-5, outputs on
+                the card; its wall, first-step seconds and grouped K1
+                launches (every one at a shape (a) checked); (d) its step
+                capture against the eager step loop over 2 steps, equal to
+                the bit; (e) the 'single' route at full width for 2 steps,
+                checked as (c).
+ 10. output     the card line, one `kernels` JSON line and the result line.
 
 Times, rates and bounds printed here are measured in this run on this card.
 """
@@ -514,7 +538,8 @@ def reset_counts() -> None:
     from gpmpc_tpu_torch.utils import replay_counts
     replay_counts.settle()
     loop_cond.LAUNCHES_COND = 0
-    for name in ('LAUNCHES', 'LAUNCHES_F64', *COUNTER.values()):
+    for name in ('LAUNCHES', 'LAUNCHES_F64', 'LAUNCHES_GROUPED',
+                 *COUNTER.values()):
         setattr(vt, name, 0)
     probe.LAUNCHES_PROBE = 0
     eigh_small.LAUNCHES_EIGH = 0
@@ -763,7 +788,7 @@ def exp_flops(f64: bool) -> int:
     return 2 * EXP_F64_INSTR if f64 else 1
 
 
-def bound_ms(b, n_out, n_c, d, e, chains, f64=False):
+def bound_ms(b, n_out, n_c, d, e, chains, f64=False, groups=1):
     """Least time for the rw function (K1, K2, K3) on this card: the largest
     of its operations over the peak for their type and its bytes (each
     input read once, each output written once) over the memory rate. Per
@@ -773,12 +798,13 @@ def bound_ms(b, n_out, n_c, d, e, chains, f64=False):
     scale, the exp and the blam multiplies on the vector pipe
     (PEAK_F64_FLOPS) and the multiply-adds, products of small matrices, on
     the FP64 tensor cores (PEAK_F64_TC_FLOPS), the two times added (they
-    share the FP64 datapath): the same work whatever implements it."""
+    share the FP64 datapath): the same work whatever implements it. K1's
+    grouped form reads `groups` blam slabs, each once."""
     w1 = d + 1
     e_per_chain = e // chains
     pairs = b * n_out * n_c * chains
     elems = (b * n_out * (d + 1) * chains + b * n_c * (d + w1) * chains
-             + e * n_c * n_out + b * e * n_out * w1)
+             + groups * e * n_c * n_out + b * e * n_out * w1)
     if not f64:
         return _bound(pairs * (2 * d + 1 + exp_flops(False)
                                + e_per_chain * (1 + 2 * w1)), elems)
@@ -2735,6 +2761,7 @@ def phase_closed_loop(dev, checked, ref_path, out_dir):
     from gpmpc_tpu_torch.mpc.controller import RiskSensitiveMPC
     from gpmpc_tpu_torch.mpc.cost import CostParams
     from gpmpc_tpu_torch.mpc.solver import SolverConfig
+    from gpmpc_tpu_torch.sim import simulator
     from gpmpc_tpu_torch.sim.simulator import Simulator, run_episode_on_device
     out = {}
     t_phase = time.perf_counter()
@@ -2928,14 +2955,21 @@ def phase_closed_loop(dev, checked, ref_path, out_dir):
         if len(ep_walls) != 2:
             raise AssertionError(f'run_episode_on_device: {len(ep_walls)} '
                                  'captures, expected its one key\'s two')
+        # Its solves' loops and its fits' jitter searches run on the card:
+        # no host read after the first step.
+        reads = simulator.LAST_EPISODE['host_reads_after_first']
+        if reads:
+            raise AssertionError(f'run_episode_on_device: {reads} host reads '
+                                 'after its first step')
         out['device_episode'] = dict(wall_s=wall, captures=len(ep_walls),
+                                     host_reads_after_first=reads,
                                      **_loop_launches())
         log(f'[loop on device] run_episode_on_device {DEVICE_EPISODE_STEPS} '
             f'steps: states finite on the card, count {int(gp_f.count)} = 20 + '
             f'{DEVICE_EPISODE_STEPS}, actions in bounds ok; {wall:.3f} s '
             f'(the single-scenario rollout: launches {_loop_launches()}); its '
             f'L-BFGS solves through one kept program: {len(ep_walls)} '
-            'captures in the episode')
+            f'captures in the episode; host reads after step 1: {reads}')
     unchecked = {k: v for k, v in shapes.items() if k not in checked}
     if unchecked:
         raise AssertionError(f'closed loop: K1/K2 launched at shapes phase 3c '
@@ -4490,6 +4524,410 @@ def phase_sparse(dev, checked, out_dir):
     return out
 
 
+# Phase 9: whole episodes on the card, batched over initial states (JAX's
+# jit(vmap(run_episode_on_device))). The configuration of the JAX package's
+# own episode harness (benchmarks/f32fit_episode.py:48-69): the pendulum at
+# g = 10 and max_torque 5, 300 pretrain transitions in capacity 512,
+# lengthscales 2, sigma_f 1, sigma_n 1e-2, f32 storage, delta dynamics,
+# H = 8, Q = 2 I, R = 0.01, gamma = 0, L-BFGS at 100 iterations and tol
+# 1e-4, bounds +-5; over EPISODE_LANES x0s ([1.0, 0.5] plus numpy seed 0's
+# uniform(-0.5, 0.5) offsets), the multistart recipe at n_starts = 4 with
+# the warm start (five candidates a lane: grouped K1 at (1,280, 512, 3, 2)
+# in its phase 0, at (256, 512, 3, 2) in its final solve). The workload is
+# 40 steps; the phase runs EPISODE_STEPS of them (depth: every lane, the
+# capacity and the iteration cap stay; all 40 took 42 s at 256 lanes, a
+# quarter of them keeps the script's budget), the 'single' route
+# EPISODE_SINGLE_STEPS (its first step, the captures, ~13 s, then ~10 s a
+# step), and the capture-against-eager check EPISODE_BITS_STEPS.
+EPISODE_LANES = 256
+EPISODE_PRETRAIN = 300
+EPISODE_CAPACITY = 512
+EPISODE_HORIZON = 8
+EPISODE_N_STARTS = 4
+EPISODE_STEPS = 10
+EPISODE_SINGLE_STEPS = 2
+EPISODE_BITS_STEPS = 2
+# (B, N, d, E, scenarios a group) of grouped K1's launches on the path.
+GROUPED_SHAPES = ((EPISODE_LANES * (EPISODE_N_STARTS + 1), EPISODE_CAPACITY,
+                   3, 2, EPISODE_N_STARTS + 1),
+                  (EPISODE_LANES, EPISODE_CAPACITY, 3, 2, 1))
+# Lanes of the jitter-search check: matrices that factorize at once, after
+# one escalation, after several, and never.
+JITTER_DELTAS = (0.0, 1e-15, 1e-13, 1e-11, 1.0)
+
+
+@contextlib.contextmanager
+def sync_error():
+    """torch.cuda.set_sync_debug_mode('error') for a block: a host sync (a
+    read such as bool() or .item(), a blocking copy, a synchronize) raises."""
+    import torch
+    was = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(was)
+
+
+@contextlib.contextmanager
+def record_grouped_shapes():
+    """Record (B, N, d, E, scenarios a group) of every grouped K1 call on
+    CUDA tensors in a block, a call captured in a graph once per replay
+    (`tally`); yields a dict {shape: calls}."""
+    from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
+    seen = {}
+    orig = vt.rw_tied
+
+    def tied(g_out, dv_out, a, aod, blam):
+        if g_out.is_cuda and blam.ndim == 4:
+            k = (g_out.shape[0], a.shape[1], g_out.shape[2], blam.shape[1],
+                 g_out.shape[0] // blam.shape[0])
+            seen[k] = seen.get(k, 0) + 1
+        return orig(g_out, dv_out, a, aod, blam)
+
+    vt.rw_tied = tied
+    try:
+        with tally(seen):
+            yield seen
+    finally:
+        vt.rw_tied = orig
+
+
+def grouped_args(rng, b, n, d, e, k, dev):
+    """Grouped K1's f64 operands at (B, N, d, E, k a group), drawn as the JAX
+    kernel test draws them (kernel_test_inputs), one x and blam a group of k
+    scenarios, prepped as the trace preps them."""
+    import torch
+    from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
+    g = b // k
+    u, m2, _, _, _ = kernel_test_inputs(rng, b, n, d, e, True, dev)
+    x = as64(rng.normal(size=(g, n, d)), dev)
+    br = rng.normal(size=(g, e, n, n)) * 0.003
+    blam = as64(br + np.swapaxes(br, -1, -2), dev)
+    a, gg, dv = vt._prep_tied(u, m2, x)
+    aod = vt._aug(a) * dv[..., None]
+    return [t.contiguous() for t in (gg, dv, a, aod, blam)], (u, m2, x, blam)
+
+
+def check_grouped(tag, args, body, dev) -> float:
+    """Grouped K1 in `body` against the plain version of that body's order
+    ('mma': rw_tied_mma_reference, 'scalar': rw_split_reference at its
+    plan) with one blam a group, in f64: within 1e-12 |rw| plus 16 f64
+    ulps of the terms' magnitude sum (check_split's bar). Returns the max
+    abs error."""
+    import functools
+    import torch
+    from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
+    b, n, d = args[0].shape
+    e, k = args[4].shape[1], b // args[4].shape[0]
+    got, _ = vt._launch(*args, body=body)
+    if body == 'mma':
+        ref = vt.rw_tied_mma_reference
+    else:
+        ref = functools.partial(vt.rw_split_reference, plan=vt.rw_tied_plan(
+            b, n, n, d, e, torch.float64, vt.device_sms(dev), group=k))
+    want = ref(*args)
+    mag = ref(args[0], args[1], args[2], args[3].abs(), args[4].abs())
+    err = (got - want).abs()
+    bar = 1e-12 * want.abs() + 16 * torch.finfo(torch.float64).eps * mag
+    if not bool((err <= bar).all()):
+        raise AssertionError(f'{tag} {body} body vs its plain version: '
+                             f'{float((err / bar).max()):.3f}x its bar')
+    return float(err.max())
+
+
+def grouped_kernels(dev) -> tuple:
+    """Phase 9a: grouped K1 at each of GROUPED_SHAPES, in its route's body
+    and in the other, against the plain version of each body's order;
+    timed by events over 50 calls and by CUDA-graph slope (each body), its
+    plain version (rw_tied_grouped_reference) by events, and its bound.
+    Returns ({shape: max abs err}, {shape: times})."""
+    import torch
+    from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
+    rng = np.random.default_rng(17)
+    errs, res, fns = {}, {}, {}
+    sms = vt.device_sms(dev)
+    for b, n, d, e, k in GROUPED_SHAPES:
+        name = f'K1 grouped f64 B={b} N={n} d={d} E={e} group={k}'
+        args, _ = grouped_args(rng, b, n, d, e, k, dev)
+        route = vt.rw_tied_body(b, n, n, d, e, torch.float64, sms, group=k)
+        errs[name] = {bd: check_grouped(name, args, bd, dev)
+                      for bd in BODIES}
+        errs[name]['route'] = route
+        before = vt.LAUNCHES_GROUPED, vt.LAUNCHES_F64
+        vt.rw_tied(*args)
+        sync(dev)
+        if (vt.LAUNCHES_GROUPED, vt.LAUNCHES_F64) != (before[0] + 1,
+                                                      before[1] + 1):
+            raise AssertionError(f'{name}: {vt.LAUNCHES_GROUPED - before[0]} '
+                                 'grouped launches for one call')
+        fns[name] = (lambda a=args: vt.rw_tied(*a))
+        fns.update(body_fns(name, args))
+        plan = (vt.rw_tied_mma_plan(b, n, d, e, group=k) if route == 'mma'
+                else vt.rw_tied_plan(b, n, n, d, e, torch.float64, sms,
+                                     group=k))
+        res[name] = dict(
+            ms=cuda_ms(fns[name], 50),
+            plain_ms=cuda_ms(lambda a=args: vt.rw_tied_grouped_reference(*a),
+                             5),
+            bound=bound_ms(b, n, n, d, e, 1, f64=True, groups=b // k),
+            plan=dict(body=route, **plan._asdict()))
+    for key, ms in graph_ms(fns, dev).items():
+        base, _, body = key.rpartition(' ')
+        if body in BODIES and base in res:
+            res[base][f'graph_ms_{body}'] = ms
+        else:
+            res[key]['graph_ms'] = ms
+    for name, r in res.items():
+        log(f'[grouped K1] {name}: {r["ms"]:.4f} ms by events, '
+            f'{r["graph_ms"]:.4f} ms by graph slope{bodies_note(r)}, plain '
+            f'{r["plain_ms"]:.4f} ms, bound {r["bound"][0]:.5f} ms '
+            f'({r["bound"][1]}); max abs err {errs[name]} (1e-12 |rw| + 16 '
+            f'eps mag); plan {r["plan"]}')
+    return errs, res
+
+
+def jitter_matrices(dev, n=EPISODE_CAPACITY):
+    """Lanes x 2 outputs of masked Ky-like f64 matrices (N = n, the last
+    n // 4 rows padded): lane l's second output a diagonal block with one
+    pivot -JITTER_DELTAS[l] (0, 1, 3 and 5 escalations, and one that runs
+    out), its first a dense SPD block; with the CPU tests' resid."""
+    import torch
+    rng = np.random.default_rng(11)
+    nv = n - n // 4
+    mask = np.arange(n) < nv
+    lanes = []
+    for delta in JITTER_DELTAS:
+        dense = np.eye(n)
+        m = rng.normal(size=(nv, nv)) / np.sqrt(nv)
+        dense[:nv, :nv] = m @ m.T + np.eye(nv)
+        diag = np.eye(n)
+        diag[nv - 1, nv - 1] = -delta if delta else 1.0
+        lanes.append(np.stack([dense, diag]))
+    ky = torch.tensor(np.stack(lanes), dtype=torch.float64, device=dev)
+    m = torch.tensor(mask, dtype=torch.float64, device=dev).expand(
+        len(JITTER_DELTAS), n).contiguous()
+    resid = torch.tensor(rng.normal(size=(len(JITTER_DELTAS), 2, n)) * mask,
+                         dtype=torch.float64, device=dev)
+    return ky, m, resid
+
+
+def check_jitter_search(dev) -> dict:
+    """Phase 9b: the fit's jitter search on the card (gp/state.find_jitter:
+    the kept loop graph) against its host-read form (solver._host_read_loop)
+    on the same matrices, lanes needing 0, 1, 3 and 5 escalations and one
+    that runs out: the jitters and the fits (kinv, beta, logdet) equal to
+    the bit, NaN where the escalation runs out; the device search makes no
+    host read and runs under set_sync_debug_mode('error'), and the kept
+    search's second call equals its first."""
+    import torch
+    from gpmpc_tpu_torch.gp import state as gp_state
+    from gpmpc_tpu_torch.utils import replay_counts
+    ky, m, resid = jitter_matrices(dev)
+    gp_state.clear_searches()
+    out = {}
+    for mode in ('host', 'device', 'device again'):
+        ctx = host_loop() if mode == 'host' else sync_error()
+        reads = replay_counts.HOST_READS
+        with ctx:
+            res = gp_state._solve_chol(ky, m, resid, 0.0, True)
+        sync(dev)
+        out[mode] = (res, replay_counts.HOST_READS - reads)
+    (h, h_reads), (dv, d_reads), (dv2, d2_reads) = (
+        out['host'], out['device'], out['device again'])
+    for name, a, b in zip(('kinv', 'beta', 'logdet', 'jitter'), h, dv):
+        if not torch.equal(_bits(a), _bits(b)):
+            raise AssertionError(f'jitter search: device and host-read {name}'
+                                 ' differ')
+    for a, b in zip(dv, dv2):
+        if not torch.equal(_bits(a), _bits(b)):
+            raise AssertionError('jitter search: a kept search\'s second call '
+                                 'differs from its first')
+    if d_reads or d2_reads or not h_reads:
+        raise AssertionError(f'jitter search: host reads host {h_reads}, '
+                             f'device {d_reads}, {d2_reads}')
+    j = h[3].cpu().numpy()
+    beta = h[1]
+    if not (bool(torch.isnan(beta[-1, 1]).all())
+            and bool(torch.isfinite(beta[:-1]).all())):
+        raise AssertionError('jitter search: NaN where the escalation does '
+                             'not run out, or none where it does')
+    eps0 = (10 * np.finfo(np.float64).eps
+            * (torch.diagonal(ky, dim1=-2, dim2=-1) * m[:, None]).sum(-1)
+            / m.sum(-1)[:, None]).cpu().numpy()
+    esc = [0 if v == 0 else int(round(np.log10(v / e0))) + 1
+           for v, e0 in zip(j[:, 1], eps0[:, 1])]
+    if esc != [0, 1, 3, 5, 8] or np.any(j[:, 0] != 0):
+        raise AssertionError(f'jitter search: escalations {esc}, dense '
+                             f'jitters {j[:, 0]}')
+    stats = gp_state.search_stats()
+    log(f'[episode 9b] jitter search at (lanes, E, N) = '
+        f'{tuple(ky.shape[:-1])}: device loop equal to the host-read loop to '
+        f'the bit (jitters, kinv, beta, logdet), escalations {esc}, NaN past '
+        f'the last; host reads {h_reads} (host-read) / {d_reads}, {d2_reads} '
+        f'(device, under set_sync_debug_mode(\'error\')); kept searches '
+        f'{stats}')
+    gp_state.clear_searches()
+    return dict(escalations=esc, host_reads=h_reads, device_reads=d_reads)
+
+
+def episode_problem(dev):
+    """The phase's episode: the GP (300 pretrain transitions drawn on the
+    card from a seeded generator, fitted in f64, stored in f32), the plant,
+    the cost and the EPISODE_LANES x0s."""
+    import torch
+    from gpmpc_tpu_torch.envs import pendulum
+    from gpmpc_tpu_torch.gp import state as gp_state
+    from gpmpc_tpu_torch.mpc.cost import CostParams
+    p = pendulum.PendulumParams(g=10.0, max_torque=5.0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    f32 = dict(dtype=torch.float32, device=dev)
+    s, a, ns = pendulum.sample_transitions(gen, EPISODE_PRETRAIN, p, **f32)
+    gp = gp_state.make_gp(
+        gp_state.GPConfig(capacity=EPISODE_CAPACITY, x_dim=3, out_dim=2),
+        torch.cat([s, a], 1).cpu().numpy(), (ns - s).cpu().numpy(), **f32)
+    gp = gp_state.set_hyperparams(gp, [2.0, 2.0, 2.0], 1.0, 1e-2)
+    cp = CostParams(Q=2 * torch.eye(2, **f32), R=0.01 * torch.eye(1, **f32),
+                    gamma=torch.tensor(0.0, **f32), x_ref=torch.zeros(2, **f32),
+                    u_ref=torch.zeros(1, **f32))
+    x0s = torch.tensor(np.array([1.0, 0.5]) + np.random.default_rng(0).uniform(
+        -0.5, 0.5, (EPISODE_LANES, 2)), **f32)
+    return gp, (lambda st, u: pendulum.step(st, u, p)), cp, x0s
+
+
+def run_batched(problem, steps, recipe, guard=True):
+    """run_episode_on_device over the problem's x0s; steps after the first
+    under sync_error() where `guard`."""
+    from gpmpc_tpu_torch.mpc.solver import SolverConfig
+    from gpmpc_tpu_torch.sim.simulator import run_episode_on_device
+    gp, plant, cp, x0s = problem
+    return run_episode_on_device(
+        gp, plant, x0s, cp, horizon=EPISODE_HORIZON, num_steps=steps,
+        lb=-5.0, ub=5.0, solver=SolverConfig(max_iters=100, tol=1e-4),
+        delta_dynamics=True, solver_recipe=recipe, n_starts=EPISODE_N_STARTS,
+        sync_guard=sync_error if guard else None)
+
+
+def check_episode(tag, gp_f, outs, steps, dev) -> dict:
+    """Every lane: finite states, count = 300 + steps, actions within +-5,
+    the outputs and the GP on the card, no host read after the first step
+    (simulator.LAST_EPISODE). Returns the episode's seconds."""
+    import torch
+    from gpmpc_tpu_torch.sim import simulator
+    b = EPISODE_LANES
+    st = outs['state']
+    if st.shape != (b, steps, 2) or outs['action'].shape != (b, steps, 1):
+        raise AssertionError(f'{tag}: outputs {[(k, tuple(v.shape)) for k, v in outs.items()]}')
+    ok = dict(finite=torch.isfinite(st).all(dim=2).all(dim=1),
+              count=gp_f.count == EPISODE_PRETRAIN + steps,
+              bounds=outs['action'].abs().amax(dim=(1, 2)) <= 5.0)
+    bad = {k: int((~v).sum()) for k, v in ok.items()}
+    where = {k: str(v.device) for k, v in outs.items()}
+    ep = dict(simulator.LAST_EPISODE)
+    if (any(bad.values()) or any(not v.is_cuda for v in outs.values())
+            or not gp_f.x.is_cuda or ep['host_reads_after_first'] != 0):
+        raise AssertionError(f'{tag}: lanes failing {bad}, outputs on '
+                             f'{where}, GP on {gp_f.x.device}, {ep}')
+    return ep
+
+
+def phase_batched_episode(dev, out_dir) -> dict:
+    """Phase 9: (a) grouped K1 at the path's shapes (grouped_kernels);
+    (b) the fit's jitter search on the card against the host-read search
+    (check_jitter_search); (c) the main path: the full-width batched
+    multistart episode, EPISODE_STEPS steps, every step after the first
+    under set_sync_debug_mode('error'), checked lane by lane
+    (check_episode), with the counts set to 0 just before it, every grouped
+    K1 launch at a shape (a) checked; (d) its capture against the eager
+    step loop (simulator.eager_steps) over EPISODE_BITS_STEPS steps, equal
+    to the bit; (e) the 'single' route at full width, EPISODE_SINGLE_STEPS
+    steps, checked as (c)."""
+    import torch
+    from gpmpc_tpu_torch.gp import state as gp_state
+    from gpmpc_tpu_torch.mpc import solver
+    from gpmpc_tpu_torch.ops.kernels import loop_cond
+    from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
+    from gpmpc_tpu_torch.sim import simulator
+    t_phase = time.perf_counter()
+    out = {}
+    errs, times = grouped_kernels(dev)
+    out.update(grouped_errs=errs, grouped_times=times)
+    out['jitter'] = check_jitter_search(dev)
+
+    problem = episode_problem(dev)
+    reset_counts()
+    with record_grouped_shapes() as shapes, capture_walls() as walls:
+        gp_f, outs = run_batched(problem, EPISODE_STEPS, 'multistart')
+    sync(dev)
+    ep = check_episode('episode 9c', gp_f, outs, EPISODE_STEPS, dev)
+    counts = read_counts()
+    grouped = vt.LAUNCHES_GROUPED
+    unchecked = {k: v for k, v in shapes.items() if k not in GROUPED_SHAPES}
+    if unchecked or not grouped or counts['K1 f64'] != grouped or sum(
+            shapes.values()) != grouped:
+        raise AssertionError(f'episode 9c: grouped K1 {grouped} launches, at '
+                             f'{shapes} (unchecked {unchecked}); K1 f64 '
+                             f'{counts["K1 f64"]}')
+    iters = outs['iters'].double()
+    out['multistart'] = dict(
+        steps=EPISODE_STEPS, lanes=EPISODE_LANES, grouped_launches=grouped,
+        launch_shapes={' '.join(map(str, k)): v for k, v in shapes.items()},
+        cond_launches=loop_cond.LAUNCHES_COND, **ep,
+        captures=capture_note(walls, ep['wall_s']),
+        iters_mean=float(iters.mean()), iters_max=float(iters.max()),
+        final_abs_theta_p50=float(outs['state'][:, -1, 0].abs().median()))
+    log(f'[episode 9c] batched multistart, {EPISODE_LANES} lanes x '
+        f'{EPISODE_STEPS} steps (H = {EPISODE_HORIZON}, capacity '
+        f'{EPISODE_CAPACITY}, {EPISODE_PRETRAIN} pretrain): every lane '
+        f'finite, count {EPISODE_PRETRAIN} + {EPISODE_STEPS}, actions within '
+        f'+-5, outputs on {outs["state"].device}; wall {ep["wall_s"]:.2f} s, '
+        f'first step (captures included) {ep["first_step_s"]:.2f} s, '
+        f'{len(walls)} solve captures; host reads after step 1: '
+        f'{ep["host_reads_after_first"]} (steps 2.. under '
+        f"set_sync_debug_mode('error')); grouped K1 launches {grouped} at "
+        f'{out["multistart"]["launch_shapes"]}; iters mean '
+        f'{out["multistart"]["iters_mean"]:.1f}, max '
+        f'{out["multistart"]["iters_max"]:.0f}')
+
+    runs = {}
+    for mode in ('captured', 'eager'):
+        ctx = (simulator.eager_steps() if mode == 'eager'
+               else contextlib.nullcontext())
+        with ctx:
+            runs[mode] = run_batched(problem, EPISODE_BITS_STEPS,
+                                     'multistart', guard=mode == 'captured')
+        sync(dev)
+    (ga, oa), (gb, ob) = runs['captured'], runs['eager']
+    for k in oa:
+        if not torch.equal(_bits(oa[k]), _bits(ob[k])):
+            raise AssertionError(f'episode 9d: captured and eager {k} differ')
+    for k in ('x', 'y', 'mask', 'count', 'kinv', 'beta', 'logdet',
+              'jitter_used'):
+        if not torch.equal(_bits(getattr(ga, k)), _bits(getattr(gb, k))):
+            raise AssertionError(f'episode 9d: captured and eager GP {k} '
+                                 'differ')
+    log(f'[episode 9d] the step capture against the eager step loop over '
+        f'{EPISODE_BITS_STEPS} steps at full width: outputs and the stacked '
+        'GP equal to the bit')
+    out['bits_steps'] = EPISODE_BITS_STEPS
+
+    solver.clear_programs()
+    gp_f, outs = run_batched(problem, EPISODE_SINGLE_STEPS, 'single')
+    sync(dev)
+    ep = check_episode('episode 9e', gp_f, outs, EPISODE_SINGLE_STEPS, dev)
+    out['single'] = dict(steps=EPISODE_SINGLE_STEPS, **ep)
+    log(f"[episode 9e] batched 'single' route, {EPISODE_LANES} lanes x "
+        f'{EPISODE_SINGLE_STEPS} steps: every lane finite, count, bounds ok;'
+        f' wall {ep["wall_s"]:.2f} s, first step {ep["first_step_s"]:.2f} s;'
+        f' host reads after step 1: {ep["host_reads_after_first"]}')
+    solver.clear_programs()
+    gp_state.clear_searches()
+    out['wall_s'] = time.perf_counter() - t_phase
+    log(f'[episode] phase {out["wall_s"]:.1f} s')
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--out', default=os.path.join(ROOT, 'chip_smoke_out'),
@@ -4570,7 +5008,7 @@ def main() -> int:
         sym_untied_launches = phase_untied(dev, b, key='K4')
         sym_solve['profile'] = phase_profile(dev, b, out_dir, 'sym solve',
                                              'rw_sym')
-    sharded_11 = phase_sharded_11(dev, b, j64, j_uref, reps=3, out_dir=out_dir)
+    sharded_11 = phase_sharded_11(dev, b, j64, j_uref, reps=1, out_dir=out_dir)
     sharded_12 = phase_sharded_12(dev, b, ref, out_dir)
     loop = phase_closed_loop(dev, loop_checked, CLOSED_LOOP_REF, out_dir)
     # Phase 8c (b)'s yardstick, the fused solve_batch on the headline,
@@ -4578,6 +5016,7 @@ def main() -> int:
     sparse = phase_sparse(dev, sparse_checked | {
         ('K1', dt, b, cache.x.shape[0], 3, cache.b_lam.shape[0])
         for dt in ('f32', 'f64')}, out_dir)
+    episode = phase_batched_episode(dev, out_dir)
 
     # One row a kernel instance that a path launches: K1's f32 instance (the
     # k1_f32 solve) and its f64 instance (the recipe, the main path); K2-K4
@@ -4680,6 +5119,23 @@ def main() -> int:
             max_abs_err=eigh_errs[f'path B={bb} d={d} {dtn}']['max_abs_err'],
             ms=t['ms'], plain_ms=t['plain_ms'], bound_ms=t['bound'][0],
             bound_by=t['bound'][1], library_ms=t['library_ms']))
+    # K1's grouped form (phase 9a) at each shape the batched multistart
+    # episode launches it at, with that run's launches (phase 9c, the main
+    # path of this slice).
+    for b9, n9, d9, e9, k9 in GROUPED_SHAPES:
+        name = f'K1 grouped f64 B={b9} N={n9} d={d9} E={e9} group={k9}'
+        t = episode['grouped_times'][name]
+        err = episode['grouped_errs'][name]
+        kernels.append(dict(
+            name=f'K1 grouped f64 instance, one blam a group of {k9} '
+                 f'scenarios (the batched multistart episode, B={b9} N={n9} '
+                 f'd={d9} E={e9})',
+            route='cuda', source=SOURCE_F64, replaces=f'{TPU_FILE}:677',
+            launches=episode['multistart']['launch_shapes'].get(
+                ' '.join(map(str, (b9, n9, d9, e9, k9))), 0),
+            max_abs_err=err[err['route']], ms=t['ms'],
+            plain_ms=t['plain_ms'], bound_ms=t['bound'][0],
+            bound_by=t['bound'][1], library_ms=None))
     # The device loop's condition kernel (phase 3f): no TPU kernel; it takes
     # the place of the host's read of all(done) where JAX runs
     # lax.while_loop. Launches: the recipe solve's (phase 5c), once before
@@ -4721,7 +5177,7 @@ def main() -> int:
                   eigh_errs=eigh_errs, eigh_times=eigh_times,
                   loop_cond=dict(max_abs_err=cond_err, times=cond_times,
                                  graph_cases=cond_cases),
-                  device_loop=device_loop,
+                  device_loop=device_loop, batched_episode=episode,
                   profile=prof, k1_instr_bound_ms=k1_instr,
                   precision=precision, k1_f64_wide=k1_f64_wide, sass=sass,
                   kernel_times={str(dt): r for dt, r in times.items()},

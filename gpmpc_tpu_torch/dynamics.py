@@ -316,11 +316,23 @@ def rollout_batched(cache: RolloutCache, x0s, actions,
     init_state_var * I. full_cov=True carries the full cross-output state
     covariance (and then ignores mean_only and frozen_cov_diag, as the JAX
     package does). frozen_cov_diag (B, H+1, ds) replaces the carried
-    variance by a given sequence and propagates the mean only."""
+    variance by a given sequence and propagates the mean only.
+
+    A cache of one GP a lane (x of rank 3, G lanes: `build_rollout_cache` of
+    a stacked GPState) takes B = G K scenarios lane-major, K a lane
+    (scenario b on lane b // K): the rollout is mapped over the lanes by
+    torch.func.vmap, JAX's vmap of a K-scenario batched rollout, and its
+    variance trace runs K1's grouped form (ops/kernels/variance_trace.py,
+    the trace's rule under vmap), each lane's K scenarios against its own
+    b_lam. Diagonal covariance and tied lengthscales only there."""
     if cache.nominal_fn is not None:
         raise NotImplementedError(
             'rollout_batched does not support nominal mean models; roll each '
             'scenario out with dynamics.rollout.')
+    if cache.x.ndim == 3:
+        return _rollout_batched_lanes(cache, x0s, actions, init_state_var,
+                                      action_var, delta, full_cov, mean_only,
+                                      frozen_cov_diag)
     ds = cache.state_dim
     b, horizon = actions.shape[:2]
     mean = x0s
@@ -350,3 +362,33 @@ def rollout_batched(cache: RolloutCache, x0s, actions,
     if frozen_cov_diag is not None:
         return means, torch.diag_embed(frozen_cov_diag)
     return means, torch.diag_embed(torch.stack(variances, dim=1))
+
+
+def _rollout_batched_lanes(cache: RolloutCache, x0s, actions, init_state_var,
+                           action_var, delta, full_cov, mean_only,
+                           frozen_cov_diag):
+    """`rollout_batched` over a cache of one GP a lane (see there)."""
+    g, b = cache.x.shape[0], x0s.shape[0]
+    if b % g:
+        raise ValueError(f'{b} scenarios do not split over {g} lanes')
+    if full_cov or not (cache.tied_lambdas or mean_only
+                        or frozen_cov_diag is not None):
+        raise ValueError('a batched rollout of one GP a lane takes a '
+                         'diagonal covariance and tied lengthscales (the '
+                         "grouped trace is K1's); use rollout_lanes")
+    k = b // g
+    static = cache.static_key()
+
+    def one(tensors, x0, u, cov_d):
+        return rollout_batched(cache_from(static, tensors), x0, u,
+                               init_state_var, action_var, delta,
+                               mean_only=mean_only, frozen_cov_diag=cov_d)
+
+    def lanes(v):
+        return None if v is None else v.reshape(g, k, *v.shape[1:])
+
+    means, covs = torch.func.vmap(
+        one, in_dims=(0, 0, 0, None if frozen_cov_diag is None else 0))(
+            cache.tensors(), lanes(x0s), lanes(actions),
+            lanes(frozen_cov_diag))
+    return means.reshape(b, *means.shape[2:]), covs.reshape(b, *covs.shape[2:])

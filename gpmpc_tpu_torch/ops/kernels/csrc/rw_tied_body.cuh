@@ -74,6 +74,15 @@
 //     order 0 .. split-1 (fixed, so the bits do not depend on scheduling;
 //     PTX barrier.cluster and ld.shared::cluster). The launch goes through
 //     cudaLaunchKernelEx with a cluster attribute.
+//
+// K1's grouped form (`group` scenarios a blam slab): blam (G, E, n_c, n_out), one
+// slab a group of B / G consecutive scenarios (one GP a lane: the
+// multistart recipe under JAX's vmap, each lane's starts against its own
+// GP). A block still shares each blam load across its S scenarios, so no
+// block spans two groups: the grid's y axis is G groups of
+// ceil(group / S) blocks, S = S_max where a group holds S_max scenarios,
+// else 1 (at five a group and S = 4, the second block of a group serves
+// one scenario). The ungrouped kernel is the grouped one at one group.
 //   The plan is worked out on the host (plan_of below); `rw_tied_plan` and
 //   `rw_untied_plan` in ops/kernels/variance_trace.py mirror it and check it
 //   against this header's exports at load. Where split = 1 a launch is the
@@ -200,6 +209,9 @@ struct RwArgs {
   int n_out;
   int n_c;
   cudaStream_t stream;
+  // K1's grouped form: blam is (B / group, E, n_c, n_out), scenario b
+  // reading slab b / group; 0: one blam for all B (the ungrouped launch).
+  int group = 0;
 };
 
 // A launch: S scenarios a block, the contraction in `split` ranks of
@@ -211,20 +223,34 @@ struct Plan {
   int sub;
   dim3 grid;
   size_t smem;
+  int gblocks;  // blocks of grid.y a group of scenarios takes
 };
+
+// Grid.y of B scenarios in groups of `group` (0: one group of all B), each
+// group's in ceil(group / s) blocks of s scenarios, so that no block spans
+// two groups; *gblocks is the blocks a group takes.
+inline long long scenario_blocks(int b, int group, int s, int* gblocks) {
+  const int grp = group > 0 ? group : b;
+  *gblocks = grp > 0 ? (grp + s - 1) / s : 0;
+  return grp > 0 ? static_cast<long long>((b + grp - 1) / grp) * *gblocks
+                 : 0;
+}
 
 // The plan of a launch for B scenarios, n_out output rows, n_c contraction
 // rows and `outs` outputs on the grid (1 tied, E untied) on a card of `sms`
-// SMs: S = S_max where B >= S_max, else 1; split where the grid fills at
-// most 1 / kSplitFill of the SMs. A plan the card cannot take (grid.y past
-// kMaxGridY) is returned as is: the launch refuses it.
+// SMs, the scenarios in groups of `group` (K1's grouped form; 0: one
+// group): S = S_max where a group holds at least S_max, else 1; split
+// where the grid fills at most 1 / kSplitFill of the SMs. A plan the card
+// cannot take (grid.y past kMaxGridY) is returned as is: the launch
+// refuses it.
 template <typename T, int D, int E, int SMax, int kSub, int Rows, int Slices,
           bool Untied>
-Plan plan_of(int b, int n_out, int n_c, int outs, int sms, int max_split) {
+Plan plan_of(int b, int n_out, int n_c, int outs, int sms, int max_split,
+             int group = 0) {
   Plan p{};
-  p.s = b >= SMax ? SMax : 1;
+  p.s = (group > 0 ? group : b) >= SMax ? SMax : 1;
   const long long tiles = (n_out + Rows - 1) / Rows;
-  const long long groups = (b + p.s - 1) / p.s;
+  const long long groups = scenario_blocks(b, group, p.s, &p.gblocks);
   const long long blocks = tiles * groups * outs;
   int split = 1;
   if (blocks > 0 && blocks * kSplitFill <= sms) {
@@ -250,6 +276,10 @@ Plan plan_of(int b, int n_out, int n_c, int outs, int sms, int max_split) {
   return p;
 }
 
+// K1, K2, K3 and K1's grouped form. A block's scenarios are those of
+// block y of its group: group blockIdx.y / gblocks, whose `group`
+// scenarios read that group's blam slab (an ungrouped launch: one group of
+// all B, gblocks = grid.y).
 template <typename T, int D, int E, Variant V, int S, int kSub, int Rows,
           int Slices, bool Untied, bool Split>
 __global__ void __launch_bounds__(Rows * Slices)
@@ -257,7 +287,7 @@ rw_tied_kernel(const T* __restrict__ g, const T* __restrict__ dv,
                const T* __restrict__ a, const T* __restrict__ aod,
                const T* __restrict__ blam, T* __restrict__ rw, int b_total,
                int n_out, int n_c, int e_total, int split, int chunk,
-               int sub) {
+               int sub, int group, int gblocks) {
   static_assert(V != Variant::kHwExp || std::is_same_v<T, float>,
                 "__expf exists for float only");
   static_assert(!Untied || (E == 1 && V == Variant::kFull),
@@ -280,7 +310,11 @@ rw_tied_kernel(const T* __restrict__ g, const T* __restrict__ dv,
   const int rank = Split ? bx % split : 0;   // the block's rank in its cluster
   const int row0 = (Split ? bx / split : bx) * Rows;  // the block's first row
   const int i = row0 + r;
-  const int b0 = blockIdx.y * S;
+  const int grp = static_cast<int>(blockIdx.y) / gblocks;
+  const int b0 = grp * group + (static_cast<int>(blockIdx.y) - grp * gblocks) * S;
+  // The block's scenarios end with its group's.
+  const int b_end = min(b_total, (grp + 1) * group);
+  blam += static_cast<size_t>(grp) * E * n_c * n_out;
   // Untied: this block's output; g, dv and rw are laid out (B, E, ...).
   const int eo = Untied ? static_cast<int>(blockIdx.z) : 0;
   const int e_out = Untied ? e_total : E;
@@ -302,7 +336,7 @@ rw_tied_kernel(const T* __restrict__ g, const T* __restrict__ dv,
     const int jn = min(tile, jend - j0);
 #pragma unroll
     for (int s = 0; s < S; ++s) {
-      const bool b_ok = b0 + s < b_total;
+      const bool b_ok = b0 + s < b_end;
       const size_t base = b_ok ? static_cast<size_t>(b0 + s) * n_c + j0 : 0;
       for (int q = tid; q < jn * D; q += nthreads) {
         const int jj = q / D;
@@ -330,7 +364,7 @@ rw_tied_kernel(const T* __restrict__ g, const T* __restrict__ dv,
   for (int s = 0; s < S; ++s)
 #pragma unroll
     for (int kk = 0; kk < D; ++kk)
-      gi[s][kk] = (row_ok && b0 + s < b_total)
+      gi[s][kk] = (row_ok && b0 + s < b_end)
                       ? g[((static_cast<size_t>(b0 + s) * (Untied ? e_total : 1)
                             + eo) * n_out + i) * D + kk]
                       : T(0);
@@ -459,7 +493,7 @@ rw_tied_kernel(const T* __restrict__ g, const T* __restrict__ dv,
   for (int q = tid; q < n_sums; q += nthreads) {
     int b, e, ii, c;
     const int off = where(q, b, e, ii, c);
-    if (n_split == 1 && (b >= b_total || ii >= n_out)) continue;
+    if (n_split == 1 && (b >= b_end || ii >= n_out)) continue;
     T sum = smem[off];
 #pragma unroll
     for (int kk = 1; kk < Slices; ++kk) sum += smem[kk * kSec * rp + off];
@@ -475,7 +509,7 @@ rw_tied_kernel(const T* __restrict__ g, const T* __restrict__ dv,
     for (int q = rank * nthreads + tid; q < n_sums; q += split * nthreads) {
       int b, e, ii, c;
       const int off = where(q, b, e, ii, c);
-      if (b >= b_total || ii >= n_out) continue;
+      if (b >= b_end || ii >= n_out) continue;
       T sum = ld_cluster(smem + off, 0);
       for (int kk = 1; kk < split; ++kk) sum += ld_cluster(smem + off, kk);
       store(b, e, ii, c, sum);
@@ -485,17 +519,16 @@ rw_tied_kernel(const T* __restrict__ g, const T* __restrict__ dv,
 }
 
 // Launch instance (S, Split) of the kernel at plan p (split = 1: a plain
-// launch; else a cluster of p.split blocks along x by cudaLaunchKernelEx).
+// launch; else a cluster of p.split blocks along x by cudaLaunchKernelEx),
+// in groups of a.group scenarios (0: one group of all B).
 template <typename T, int D, int E, Variant V, int S, int kSub, int Rows,
           int Slices, bool Untied, bool Split>
 cudaError_t launch_at(const RwArgs<T>& a, int e_total, const Plan& p) {
   static_assert(Rows % 32 == 0 && Rows * Slices <= 1024,
                 "a block of whole warps");
   if (!Split && p.split != 1) return cudaErrorInvalidValue;
-  const auto kernel =
-      rw_tied_kernel<T, D, E, V, S, kSub, Rows, Slices, Untied, Split>;
+  if (Untied && a.group > 0) return cudaErrorInvalidValue;
   if (p.grid.y > static_cast<unsigned>(kMaxGridY)) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(kernel, p.smem);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = p.grid;
   cfg.blockDim = dim3(Rows, Slices);
@@ -508,10 +541,16 @@ cudaError_t launch_at(const RwArgs<T>& a, int e_total, const Plan& p) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = p.split > 1 ? 1 : 0;
+  // An ungrouped launch is one group of all B over all of grid.y.
+  const int group = a.group > 0 ? a.group : a.b;
+  const int gblocks = a.group > 0 ? p.gblocks : static_cast<int>(p.grid.y);
+  const auto kernel =
+      rw_tied_kernel<T, D, E, V, S, kSub, Rows, Slices, Untied, Split>;
+  cudaError_t err = allow_smem(kernel, p.smem);
   if (err == cudaSuccess)
     err = cudaLaunchKernelEx(&cfg, kernel, a.g, a.dv, a.a, a.aod, a.blam,
                              a.rw, a.b, a.n_out, a.n_c, e_total, p.split,
-                             p.chunk, p.sub);
+                             p.chunk, p.sub, group, gblocks);
   // A refused launch leaves its error as the thread's last error too: read
   // it here, so that the next launch (PyTorch's own among them) starts clean.
   const cudaError_t last = cudaGetLastError();
@@ -550,7 +589,7 @@ cudaError_t launch_planned(const RwArgs<T>& a, int e_total, int sms,
                            int max_split) {
   constexpr int SMax = scenarios<T, D, E>();
   const Plan p = plan_of<T, D, E, SMax, kSubRows, kRows, kSlices, Untied>(
-      a.b, a.n_out, a.n_c, Untied ? e_total : 1, sms, max_split);
+      a.b, a.n_out, a.n_c, Untied ? e_total : 1, sms, max_split, a.group);
   if (!split_instance<SMax>(p.s, p.split))
     return launch_at<T, D, E, V, SMax, kSubRows, kRows, kSlices, Untied,
                      false>(a, e_total, p);
@@ -579,9 +618,11 @@ R with_d(int d, R bad, F f) {
   }
 }
 
+// K1 at its plan, grouped where p.group > 0.
 template <typename T>
 cudaError_t dispatch(int d, int e, const RwArgs<T>& p, int sms, int max_split) {
-  if (p.b <= 0 || p.n_out <= 0 || p.n_c < 0 || sms <= 0 || max_split < 1)
+  if (p.b <= 0 || p.n_out <= 0 || p.n_c < 0 || sms <= 0 || max_split < 1 ||
+      p.group < 0)
     return cudaErrorInvalidValue;
   return with_de(d, e, cudaErrorInvalidValue, [&](auto dd, auto ee) {
     return launch_planned<T, decltype(dd)::value, decltype(ee)::value,
@@ -611,15 +652,17 @@ cudaError_t dispatch_untied(int d, int e, const RwArgs<T>& p, int sms,
   });
 }
 
-// The plan of a K1 (untied 0) or K2 (untied 1) launch, for the wrapper's
-// check: out = S, split, chunk, sub, grid x, y, z, shared bytes.
+// The plan of a K1 (untied 0; grouped where group > 0) or K2 (untied 1)
+// launch, for the wrapper's check: out = S, split, chunk, sub, grid x, y,
+// z, shared bytes, blocks a group.
 template <typename T>
 int plan_export(int b, int n_out, int n_c, int d, int e, int untied, int sms,
-                long long* out) {
+                int group, long long* out) {
   auto put = [&](const Plan& p) {
-    const long long v[8] = {p.s, p.split, p.chunk, p.sub, p.grid.x, p.grid.y,
-                            p.grid.z, static_cast<long long>(p.smem)};
-    for (int q = 0; q < 8; ++q) out[q] = v[q];
+    const long long v[9] = {p.s, p.split, p.chunk, p.sub, p.grid.x, p.grid.y,
+                            p.grid.z, static_cast<long long>(p.smem),
+                            p.gblocks};
+    for (int q = 0; q < 9; ++q) out[q] = v[q];
     return 0;
   };
   if (untied)
@@ -632,7 +675,7 @@ int plan_export(int b, int n_out, int n_c, int d, int e, int untied, int sms,
     constexpr int D = decltype(dd)::value;
     constexpr int E = decltype(ee)::value;
     return put(plan_of<T, D, E, scenarios<T, D, E>(), kSubRows, kRows, kSlices,
-                       false>(b, n_out, n_c, 1, sms, kMaxSplit));
+                       false>(b, n_out, n_c, 1, sms, kMaxSplit, group));
   });
 }
 
@@ -702,7 +745,8 @@ long long blocks_per_sm_of(int d, int e, int untied, int s, int split) {
 // `stream`; `sms` is the card's SM count and `max_split` the largest
 // cluster the plan may take, kMaxSplit on every path; K1's `body` is -1 for
 // the route of TIED_DISPATCH, 0 for this body, 1 for the f64 library's
-// tensor-core body, rw_tied_f64_body.cuh), the compiled plan
+// tensor-core body, rw_tied_f64_body.cuh; `group` > 0 launches the grouped
+// form, 0 the ungrouped), the compiled plan
 // for the wrapper's check at load (long long, as ctypes reads it: S_max and
 // the dynamic shared bytes of an S_max launch per (d, E), 0 / -1 outside
 // d, E in 1 .. 8; kRows, kSlices, kSubRows, kMaxSplit, kSplitRows,
@@ -712,9 +756,9 @@ long long blocks_per_sm_of(int d, int e, int untied, int s, int split) {
   extern "C" int gpmpc_rw_tied_##SUFFIX(                                      \
       const T* g, const T* dv, const T* a, const T* aod, const T* blam,       \
       T* rw, int b, int n_out, int n_c, int d, int e, int sms, int max_split, \
-      int body, void* stream) {                                               \
+      int body, int group, void* stream) {                                    \
     const RwArgs<T> p{g, dv, a, aod, blam, rw, b, n_out, n_c,                 \
-                      static_cast<cudaStream_t>(stream)};                     \
+                      static_cast<cudaStream_t>(stream), group};              \
     return static_cast<int>(TIED_DISPATCH(d, e, p, sms, max_split, body));    \
   }                                                                           \
   extern "C" int gpmpc_rw_untied_##SUFFIX(                                    \
@@ -726,8 +770,8 @@ long long blocks_per_sm_of(int d, int e, int untied, int s, int split) {
   }                                                                           \
   extern "C" int gpmpc_rw_tied_plan_##SUFFIX(int b, int n_out, int n_c, int d, \
                                              int e, int untied, int sms,      \
-                                             long long* out) {                \
-    return plan_export<T>(b, n_out, n_c, d, e, untied, sms, out);             \
+                                             int group, long long* out) {     \
+    return plan_export<T>(b, n_out, n_c, d, e, untied, sms, group, out);      \
   }                                                                           \
   extern "C" long long gpmpc_rw_tied_scenarios_##SUFFIX(int d, int e) {       \
     return scenarios_of<T>(d, e);                                             \

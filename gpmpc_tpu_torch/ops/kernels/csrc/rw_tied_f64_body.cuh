@@ -65,6 +65,10 @@
 //   - Ragged edges: rows past n_out have g = 0 and blam = 0, contraction
 //     rows past n_c a = aod = 0 and blam = 0, scenarios past B a = aod =
 //     g = 0: each adds exp(0) * 0 = 0, and nothing is stored for them.
+//   - K1's grouped form: blam (G, E, n_c, n_out), one slab a group of
+//     B / G consecutive scenarios; no block spans two groups (grid.y: G
+//     groups of ceil(group / S) blocks), so a block's blam loads stay
+//     shared by its S scenarios. An ungrouped launch is one group.
 //   The plan (scenarios, grid, shared bytes) is worked out on the
 //   host (mma_plan below), mirrored by `rw_tied_mma_plan` in
 //   ops/kernels/variance_trace.py and checked against these exports at
@@ -139,25 +143,31 @@ struct MmaPlan {
   int s;
   dim3 grid;
   size_t smem;
+  int gblocks;  // blocks of grid.y a group of scenarios takes
 };
 
-// The launch of B scenarios and n_out output rows at S scenarios a block:
-// grid (row tiles, scenario groups), each block 4 warps, the whole
-// contraction in each.
-inline MmaPlan mma_plan_at(int s, int b, int n_out, int e, int d) {
+// The launch of B scenarios and n_out output rows at S scenarios a block,
+// in groups of `group` (the grouped form; 0: one group): grid (row tiles,
+// scenario blocks: each group's in ceil(group / S)), each block 4 warps,
+// the whole contraction in each.
+inline MmaPlan mma_plan_at(int s, int b, int n_out, int e, int d,
+                           int group = 0) {
   MmaPlan p{};
   p.s = s;
   p.grid = dim3(static_cast<unsigned>((n_out + kMmaTileRows - 1) /
                                       kMmaTileRows),
-                static_cast<unsigned>((b + s - 1) / s));
+                static_cast<unsigned>(scenario_blocks(b, group, s,
+                                                      &p.gblocks)));
   p.smem = mma_smem_bytes(s, e, mma_ks(d), mma_nt(d));
   return p;
 }
 
-// K1's plan in this body: S = S_max where B >= S_max, else 1.
-inline MmaPlan mma_plan(int b, int n_out, int e, int d) {
+// K1's plan in this body: S = S_max where a group (B, ungrouped) holds
+// S_max scenarios, else 1.
+inline MmaPlan mma_plan(int b, int n_out, int e, int d, int group = 0) {
   const int smax = mma_scenarios(e, mma_nt(d));
-  return mma_plan_at(b >= smax ? smax : 1, b, n_out, e, d);
+  return mma_plan_at((group > 0 ? group : b) >= smax ? smax : 1, b, n_out, e,
+                     d, group);
 }
 
 // The route of a tied f64 launch: this body (1) where its grid at S_max
@@ -165,11 +175,13 @@ inline MmaPlan mma_plan(int b, int n_out, int e, int d) {
 // body's plan (0), which at such a grid splits the contraction or serves
 // fewer scenarios a block and was the faster of the two at every such
 // shape the paths launch (PERF.md).
-inline int tied_route(int b, int n_out, int n_c, int d, int e, int sms) {
+inline int tied_route(int b, int n_out, int n_c, int d, int e, int sms,
+                      int group = 0) {
   (void)n_c;
   const long long tiles = (n_out + kMmaTileRows - 1) / kMmaTileRows;
   const int smax = mma_scenarios(e, mma_nt(d));
-  const long long groups = (b + smax - 1) / smax;
+  int gblocks;
+  const long long groups = scenario_blocks(b, group, smax, &gblocks);
   return tiles * groups >= sms ? 1 : 0;
 }
 
@@ -349,7 +361,8 @@ rw_tied_mma_kernel(const double* __restrict__ g, const double* __restrict__ dv,
                    const double* __restrict__ a,
                    const double* __restrict__ aod,
                    const double* __restrict__ blam, double* __restrict__ rw,
-                   int b_total, int n_out, int n_c, int d) {
+                   int b_total, int n_out, int n_c, int d, int group,
+                   int gblocks) {
   constexpr int S = C::S;
   constexpr int G = C::G;
   constexpr bool K8 = C::K8;
@@ -372,7 +385,12 @@ rw_tied_mma_kernel(const double* __restrict__ g, const double* __restrict__ dv,
   const int gq = lane >> 2;   // the fragments' groupID
   const int tq = lane & 3;    // and threadID_in_group
   const int i0 = blockIdx.x * kMmaTileRows + strip * kMmaRows;
-  const int b0 = blockIdx.y * S;
+  // The block's scenarios: block y of group blockIdx.y / gblocks, whose
+  // scenarios read that group's blam slab and end with it.
+  const int grp = static_cast<int>(blockIdx.y) / gblocks;
+  const int b0 = grp * group + (static_cast<int>(blockIdx.y) - grp * gblocks) * S;
+  const int b_end = min(b_total, (grp + 1) * group);
+  blam += static_cast<size_t>(grp) * E * n_c * n_out;
   const int w1 = d + 1;
 
   // exp_fast's table; first read after the first chunk's barrier.
@@ -404,7 +422,7 @@ rw_tied_mma_kernel(const double* __restrict__ g, const double* __restrict__ dv,
       const int r = q - s * (kMmaChunk * KP);
       const int jj = r / KP;
       const int k = r - jj * KP;
-      const bool ok = b0 + s < b_total && j0 + jj < n_c && k < d;
+      const bool ok = b0 + s < b_end && j0 + jj < n_c && k < d;
       cp_async(buf + q,
                ok ? a + (static_cast<size_t>(b0 + s) * n_c + j0 + jj) * d + k
                   : a,
@@ -416,7 +434,7 @@ rw_tied_mma_kernel(const double* __restrict__ g, const double* __restrict__ dv,
       const int r = q - s * (kMmaChunk * AP);
       const int jj = r / AP;
       const int c = r - jj * AP;
-      const bool ok = b0 + s < b_total && j0 + jj < n_c && c < w1;
+      const bool ok = b0 + s < b_end && j0 + jj < n_c && c < w1;
       cp_async(bod + q,
                ok ? aod + (static_cast<size_t>(b0 + s) * n_c + j0 + jj) * w1 + c
                   : aod,
@@ -435,7 +453,7 @@ rw_tied_mma_kernel(const double* __restrict__ g, const double* __restrict__ dv,
         const int row = i0 + gq + 8 * h;
         const int k = 4 * ks + tq;
         ga[s][ks][h] =
-            (b0 + s < b_total && row < n_out && k < d)
+            (b0 + s < b_end && row < n_out && k < d)
                 ? -0.25 * g[(static_cast<size_t>(b0 + s) * n_out + row) * d + k]
                 : 0.0;
       }
@@ -617,7 +635,7 @@ rw_tied_mma_kernel(const double* __restrict__ g, const double* __restrict__ dv,
 #pragma unroll
   for (int s = 0; s < S; ++s) {
     const int b = b0 + s;
-    if (b >= b_total) continue;
+    if (b >= b_end) continue;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = i0 + gq + 8 * h;
@@ -646,10 +664,14 @@ cudaError_t launch_mma_at(const RwArgs<double>& a, int d, const MmaPlan& p) {
   if (p.s != C::S || mma_ks(d) != KS || mma_nt(d) != NT ||
       p.grid.y > static_cast<unsigned>(kMmaMaxGridY))
     return cudaErrorInvalidValue;
+  // An ungrouped launch is one group of all B over all of grid.y.
+  const int group = a.group > 0 ? a.group : a.b;
+  const int gblocks = a.group > 0 ? p.gblocks : static_cast<int>(p.grid.y);
   cudaError_t err = allow_smem(kernel, p.smem);
   if (err == cudaSuccess)
     kernel<<<p.grid, dim3(32, kMmaStrips), p.smem, a.stream>>>(
-        a.g, a.dv, a.a, a.aod, a.blam, a.rw, a.b, a.n_out, a.n_c, d);
+        a.g, a.dv, a.a, a.aod, a.blam, a.rw, a.b, a.n_out, a.n_c, d, group,
+        gblocks);
   // A refused launch leaves its error as the thread's last error too: read
   // it here, so that the next launch starts clean.
   const cudaError_t last = cudaGetLastError();
@@ -682,9 +704,9 @@ R with_mma_shape(int d, int e, R bad, F f) {
 template <typename T>
 cudaError_t dispatch_mma(int d, int e, const RwArgs<T>& p, int sms) {
   static_assert(std::is_same_v<T, double>, "the tensor-core body is f64");
-  if (p.b <= 0 || p.n_out <= 0 || p.n_c < 0 || sms <= 0)
+  if (p.b <= 0 || p.n_out <= 0 || p.n_c < 0 || sms <= 0 || p.group < 0)
     return cudaErrorInvalidValue;
-  const MmaPlan plan = mma_plan(p.b, p.n_out, e, d);
+  const MmaPlan plan = mma_plan(p.b, p.n_out, e, d, p.group);
   return with_mma_shape(d, e, cudaErrorInvalidValue,
                         [&](auto ee, auto kk, auto nn) {
                           return launch_mma_planned<decltype(ee)::value,
@@ -703,7 +725,7 @@ cudaError_t dispatch_routed(int d, int e, const RwArgs<T>& p, int sms,
   if (body < -1 || body > 1) return cudaErrorInvalidValue;
   if (body == -1)
     body = (p.b > 0 && p.n_out > 0 && sms > 0)
-               ? tied_route(p.b, p.n_out, p.n_c, d, e, sms)
+               ? tied_route(p.b, p.n_out, p.n_c, d, e, sms, p.group)
                : 0;
   if (body == 1) return dispatch_mma(d, e, p, sms);
   return dispatch<T>(d, e, p, sms, max_split);
@@ -750,17 +772,18 @@ long long mma_blocks_per_sm(int d, int e, int s) {
     return mma_scenarios(e, mma_nt(d));                                       \
   }                                                                           \
   extern "C" int gpmpc_rw_tied_mma_plan_f64(int b, int n_out, int d, int e,   \
-                                            long long* out) {                 \
+                                            int group, long long* out) {      \
     if (d < 1 || d > 8 || e < 1 || e > 8) return -1;                          \
-    const MmaPlan p = mma_plan(b, n_out, e, d);                               \
-    const long long v[4] = {p.s, p.grid.x, p.grid.y,                          \
-                            static_cast<long long>(p.smem)};                  \
-    for (int q = 0; q < 4; ++q) out[q] = v[q];                                \
+    const MmaPlan p = mma_plan(b, n_out, e, d, group);                        \
+    const long long v[5] = {p.s, p.grid.x, p.grid.y,                          \
+                            static_cast<long long>(p.smem), p.gblocks};       \
+    for (int q = 0; q < 5; ++q) out[q] = v[q];                                \
     return 0;                                                                 \
   }                                                                           \
   extern "C" long long gpmpc_rw_tied_route_f64(int b, int n_out, int n_c,     \
-                                               int d, int e, int sms) {       \
-    return tied_route(b, n_out, n_c, d, e, sms);                              \
+                                               int d, int e, int sms,         \
+                                               int group) {                   \
+    return tied_route(b, n_out, n_c, d, e, sms, group);                       \
   }                                                                           \
   extern "C" long long gpmpc_rw_tied_mma_blocks_per_sm_f64(int d, int e,      \
                                                            int s) {           \

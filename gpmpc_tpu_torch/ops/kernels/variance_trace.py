@@ -84,6 +84,11 @@ LAUNCHES_BLOCK = 0
 LAUNCHES_SYM = 0
 _COUNTERS = ('LAUNCHES', 'LAUNCHES_F64', 'LAUNCHES_UNTIED', 'LAUNCHES_BLOCK',
              'LAUNCHES_SYM')
+# Of K1's launches, those of its grouped form (one blam a group of
+# scenarios). The grouped form is K1's own kernel, so a graph's nodes count
+# its launches in LAUNCHES and LAUNCHES_F64; this count is a tally of the
+# wrapper's calls (utils/replay_counts.register), which a replay repeats.
+LAUNCHES_GROUPED = 0
 
 
 _TIED_FN = re.compile(r'rw_tied_kernel(?:I([fd])|<(float|double),)')
@@ -102,9 +107,10 @@ def graph_counters(name: str) -> tuple:
     LAUNCHES_F64 for T = double and for its tensor-core body
     (rw_tied_mma_kernel); K2, the same template with Untied = true (its
     first bool argument), LAUNCHES_UNTIED; K4's pair kernel LAUNCHES_SYM;
-    any other kernel (). K3 launches K1's kernel, so a graph holding it
-    counts it as K1, against what its wrapper counts: the check of
-    utils/replay_counts.Replays then raises."""
+    any other kernel (). K1's grouped form is K1's kernel and counts as K1.
+    K3 launches K1's kernel, so a graph holding it counts it as K1, against
+    what its wrapper counts: the check of utils/replay_counts.Replays then
+    raises."""
     if 'rw_tied_mma_kernel' in name:
         return ('LAUNCHES', 'LAUNCHES_F64')
     m = _TIED_FN.search(name)
@@ -125,6 +131,8 @@ def graph_counters(name: str) -> tuple:
 replay_counts.register_kernels(
     lambda: {name: globals()[name] for name in _COUNTERS}, _add_launches,
     graph_counters)
+replay_counts.register(lambda: {'LAUNCHES_GROUPED': LAUNCHES_GROUPED},
+                       _add_launches)
 
 MAX_D = 8
 MAX_E = 8
@@ -161,6 +169,7 @@ class RwPlan(NamedTuple):
     cluster: tuple      # the thread-block cluster: (split, 1, 1)
     chunk: int          # contraction rows a rank takes (n_c at split 1)
     sub: int            # contraction rows a slice takes from each tile
+    gblocks: int        # blocks of grid.y a group of scenarios takes
 
 
 def _itemsize(dtype) -> int:
@@ -193,17 +202,28 @@ def _rw_smem(d, e, dtype, s, untied=False) -> int:
     return _itemsize(dtype) * max(stage, red)
 
 
+def _groups(b, group, s) -> tuple:
+    """(blocks of grid.y, blocks a group): B scenarios in groups of `group`
+    (None: one group of all B), each group's in ceil(group / S) blocks of S,
+    so that no block spans two groups."""
+    group = group or b
+    gblocks = -(-group // s) if group else 0
+    return (-(-b // group) * gblocks if group else 0), gblocks
+
+
 def _plan(b, n_out, n_c, d, e, outs, dtype, sms, untied,
-          max_split=MAX_SPLIT) -> RwPlan:
+          max_split=MAX_SPLIT, group=None) -> RwPlan:
     """`plan_of` of csrc/rw_tied_body.cuh, for e outputs a block and `outs`
-    on the grid: S = S_max where B >= S_max, else 1; where the (row tiles x
-    scenario groups x outs) blocks fill at most 1 / SPLIT_FILL of the `sms`
-    SMs, the contraction split over up to max_split ranks of at least
-    SPLIT_ROWS rows, each rank's rows a multiple of SLICES, staged in tiles
-    of SLICES * sub rows."""
+    on the grid, the B scenarios in groups of `group` (K1's grouped form;
+    None: one group): S = S_max where a group holds at least S_max, else 1;
+    where the (row tiles x scenario blocks x outs) blocks fill at most
+    1 / SPLIT_FILL of the `sms` SMs, the contraction split over up to
+    max_split ranks of at least SPLIT_ROWS rows, each rank's rows a multiple
+    of SLICES, staged in tiles of SLICES * sub rows."""
     s_max = rw_scenarios(d, e, dtype)
-    s = s_max if b >= s_max else 1
-    tiles, groups = -(-n_out // ROWS), -(-b // s)
+    s = s_max if (group or b) >= s_max else 1
+    tiles = -(-n_out // ROWS)
+    groups, gblocks = _groups(b, group, s)
     blocks = tiles * groups * outs
     split = 1
     if 0 < blocks and blocks * SPLIT_FILL <= sms:
@@ -216,7 +236,7 @@ def _plan(b, n_out, n_c, d, e, outs, dtype, sms, untied,
     grid = (tiles * split, groups) + ((outs,) if untied else ())
     return RwPlan(ROWS, SLICES, s, ROWS * SLICES, SLICES * sub,
                   _rw_smem(d, e, dtype, s, untied), grid, split, (split, 1, 1),
-                  chunk, sub)
+                  chunk, sub, gblocks)
 
 
 def _check_dims(d, e, dtype):
@@ -236,15 +256,18 @@ def _check_grid(plan: RwPlan, b) -> RwPlan:
     return plan
 
 
-def rw_tied_plan(b, n_out, n_c, d, e, dtype, sms=H100_SMS) -> RwPlan:
+def rw_tied_plan(b, n_out, n_c, d, e, dtype, sms=H100_SMS,
+                 group=None) -> RwPlan:
     """The launch of K1's body for K1 and K3: B scenarios, n_out output rows
-    and n_c contraction rows on a card of `sms` SMs. Every (scenario, row)
-    falls in exactly one block's (S scenarios) x (rows rows) for each of
-    `split` ranks, and every contraction row in exactly one rank's chunk,
-    the ragged edges masked. Raises on what the kernel cannot take, never
-    adjusts."""
+    and n_c contraction rows on a card of `sms` SMs; with `group`, K1's
+    grouped form (scenarios b of one group, b // group, share that group's
+    blam). Every (scenario, row) falls in exactly one block's (S scenarios
+    of one group) x (rows rows) for each of `split` ranks, and every
+    contraction row in exactly one rank's chunk, the ragged edges masked.
+    Raises on what the kernel cannot take, never adjusts."""
     _check_dims(d, e, dtype)
-    return _check_grid(_plan(b, n_out, n_c, d, e, 1, dtype, sms, False), b)
+    return _check_grid(_plan(b, n_out, n_c, d, e, 1, dtype, sms, False,
+                             group=group), b)
 
 
 def rw_untied_plan(b, n, d, e, dtype, sms=H100_SMS) -> RwPlan:
@@ -265,10 +288,12 @@ MMA_THREADS = 32 * MMA_STRIPS
 class MmaPlan(NamedTuple):
     scenarios: int      # S: scenarios a block, sharing each blam load
     grid: tuple         # (ceil(n_out / MMA_ROWS), ceil(B / S)), blocks of
-                        # MMA_THREADS threads
+                        # MMA_THREADS threads; grouped, ceil(B / group)
+                        # groups of gblocks blocks on y
     smem_bytes: int     # dynamic shared memory of a block
     ks: int             # k steps of the exponent: d padded to 4 or 8
     nt: int             # n tiles of the contraction: 1 + d padded to 8, 16
+    gblocks: int        # blocks of grid.y a group of scenarios takes
 
 
 def _mma_ks(d: int) -> int:
@@ -292,17 +317,20 @@ def _mma_smem(s, d) -> int:
                                     + 8 * _mma_nt(d) + 2)
 
 
-def rw_tied_mma_plan(b, n_out, d, e) -> MmaPlan:
+def rw_tied_mma_plan(b, n_out, d, e, group=None) -> MmaPlan:
     """The launch of the f64 tensor-core body (csrc/rw_tied_f64_body.cuh,
     `mma_plan`) for B scenarios and n_out output rows (any n_c: each warp
-    walks the whole contraction in chunks of MMA_CHUNK rows, steps of 8):
-    S = S_max where B >= S_max, else 1. Every (scenario, row) falls in one
-    block's S x MMA_ROWS. Raises on what the kernel cannot take."""
+    walks the whole contraction in chunks of MMA_CHUNK rows, steps of 8), in
+    groups of `group` scenarios (the grouped form; None: one group): S =
+    S_max where a group holds at least S_max, else 1. Every (scenario, row)
+    falls in one block's S (of one group) x MMA_ROWS. Raises on what the
+    kernel cannot take."""
     _check_dims(d, e, torch.float64)
     s_max = rw_tied_mma_scenarios(d, e)
-    s = s_max if b >= s_max else 1
-    plan = MmaPlan(s, (-(-n_out // MMA_ROWS), -(-b // s)), _mma_smem(s, d),
-                   _mma_ks(d), _mma_nt(d))
+    s = s_max if (group or b) >= s_max else 1
+    groups, gblocks = _groups(b, group, s)
+    plan = MmaPlan(s, (-(-n_out // MMA_ROWS), groups), _mma_smem(s, d),
+                   _mma_ks(d), _mma_nt(d), gblocks)
     if plan.smem_bytes > MAX_SMEM or plan.grid[1] > _MAX_GRID_Y:
         raise ValueError(f'rw kernel (f64 tensor cores): B={b} at '
                          f'{plan.scenarios} scenarios a block needs grid.y '
@@ -312,16 +340,18 @@ def rw_tied_mma_plan(b, n_out, d, e) -> MmaPlan:
     return plan
 
 
-def rw_tied_body(b, n_out, n_c, d, e, dtype, sms=H100_SMS) -> str:
-    """The body a tied launch (K1, K3) runs (`tied_route` of
-    csrc/rw_tied_f64_body.cuh): 'mma', the f64 tensor-core body, where the
-    operands are f64 and its grid at S_max scenarios a block holds at least
-    one block for every SM; else 'scalar', the body of csrc/rw_tied_body.cuh
-    at `rw_tied_plan` (the f32 instances, and f64 at the smaller grids,
-    where the card measured it the faster)."""
+def rw_tied_body(b, n_out, n_c, d, e, dtype, sms=H100_SMS,
+                 group=None) -> str:
+    """The body a tied launch (K1, K3, K1 grouped in groups of `group`)
+    runs (`tied_route` of csrc/rw_tied_f64_body.cuh): 'mma', the f64
+    tensor-core body, where the operands are f64 and its grid at S_max
+    scenarios a block holds at least one block for every SM; else
+    'scalar', the body of csrc/rw_tied_body.cuh at `rw_tied_plan` (the f32
+    instances, and f64 at the smaller grids, where the card measured it the
+    faster)."""
     s_max = rw_tied_mma_scenarios(d, e)
-    if dtype == torch.float64 and -(-n_out // MMA_ROWS) * -(-b // s_max) \
-            >= sms:
+    if dtype == torch.float64 and -(-n_out // MMA_ROWS) * _groups(
+            b, group, s_max)[0] >= sms:
         return 'mma'
     return 'scalar'
 
@@ -333,6 +363,9 @@ _PLAN_CHECK_B = (1, 2, 3, 5, 7, 64, 256, 257)
 _PLAN_CHECK_N = (1, 17, 100, 128, 130, 256, 512, 1024)
 _PLAN_CHECK_DE = ((1, 1), (2, 1), (3, 2), (4, 2), (5, 4), (8, 8))
 _PLAN_CHECK_SMS = (H100_SMS, 16)
+# K1's grouped form: groups of one scenario, of fewer than S_max, of the
+# multistart recipe's five (four starts and the warm one) and of more.
+_PLAN_CHECK_GROUP = (1, 2, 5, 9)
 
 
 def _check_plan(lib, prefix, want):
@@ -350,29 +383,31 @@ def _check_plan(lib, prefix, want):
 
 def _plan_values(plan: RwPlan) -> list:
     """A plan as `gpmpc_rw_tied_plan_*` writes it: S, split, chunk, sub,
-    grid x, y, z and the shared bytes."""
+    grid x, y, z, the shared bytes and the blocks a group."""
     grid = tuple(plan.grid) + (1,) * (3 - len(plan.grid))
     return [plan.scenarios, plan.split, plan.chunk, plan.sub, *grid,
-            plan.smem_bytes]
+            plan.smem_bytes, plan.gblocks]
 
 
 def _check_launch_plans(lib, sfx, dtype):
     """Raise unless the library's `plan_of` equals `_plan` at the
-    _PLAN_CHECK_* shapes, for K1 and K2."""
+    _PLAN_CHECK_* shapes, for K1 (one group, and grouped) and K2."""
     fn = getattr(lib, f'gpmpc_rw_tied_plan_{sfx}')
-    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_longlong * 8)()
+    out = (ctypes.c_longlong * 9)()
     for b in _PLAN_CHECK_B:
         for n in _PLAN_CHECK_N:
             for d, e in _PLAN_CHECK_DE:
                 for sms in _PLAN_CHECK_SMS:
-                    for untied in (False, True):
+                    for untied, group in ((False, 0), (True, 0), *(
+                            (False, k) for k in _PLAN_CHECK_GROUP)):
                         want = _plan_values(
                             _plan(b, n, n, d, 1, e, dtype, sms, True)
                             if untied else
-                            _plan(b, n, n, d, e, 1, dtype, sms, False))
-                        args = (b, n, n, d, e, int(untied), sms)
+                            _plan(b, n, n, d, e, 1, dtype, sms, False,
+                                  group=group or None))
+                        args = (b, n, n, d, e, int(untied), sms, group)
                         if fn(*args, out) != 0 or list(out) != want:
                             raise RuntimeError(
                                 f'gpmpc_rw_tied_plan_{sfx}{args} is '
@@ -382,34 +417,35 @@ def _check_launch_plans(lib, sfx, dtype):
 
 def _check_mma_plans(lib):
     """Raise unless the f64 library's tensor-core plan and route equal
-    `rw_tied_mma_plan` and `rw_tied_body` at the _PLAN_CHECK_* shapes (and,
-    at N = 512 and 1,024, at every (d, E))."""
+    `rw_tied_mma_plan` and `rw_tied_body` at the _PLAN_CHECK_* shapes, one
+    group and grouped (and, at N = 512 and 1,024, at every (d, E))."""
     fn = lib.gpmpc_rw_tied_mma_plan_f64
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
     fn.restype = ctypes.c_int
     route = lib.gpmpc_rw_tied_route_f64
     route.restype = ctypes.c_longlong
-    out = (ctypes.c_longlong * 4)()
+    out = (ctypes.c_longlong * 5)()
     des = [(d, e) for d in range(1, MAX_D + 1) for e in range(1, MAX_E + 1)]
     for b in _PLAN_CHECK_B:
         for n in _PLAN_CHECK_N:
             for d, e in (des if n >= 512 else _PLAN_CHECK_DE):
-                p = rw_tied_mma_plan(b, n, d, e)
-                want = [p.scenarios, *p.grid, p.smem_bytes]
-                if fn(b, n, d, e, out) != 0 or list(out) != want:
-                    raise RuntimeError(
-                        f'gpmpc_rw_tied_mma_plan_f64{(b, n, d, e)} is '
-                        f'{list(out)} in the compiled kernel, {want} in the '
-                        'wrapper')
-                for sms in _PLAN_CHECK_SMS:
-                    got = route(b, n, n, d, e, sms)
-                    if got != int(rw_tied_body(b, n, n, d, e, torch.float64,
-                                               sms) == 'mma'):
+                for group in (0, *_PLAN_CHECK_GROUP):
+                    p = rw_tied_mma_plan(b, n, d, e, group=group or None)
+                    want = [p.scenarios, *p.grid, p.smem_bytes, p.gblocks]
+                    if fn(b, n, d, e, group, out) != 0 or list(out) != want:
                         raise RuntimeError(
-                            f'gpmpc_rw_tied_route_f64{(b, n, n, d, e, sms)} '
-                            f'is {got} in the compiled kernel, '
-                            f'{rw_tied_body(b, n, n, d, e, torch.float64, sms)}'
-                            ' in the wrapper')
+                            f'gpmpc_rw_tied_mma_plan_f64{(b, n, d, e, group)}'
+                            f' is {list(out)} in the compiled kernel, {want} '
+                            'in the wrapper')
+                    for sms in _PLAN_CHECK_SMS:
+                        got = route(b, n, n, d, e, sms, group)
+                        body = rw_tied_body(b, n, n, d, e, torch.float64, sms,
+                                            group=group or None)
+                        if got != int(body == 'mma'):
+                            raise RuntimeError(
+                                'gpmpc_rw_tied_route_f64'
+                                f'{(b, n, n, d, e, sms, group)} is {got} in '
+                                f'the compiled kernel, {body} in the wrapper')
 
 
 def _kernel_fn(dtype, untied=False):
@@ -449,7 +485,7 @@ def _kernel_fn(dtype, untied=False):
         fn_u.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                          + [ctypes.c_void_p])
         fn_u.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return (fn_u if untied else fn,
@@ -469,13 +505,34 @@ def device_sms(device) -> int:
     return _sms[idx]
 
 
+def _contract(blam, w, aod):
+    """sum_j blam[e, j, i] w[b, j, i] aod[b, j, c] -> (B, E, Nout, 1+d);
+    blam (G, E, Nc, Nout) grouped: scenario b reads blam[b // (B / G)]."""
+    if blam.ndim == 3:
+        return torch.einsum('eji,bji,bjc->beic', blam, w, aod)
+    g = blam.shape[0]
+    rw = torch.einsum('geji,gkji,gkjc->gkeic', blam,
+                      w.reshape(g, -1, *w.shape[1:]),
+                      aod.reshape(g, -1, *aod.shape[1:]))
+    return rw.reshape(-1, *rw.shape[2:])
+
+
 def rw_tied_reference(g_out, dv_out, a, aod, blam):
     """Plain PyTorch version of the kernel: materialises the (B, Nc, Nout)
     exp chain. g_out (B, Nout, d); dv_out (B, Nout); a (B, Nc, d);
     aod (B, Nc, 1+d); blam (E, Nc, Nout) -> rw (B, E, Nout, 1+d)."""
     w = torch.exp(-0.25 * torch.einsum('bjk,bik->bji', a, g_out))
-    rw = torch.einsum('eji,bji,bjc->beic', blam, w, aod)
-    return dv_out[:, None, :, None] * rw
+    return dv_out[:, None, :, None] * _contract(blam, w, aod)
+
+
+def rw_tied_grouped_reference(g_out, dv_out, a, aod, blam):
+    """Plain version of K1's grouped form: `rw_tied_reference` with one
+    blam a group of scenarios, scenario b reading blam[b // (B / G)].
+    Shapes as rw_tied_reference but blam (G, E, Nc, Nout), G dividing B."""
+    if blam.ndim != 4:
+        raise ValueError(f'grouped blam is (G, E, Nc, Nout), got '
+                         f'{tuple(blam.shape)}')
+    return rw_tied_reference(g_out, dv_out, a, aod, blam)
 
 
 def _split_parts(plan: RwPlan, n_c: int) -> list:
@@ -490,7 +547,7 @@ def rw_split_reference(g_out, dv_out, a, aod, blam, plan: RwPlan):
     order 0 .. split-1 as the kernel adds them, then scaled by dv. Shapes
     as `rw_tied_reference`, whose function it computes."""
     parts = [rw_tied_reference(g_out, torch.ones_like(dv_out), a[:, sl],
-                               aod[:, sl], blam[:, sl])
+                               aod[:, sl], blam[..., sl, :])
              for sl in _split_parts(plan, a.shape[1])]
     total = parts[0]
     for p in parts[1:]:
@@ -507,7 +564,7 @@ def rw_tied_mma_reference(g_out, dv_out, a, aod, blam):
     `rw_tied_reference`, whose function it computes; the MMA's own order
     within a step is the hardware's."""
     b, n_out, d = g_out.shape
-    e, n_c, _ = blam.shape
+    e, n_c, _ = blam.shape[-3:]
     gq = -0.25 * g_out
     p = 0
     for k0 in range(0, d, 4):
@@ -519,8 +576,7 @@ def rw_tied_mma_reference(g_out, dv_out, a, aod, blam):
     for j0 in range(0, n_c, 8):
         for par in (0, 1):
             js = slice(j0 + par, min(j0 + 8, n_c), 2)
-            acc = acc + torch.einsum('eji,bji,bjc->beic', blam[:, js],
-                                     w[:, js], aod[:, js])
+            acc = acc + _contract(blam[..., js, :], w[:, js], aod[:, js])
     return dv_out[:, None, :, None] * acc
 
 
@@ -560,10 +616,16 @@ def rw_tied_blocks_per_sm(d, e, dtype, untied=False, s=None, split=1) -> int:
 
 
 def _check(g_out, dv_out, a, aod, blam):
+    """K1's shapes: blam (E, Nc, Nout), or (G, E, Nc, Nout) grouped, G a
+    divisor of B."""
     b, n_out, d = g_out.shape
-    e, n_c = blam.shape[:2]
+    e, n_c = blam.shape[-3:-1]
+    lead = blam.shape[:-3]
+    if lead and (blam.ndim != 4 or lead[0] < 1 or b % lead[0]):
+        raise ValueError(f'rw kernel: grouped blam {tuple(blam.shape)} '
+                         f'needs (G, E, Nc, Nout) with G dividing B = {b}')
     _check_tensors({'dv_out': (b, n_out), 'a': (b, n_c, d),
-                    'aod': (b, n_c, d + 1), 'blam': (e, n_c, n_out)},
+                    'aod': (b, n_c, d + 1), 'blam': (*lead, e, n_c, n_out)},
                    {'dv_out': dv_out, 'a': a, 'aod': aod, 'blam': blam},
                    d, e, g_out)
 
@@ -614,19 +676,22 @@ def _launch(g_out, dv_out, a, aod, blam, max_split=MAX_SPLIT, body=None):
     ('scalar', 'mma': chip_smoke.py times the two side by side): the
     tensor-core body at `rw_tied_mma_plan`, or the scalar body at
     `rw_tied_plan`, its split capped at max_split (MAX_SPLIT on every path).
-    Returns (rw, launched)."""
+    A blam of rank 4 (G, E, Nc, Nout) launches the grouped form, groups of
+    B / G scenarios. Returns (rw, launched)."""
     _check(g_out, dv_out, a, aod, blam)
     b, n_out, d = g_out.shape
-    e, n_c, _ = blam.shape
+    e, n_c, _ = blam.shape[-3:]
+    group = b // blam.shape[0] if blam.ndim == 4 else None
     if body not in _BODY or (body == 'mma' and g_out.dtype != torch.float64):
         raise ValueError(f'rw kernel: no body {body!r} for {g_out.dtype}')
     if g_out.device.type != 'cuda':
         raise ValueError(f'rw kernel runs on CUDA tensors, got {g_out.device}')
     sms = device_sms(g_out.device)
-    if (body or rw_tied_body(b, n_out, n_c, d, e, g_out.dtype, sms)) == 'mma':
-        rw_tied_mma_plan(b, n_out, d, e)              # raises past the grid
+    if (body or rw_tied_body(b, n_out, n_c, d, e, g_out.dtype, sms,
+                             group=group)) == 'mma':
+        rw_tied_mma_plan(b, n_out, d, e, group=group)     # raises past the grid
     else:
-        rw_tied_plan(b, n_out, n_c, d, e, g_out.dtype)    # the same
+        rw_tied_plan(b, n_out, n_c, d, e, g_out.dtype, group=group)
     rw = torch.empty((b, e, n_out, d + 1), dtype=g_out.dtype,
                      device=g_out.device)
     if rw.numel() == 0:
@@ -634,7 +699,7 @@ def _launch(g_out, dv_out, a, aod, blam, max_split=MAX_SPLIT, body=None):
     fn, err_str = _kernel_fn(g_out.dtype)
     _run(fn, err_str, g_out.device, g_out.data_ptr(), dv_out.data_ptr(),
          a.data_ptr(), aod.data_ptr(), blam.data_ptr(), rw.data_ptr(), b,
-         n_out, n_c, d, e, sms, max_split, _BODY[body])
+         n_out, n_c, d, e, sms, max_split, _BODY[body], group or 0)
     return rw, True
 
 
@@ -658,13 +723,20 @@ def _launch_untied(g, dv, a, ao, blam, max_split=MAX_SPLIT):
 
 def rw_tied(g_out, dv_out, a, aod, blam):
     """K1: rw (B, E, Nout, 1+d) with one exp chain shared by all E outputs.
-    CUDA tensors launch the kernel; CPU tensors take `rw_tied_reference`."""
-    global LAUNCHES, LAUNCHES_F64
+    blam (E, Nc, Nout), or (G, E, Nc, Nout): K1's grouped form, one blam a
+    group of B / G consecutive scenarios (counted in LAUNCHES_GROUPED too).
+    CUDA tensors launch the kernel; CPU tensors take `rw_tied_reference`
+    (`rw_tied_grouped_reference`)."""
+    global LAUNCHES, LAUNCHES_F64, LAUNCHES_GROUPED
+    grouped = blam.ndim == 4
     if g_out.device.type == 'cpu':
-        return rw_tied_reference(g_out, dv_out, a, aod, blam)
+        _check(g_out, dv_out, a, aod, blam)
+        return (rw_tied_grouped_reference if grouped else rw_tied_reference)(
+            g_out, dv_out, a, aod, blam)
     rw, launched = _launch(g_out, dv_out, a, aod, blam)
     LAUNCHES += launched
     LAUNCHES_F64 += int(launched and g_out.dtype == torch.float64)
+    LAUNCHES_GROUPED += int(launched and grouped)
     return rw
 
 
@@ -946,7 +1018,7 @@ def _aug(a):
 
 
 def _prep_tied(u, m2, x):
-    a = u[:, None, :] - x[None]                        # (B, N, d)
+    a = _diff(u, x)                                    # (B, N, d)
     g = torch.einsum('bnd,bdk->bnk', a, m2)            # (B, N, d)
     q = torch.sum(g * a, dim=-1)                       # (B, N)
     return a, g, torch.exp(-0.125 * q)
@@ -959,9 +1031,23 @@ def _prep_batched(u, m2, x):
     return a, g, torch.exp(-0.125 * q)
 
 
+def _diff(u, x):
+    """a = u_b - x (B, N, d): x (N, d) shared by the scenarios, or (G, N, d)
+    one set a group of B / G consecutive scenarios (K1's grouped form)."""
+    if x.ndim == 2:
+        return u[:, None, :] - x[None]
+    g, n, d = x.shape
+    return (u.reshape(g, -1, 1, d) - x[:, None]).reshape(-1, n, d)
+
+
 def _rw_dispatch(u, m2, x, blam, tied: bool):
     """Prep and kernel, shared by the tied and untied forwards: K4 when the
-    opt-in is on, else the column sweep (K1 tied, K2 untied)."""
+    opt-in is on, else the column sweep (K1 tied, K2 untied); grouped x and
+    blam (one a group of scenarios) K1's grouped form."""
+    if blam.ndim == 4 and (_use_sym() or not tied):
+        raise ValueError('the grouped trace (one blam a group of scenarios) '
+                         'runs K1 only: tied lengthscales, GPMPC_SYM_KERNEL '
+                         'off')
     if _use_sym():
         a, z, dv = _prep_sym(u, m2, x, 1 if tied else 2)
         return rw_sym(z.contiguous(), a, dv.contiguous(), _aug(a),
@@ -978,9 +1064,10 @@ def _rw_dispatch(u, m2, x, blam, tied: bool):
 
 def _tied_backward(u, m2, x_rows, rw, ct):
     """(du, dm2) of the tied trace from rw on the rows x_rows: all rows for
-    the full trace, the shard's rows for the row block (whose value is exact
-    only after the sum over the model ranks)."""
-    a = u[:, None, :] - x_rows[None]                   # (B, Nr, d)
+    the full trace (one set a group of scenarios where grouped), the
+    shard's rows for the row block (whose value is exact only after the sum
+    over the model ranks)."""
+    a = _diff(u, x_rows)                               # (B, Nr, d)
     r = rw[..., 0]                                     # (B, E, Nr)
     wa = rw[..., 1:]                                   # (B, E, Nr, d)
     # The untied cotangents summed over e, because m2 is shared.
@@ -1001,19 +1088,54 @@ def _upcast(native: bool, *ts):
 
 
 class _VarianceTraceTied(torch.autograd.Function):
+    """The tied trace and its analytic backward; rw, which the backward
+    reads, is a second output (not differentiable). Under torch.func.vmap
+    over groups of scenarios (dynamics.rollout_batched over one GP a lane)
+    its rule is K1's grouped form, as JAX's vmap of pallas_call batches
+    the kernel: the groups' scenarios flattened, x and blam one a group."""
+
     @staticmethod
-    def forward(ctx, u, m2, x, blam, native):
+    def forward(u, m2, x, blam, native):
         dtype = u.dtype
         u, m2, x, blam = _upcast(native, u, m2, x, blam)
         rw = _rw_dispatch(u, m2, x, blam, tied=True)
-        ctx.save_for_backward(u, m2, x, rw)
-        return rw[..., 0].sum(dim=-1).to(dtype)
+        return rw[..., 0].sum(dim=-1).to(dtype), rw
 
     @staticmethod
-    def backward(ctx, ct):
+    def setup_context(ctx, inputs, output):
+        u, m2, x, _, native = inputs
+        rw = output[1]
+        ctx.mark_non_differentiable(rw)
+        ctx.save_for_backward(*_upcast(native, u, m2, x), rw)
+
+    @staticmethod
+    def backward(ctx, ct, _):
         u, m2, x, rw = ctx.saved_tensors
         du, dm2 = _tied_backward(u, m2, x, rw, ct.to(rw.dtype))
         return du.to(ct.dtype), dm2.to(ct.dtype), None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, u, m2, x, blam, native):
+        n = info.batch_size
+
+        def lead(v, dim):
+            return v.movedim(dim, 0) if dim is not None else v.expand(
+                n, *v.shape)
+
+        u, m2 = lead(u, in_dims[0]), lead(m2, in_dims[1])
+        k = u.shape[1]
+        if in_dims[3] is None:          # one blam for all: one group
+            if in_dims[2] is not None:
+                raise ValueError('the trace under vmap takes x mapped only '
+                                 'with blam mapped')
+            x_g, blam_g = x, blam
+        else:
+            x_g, blam_g = lead(x, in_dims[2]), lead(blam, in_dims[3])
+        t, rw = _VarianceTraceTied.apply(
+            u.reshape(n * k, *u.shape[2:]), m2.reshape(n * k, *m2.shape[2:]),
+            x_g.contiguous(), blam_g.contiguous(), native)
+        return ((t.reshape(n, k, *t.shape[1:]),
+                 rw.reshape(n, k, *rw.shape[1:])), (0, 0))
 
 
 class _VarianceTraceTiedBlock(torch.autograd.Function):
@@ -1067,8 +1189,10 @@ def variance_trace_batched_tied(u, m2, x, blam, *, native: bool = False):
     outputs; x (N, d); blam (E, N, N) -> (B, E) in u's dtype, evaluated in
     f64 (the precision policy; native=True: in u's dtype). Analytic
     gradients in (u, m2); x and blam are constants (the rollout cache is
-    detached)."""
-    return _VarianceTraceTied.apply(u, m2, x, blam, native)
+    detached). x (G, N, d) and blam (G, E, N, N) give K1's grouped form:
+    scenario b reads group b // (B / G)'s; this is the rule of the trace
+    under torch.func.vmap over groups."""
+    return _VarianceTraceTied.apply(u, m2, x, blam, native)[0]
 
 
 def variance_trace_batched(u, m2, x, blam, *, native: bool = False):
@@ -1098,18 +1222,21 @@ def variance_trace_tied_block(u, m2, x, x_blk, blam_t_blk, *,
 
 def variance_trace_batched_reference(u, m2, x, blam):
     """Plain PyTorch twin of variance_trace_batched, differentiated by autograd
-    (the test oracle)."""
-    a = u[:, None, :] - x[None]                        # (B, N, d)
+    (the test oracle); x (G, N, d) and blam (G, E, N, N) one a group of
+    B / G consecutive scenarios, as K1's grouped form."""
+    a = _diff(u, x)                                    # (B, N, d)
     g = torch.einsum('bnd,bedk->benk', a, m2)          # (B, E, N, d)
     p = torch.einsum('bend,bmd->benm', g, a)           # (B, E, N, N)
     q = torch.sum(g * a[:, None], dim=-1)              # (B, E, N)
     dvec = torch.exp(-0.125 * q)
-    w = blam[None] * torch.exp(-0.25 * p)
+    blam_b = (blam[None] if blam.ndim == 3 else
+              blam.repeat_interleave(u.shape[0] // blam.shape[0], dim=0))
+    w = blam_b * torch.exp(-0.25 * p)
     return torch.einsum('ben,benm,bem->be', dvec, w, dvec)
 
 
 def variance_trace_batched_tied_reference(u, m2, x, blam):
     """Plain PyTorch twin of variance_trace_batched_tied (the test oracle)."""
-    e = blam.shape[0]
+    e = blam.shape[-3]
     m2b = m2[:, None].expand(m2.shape[0], e, *m2.shape[1:])
     return variance_trace_batched_reference(u, m2b, x, blam)

@@ -34,7 +34,7 @@ their real lanes before the write. Work that needs no gradient runs under
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -49,6 +49,7 @@ from gpmpc_tpu_torch.mpc.cost import (CostParams, is_lane_leaf,
                                       risk_sensitive_cost)
 from gpmpc_tpu_torch.mpc.solver import (Objective, SolverConfig, SolveResult,
                                         solve_trajectory_batched)
+from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
 from gpmpc_tpu_torch.parallel.mesh import BATCH_AXIS, gather_lanes, lane_slice
 
 
@@ -102,9 +103,16 @@ def _check_device(gp: GPState, x0s: torch.Tensor) -> None:
 def _setup(gp: GPState, x0s: torch.Tensor, state_dim: int,
            action_dim: int) -> RolloutCache:
     """The checks every batch solve makes (_check_device) and the
-    rollout cache."""
+    rollout cache. A cache of one GP a lane (gp stacked) holds its b_lam
+    in the trace's dtype (variance_trace.TRACE_DTYPE): the precision
+    policy's upcast, made once a solve rather than on every grouped trace
+    of it (~1 GB at 256 lanes of capacity 512); the same bits."""
     _check_device(gp, x0s)
-    return build_rollout_cache(gp, state_dim, action_dim)
+    cache = build_rollout_cache(gp, state_dim, action_dim)
+    if cache.x.ndim == 3:
+        cache = dataclasses.replace(cache,
+                                    b_lam=cache.b_lam.to(vt.TRACE_DTYPE))
+    return cache
 
 
 def lanes_objective(cache: RolloutCache, x0s: torch.Tensor,
@@ -226,6 +234,38 @@ def _gather_params(params: CostParams, idx) -> CostParams:
     """The per-lane leaves gathered at lanes `idx`; shared leaves pass
     through."""
     return _map_lane_leaves(params, lambda _, v: v[idx])
+
+
+class _Fan(NamedTuple):
+    """How k candidates of each of b lanes lie in one batch of k b
+    scenarios: start-major (candidate c of lane l at c b + l; a shared
+    GP), or lane-major (at l k + c; one GP a lane, whose rollout maps the
+    lanes and whose K1 groups are a lane's candidates:
+    dynamics.rollout_batched)."""
+    b: int
+    lane_major: bool
+
+    def x0s(self, x0s, k):
+        return x0s.repeat_interleave(k, 0) if self.lane_major else x0s.repeat(
+            k, 1)
+
+    def params(self, params, k):
+        if self.lane_major:
+            return _map_lane_leaves(params,
+                                    lambda _, v: v.repeat_interleave(k, 0))
+        return _tile_params(params, k)
+
+    def split(self, v, k):
+        """v (k b, ...) as (k, b, ...)."""
+        if self.lane_major:
+            return v.reshape(self.b, k, *v.shape[1:]).transpose(0, 1)
+        return v.reshape(k, self.b, *v.shape[1:])
+
+    def join(self, v):
+        """v (k, b, ...) as (k b, ...)."""
+        if self.lane_major:
+            v = v.transpose(0, 1)
+        return v.reshape(-1, *v.shape[2:])
 
 
 def _finite(j: torch.Tensor) -> torch.Tensor:
@@ -361,21 +401,33 @@ def _multistart_phase0(cache: RolloutCache, x0s: torch.Tensor,
     b = x0s.shape[0]
     dev = x0s.device
     shape = (b, horizon, action_dim)
-    starts = _multistart_starts(x0s, horizon, action_dim, lb, ub, n_starts,
-                                n_zero_starts, zero_jitter, start_scale, seed,
-                                extra_starts)                 # (K, B, H, da)
-    k = starts.shape[0]
-    x0s_k = x0s.repeat(k, 1)
+    fan = _Fan(b, cache.x.ndim == 3)
+    if fan.lane_major:
+        # JAX's vmap of a one-lane call: every lane draws the starts of one
+        # lane, the same draws for all, then its own extra starts.
+        starts = _multistart_starts(x0s[:1], horizon, action_dim, lb, ub,
+                                    n_starts, n_zero_starts, zero_jitter,
+                                    start_scale, seed).expand(-1, b, -1, -1)
+        if extra_starts is not None:
+            starts = torch.cat([starts, torch.as_tensor(
+                extra_starts, dtype=x0s.dtype, device=dev).reshape(
+                    (-1,) + shape)])
+    else:
+        starts = _multistart_starts(x0s, horizon, action_dim, lb, ub,
+                                    n_starts, n_zero_starts, zero_jitter,
+                                    start_scale, seed, extra_starts)
+    k = starts.shape[0]                                       # (K, B, H, da)
     lanes = torch.arange(b, device=dev)
 
-    u_cand = starts.reshape((k * b,) + shape[1:])
+    u_cand = fan.join(starts)
     k_live = k
     if surrogate_mode == 'mean':
         u_cand = solve_trajectory_batched(
-            batch_objective(cache, x0s_k, _tile_params(params, k), delta,
-                            mean_only=True), u_cand, lb, ub, surrogate).u
+            batch_objective(cache, fan.x0s(x0s, k), fan.params(params, k),
+                            delta, mean_only=True), u_cand, lb, ub,
+            surrogate).u
     for rnd in range(frozen_rounds if surrogate_mode == 'frozen' else 0):
-        x0s_r, params_r = x0s_k[:k_live * b], _tile_params(params, k_live)
+        x0s_r, params_r = fan.x0s(x0s, k_live), fan.params(params, k_live)
         cov_d = _cov_diag(cache, x0s_r, u_cand, delta)
         res_f = solve_trajectory_batched(
             batch_objective(cache, x0s_r, params_r, delta,
@@ -384,15 +436,14 @@ def _multistart_phase0(cache: RolloutCache, x0s: torch.Tensor,
         # Pruning after the first round: the surrogate's own costs rank the
         # starts; only the top prune_to pay the later rounds and the score.
         if rnd == 0 and prune_to and prune_to < k_live and frozen_rounds > 1:
-            j_f = _finite(res_f.cost).reshape(k_live, b)
+            j_f = fan.split(_finite(res_f.cost), k_live)
             order = torch.argsort(j_f, dim=0, stable=True)[:prune_to]
-            u_cand = u_cand.reshape((k_live,) + shape)[order, lanes].reshape(
-                (prune_to * b,) + shape[1:])
+            u_cand = fan.join(fan.split(u_cand, k_live)[order, lanes])
             k_live = prune_to
-    j_full = batch_objective(cache, x0s_k[:k_live * b],
-                             _tile_params(params, k_live), delta)(u_cand)
-    best = torch.argmin(_finite(j_full).reshape(k_live, b), dim=0)
-    return u_cand.reshape((k_live,) + shape)[best, lanes]
+    j_full = batch_objective(cache, fan.x0s(x0s, k_live),
+                             fan.params(params, k_live), delta)(u_cand)
+    best = torch.argmin(fan.split(_finite(j_full), k_live), dim=0)
+    return fan.split(u_cand, k_live)[best, lanes]
 
 
 @torch.no_grad()
@@ -428,7 +479,14 @@ def solve_batch_multistart(gp: GPState, state_dim: int, action_dim: int,
     the best. shift_prune > 0 first scores the raw shifts (after
     `shift_prune_frozen_iters` frozen-covariance iterations, if > 0) by one
     full forward and refines only the top shift_prune of each lane. The
-    pre-shift incumbent joins the final choice and wins ties."""
+    pre-shift incumbent joins the final choice and wins ties.
+
+    gp may be stacked over the B lanes (stack_gps), one GP a lane, as JAX's
+    vmap of a one-lane call: every lane then starts from the starts one
+    lane draws (the same for all), followed by its own extra_starts, and
+    its candidates lie lane-major, so that the rollout's grouped K1 serves
+    each lane's candidates with its own b_lam (dynamics.rollout_batched).
+    Tied lengthscales and a diagonal covariance there."""
     cache = _setup(gp, x0s, state_dim, action_dim)
     b = x0s.shape[0]
     if surrogate is None:
@@ -446,30 +504,30 @@ def solve_batch_multistart(gp: GPState, state_dim: int, action_dim: int,
     if not shift_set:
         return res
 
-    shape = res.u.shape
     lanes = torch.arange(b, device=x0s.device)
+    fan = _Fan(b, cache.x.ndim == 3)
     ks = 1 + len(shift_set)
-    u_sh = torch.cat([res.u] + [_shift_u_batch(res.u, kk) for kk in shift_set])
+    u_sh = fan.join(torch.stack([res.u] + [_shift_u_batch(res.u, kk)
+                                           for kk in shift_set]))
     if shift_prune and shift_prune < ks:
-        x0s_s, params_s = x0s.repeat(ks, 1), _tile_params(params, ks)
+        x0s_s, params_s = fan.x0s(x0s, ks), fan.params(params, ks)
         if shift_prune_frozen_iters > 0:
             u_sh = _refine_frozen(
                 cache, x0s_s, params_s, u_sh, lb, ub,
                 solver.replace(max_iters=shift_prune_frozen_iters), 1, delta)
         j_pre = _finite(batch_objective(cache, x0s_s, params_s, delta)(u_sh))
-        order = torch.argsort(j_pre.reshape(ks, b), dim=0,
+        order = torch.argsort(fan.split(j_pre, ks), dim=0,
                               stable=True)[:shift_prune]
-        u_sh = u_sh.reshape((ks,) + shape)[order, lanes].reshape(
-            (shift_prune * b,) + shape[1:])
+        u_sh = fan.join(fan.split(u_sh, ks)[order, lanes])
         ks = shift_prune
     res_s = solve_trajectory_batched(
-        batch_objective(cache, x0s.repeat(ks, 1), _tile_params(params, ks),
+        batch_objective(cache, fan.x0s(x0s, ks), fan.params(params, ks),
                         delta),
         u_sh, lb, ub, solver.replace(max_iters=shift_iters))
-    best_s = torch.argmin(_finite(res_s.cost).reshape(ks, b), dim=0)
+    best_s = torch.argmin(fan.split(_finite(res_s.cost), ks), dim=0)
 
     def pick(v):
-        return v.reshape((ks, b) + v.shape[1:])[best_s, lanes]
+        return fan.split(v, ks)[best_s, lanes]
 
     j_shift = pick(res_s.cost)
     use_inc = _finite(res.cost) <= _finite(j_shift)

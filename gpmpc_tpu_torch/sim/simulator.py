@@ -9,16 +9,23 @@ actions, rewards, solve wall times, costs and solver iterations.
 device: the GP state, the state x, the previous action and the last
 trajectory; the plant is a torch function and the GP append happens there,
 with no numpy round trip. JAX's `lax.scan` is a Python loop here. Each
-step's solve runs the solver's kept program (mpc/solver.py), its loop on
-the device, with no host read inside the solve: the append changes the
-GP's values, not its shapes, so every step after the first replays the
-first step's program. Between solves the host still reads: the append's
-f64 fit searches its jitter on the host (gp/state.py), and the
-multistart recipe reads between its phases.
+step's solve runs the solver's kept programs (mpc/solver.py), their loops on
+the device: the append changes the GP's values, not its shapes, so every
+step after the first replays the first step's programs. The append's f64
+fit searches its jitter on the device too (gp/state.find_jitter), so no
+step after the first reads the host on CUDA (the fit's 'eigh' backend
+excepted: torch.linalg.eigh waits on the host).
+
+Given x0 of shape (B, ds), it runs B episodes, JAX's
+jit(vmap(run_episode_on_device)): one GP a lane, every step one batched
+solve of all lanes, and the step's own work captured once as CUDA graphs
+(`_StepProgram`) and replayed.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import time
 from typing import Callable, NamedTuple, Optional
 
@@ -30,6 +37,7 @@ from gpmpc_tpu_torch.gp import state as gp_state
 from gpmpc_tpu_torch.mpc.cost import CostParams
 from gpmpc_tpu_torch.mpc.solver import (SolverConfig, first_lane,
                                         solve_trajectory_batched)
+from gpmpc_tpu_torch.utils import replay_counts
 
 
 class EpisodeLog(NamedTuple):
@@ -102,7 +110,8 @@ def run_episode_on_device(gp: gp_state.GPState, plant_step: Callable,
                           solver: SolverConfig = SolverConfig(),
                           learn_online: bool = True, full_cov: bool = False,
                           delta_dynamics: bool = False,
-                          solver_recipe: str = 'single', n_starts: int = 4):
+                          solver_recipe: str = 'single', n_starts: int = 4,
+                          sync_guard: Optional[Callable] = None):
     """A whole receding-horizon episode on the GP's device.
 
     plant_step: (state (ds,), action (da,)) -> (next_state, reward), torch.
@@ -112,7 +121,21 @@ def run_episode_on_device(gp: gp_state.GPState, plant_step: Callable,
     `parallel.batch.lanes_objective`, through the kept program on CUDA,
     nominal models included), or with solver_recipe='multistart' (L-BFGS,
     diagonal covariance) by `solve_batch_multistart` with the shifted last
-    trajectory as an extra start."""
+    trajectory as an extra start.
+
+    x0 of shape (B, ds) runs B episodes at once, JAX's
+    jit(vmap(run_episode_on_device)) (`_run_batched`): the outputs are
+    (B, T, ...) and the GPState is stacked over the B lanes, each with its
+    own data from its first append on. sync_guard, if given, is a context
+    manager factory entered around every step after the first (e.g. one
+    that sets torch.cuda.set_sync_debug_mode('error')). `LAST_EPISODE`
+    holds the last call's seconds (wall, first step) and the host reads of
+    its steps after the first (utils/replay_counts.HOST_READS)."""
+    if x0.ndim == 2:
+        return _run_batched(gp, plant_step, x0, params, horizon, num_steps,
+                            lb, ub, solver, learn_online, full_cov,
+                            delta_dynamics, solver_recipe, n_starts,
+                            sync_guard)
     ds = params.Q.shape[0]
     da = params.R.shape[0]
     use_ms = (solver_recipe == 'multistart' and not full_cov
@@ -135,20 +158,250 @@ def run_episode_on_device(gp: gp_state.GPState, plant_step: Callable,
                             delta_dynamics, full_cov),
             x.new_zeros((1, horizon, da)), lb, ub, solver))
 
+    clock = _Clock(x0.device)
     gp_t, x = gp, x0
     u_prev = x0.new_zeros((da,))
     u_traj = x0.new_zeros((horizon, da))
     outs = {k: [] for k in ('state', 'action', 'reward', 'cost', 'iters')}
-    for _ in range(num_steps):
-        u_warm = torch.cat([u_traj[1:], u_traj[-1:]], dim=0)
-        result = mpc_solve(gp_t, x, u_prev, u_warm)
-        action = result.u[0].detach()
-        next_x, reward = plant_step(x, action)
+    for t in range(num_steps):
+        with clock.step(t, sync_guard):
+            u_warm = torch.cat([u_traj[1:], u_traj[-1:]], dim=0)
+            result = mpc_solve(gp_t, x, u_prev, u_warm)
+            action = result.u[0].detach()
+            next_x, reward = plant_step(x, action)
+            if learn_online:
+                target = next_x - x if delta_dynamics else next_x
+                gp_t = gp_state.append(gp_t, torch.cat([x, action]), target)
+            for k, v in (('state', next_x), ('action', action),
+                         ('reward', reward), ('cost', result.cost),
+                         ('iters', result.iters)):
+                outs[k].append(torch.as_tensor(v, device=x0.device))
+            x, u_prev, u_traj = next_x, action, result.u.detach()
+    clock.done()
+    return gp_t, {k: torch.stack(v) for k, v in outs.items()}
+
+
+# The last episode's seconds (wall, first step: the solve programs' and
+# the step's captures included) and the host reads of its steps after the
+# first (utils/replay_counts.HOST_READS).
+LAST_EPISODE: dict = {}
+# Set only inside `eager_steps()`.
+_eager_steps = False
+
+
+@contextlib.contextmanager
+def eager_steps():
+    """Batched episodes run in the block run every step's own work (plant,
+    append, fit, outputs) from Python, as step 1 does, instead of replaying
+    its capture: the reference the capture is held to."""
+    global _eager_steps
+    was, _eager_steps = _eager_steps, True
+    try:
+        yield
+    finally:
+        _eager_steps = was
+
+
+class _Clock:
+    """An episode's seconds and host reads, into LAST_EPISODE; steps after
+    the first run inside the caller's sync_guard."""
+
+    def __init__(self, device):
+        self.device = device
+        self.t0 = time.perf_counter()
+        LAST_EPISODE.clear()
+
+    def _sync(self):
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+
+    @contextlib.contextmanager
+    def step(self, t: int, sync_guard):
+        if t == 0 or sync_guard is None:
+            yield
+        else:
+            with sync_guard():
+                yield
+        if t == 0:
+            self._sync()
+            LAST_EPISODE['first_step_s'] = time.perf_counter() - self.t0
+            self.reads = replay_counts.HOST_READS
+
+    def done(self):
+        self._sync()
+        LAST_EPISODE['wall_s'] = time.perf_counter() - self.t0
+        LAST_EPISODE['host_reads_after_first'] = (
+            replay_counts.HOST_READS - getattr(self, 'reads',
+                                               replay_counts.HOST_READS))
+
+
+class _StepProgram:
+    """A batched episode's step work (plant, append, fit, the write of the
+    outputs and the carry), captured once per call after step 1 ran it
+    eagerly, and replayed for steps 2..T: the port's lax.scan body, beside
+    the solve's kept programs. The fit's jitter search runs its own kept
+    loop graph (gp/state.find_jitter), which a capture cannot launch: the
+    capture is split there (gp_state._LAUNCH_HOOK), so the step is CUDA
+    graphs with the search's loop launched between them, on one side
+    stream, and reads nothing on the host. Each graph's kernel launches
+    count once a replay (utils/replay_counts.Replays)."""
+
+    def __init__(self, record, device):
+        self.device = device
+        self.side = torch.cuda.Stream(device=device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.parts = []
+        self.side.wait_stream(torch.cuda.current_stream(device))
+        torch.cuda.empty_cache()
+        with torch.cuda.device(device), torch.cuda.stream(self.side):
+            self._begin()
+            gp_state._LAUNCH_HOOK = self._split
+            try:
+                record()
+            except BaseException:
+                with contextlib.suppress(RuntimeError):
+                    self.graph.capture_end()
+                raise
+            finally:
+                gp_state._LAUNCH_HOOK = None
+            self._end()
+
+    def _begin(self):
+        self.before = replay_counts.snapshot()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        self.graph.capture_begin(pool=self.pool)
+
+    def _end(self):
+        self.graph.capture_end()
+        counts = replay_counts.Replays(
+            self.before, replay_counts.snapshot(),
+            replay_counts.graph_kernel_names(self.graph.raw_cuda_graph()))
+        self.graph.instantiate()
+        self.parts.append((self.graph, counts))
+
+    def _split(self, search):
+        self._end()
+        self.parts.append((search, None))
+        self._begin()
+
+    def replay(self):
+        main = torch.cuda.current_stream(self.device)
+        self.side.wait_stream(main)
+        with torch.cuda.device(self.device), torch.cuda.stream(self.side):
+            for part, counts in self.parts:
+                if counts is None:
+                    part.launch()
+                else:
+                    part.replay()
+                    counts.replayed()
+        main.wait_stream(self.side)
+
+    def release(self):
+        self.side.synchronize()
+        for part, counts in self.parts:
+            if counts is not None:
+                part.reset()
+        self.parts = []
+
+
+_GP_UPDATED = ('x', 'y', 'mask', 'count', 'kinv', 'beta', 'logdet',
+               'jitter_used')
+
+
+def _run_batched(gp, plant_step, x0, params, horizon, num_steps, lb, ub,
+                 solver, learn_online, full_cov, delta_dynamics,
+                 solver_recipe, n_starts, sync_guard):
+    """B episodes from x0 (B, ds): JAX's vmap of the episode. Every lane
+    carries its own GP (gp stacked over the lanes, from one GP copied to
+    each lane), state, last action and trajectory. Each step solves all
+    lanes at once: the 'single' route by `lanes_objective` on the lanes'
+    caches (one lockstep solve, as solve_batch_gp), 'multistart' by
+    `solve_batch_multistart` over the stacked GP (each lane's starts
+    against its own GP, through K1's grouped form). The plant runs under
+    torch.func.vmap; the outputs are written into (B, T, ...) buffers on
+    the device. The carry lives in static tensors that each step updates in
+    place, so that on CUDA the step's own work is captured once after step
+    1 (`_StepProgram`) and replayed, the solve's programs kept as always: no
+    step after the first reads the host."""
+    from gpmpc_tpu_torch.parallel.batch import (lanes_objective,
+                                                solve_batch_multistart,
+                                                stack_gps)
+    b, ds = x0.shape
+    da = params.R.shape[0]
+    dev, dt = x0.device, x0.dtype
+    use_ms = (solver_recipe == 'multistart' and not full_cov
+              and solver.method == 'lbfgs')
+    clock = _Clock(dev)
+    lb_t, ub_t = (torch.as_tensor(v, dtype=dt, device=dev) for v in (lb, ub))
+    params = CostParams(*(None if v is None else torch.as_tensor(v, device=dev)
+                          for v in params))
+    gps = (stack_gps([gp] * b) if gp.x.ndim == 2 else dataclasses.replace(
+        gp, **{name: getattr(gp, name).clone() for name in _GP_UPDATED}))
+    vplant = torch.func.vmap(plant_step)
+    carry = dict(x=x0.clone(), u_prev=x0.new_zeros((b, da)),
+                 u_traj=x0.new_zeros((b, horizon, da)),
+                 k=torch.zeros((), dtype=torch.long, device=dev))
+    res = {}
+    outs = {}
+
+    def mpc_solve():
+        p = (params._replace(u_prev=carry['u_prev'])
+             if params.R_delta is not None else params)
+        u_traj = carry['u_traj']
+        if use_ms:
+            u_warm = torch.cat([u_traj[:, 1:], u_traj[:, -1:]], dim=1)
+            return solve_batch_multistart(
+                gps, ds, da, carry['x'], p, horizon, lb_t, ub_t, solver,
+                n_starts=n_starts, delta=delta_dynamics,
+                extra_starts=u_warm[None])
+        return solve_trajectory_batched(
+            lanes_objective(build_rollout_cache(gps, ds, da), carry['x'], p,
+                            delta_dynamics, full_cov),
+            x0.new_zeros((b, horizon, da)), lb_t, ub_t, solver)
+
+    def step_work():
+        x = carry['x']
+        action = res['u'][:, 0]
+        next_x, reward = vplant(x, action)
         if learn_online:
             target = next_x - x if delta_dynamics else next_x
-            gp_t = gp_state.append(gp_t, torch.cat([x, action]), target)
-        for k, v in (('state', next_x), ('action', action), ('reward', reward),
-                     ('cost', result.cost), ('iters', result.iters)):
-            outs[k].append(torch.as_tensor(v, device=x0.device))
-        x, u_prev, u_traj = next_x, action, result.u.detach()
-    return gp_t, {k: torch.stack(v) for k, v in outs.items()}
+            new = gp_state.append(gps, torch.cat([x, action], dim=-1), target)
+            for name in _GP_UPDATED:
+                getattr(gps, name).copy_(getattr(new, name))
+        at = carry['k'].reshape(1)
+        for name, v in (('state', next_x), ('action', action),
+                        ('reward', reward), ('cost', res['cost']),
+                        ('iters', res['iters'])):
+            outs[name].index_copy_(1, at, v[:, None].to(outs[name].dtype))
+        carry['x'].copy_(next_x)
+        carry['u_prev'].copy_(action)
+        carry['u_traj'].copy_(res['u'])
+        carry['k'].add_(1)
+
+    program = None
+    for t in range(num_steps):
+        with clock.step(t, sync_guard):
+            result = mpc_solve()
+            if t == 0:
+                res.update(u=result.u.clone(), cost=result.cost.clone(),
+                           iters=result.iters.clone())
+                outs.update(
+                    state=x0.new_empty((b, num_steps, ds)),
+                    action=x0.new_empty((b, num_steps, da)),
+                    reward=x0.new_empty((b, num_steps)),
+                    cost=result.cost.new_empty((b, num_steps)),
+                    iters=result.iters.new_empty((b, num_steps)))
+            else:
+                for name in ('u', 'cost', 'iters'):
+                    res[name].copy_(getattr(result, name))
+            if program is not None:
+                program.replay()
+            else:
+                step_work()
+                if (t == 0 and num_steps > 1 and dev.type == 'cuda'
+                        and not _eager_steps):
+                    program = _StepProgram(step_work, dev)
+    clock.done()
+    if program is not None:
+        program.release()
+    return gps, outs

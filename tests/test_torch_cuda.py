@@ -1737,3 +1737,96 @@ def test_cuda_device_loop_counts_stay_bounded():
     assert loop_cond.LAUNCHES_COND - cond0 == calls + passes
     assert replay_counts.replays_run()[prog.step_counts] - steps0 == passes
     solver.clear_programs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('body', ['scalar', 'mma'])
+@pytest.mark.parametrize('shape', [(10, 130, 3, 2, 5), (6, 64, 3, 2, 1),
+                                   (12, 200, 5, 4, 3)])
+def test_cuda_grouped_k1_matches_plain_version(shape, body):
+    """K1's grouped form (one blam a group of scenarios) in each body
+    against the plain version of that body's order, chip_smoke's bar
+    (1e-12 |rw| + 16 ulps of the terms' magnitude), on groups of five, one
+    and three; one counted launch a call."""
+    dev = _cuda()
+    b, n, d, e, k = shape
+    args, _ = chip_smoke.grouped_args(np.random.default_rng(3), b, n, d, e,
+                                      k, dev)
+    chip_smoke.check_grouped(f'grouped {shape}', args, body, dev)
+    before = tvt.LAUNCHES_GROUPED
+    tvt.rw_tied(*args)
+    torch.cuda.synchronize()
+    assert tvt.LAUNCHES_GROUPED == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_k1_is_k1_on_each_group():
+    """A grouped launch in the tensor-core body equals, to the bit, K1
+    launched on each group alone with that group's blam (the same S a
+    block: five scenarios a group, S = 4)."""
+    dev = _cuda()
+    b, n, d, e, k = 20, 128, 3, 2, 5
+    args, _ = chip_smoke.grouped_args(np.random.default_rng(4), b, n, d, e,
+                                      k, dev)
+    got, _ = tvt._launch(*args, body='mma')
+    for grp in range(b // k):
+        sl = slice(grp * k, (grp + 1) * k)
+        one, _ = tvt._launch(*(t[sl].contiguous() for t in args[:4]),
+                             args[4][grp].contiguous(), body='mma')
+        assert torch.equal(got[sl], one)
+
+
+@pytest.mark.cuda
+def test_cuda_jitter_search_equals_host_read_search():
+    """The fit's jitter search as a kept loop graph against its host-read
+    form: jitters and fits equal to the bit at 0, 1, 3, 5 escalations and
+    one that runs out (chip_smoke phase 9b)."""
+    dev = _cuda()
+    res = chip_smoke.check_jitter_search(dev)
+    assert res['escalations'] == [0, 1, 3, 5, 8] and res['device_reads'] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('recipe', ['multistart', 'single'])
+def test_cuda_batched_episode_capture_equals_eager(recipe):
+    """A small batched episode (six lanes, capacity 64): the step capture
+    against the eager step loop, equal to the bit over three steps; the
+    captured run's steps after the first under
+    set_sync_debug_mode('error') with no host read."""
+    from gpmpc_tpu_torch.envs import pendulum
+    from gpmpc_tpu_torch.gp import state as gp_state
+    from gpmpc_tpu_torch.mpc.cost import CostParams
+    from gpmpc_tpu_torch.mpc.solver import SolverConfig
+    from gpmpc_tpu_torch.sim import simulator
+    dev = _cuda()
+    p = pendulum.PendulumParams(max_torque=3.0)
+    rng = np.random.default_rng(2)
+    s = np.stack([rng.uniform(0, np.pi, 40), rng.uniform(-8, 8, 40)], 1)
+    a = rng.uniform(-3, 3, (40, 1))
+    ns = pendulum.step_batch(torch.tensor(s), torch.tensor(a), p)[0].numpy()
+    f32 = dict(dtype=torch.float32, device=dev)
+    gp = gp_state.make_gp(gp_state.GPConfig(capacity=64, x_dim=3, out_dim=2),
+                          np.concatenate([s, a], 1), ns - s,
+                          log_lambdas=np.log(np.full((2, 3), 3.0)),
+                          log_sigma_n=np.log(np.full(2, 0.05)), **f32)
+    cp = CostParams(Q=2 * torch.eye(2, **f32), R=0.1 * torch.eye(1, **f32),
+                    gamma=torch.tensor(0.0, **f32), x_ref=torch.zeros(2, **f32),
+                    u_ref=torch.zeros(1, **f32))
+    x0s = torch.tensor(rng.uniform(-0.5, 0.5, (6, 2)), **f32)
+
+    def run(guard):
+        return simulator.run_episode_on_device(
+            gp, lambda st, u: pendulum.step(st, u, p), x0s, cp, horizon=4,
+            num_steps=3, lb=-3.0, ub=3.0, solver=SolverConfig(max_iters=20),
+            delta_dynamics=True, solver_recipe=recipe,
+            sync_guard=chip_smoke.sync_error if guard else None)
+
+    ga, oa = run(True)
+    assert simulator.LAST_EPISODE['host_reads_after_first'] == 0
+    with simulator.eager_steps():
+        gb, ob = run(False)
+    for k in oa:
+        assert torch.equal(oa[k], ob[k]), k
+    for k in ('x', 'count', 'kinv', 'beta', 'jitter_used'):
+        assert torch.equal(getattr(ga, k), getattr(gb, k)), k
+    assert torch.equal(ga.count.cpu(), torch.full((6,), 43, dtype=torch.int32))

@@ -12,7 +12,7 @@ from gpmpc_tpu.gp import exact as jexact
 from gpmpc_tpu.gp import state as gs
 from gpmpc_tpu_torch.gp import exact as texact
 from gpmpc_tpu_torch.gp import state as ts
-from torch_port_common import np_, t64
+from torch_port_common import np_, spd, t64
 
 torch.set_num_threads(1)
 RTOL = 1e-8
@@ -183,3 +183,82 @@ def test_predict_with_nominal_model_matches_jax():
                                    atol=1e-12)
         np.testing.assert_allclose(np_(tc), np.asarray(jc), rtol=1e-7,
                                    atol=1e-10)
+
+
+def _jitter_matrices():
+    """Four masked Ky-like matrices (N = 6, the last row padded) whose
+    Cholesky needs 0, 1 and 3 jitter escalations and one that exhausts
+    them: a dense SPD block, then diagonal blocks with one pivot -delta,
+    delta below eps0 = 10 eps mean(diag) (~1.8e-15), between its 100x and
+    its 1,000x, and far past its 1e7 x (the last escalation)."""
+    rng = np.random.default_rng(7)
+    n = 6
+    mask = np.arange(n) < n - 1
+    mats = [np.eye(n)]
+    mats[0][:5, :5] = spd(rng, (), 5)
+    for delta in (1e-15, 1e-13, 1.0):
+        m = np.eye(n)
+        m[4, 4] = -delta
+        mats.append(m)
+    return np.stack(mats), mask, rng.normal(size=(4, n)) * mask
+
+
+def test_jitter_search_matches_jax_find_jitter():
+    """The port's search over all four matrices at once (each its own
+    escalation, the finished ones kept) against JAX's `_solve_chol` on each:
+    jitters equal, beta and kinv at rtol 1e-10, NaN where both run out."""
+    ky, mask, resid = _jitter_matrices()
+    kinv_t, beta_t, logdet_t, j_t = ts._solve_chol(
+        t64(ky), t64(mask.astype(np.float64)), t64(resid), 0.0, True)
+    escalations = []
+    for k in range(4):
+        kinv_j, beta_j, logdet_j, j_j = gs._solve_chol(
+            jnp.asarray(ky[k]), jnp.asarray(mask), jnp.asarray(resid[k]), 0.0)
+        assert float(j_t[k]) == float(j_j)
+        for got, want in ((kinv_t[k], kinv_j), (beta_t[k], beta_j),
+                          (logdet_t[k], logdet_j)):
+            np.testing.assert_allclose(np_(got), np.asarray(want),
+                                       rtol=1e-10, atol=1e-14)
+        eps0 = 10 * np.finfo(np.float64).eps * np.sum(
+            np.diagonal(ky[k]) * mask) / mask.sum()
+        escalations.append(0 if float(j_j) == 0.0
+                           else round(np.log10(float(j_j) / eps0)) + 1)
+    assert escalations == [0, 1, 3, 8]
+    assert np.all(np.isnan(np_(beta_t[3]))) and np.all(np.isnan(np_(kinv_t[3])))
+    assert np.all(np.isfinite(np_(beta_t[:3])))
+
+
+def test_host_read_search_stops_when_all_factorize():
+    """The CPU's form of the search reads all(done) on the host once an
+    escalation (utils/replay_counts.HOST_READS): four reads for matrices
+    that need at most three escalations, eight where one runs out."""
+    from gpmpc_tpu_torch.utils import replay_counts
+    ky, mask, _ = _jitter_matrices()
+    dmask = t64(np.broadcast_to(mask, (4, 6)).astype(np.float64))
+    eps0 = 10 * np.finfo(np.float64).eps * (
+        np.sum(np.diagonal(ky, axis1=1, axis2=2) * mask, axis=1) / mask.sum())
+    for n, reads in ((3, 4), (4, 8)):
+        before = replay_counts.HOST_READS
+        ts.find_jitter(t64(ky[:n]), dmask[:n], t64(eps0[:n]), 0.0)
+        assert replay_counts.HOST_READS - before == reads
+
+
+def test_stacked_fit_matches_per_lane_fits():
+    """A GPState stacked over three lanes with different data: one append of
+    a row a lane and its fit (all lanes' matrices in one search) against each
+    lane's own append and fit."""
+    from gpmpc_tpu_torch.parallel.batch import stack_gps
+    lanes = [_pair(12, *_data(n, seed=n))[1] for n in (5, 7, 9)]
+    rng = np.random.default_rng(3)
+    xn, yn = t64(rng.uniform(-2, 2, (3, 3))), t64(rng.normal(size=(3, 2)))
+    stacked = ts.append(stack_gps(lanes), xn, yn)
+    assert stacked.kinv.shape == (3, 2, 12, 12)
+    np.testing.assert_array_equal(np_(stacked.count), [6, 8, 10])
+    for b, gp in enumerate(lanes):
+        one = ts.append(gp, xn[b], yn[b])
+        for name in ('x', 'y', 'mask', 'count', 'kinv', 'beta', 'logdet',
+                     'jitter_used'):
+            np.testing.assert_allclose(
+                np_(getattr(stacked, name)[b]).astype(np.float64),
+                np_(getattr(one, name)).astype(np.float64), rtol=1e-12,
+                atol=1e-14, err_msg=f'lane {b} {name}')

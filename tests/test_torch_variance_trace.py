@@ -129,3 +129,82 @@ def test_kernel_launch_rejects_what_it_cannot_take(case):
         args[2] = torch.zeros(2, 3, 8).transpose(1, 2)
     with pytest.raises(err):
         tvt._launch(*args)
+
+
+def _grouped(g=3, k=5, e=2, n=20, d=3, seed=5):
+    rng = np.random.default_rng(seed)
+    u = rng.normal(size=(g, k, d))
+    m2 = spd(rng, (g, k), d)
+    x = rng.normal(size=(g, n, d))
+    blam = np.stack([sym(rng, e, n) for _ in range(g)])
+    return u, m2, x, blam, rng.normal(size=(g, k, e))
+
+
+def test_grouped_rw_reference_matches_per_group():
+    """K1's grouped form's plain version, group by group, against the plain
+    rw on that group's scenarios and blam."""
+    u, m2, x, blam, _ = _grouped()
+    g, k, d = u.shape
+    ut, m2t = t64(u).reshape(g * k, d), t64(m2).reshape(g * k, d, d)
+    a, gg, dv = tvt._prep_tied(ut, m2t, t64(x))
+    aod = tvt._aug(a) * dv[..., None]
+    rw = tvt.rw_tied_grouped_reference(gg, dv, a, aod, t64(blam))
+    assert tvt.rw_tied(gg, dv, a, aod, t64(blam)).equal(rw)
+    for i in range(g):
+        sl = slice(i * k, (i + 1) * k)
+        np.testing.assert_allclose(
+            np_(rw[sl]), np_(tvt.rw_tied_reference(gg[sl], dv[sl], a[sl],
+                                                   aod[sl], t64(blam[i]))),
+            rtol=1e-12, atol=1e-16)
+
+
+def test_grouped_trace_and_grad_match_jax_vmap():
+    """The grouped trace (x and blam one a group of five scenarios) and its
+    analytic gradient, called flat and through torch.func.vmap over the
+    groups (the trace's vmap rule), against jax.vmap of JAX's tied trace at
+    f64 (its plain twin, as test_trace_value_and_grad_match_jax runs it:
+    the Pallas kernel interprets only f32): rtol 1e-8."""
+    u, m2, x, blam, ct = _grouped()
+    g, k, d = u.shape
+    jfn = jax.vmap(jvt.variance_trace_batched_tied_reference)
+
+    def jloss(u_, m2_):
+        return jnp.sum(jfn(u_, m2_, jnp.asarray(x), jnp.asarray(blam)) * ct)
+
+    tj = jfn(
+        jnp.asarray(u), jnp.asarray(m2), jnp.asarray(x), jnp.asarray(blam))
+    gu_j, gm_j = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(u), jnp.asarray(m2))
+    for mapped in (False, True):
+        ut, m2t = t64(u).requires_grad_(), t64(m2).requires_grad_()
+        if mapped:
+            tt = torch.func.vmap(tvt.variance_trace_batched_tied)(
+                ut, m2t, t64(x), t64(blam))
+        else:
+            tt = tvt.variance_trace_batched_tied(
+                ut.reshape(g * k, d), m2t.reshape(g * k, d, d), t64(x),
+                t64(blam)).reshape(g, k, -1)
+        gu_t, gm_t = torch.autograd.grad(torch.sum(tt * t64(ct)), (ut, m2t))
+        for got, want in ((tt, tj), (gu_t, gu_j), (gm_t, gm_j)):
+            np.testing.assert_allclose(np_(got), np.asarray(want), rtol=RTOL,
+                                       atol=1e-14)
+
+
+def test_grouped_plan_keeps_blocks_within_a_group():
+    """The grouped plans: a group's scenarios in ceil(K / S) blocks of its
+    own (five a group at S = 4 in the tensor-core body: two blocks, the
+    second one scenario), S = 1 below S_max, the route by the grid; a
+    blam whose groups do not divide B is refused."""
+    f64 = torch.float64
+    p = tvt.rw_tied_mma_plan(1280, 512, 3, 2, group=5)
+    assert (p.scenarios, p.gblocks, p.grid) == (4, 2, (8, 512))
+    assert tvt.rw_tied_mma_plan(256, 512, 3, 2, group=1).grid == (8, 256)
+    assert tvt.rw_tied_mma_plan(256, 512, 3, 2) == tvt.rw_tied_mma_plan(
+        256, 512, 3, 2, group=256)._replace(gblocks=64)
+    s = tvt.rw_tied_plan(1280, 512, 512, 3, 2, f64, group=5)
+    assert (s.scenarios, s.gblocks, s.grid[1]) == (2, 3, 768)
+    assert tvt.rw_tied_plan(64, 128, 128, 3, 2, f64, group=1).scenarios == 1
+    assert tvt.rw_tied_body(1280, 512, 512, 3, 2, f64, group=5) == 'mma'
+    assert tvt.rw_tied_body(5, 512, 512, 3, 2, f64, group=5) == 'scalar'
+    args = _rw_args(b=6, dtype=f64)
+    with pytest.raises(ValueError, match='dividing'):
+        tvt.rw_tied(*args[:4], torch.zeros((4, 2, 8, 8), dtype=f64))
