@@ -376,6 +376,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCE = 'gpmpc_tpu_torch/ops/kernels/csrc/variance_trace_tied.cu'
 SOURCE_F64 = 'gpmpc_tpu_torch/ops/kernels/csrc/variance_trace_tied_f64.cu'
+GROUPED_SOURCE = 'gpmpc_tpu_torch/ops/kernels/csrc/variance_trace_grouped.cu'
 SYM_SOURCE_F64 = 'gpmpc_tpu_torch/ops/kernels/csrc/variance_trace_sym_f64.cu'
 PROBE_SOURCE = 'gpmpc_tpu_torch/ops/kernels/csrc/variance_trace_probe.cu'
 TPU_FILE = 'gpmpc_tpu/ops/pallas/variance_trace.py'
@@ -769,14 +770,15 @@ def assert_close(name, got, want, rtol, atol) -> float:
     return float(np.max(np.abs(got - want)))
 
 
-def _bound(flops, elems, f64=False, tc_flops=0):
+def _bound(flops, elems, f64=False, tc_flops=0, more_bytes=0):
     """(ms, what bounds it): the larger of the operations over the card's
     peaks for their type (f32: all of `flops` at the f32 peak; f64: `flops`
     on the FP64 vector pipe plus `tc_flops` on the FP64 tensor cores, which
-    share it) and the bytes (elems of 8 or 4 bytes) over its memory rate."""
+    share it) and the bytes (elems of 8 or 4 bytes, and more_bytes) over
+    its memory rate."""
     t_ops = (flops / (PEAK_F64_FLOPS if f64 else PEAK_F32_FLOPS)
              + tc_flops / PEAK_F64_TC_FLOPS)
-    t_bytes = elems * (8 if f64 else 4) / PEAK_BYTES_PER_S
+    t_bytes = (elems * (8 if f64 else 4) + more_bytes) / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ('operations' if t_ops >= t_bytes
                                        else 'bytes')
 
@@ -788,7 +790,8 @@ def exp_flops(f64: bool) -> int:
     return 2 * EXP_F64_INSTR if f64 else 1
 
 
-def bound_ms(b, n_out, n_c, d, e, chains, f64=False, groups=1):
+def bound_ms(b, n_out, n_c, d, e, chains, f64=False, groups=1,
+             blam_bytes=None):
     """Least time for the rw function (K1, K2, K3) on this card: the largest
     of its operations over the peak for their type and its bytes (each
     input read once, each output written once) over the memory rate. Per
@@ -799,17 +802,21 @@ def bound_ms(b, n_out, n_c, d, e, chains, f64=False, groups=1):
     (PEAK_F64_FLOPS) and the multiply-adds, products of small matrices, on
     the FP64 tensor cores (PEAK_F64_TC_FLOPS), the two times added (they
     share the FP64 datapath): the same work whatever implements it. K1's
-    grouped form reads `groups` blam slabs, each once."""
+    grouped form reads `groups` blam slabs, each once, at blam_bytes an
+    element (the width the fit stored them at; None: the operands')."""
     w1 = d + 1
     e_per_chain = e // chains
     pairs = b * n_out * n_c * chains
     elems = (b * n_out * (d + 1) * chains + b * n_c * (d + w1) * chains
-             + groups * e * n_c * n_out + b * e * n_out * w1)
+             + b * e * n_out * w1)
+    more = groups * e * n_c * n_out * (blam_bytes or (8 if f64 else 4))
     if not f64:
         return _bound(pairs * (2 * d + 1 + exp_flops(False)
-                               + e_per_chain * (1 + 2 * w1)), elems)
+                               + e_per_chain * (1 + 2 * w1)), elems,
+                      more_bytes=more)
     return _bound(pairs * (1 + exp_flops(True) + e_per_chain), elems, True,
-                  tc_flops=pairs * (2 * d + e_per_chain * 2 * w1))
+                  tc_flops=pairs * (2 * d + e_per_chain * 2 * w1),
+                  more_bytes=more)
 
 
 def sym_bound_ms(b, n, d, e, chains, f64=False):
@@ -4593,10 +4600,11 @@ def record_grouped_shapes():
         vt.rw_tied = orig
 
 
-def grouped_args(rng, b, n, d, e, k, dev):
-    """Grouped K1's f64 operands at (B, N, d, E, k a group), drawn as the JAX
+def grouped_args(rng, b, n, d, e, k, dev, slab='f64'):
+    """Grouped K1's operands at (B, N, d, E, k a group), drawn as the JAX
     kernel test draws them (kernel_test_inputs), one x and blam a group of k
-    scenarios, prepped as the trace preps them."""
+    scenarios, prepped as the trace preps them: f64, the slab at `slab`'s
+    width ('f32': the fit's storage, the path's; 'f64')."""
     import torch
     from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
     g = b // k
@@ -4604,74 +4612,123 @@ def grouped_args(rng, b, n, d, e, k, dev):
     x = as64(rng.normal(size=(g, n, d)), dev)
     br = rng.normal(size=(g, e, n, n)) * 0.003
     blam = as64(br + np.swapaxes(br, -1, -2), dev)
+    if slab == 'f32':
+        blam = blam.float()
     a, gg, dv = vt._prep_tied(u, m2, x)
     aod = vt._aug(a) * dv[..., None]
     return [t.contiguous() for t in (gg, dv, a, aod, blam)], (u, m2, x, blam)
 
 
-def check_grouped(tag, args, body, dev) -> float:
-    """Grouped K1 in `body` against the plain version of that body's order
-    ('mma': rw_tied_mma_reference, 'scalar': rw_split_reference at its
-    plan) with one blam a group, in f64: within 1e-12 |rw| plus 16 f64
-    ulps of the terms' magnitude sum (check_split's bar). Returns the max
-    abs error."""
-    import functools
+def per_group_launch(args, body):
+    """The grouped form's former arithmetic: K1's ungrouped launch on each
+    group alone, its slab widened to f64, unsplit, in `body` (the former
+    grouped launch was the ungrouped kernel a group at a time, S = S_max a
+    block where a group holds S_max, else 1, with an f64 copy of the slabs;
+    the path's grids were never split)."""
     import torch
     from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
-    b, n, d = args[0].shape
-    e, k = args[4].shape[1], b // args[4].shape[0]
+    blam = args[4]
+    k = args[0].shape[0] // blam.shape[0]
+    return torch.cat([vt._launch(
+        *(t[i * k:(i + 1) * k] for t in args[:4]),
+        blam[i].to(torch.float64).contiguous(), max_split=1, body=body)[0]
+        for i in range(blam.shape[0])])
+
+
+def check_grouped(tag, args, body, dev, memo=None) -> dict:
+    """Grouped K1 in `body` against the plain version of that body's order
+    ('mma': rw_tied_mma_reference, 'scalar': rw_tied_grouped_reference; a
+    grouped launch is never split) with one blam a group, and against the
+    former grouped launch on the widened slab (per_group_launch), each
+    within 1e-12 |rw| plus 16 f64 ulps of the terms' magnitude sum
+    (check_split's bar). `memo`, a dict, keeps the plain versions and the
+    former launch by body for another call on the same values (a slab and
+    its widened copy). Returns {'err': max abs error against the plain
+    version, 'vs_former': 'bits' where equal to the former launch to the
+    bit, else the max abs difference}."""
+    import torch
+    from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
     got, _ = vt._launch(*args, body=body)
-    if body == 'mma':
-        ref = vt.rw_tied_mma_reference
-    else:
-        ref = functools.partial(vt.rw_split_reference, plan=vt.rw_tied_plan(
-            b, n, n, d, e, torch.float64, vt.device_sms(dev), group=k))
-    want = ref(*args)
-    mag = ref(args[0], args[1], args[2], args[3].abs(), args[4].abs())
-    err = (got - want).abs()
+    memo = {} if memo is None else memo
+    if body not in memo:
+        ref = (vt.rw_tied_mma_reference if body == 'mma'
+               else vt.rw_tied_grouped_reference)
+        memo[body] = (ref(*args), ref(args[0], args[1], args[2],
+                                      args[3].abs(), args[4].abs()),
+                      per_group_launch(args, body))
+    want, mag, old = memo[body]
     bar = 1e-12 * want.abs() + 16 * torch.finfo(torch.float64).eps * mag
+    err = (got - want).abs()
     if not bool((err <= bar).all()):
         raise AssertionError(f'{tag} {body} body vs its plain version: '
                              f'{float((err / bar).max()):.3f}x its bar')
-    return float(err.max())
+    if torch.equal(got, old):
+        return dict(err=float(err.max()), vs_former='bits')
+    diff = (got - old).abs()
+    if not bool((diff <= bar).all()):
+        raise AssertionError(f'{tag} {body} body vs the former launch: '
+                             f'{float((diff / bar).max()):.3f}x the bar')
+    return dict(err=float(err.max()), vs_former=float(diff.max()))
+
+
+SLABS = ('f32', 'f64')
 
 
 def grouped_kernels(dev) -> tuple:
-    """Phase 9a: grouped K1 at each of GROUPED_SHAPES, in its route's body
-    and in the other, against the plain version of each body's order;
-    timed by events over 50 calls and by CUDA-graph slope (each body), its
-    plain version (rw_tied_grouped_reference) by events, and its bound.
-    Returns ({shape: max abs err}, {shape: times})."""
+    """Phase 9a: grouped K1 at each of GROUPED_SHAPES, its slab at f32 (the
+    fit's storage: the path's) and at f64 (that slab widened), in its
+    route's body and in the
+    other: against the plain version of each body's order and against the
+    former grouped launch on the widened slab (check_grouped: to the bit,
+    or at the bar); one counted launch a call; timed by events over 50
+    calls (the route) and by CUDA-graph slope (each body), its plain
+    version (rw_tied_grouped_reference) by events, its bound with the slab
+    at its width and at f64 (the former widened copy's count). Logs each
+    body's plan: scenario sets a block, live slots a group against the
+    blocks' slots, and the slab's bytes read a launch. Returns ({name:
+    errs}, {name: times}); names end in ' slab=f32' or ' slab=f64'."""
     import torch
     from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
-    rng = np.random.default_rng(17)
     errs, res, fns = {}, {}, {}
     sms = vt.device_sms(dev)
     for b, n, d, e, k in GROUPED_SHAPES:
-        name = f'K1 grouped f64 B={b} N={n} d={d} E={e} group={k}'
-        args, _ = grouped_args(rng, b, n, d, e, k, dev)
         route = vt.rw_tied_body(b, n, n, d, e, torch.float64, sms, group=k)
-        errs[name] = {bd: check_grouped(name, args, bd, dev)
-                      for bd in BODIES}
-        errs[name]['route'] = route
-        before = vt.LAUNCHES_GROUPED, vt.LAUNCHES_F64
-        vt.rw_tied(*args)
-        sync(dev)
-        if (vt.LAUNCHES_GROUPED, vt.LAUNCHES_F64) != (before[0] + 1,
-                                                      before[1] + 1):
-            raise AssertionError(f'{name}: {vt.LAUNCHES_GROUPED - before[0]} '
-                                 'grouped launches for one call')
-        fns[name] = (lambda a=args: vt.rw_tied(*a))
-        fns.update(body_fns(name, args))
-        plan = (vt.rw_tied_mma_plan(b, n, d, e, group=k) if route == 'mma'
-                else vt.rw_tied_plan(b, n, n, d, e, torch.float64, sms,
-                                     group=k))
-        res[name] = dict(
-            ms=cuda_ms(fns[name], 50),
-            plain_ms=cuda_ms(lambda a=args: vt.rw_tied_grouped_reference(*a),
-                             5),
-            bound=bound_ms(b, n, n, d, e, 1, f64=True, groups=b // k),
-            plan=dict(body=route, **plan._asdict()))
+        # The f64 slab is the f32 one widened: the same values, so each
+        # body's plain version and former launch serve both.
+        args32, _ = grouped_args(np.random.default_rng(17), b, n, d, e, k,
+                                 dev, 'f32')
+        memo = {}
+        for slab in SLABS:
+            name = (f'K1 grouped f64 B={b} N={n} d={d} E={e} group={k} '
+                    f'slab={slab}')
+            args = (args32 if slab == 'f32' else
+                    args32[:4] + [args32[4].to(torch.float64)])
+            errs[name] = {bd: check_grouped(name, args, bd, dev, memo)
+                          for bd in BODIES}
+            errs[name]['route'] = route
+            before = vt.LAUNCHES_GROUPED, vt.LAUNCHES_F64
+            vt.rw_tied(*args)
+            sync(dev)
+            if (vt.LAUNCHES_GROUPED, vt.LAUNCHES_F64) != (before[0] + 1,
+                                                          before[1] + 1):
+                raise AssertionError(
+                    f'{name}: {vt.LAUNCHES_GROUPED - before[0]} grouped '
+                    'launches for one call')
+            fns[name] = (lambda a=args: vt.rw_tied(*a))
+            fns.update(body_fns(name, args))
+            plans = {bd: vt.rw_tied_grouped_plan(
+                b, n, n, d, e, k, torch.float64, args[4].dtype, bd, sms)
+                for bd in BODIES}
+            res[name] = dict(
+                ms=cuda_ms(fns[name], 50),
+                plain_ms=cuda_ms(
+                    lambda a=args: vt.rw_tied_grouped_reference(*a), 5),
+                bound=bound_ms(b, n, n, d, e, 1, f64=True, groups=b // k,
+                               blam_bytes=args[4].element_size()),
+                bound_f64_slab=bound_ms(b, n, n, d, e, 1, f64=True,
+                                        groups=b // k),
+                plan=dict(plans[route]._asdict()),
+                plans={bd: p._asdict() for bd, p in plans.items()})
     for key, ms in graph_ms(fns, dev).items():
         base, _, body = key.rpartition(' ')
         if body in BODIES and base in res:
@@ -4679,11 +4736,18 @@ def grouped_kernels(dev) -> tuple:
         else:
             res[key]['graph_ms'] = ms
     for name, r in res.items():
+        slots = '; '.join(
+            f'{bd}: {p["sets"]} sets a block, {p["gblocks"]} blocks a group, '
+            f'live slots {p["live"]} of {p["slots"]} a group'
+            for bd, p in r['plans'].items())
         log(f'[grouped K1] {name}: {r["ms"]:.4f} ms by events, '
             f'{r["graph_ms"]:.4f} ms by graph slope{bodies_note(r)}, plain '
             f'{r["plain_ms"]:.4f} ms, bound {r["bound"][0]:.5f} ms '
-            f'({r["bound"][1]}); max abs err {errs[name]} (1e-12 |rw| + 16 '
-            f'eps mag); plan {r["plan"]}')
+            f'({r["bound"][1]}; {r["bound_f64_slab"][0]:.5f} ms counting '
+            f'the slab at f64); slab bytes read a launch '
+            f'{r["plan"]["blam_bytes"]}; {slots}; against the plain version '
+            f'(max abs err) and the former launch on the widened slab '
+            f'{errs[name]} (1e-12 |rw| + 16 eps mag)')
     return errs, res
 
 
@@ -4870,6 +4934,19 @@ def phase_batched_episode(dev, out_dir) -> dict:
                              f'{shapes} (unchecked {unchecked}); K1 f64 '
                              f'{counts["K1 f64"]}')
     iters = outs['iters'].double()
+    # The kept programs' bytes, and of them their static copies of the
+    # stacked slab (the one 4-D input, b_lam), at the fit's f32; a cache
+    # that held it widened to f64 took twice the bytes.
+    progs = list(solver._PROGRAMS.values())
+    slab = sum(t.numel() * t.element_size() for prog in progs
+               for t in prog.inputs if t is not None and t.ndim == 4)
+    kept = solver.program_stats()['bytes']
+    out['programs'] = dict(programs=len(progs), bytes=kept,
+                           slab_bytes=slab, bytes_slab_at_f64=kept + slab)
+    log(f'[episode 9c] kept programs: {len(progs)}, {kept} bytes, of them '
+        f'{slab} bytes of static slab copies at f32 (after); with the slab '
+        f'widened to f64, as the former cache held it: {kept + slab} bytes '
+        '(before)')
     out['multistart'] = dict(
         steps=EPISODE_STEPS, lanes=EPISODE_LANES, grouped_launches=grouped,
         launch_shapes={' '.join(map(str, k)): v for k, v in shapes.items()},
@@ -5123,17 +5200,18 @@ def main() -> int:
     # episode launches it at, with that run's launches (phase 9c, the main
     # path of this slice).
     for b9, n9, d9, e9, k9 in GROUPED_SHAPES:
-        name = f'K1 grouped f64 B={b9} N={n9} d={d9} E={e9} group={k9}'
+        name = (f'K1 grouped f64 B={b9} N={n9} d={d9} E={e9} group={k9} '
+                'slab=f32')
         t = episode['grouped_times'][name]
         err = episode['grouped_errs'][name]
         kernels.append(dict(
-            name=f'K1 grouped f64 instance, one blam a group of {k9} '
-                 f'scenarios (the batched multistart episode, B={b9} N={n9} '
-                 f'd={d9} E={e9})',
-            route='cuda', source=SOURCE_F64, replaces=f'{TPU_FILE}:677',
+            name=f'K1 grouped f64 instance, one f32 blam slab a group of '
+                 f'{k9} scenarios (the batched multistart episode, B={b9} '
+                 f'N={n9} d={d9} E={e9})',
+            route='cuda', source=GROUPED_SOURCE, replaces=f'{TPU_FILE}:677',
             launches=episode['multistart']['launch_shapes'].get(
                 ' '.join(map(str, (b9, n9, d9, e9, k9))), 0),
-            max_abs_err=err[err['route']], ms=t['ms'],
+            max_abs_err=err[err['route']]['err'], ms=t['ms'],
             plain_ms=t['plain_ms'], bound_ms=t['bound'][0],
             bound_by=t['bound'][1], library_ms=None))
     # The device loop's condition kernel (phase 3f): no TPU kernel; it takes

@@ -16,6 +16,11 @@ episode reports its wall and its states; after a kind, the kernel nodes of
 each kept program's init graph (one value-and-grad and the solver's init)
 and step graph (one value-and-grad and an iteration), read from the graphs
 (utils/replay_counts.py), or none where the checkout keeps no program.
+Kind 'batched' runs the checkout's own chip_smoke.py phase 9c episode
+(`chip_smoke.episode_problem`: 256 pendulum lanes, capacity 512, H = 8, the
+multistart route over one GP a lane, 100 iterations) for --steps steps
+through `chip_smoke.run_batched`, and reports, besides the walls and states,
+the kept programs' bytes (solver.program_stats). --kinds picks the kinds.
 The checkouts run in the order A, B, B, A, so that a drift of the card or
 its host shows as a spread between the two runs of one side.
 
@@ -23,7 +28,7 @@ Run on the card's machine, from the root of checkout B, with checkout A
 unpacked beside it (e.g. `git archive <commit> | tar -x -C _checkout/a`):
 
     python -m gpmpc_tpu_torch.benchmarks.compare_episode _checkout/a . \
-        --out compare_out [--steps 10 --reps 3]
+        --out compare_out [--steps 10 --reps 3 --kinds plain,nominal,batched]
 
 It prints each run's lines and writes DIR/compare_episode.json.
 """
@@ -52,6 +57,7 @@ from gpmpc_tpu_torch.mpc.cost import CostParams
 from gpmpc_tpu_torch.mpc.solver import SolverConfig
 from gpmpc_tpu_torch.sim.simulator import run_episode_on_device
 steps, reps = int(sys.argv[2]), int(sys.argv[3])
+kinds = sys.argv[4].split(',')
 dev = torch.device('cuda')
 f64 = dict(dtype=torch.float64, device=dev)
 p = PendulumParams(max_torque=3.0)
@@ -78,8 +84,30 @@ def nodes():
              for k in ('init', 'step') if hasattr(prog, k + '_counts')}
             for prog in kept.values()]
 
+def batched():
+    import chip_smoke as cs
+    problem = cs.episode_problem(dev)
+    walls = []
+    for rep in range(1 + reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, outs = cs.run_batched(problem, steps, 'multistart', guard=False)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    states = outs['state'].cpu().numpy()
+    if not np.isfinite(states).all():
+        raise AssertionError('batched: states not finite')
+    res = dict(walls_s=walls, nodes=nodes(), states=states.tolist(),
+               actions=outs['action'].cpu().numpy().tolist(),
+               iters=outs['iters'].cpu().numpy().tolist(),
+               program_bytes=solver.program_stats()['bytes'])
+    solver.clear_programs()
+    return res
+
 out = {}
-for kind in ('plain', 'nominal'):
+if 'batched' in kinds:
+    out['batched'] = batched()
+for kind in [k for k in kinds if k != 'batched']:
     gp = gp_of(kind)
     walls, states = [], None
     for rep in range(1 + reps):
@@ -103,12 +131,12 @@ print('RESULT ' + json.dumps(out), flush=True)
 '''
 
 
-def run_checkout(root: str, steps: int, reps: int,
+def run_checkout(root: str, steps: int, reps: int, kinds: str,
                  timeout: int = 1800) -> dict:
     """One child process's episodes in the checkout at `root`."""
     out = subprocess.run(
         [sys.executable, '-c', CHILD, os.path.abspath(root), str(steps),
-         str(reps)], capture_output=True, text=True, timeout=timeout,
+         str(reps), kinds], capture_output=True, text=True, timeout=timeout,
         cwd=os.path.abspath(root))
     if out.returncode != 0:
         raise RuntimeError(f'{root} failed:\n{out.stderr[-4000:]}')
@@ -126,18 +154,22 @@ def main() -> int:
     ap.add_argument('--out', default=None)
     ap.add_argument('--steps', type=int, default=10)
     ap.add_argument('--reps', type=int, default=3)
+    ap.add_argument('--kinds', default='plain,nominal',
+                    help="comma-separated: plain, nominal, batched")
     args = ap.parse_args()
     runs = []
     for tag, root in (('A', args.a), ('B', args.b), ('B', args.b),
                       ('A', args.a)):
-        res = run_checkout(root, args.steps, args.reps)
+        res = run_checkout(root, args.steps, args.reps, args.kinds)
         runs.append(dict(tag=tag, root=root, episodes=res))
         print(f'run {len(runs)} ({tag}): ' + '; '.join(
             f'{kind} first episode {r["walls_s"][0]:.4f} s, later episodes '
             f'median {float(np.median(r["walls_s"][1:])):.4f} s '
             f'({float(np.median(r["walls_s"][1:])) / args.steps:.5f} s a '
             f'step), kernel nodes of the kept programs {r["nodes"]}, '
-            f'iterations {r["iters"]}'
+            + (f'kept programs {r["program_bytes"]} bytes, '
+               if 'program_bytes' in r else '')
+            + f'iterations {r["iters"] if kind != "batched" else "(lanes)"}'
             for kind, r in res.items()), flush=True)
     # The two checkouts sum in other orders: how far their episodes' states
     # lie apart, and whether each checkout repeats itself to the bit.

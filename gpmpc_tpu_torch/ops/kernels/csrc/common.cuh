@@ -62,6 +62,18 @@ __device__ __forceinline__ void cp_async(T* dst, const T* src, bool src_ok) {
                : "memory");
 }
 
+// 16 bytes from global to shared memory by cp.async, bypassing L1 (a
+// slab read once); dst and src 16-byte aligned. src_ok false writes 0 and
+// reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool src_ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = src_ok ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

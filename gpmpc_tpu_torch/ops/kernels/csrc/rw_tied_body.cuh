@@ -78,15 +78,25 @@
 // K1's grouped form (`group` scenarios a blam slab): blam (G, E, n_c, n_out), one
 // slab a group of B / G consecutive scenarios (one GP a lane: the
 // multistart recipe under JAX's vmap, each lane's starts against its own
-// GP). A block still shares each blam load across its S scenarios, so no
-// block spans two groups: the grid's y axis is G groups of
-// ceil(group / S) blocks, S = S_max where a group holds S_max scenarios,
-// else 1 (at five a group and S = 4, the second block of a group serves
-// one scenario). The ungrouped kernel is the grouped one at one group.
-//   The plan is worked out on the host (plan_of below); `rw_tied_plan` and
-//   `rw_untied_plan` in ops/kernels/variance_trace.py mirror it and check it
-//   against this header's exports at load. Where split = 1 a launch is the
-//   one of the design above, to the bit.
+// GP), in f32 or f64 whatever T: the width the fit stored it at, each
+// element widened to T in a register before its one multiply (exact, so
+// the values are those of a widened copy). The slab comes from device
+// memory (one a lane, unlike the ungrouped blam, which stays in L2 for all
+// B), and a group of five (the recipe's four starts and the warm one) fills
+// neither S = 2 nor 4 slots. So a grouped block is P scenario sets
+// (blockDim.z) of one scenario each, P = ceil(group / gblocks) with
+// gblocks = ceil(group / group_sets(d, E)) blocks a group (five at d = 3,
+// E = 2: one block, every slot live), each set a block of the design above
+// at S = 1 on kGroupRows = 32 rows (128 threads, so that 5 sets stay within
+// 640): its own staging buffers and partials, the sets' blam loads of one
+// (j, i) falling on one L1 line, so the slab leaves device memory once a
+// launch. A set's sums are those of S = 1 unsplit: the bits of the
+// ungrouped body's S = 1 launch on that scenario and slab. No split.
+//   The plans are worked out on the host (plan_of, group_plan_scalar
+//   below); `rw_tied_plan`, `rw_untied_plan` and `rw_tied_grouped_plan` in
+//   ops/kernels/variance_trace.py mirror them and check them against this
+//   header's exports at load. Where split = 1 a launch is the one of the
+//   design above, to the bit.
 // Tensor cores are not used: the reduction is 1 + d = 4 columns wide, and
 // the probe measured TF32 reductions at 1.6-1.7x the first design's
 // FMA-reduction time, with TF32 alone 5-20x off the accuracy bar on the
@@ -138,6 +148,22 @@ constexpr int kMaxSplit = 8;   // blocks of a cluster: the portable limit
 constexpr int kSplitRows = 16; // the fewest contraction rows a rank takes
 constexpr int kSplitFill = 4;  // split only where blocks * 4 <= SMs
 constexpr int kMaxGridY = 65535;
+constexpr int kGroupRows = 32; // output rows a grouped block (the scalar body)
+constexpr int kMaxSets = 5;    // scenario sets a grouped block, at most
+
+// Scenario sets a grouped block may hold at (d, E): one scenario each, the
+// sets' accumulators (E NT 4 doubles a set in the tensor-core body, NT its
+// n tiles) within ~40 doubles, 1 to kMaxSets (5 at d = 3, E = 2); the
+// blocks' threads, 128 a set, within 640, so that a thread keeps ~100
+// registers.
+__host__ __device__ constexpr int group_nt(int d) { return d + 1 > 8 ? 2 : 1; }
+__host__ __device__ constexpr int group_sets_nt(int e, int nt) {
+  const int p = 10 / (e * nt);
+  return p < 1 ? 1 : (p > kMaxSets ? kMaxSets : p);
+}
+__host__ __device__ constexpr int group_sets(int d, int e) {
+  return group_sets_nt(e, group_nt(d));
+}
 
 enum class Variant : int { kFull, kHwExp, kNoExp, kNoP, kNoDots, kNoMul, kEmpty };
 
@@ -209,9 +235,23 @@ struct RwArgs {
   int n_out;
   int n_c;
   cudaStream_t stream;
-  // K1's grouped form: blam is (B / group, E, n_c, n_out), scenario b
-  // reading slab b / group; 0: one blam for all B (the ungrouped launch).
-  int group = 0;
+};
+
+// K1's grouped form: RwArgs with blam (B / group, E, n_c, n_out) of
+// float or double (blam_bytes 4 or 8), scenario b reading slab b / group.
+template <typename T>
+struct GroupArgs {
+  const T* g;
+  const T* dv;
+  const T* a;
+  const T* aod;
+  const void* blam;
+  T* rw;
+  int b;
+  int n_out;
+  int n_c;
+  int group;
+  cudaStream_t stream;
 };
 
 // A launch: S scenarios a block, the contraction in `split` ranks of
@@ -223,34 +263,48 @@ struct Plan {
   int sub;
   dim3 grid;
   size_t smem;
-  int gblocks;  // blocks of grid.y a group of scenarios takes
 };
 
-// Grid.y of B scenarios in groups of `group` (0: one group of all B), each
-// group's in ceil(group / s) blocks of s scenarios, so that no block spans
-// two groups; *gblocks is the blocks a group takes.
-inline long long scenario_blocks(int b, int group, int s, int* gblocks) {
+// A grouped launch (either body): `sets` scenario sets a block, gblocks
+// blocks a group on grid.y.
+struct GroupPlan {
+  int sets;
+  int gblocks;
+  dim3 grid;
+  dim3 block;
+  size_t smem;
+};
+
+// A group of `group` scenarios in gblocks = ceil(group / most) blocks of
+// sets = ceil(group / gblocks) scenario sets (so the blocks of a group
+// differ by at most one live set).
+inline void group_blocks(int group, int most, int* sets, int* gblocks) {
+  *gblocks = (group + most - 1) / most;
+  *sets = (group + *gblocks - 1) / *gblocks;
+}
+
+// Blocks of grid.y of B scenarios at s a block, in groups of `group` (0:
+// one group of all B), no block spanning two groups (the route's count of
+// a grouped launch at S_max, tied_route).
+inline long long scenario_blocks(int b, int group, int s) {
   const int grp = group > 0 ? group : b;
-  *gblocks = grp > 0 ? (grp + s - 1) / s : 0;
-  return grp > 0 ? static_cast<long long>((b + grp - 1) / grp) * *gblocks
+  return grp > 0 ? static_cast<long long>((b + grp - 1) / grp) *
+                       ((grp + s - 1) / s)
                  : 0;
 }
 
 // The plan of a launch for B scenarios, n_out output rows, n_c contraction
 // rows and `outs` outputs on the grid (1 tied, E untied) on a card of `sms`
-// SMs, the scenarios in groups of `group` (K1's grouped form; 0: one
-// group): S = S_max where a group holds at least S_max, else 1; split
-// where the grid fills at most 1 / kSplitFill of the SMs. A plan the card
-// cannot take (grid.y past kMaxGridY) is returned as is: the launch
-// refuses it.
+// SMs: S = S_max where B >= S_max, else 1; split where the grid fills at
+// most 1 / kSplitFill of the SMs. A plan the card cannot take (grid.y past
+// kMaxGridY) is returned as is: the launch refuses it.
 template <typename T, int D, int E, int SMax, int kSub, int Rows, int Slices,
           bool Untied>
-Plan plan_of(int b, int n_out, int n_c, int outs, int sms, int max_split,
-             int group = 0) {
+Plan plan_of(int b, int n_out, int n_c, int outs, int sms, int max_split) {
   Plan p{};
-  p.s = (group > 0 ? group : b) >= SMax ? SMax : 1;
+  p.s = b >= SMax ? SMax : 1;
   const long long tiles = (n_out + Rows - 1) / Rows;
-  const long long groups = scenario_blocks(b, group, p.s, &p.gblocks);
+  const long long groups = scenario_blocks(b, 0, p.s);
   const long long blocks = tiles * groups * outs;
   int split = 1;
   if (blocks > 0 && blocks * kSplitFill <= sms) {
@@ -276,16 +330,20 @@ Plan plan_of(int b, int n_out, int n_c, int outs, int sms, int max_split,
   return p;
 }
 
-// K1, K2, K3 and K1's grouped form. A block's scenarios are those of
-// block y of its group: group blockIdx.y / gblocks, whose `group`
-// scenarios read that group's blam slab (an ungrouped launch: one group of
-// all B, gblocks = grid.y).
+// K1, K2, K3 and K1's grouped form (Sets: blockDim.z scenario sets of S
+// each, every set a block of its own but for the barriers; blam a group's
+// slab of BT, float or double, widened to T where it is read). A block's
+// scenarios are those of block y of its group: group blockIdx.y / gblocks,
+// whose `group` scenarios read that group's blam slab (an ungrouped
+// launch: one group of all B, gblocks = grid.y).
 template <typename T, int D, int E, Variant V, int S, int kSub, int Rows,
-          int Slices, bool Untied, bool Split>
-__global__ void __launch_bounds__(Rows * Slices)
+          int Slices, bool Untied, bool Split, typename BT = T,
+          bool Sets = false>
+__global__ void __launch_bounds__(Rows * Slices *
+                                  (Sets ? group_sets(D, E) : 1))
 rw_tied_kernel(const T* __restrict__ g, const T* __restrict__ dv,
                const T* __restrict__ a, const T* __restrict__ aod,
-               const T* __restrict__ blam, T* __restrict__ rw, int b_total,
+               const BT* __restrict__ blam, T* __restrict__ rw, int b_total,
                int n_out, int n_c, int e_total, int split, int chunk,
                int sub, int group, int gblocks) {
   static_assert(V != Variant::kHwExp || std::is_same_v<T, float>,
@@ -295,8 +353,14 @@ rw_tied_kernel(const T* __restrict__ g, const T* __restrict__ dv,
   constexpr int W1 = D + 1;
   constexpr int DP = pad4(D);
   constexpr int WP = pad4(W1);
+  static_assert(!Sets || (!Untied && !Split && V == Variant::kFull),
+                "the grouped form is K1 unsplit");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
+  // A scenario set's own staging buffers and partials.
+  const int set = Sets ? static_cast<int>(threadIdx.z) : 0;
+  T* smem = reinterpret_cast<T*>(smem_raw) +
+            set * (smem_bytes<T, D, E, S, kSub, Rows, Slices, Untied>() /
+                   sizeof(T));
 
   constexpr int kTile = Slices * kSub;   // the staging buffers' rows
   constexpr int nthreads = Rows * Slices;
@@ -311,10 +375,11 @@ rw_tied_kernel(const T* __restrict__ g, const T* __restrict__ dv,
   const int row0 = (Split ? bx / split : bx) * Rows;  // the block's first row
   const int i = row0 + r;
   const int grp = static_cast<int>(blockIdx.y) / gblocks;
-  const int b0 = grp * group + (static_cast<int>(blockIdx.y) - grp * gblocks) * S;
+  const int sets = Sets ? static_cast<int>(blockDim.z) : 1;
+  const int b0 = grp * group +
+                 ((static_cast<int>(blockIdx.y) - grp * gblocks) * sets + set) * S;
   // The block's scenarios end with its group's.
   const int b_end = min(b_total, (grp + 1) * group);
-  blam += static_cast<size_t>(grp) * E * n_c * n_out;
   // Untied: this block's output; g, dv and rw are laid out (B, E, ...).
   const int eo = Untied ? static_cast<int>(blockIdx.z) : 0;
   const int e_out = Untied ? e_total : E;
@@ -377,7 +442,11 @@ rw_tied_kernel(const T* __restrict__ g, const T* __restrict__ dv,
 #pragma unroll
       for (int c = 0; c < W1; ++c) acc[s][e][c] = T(0);
 
-  const T* blam_e = blam + static_cast<size_t>(eo) * n_c * n_out;
+  // blam[e, j, i] of the block's slab (and, untied, output) as T.
+  const BT* blam_e = blam + (static_cast<size_t>(grp) * E + eo) * n_c * n_out;
+  auto blam_at = [&](int e, int j) {
+    return T(blam_e[(static_cast<size_t>(e) * n_c + j) * n_out + i]);
+  };
   const int n_tiles = jend > jbeg ? (jend - jbeg + tile - 1) / tile : 0;
   if (n_tiles > 0) stage(jbeg, smem);
   cp_async_commit();
@@ -397,7 +466,7 @@ rw_tied_kernel(const T* __restrict__ g, const T* __restrict__ dv,
         if (k == 0) {
 #pragma unroll
           for (int e = 0; e < E; ++e) {
-            const T bl = blam_e[(static_cast<size_t>(e) * n_c + j0) * n_out + i];
+            const T bl = blam_at(e, j0);
 #pragma unroll
             for (int s = 0; s < S; ++s) acc[s][e][0] += bl;
           }
@@ -410,7 +479,7 @@ rw_tied_kernel(const T* __restrict__ g, const T* __restrict__ dv,
           if constexpr (V != Variant::kNoMul) {
 #pragma unroll
             for (int e = 0; e < E; ++e)
-              bl[e] = blam_e[(static_cast<size_t>(e) * n_c + j0 + jj) * n_out + i];
+              bl[e] = blam_at(e, j0 + jj);
           }
 #pragma unroll
           for (int s = 0; s < S; ++s) {
@@ -519,15 +588,13 @@ rw_tied_kernel(const T* __restrict__ g, const T* __restrict__ dv,
 }
 
 // Launch instance (S, Split) of the kernel at plan p (split = 1: a plain
-// launch; else a cluster of p.split blocks along x by cudaLaunchKernelEx),
-// in groups of a.group scenarios (0: one group of all B).
+// launch; else a cluster of p.split blocks along x by cudaLaunchKernelEx).
 template <typename T, int D, int E, Variant V, int S, int kSub, int Rows,
           int Slices, bool Untied, bool Split>
 cudaError_t launch_at(const RwArgs<T>& a, int e_total, const Plan& p) {
   static_assert(Rows % 32 == 0 && Rows * Slices <= 1024,
                 "a block of whole warps");
   if (!Split && p.split != 1) return cudaErrorInvalidValue;
-  if (Untied && a.group > 0) return cudaErrorInvalidValue;
   if (p.grid.y > static_cast<unsigned>(kMaxGridY)) return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = p.grid;
@@ -542,15 +609,14 @@ cudaError_t launch_at(const RwArgs<T>& a, int e_total, const Plan& p) {
   cfg.attrs = attr;
   cfg.numAttrs = p.split > 1 ? 1 : 0;
   // An ungrouped launch is one group of all B over all of grid.y.
-  const int group = a.group > 0 ? a.group : a.b;
-  const int gblocks = a.group > 0 ? p.gblocks : static_cast<int>(p.grid.y);
   const auto kernel =
       rw_tied_kernel<T, D, E, V, S, kSub, Rows, Slices, Untied, Split>;
   cudaError_t err = allow_smem(kernel, p.smem);
   if (err == cudaSuccess)
     err = cudaLaunchKernelEx(&cfg, kernel, a.g, a.dv, a.a, a.aod, a.blam,
                              a.rw, a.b, a.n_out, a.n_c, e_total, p.split,
-                             p.chunk, p.sub, group, gblocks);
+                             p.chunk, p.sub, a.b,
+                             static_cast<int>(p.grid.y));
   // A refused launch leaves its error as the thread's last error too: read
   // it here, so that the next launch (PyTorch's own among them) starts clean.
   const cudaError_t last = cudaGetLastError();
@@ -589,7 +655,7 @@ cudaError_t launch_planned(const RwArgs<T>& a, int e_total, int sms,
                            int max_split) {
   constexpr int SMax = scenarios<T, D, E>();
   const Plan p = plan_of<T, D, E, SMax, kSubRows, kRows, kSlices, Untied>(
-      a.b, a.n_out, a.n_c, Untied ? e_total : 1, sms, max_split, a.group);
+      a.b, a.n_out, a.n_c, Untied ? e_total : 1, sms, max_split);
   if (!split_instance<SMax>(p.s, p.split))
     return launch_at<T, D, E, V, SMax, kSubRows, kRows, kSlices, Untied,
                      false>(a, e_total, p);
@@ -618,11 +684,10 @@ R with_d(int d, R bad, F f) {
   }
 }
 
-// K1 at its plan, grouped where p.group > 0.
+// K1 at its plan.
 template <typename T>
 cudaError_t dispatch(int d, int e, const RwArgs<T>& p, int sms, int max_split) {
-  if (p.b <= 0 || p.n_out <= 0 || p.n_c < 0 || sms <= 0 || max_split < 1 ||
-      p.group < 0)
+  if (p.b <= 0 || p.n_out <= 0 || p.n_c < 0 || sms <= 0 || max_split < 1)
     return cudaErrorInvalidValue;
   return with_de(d, e, cudaErrorInvalidValue, [&](auto dd, auto ee) {
     return launch_planned<T, decltype(dd)::value, decltype(ee)::value,
@@ -640,6 +705,76 @@ cudaError_t dispatch_scalar_tied(int d, int e, const RwArgs<T>& p, int sms,
   return dispatch<T>(d, e, p, sms, max_split);
 }
 
+// ----------------------------------------------- K1's grouped form here --
+// The grouped launch of this body at (D, E): group_blocks over
+// group_sets(D, E) sets of one scenario, kGroupRows x kSlices threads a
+// set, each set's shared memory that of an S = 1 block of kGroupRows rows.
+template <typename T, int D, int E>
+GroupPlan group_plan_scalar(int b, int n_out, int group) {
+  GroupPlan p{};
+  group_blocks(group, group_sets(D, E), &p.sets, &p.gblocks);
+  p.grid = dim3(static_cast<unsigned>((n_out + kGroupRows - 1) / kGroupRows),
+                static_cast<unsigned>((b / group) * p.gblocks));
+  p.block = dim3(kGroupRows, kSlices, static_cast<unsigned>(p.sets));
+  p.smem = static_cast<size_t>(p.sets) *
+           smem_bytes<T, D, E, 1, kSubRows, kGroupRows, kSlices>();
+  return p;
+}
+
+// Whether a grouped launch's sizes are ones a plan exists for.
+inline bool group_ok(int b, int n_out, int n_c, int group) {
+  return b > 0 && n_out > 0 && n_c >= 0 && group > 0 && b % group == 0;
+}
+
+template <typename T, typename BT, int D, int E>
+cudaError_t launch_grouped_scalar(const GroupArgs<T>& a, const GroupPlan& p) {
+  const auto kernel = rw_tied_kernel<T, D, E, Variant::kFull, 1, kSubRows,
+                                     kGroupRows, kSlices, false, false, BT,
+                                     true>;
+  if (p.sets < 1 || p.sets > group_sets(D, E) ||
+      p.grid.y > static_cast<unsigned>(kMaxGridY))
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(kernel, p.smem);
+  if (err == cudaSuccess)
+    kernel<<<p.grid, p.block, p.smem, a.stream>>>(
+        a.g, a.dv, a.a, a.aod, static_cast<const BT*>(a.blam), a.rw, a.b,
+        a.n_out, a.n_c, E, 1, a.n_c, kSubRows, a.group, p.gblocks);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
+// K1's grouped form in this body, its slab of BT.
+template <typename T, typename BT>
+cudaError_t dispatch_grouped_scalar(int d, int e, const GroupArgs<T>& a) {
+  if (!group_ok(a.b, a.n_out, a.n_c, a.group)) return cudaErrorInvalidValue;
+  return with_de(d, e, cudaErrorInvalidValue, [&](auto dd, auto ee) {
+    constexpr int D = decltype(dd)::value;
+    constexpr int E = decltype(ee)::value;
+    return launch_grouped_scalar<T, BT, D, E>(
+        a, group_plan_scalar<T, D, E>(a.b, a.n_out, a.group));
+  });
+}
+
+// A grouped plan as the wrapper's check reads it: out = sets, blocks a
+// group, grid x, y, block x, y, z, shared bytes.
+inline int put_group_plan(const GroupPlan& p, long long* out) {
+  const long long v[8] = {p.sets, p.gblocks, p.grid.x, p.grid.y, p.block.x,
+                          p.block.y, p.block.z, static_cast<long long>(p.smem)};
+  for (int q = 0; q < 8; ++q) out[q] = v[q];
+  return 0;
+}
+
+template <typename T>
+int group_plan_export_scalar(int b, int n_out, int d, int e, int group,
+                             long long* out) {
+  if (!group_ok(b, n_out, 0, group)) return -1;
+  return with_de(d, e, -1, [&](auto dd, auto ee) {
+    return put_group_plan(
+        group_plan_scalar<T, decltype(dd)::value, decltype(ee)::value>(
+            b, n_out, group), out);
+  });
+}
+
 template <typename T>
 cudaError_t dispatch_untied(int d, int e, const RwArgs<T>& p, int sms,
                             int max_split) {
@@ -652,17 +787,15 @@ cudaError_t dispatch_untied(int d, int e, const RwArgs<T>& p, int sms,
   });
 }
 
-// The plan of a K1 (untied 0; grouped where group > 0) or K2 (untied 1)
-// launch, for the wrapper's check: out = S, split, chunk, sub, grid x, y,
-// z, shared bytes, blocks a group.
+// The plan of a K1 (untied 0) or K2 (untied 1) launch, for the wrapper's
+// check: out = S, split, chunk, sub, grid x, y, z, shared bytes.
 template <typename T>
 int plan_export(int b, int n_out, int n_c, int d, int e, int untied, int sms,
-                int group, long long* out) {
+                long long* out) {
   auto put = [&](const Plan& p) {
-    const long long v[9] = {p.s, p.split, p.chunk, p.sub, p.grid.x, p.grid.y,
-                            p.grid.z, static_cast<long long>(p.smem),
-                            p.gblocks};
-    for (int q = 0; q < 9; ++q) out[q] = v[q];
+    const long long v[8] = {p.s, p.split, p.chunk, p.sub, p.grid.x, p.grid.y,
+                            p.grid.z, static_cast<long long>(p.smem)};
+    for (int q = 0; q < 8; ++q) out[q] = v[q];
     return 0;
   };
   if (untied)
@@ -675,7 +808,7 @@ int plan_export(int b, int n_out, int n_c, int d, int e, int untied, int sms,
     constexpr int D = decltype(dd)::value;
     constexpr int E = decltype(ee)::value;
     return put(plan_of<T, D, E, scenarios<T, D, E>(), kSubRows, kRows, kSlices,
-                       false>(b, n_out, n_c, 1, sms, kMaxSplit, group));
+                       false>(b, n_out, n_c, 1, sms, kMaxSplit));
   });
 }
 
@@ -745,20 +878,20 @@ long long blocks_per_sm_of(int d, int e, int untied, int s, int split) {
 // `stream`; `sms` is the card's SM count and `max_split` the largest
 // cluster the plan may take, kMaxSplit on every path; K1's `body` is -1 for
 // the route of TIED_DISPATCH, 0 for this body, 1 for the f64 library's
-// tensor-core body, rw_tied_f64_body.cuh; `group` > 0 launches the grouped
-// form, 0 the ungrouped), the compiled plan
-// for the wrapper's check at load (long long, as ctypes reads it: S_max and
-// the dynamic shared bytes of an S_max launch per (d, E), 0 / -1 outside
-// d, E in 1 .. 8; kRows, kSlices, kSubRows, kMaxSplit, kSplitRows,
-// kSplitFill; a launch's whole plan), the blocks an SM holds
+// tensor-core body, rw_tied_f64_body.cuh), the compiled plans for the
+// wrapper's check at load (long long, as ctypes reads it: S_max and the
+// dynamic shared bytes of an S_max launch per (d, E), 0 / -1 outside d, E
+// in 1 .. 8; kRows, kSlices, kSubRows, kMaxSplit, kSplitRows, kSplitFill;
+// a launch's whole plan), the blocks an SM holds
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the error string.
+// K1's grouped form has a library of its own (variance_trace_grouped.cu).
 #define GPMPC_RW_TIED_EXPORTS(T, SUFFIX, TIED_DISPATCH)                        \
   extern "C" int gpmpc_rw_tied_##SUFFIX(                                      \
       const T* g, const T* dv, const T* a, const T* aod, const T* blam,       \
       T* rw, int b, int n_out, int n_c, int d, int e, int sms, int max_split, \
-      int body, int group, void* stream) {                                    \
+      int body, void* stream) {                                               \
     const RwArgs<T> p{g, dv, a, aod, blam, rw, b, n_out, n_c,                 \
-                      static_cast<cudaStream_t>(stream), group};              \
+                      static_cast<cudaStream_t>(stream)};                     \
     return static_cast<int>(TIED_DISPATCH(d, e, p, sms, max_split, body));    \
   }                                                                           \
   extern "C" int gpmpc_rw_untied_##SUFFIX(                                    \
@@ -770,8 +903,8 @@ long long blocks_per_sm_of(int d, int e, int untied, int s, int split) {
   }                                                                           \
   extern "C" int gpmpc_rw_tied_plan_##SUFFIX(int b, int n_out, int n_c, int d, \
                                              int e, int untied, int sms,      \
-                                             int group, long long* out) {     \
-    return plan_export<T>(b, n_out, n_c, d, e, untied, sms, group, out);      \
+                                             long long* out) {                \
+    return plan_export<T>(b, n_out, n_c, d, e, untied, sms, out);             \
   }                                                                           \
   extern "C" long long gpmpc_rw_tied_scenarios_##SUFFIX(int d, int e) {       \
     return scenarios_of<T>(d, e);                                             \

@@ -65,16 +65,31 @@
 //   - Ragged edges: rows past n_out have g = 0 and blam = 0, contraction
 //     rows past n_c a = aod = 0 and blam = 0, scenarios past B a = aod =
 //     g = 0: each adds exp(0) * 0 = 0, and nothing is stored for them.
-//   - K1's grouped form: blam (G, E, n_c, n_out), one slab a group of
-//     B / G consecutive scenarios; no block spans two groups (grid.y: G
-//     groups of ceil(group / S) blocks), so a block's blam loads stay
-//     shared by its S scenarios. An ungrouped launch is one group.
-//   The plan (scenarios, grid, shared bytes) is worked out on the
-//   host (mma_plan below), mirrored by `rw_tied_mma_plan` in
-//   ops/kernels/variance_trace.py and checked against these exports at
-//   load; so is the route (`tied_route`, `rw_tied_body`), which sends a
-//   tied f64 launch to this body where its grid has a block for every SM,
-//   else to the scalar body's plan.
+//   - K1's grouped form (`mma_group_plan` below): blam (G, E,
+//     n_c, n_out), one slab a group of B / G consecutive scenarios (one GP
+//     a lane), float or double: the width the fit stored it at. Unlike the
+//     ungrouped blam, which stays in L2 for all B, each slab comes from
+//     device memory, and the recipe's five scenarios a group fill neither
+//     S = 4 nor 8 slots (in ceil(group / S) blocks of S = 4, 5 of 8 slots
+//     live, the empty ones doing full FP64 work, and the slab loaded by
+//     both blocks). So a grouped block is P scenario sets
+//     (blockDim.z) of the 4 warps above, each warp one scenario (S = 1),
+//     P = ceil(group / gblocks), gblocks = ceil(group / group_sets(d, E))
+//     blocks a group (five at d = 3, E = 2: one block of five sets, every
+//     slot live). The block stages each chunk of its slab once, by 16-byte
+//     cp.async at the slab's width, into two buffers beside a and aod (one
+//     where two do not fit: an f64 slab at E >= 7), and
+//     every set reads it from there, widening each element to double in a
+//     register before its one multiply (exact: the values of a widened
+//     copy). A scenario's sums are those of the ungrouped S = 1 launch on
+//     its slab, so the bits do not depend on the grouping.
+//   The plans (scenarios, grid, shared bytes) are worked out on the
+//   host (mma_plan, mma_group_plan below), mirrored by `rw_tied_mma_plan`
+//   and `rw_tied_grouped_plan` in ops/kernels/variance_trace.py and checked
+//   against these exports at load; so is the route (`tied_route`,
+//   `rw_tied_body`), which sends a tied f64 launch to this body where its
+//   grid (grouped: at S_max, no block across two groups) has a block for
+//   every SM, else to the scalar body's plan.
 //
 // What the card showed (PERF.md): the tensor cores do not run beside the
 // vector pipe, and the contraction's 1 + d = 4 columns fill half of an n8
@@ -87,7 +102,8 @@
 // not TF32); the exp is exp_fast, within 1 ulp of exp (never a fast-math
 // path), and exp itself outside exp_fast's range.
 //
-// Included by variance_trace_tied_f64.cu (K1 and K3 in f64) and the probe;
+// Included by variance_trace_tied_f64.cu (K1 and K3 in f64),
+// variance_trace_grouped.cu (K1's grouped form) and the probe;
 // the anonymous namespace keeps every symbol local to its library.
 
 #pragma once
@@ -124,8 +140,10 @@ __host__ __device__ constexpr int mma_nt(int d) { return d + 1 > 8 ? 2 : 1; }
 __host__ __device__ constexpr int mma_kp(int ks) { return ks == 1 ? 4 : 12; }
 __host__ __device__ constexpr int mma_ap(int nt) { return 8 * nt + 2; }
 // The row stride of a staged blam tile (the block's 64 output rows, padded:
-// a half-warp's fragment loads hit 16 distinct 8-byte banks).
+// a half-warp's fragment loads hit 16 distinct 8-byte banks; as float, 68,
+// a warp's loads hit 32 distinct 4-byte banks). A multiple of 16 bytes.
 constexpr int kMmaBlamStride = kMmaTileRows + 2;
+constexpr int kMmaBlamStrideF32 = kMmaTileRows + 4;
 
 // Dynamic shared memory: two staging buffers of a chunk of a and aod for S
 // scenarios (and, staging blam, the probe's mma_blsmem, of the block's blam
@@ -143,31 +161,70 @@ struct MmaPlan {
   int s;
   dim3 grid;
   size_t smem;
-  int gblocks;  // blocks of grid.y a group of scenarios takes
 };
 
-// The launch of B scenarios and n_out output rows at S scenarios a block,
-// in groups of `group` (the grouped form; 0: one group): grid (row tiles,
-// scenario blocks: each group's in ceil(group / S)), each block 4 warps,
-// the whole contraction in each.
-inline MmaPlan mma_plan_at(int s, int b, int n_out, int e, int d,
-                           int group = 0) {
+// The launch of B scenarios and n_out output rows at S scenarios a block:
+// grid (row tiles, scenario blocks), each block 4 warps, the whole
+// contraction in each.
+inline MmaPlan mma_plan_at(int s, int b, int n_out, int e, int d) {
   MmaPlan p{};
   p.s = s;
   p.grid = dim3(static_cast<unsigned>((n_out + kMmaTileRows - 1) /
                                       kMmaTileRows),
-                static_cast<unsigned>(scenario_blocks(b, group, s,
-                                                      &p.gblocks)));
+                static_cast<unsigned>((b + s - 1) / s));
   p.smem = mma_smem_bytes(s, e, mma_ks(d), mma_nt(d));
   return p;
 }
 
-// K1's plan in this body: S = S_max where a group (B, ungrouped) holds
-// S_max scenarios, else 1.
-inline MmaPlan mma_plan(int b, int n_out, int e, int d, int group = 0) {
+// K1's plan in this body: S = S_max where B >= S_max, else 1.
+inline MmaPlan mma_plan(int b, int n_out, int e, int d) {
   const int smax = mma_scenarios(e, mma_nt(d));
-  return mma_plan_at((group > 0 ? group : b) >= smax ? smax : 1, b, n_out, e,
-                     d, group);
+  return mma_plan_at(b >= smax ? smax : 1, b, n_out, e, d);
+}
+
+// A grouped block's staged chunk of the slab, in bytes (blam_bytes 4 or 8
+// an element), and how many it keeps: two (chunk t + 1 lands while chunk t
+// is used) where two fit beside group_sets(d, E) sets' staging buffers and
+// the exp table (1 KB of static shared memory), else one (an f64 slab at
+// E >= 7), refilled after each chunk's last barrier.
+__host__ __device__ constexpr size_t mma_blam_chunk_bytes(int e,
+                                                          int blam_bytes) {
+  return static_cast<size_t>(e) * kMmaChunk *
+         (blam_bytes == 8 ? kMmaBlamStride : kMmaBlamStrideF32) * blam_bytes;
+}
+__host__ __device__ constexpr int mma_blam_bufs(int e, int ks, int nt,
+                                                int blam_bytes) {
+  return 2 * mma_blam_chunk_bytes(e, blam_bytes) +
+                     group_sets_nt(e, nt) * mma_smem_bytes(1, e, ks, nt) +
+                     64 * sizeof(double2) <=
+                 static_cast<size_t>(kMaxSmemBytes)
+             ? 2
+             : 1;
+}
+
+// Dynamic shared memory of a grouped block: its staged chunks of the slab,
+// then each of its `sets` sets' two staging buffers of a and aod (one
+// scenario).
+__host__ __device__ constexpr size_t mma_group_smem_bytes(int sets, int e,
+                                                          int ks, int nt,
+                                                          int blam_bytes) {
+  return mma_blam_bufs(e, ks, nt, blam_bytes) *
+             mma_blam_chunk_bytes(e, blam_bytes) +
+         static_cast<size_t>(sets) * mma_smem_bytes(1, e, ks, nt);
+}
+
+// K1's grouped form in this body: group_blocks over group_sets(d, E)
+// sets, 32 x kMmaStrips threads a set.
+inline GroupPlan mma_group_plan(int b, int n_out, int e, int d, int group,
+                                int blam_bytes) {
+  GroupPlan p{};
+  group_blocks(group, group_sets(d, e), &p.sets, &p.gblocks);
+  p.grid = dim3(static_cast<unsigned>((n_out + kMmaTileRows - 1) /
+                                      kMmaTileRows),
+                static_cast<unsigned>((b / group) * p.gblocks));
+  p.block = dim3(32, kMmaStrips, static_cast<unsigned>(p.sets));
+  p.smem = mma_group_smem_bytes(p.sets, e, mma_ks(d), mma_nt(d), blam_bytes);
+  return p;
 }
 
 // The route of a tied f64 launch: this body (1) where its grid at S_max
@@ -180,9 +237,7 @@ inline int tied_route(int b, int n_out, int n_c, int d, int e, int sms,
   (void)n_c;
   const long long tiles = (n_out + kMmaTileRows - 1) / kMmaTileRows;
   const int smax = mma_scenarios(e, mma_nt(d));
-  int gblocks;
-  const long long groups = scenario_blocks(b, group, smax, &gblocks);
-  return tiles * groups >= sms ? 1 : 0;
+  return tiles * scenario_blocks(b, group, smax) >= sms ? 1 : 0;
 }
 
 // c += a b, one m16n8k4 f64 MMA: a0 = A(g, t), a1 = A(g + 8, t); b0 =
@@ -336,16 +391,25 @@ enum class Blam : int { kAtStep, kAhead, kStaged };
 // (G divides S; more G is more independent FP64 work in flight and more
 // registers); K8: the contraction (and a two-step exponent) as one m16n8k8
 // in place of two m16n8k4; BL: how blam arrives; M: K1's stages or a
-// probe's variant.
-template <int S_, int G_, bool K8_, Blam BL_, MmaMode M_ = MmaMode::kFull>
+// probe's variant; BT: blam's element type; Sets: K1's grouped form
+// (blockDim.z scenario sets of S a warp, the slab staged once a block).
+template <int S_, int G_, bool K8_, Blam BL_, MmaMode M_ = MmaMode::kFull,
+          typename BT_ = double, bool Sets_ = false>
 struct MmaCfg {
   static constexpr int S = S_;
   static constexpr int G = G_;
   static constexpr bool K8 = K8_;
   static constexpr Blam BL = BL_;
   static constexpr MmaMode M = M_;
+  using BT = BT_;
+  static constexpr bool Sets = Sets_;
   static_assert(S % G == 0, "groups of G scenarios");
+  static_assert(!Sets || BL == Blam::kStaged, "a grouped block stages blam");
 };
+
+// K1's grouped instance: one scenario a warp, its slab of BT staged.
+template <typename BT>
+using GroupCfg = MmaCfg<1, 1, true, Blam::kStaged, MmaMode::kFull, BT, true>;
 
 // K1's instance at S scenarios a block: half of the scenarios interleaved
 // at a time (the fastest of G = 1, 2, 4 at S = 4 on the card; PERF.md), the
@@ -356,46 +420,104 @@ using K1Cfg = MmaCfg<S, (S > 1 ? S / 2 : 1), true, Blam::kAhead>;
 // E outputs; KS k steps of the exponent; NT n tiles of the contraction; C
 // an MmaCfg.
 template <int E, int KS, int NT, class C>
-__global__ void __launch_bounds__(32 * kMmaStrips)
+__global__ void __launch_bounds__(32 * kMmaStrips *
+                                  (C::Sets ? group_sets_nt(E, NT) : 1))
 rw_tied_mma_kernel(const double* __restrict__ g, const double* __restrict__ dv,
                    const double* __restrict__ a,
                    const double* __restrict__ aod,
-                   const double* __restrict__ blam, double* __restrict__ rw,
-                   int b_total, int n_out, int n_c, int d, int group,
-                   int gblocks) {
+                   const typename C::BT* __restrict__ blam,
+                   double* __restrict__ rw, int b_total, int n_out, int n_c,
+                   int d, int group, int gblocks) {
+  using BT = typename C::BT;
   constexpr int S = C::S;
   constexpr int G = C::G;
   constexpr bool K8 = C::K8;
   constexpr MmaMode M = C::M;
+  constexpr bool kSets = C::Sets;
   constexpr int KP = mma_kp(KS);
   constexpr int AP = mma_ap(NT);
   constexpr int kStageA = S * kMmaChunk * KP;
   constexpr int kStageAod = S * kMmaChunk * AP;
-  constexpr bool kStagedBlam = C::BL == Blam::kStaged;
+  // The probe's staged variant keeps blam in each buffer; the grouped form
+  // stages it once a block, ahead of the sets' buffers.
+  constexpr bool kStagedBlam = C::BL == Blam::kStaged && !kSets;
   constexpr int kBuf = kStageA + kStageAod +
                        (kStagedBlam ? E * kMmaChunk * kMmaBlamStride : 0);
+  // The grouped form's slab of BT, staged in kBlamBufs chunks of kBlamBuf
+  // elements (row stride kBlamStride: 66 doubles or 68 floats).
+  constexpr int kBB = static_cast<int>(sizeof(BT));
+  constexpr int kBlamStride = kBB == 8 ? kMmaBlamStride : kMmaBlamStrideF32;
+  constexpr int kBlamBuf = kSets ? E * kMmaChunk * kBlamStride : 0;
+  constexpr int kBlamBufs = kSets ? mma_blam_bufs(E, KS, NT, kBB) : 0;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  double* smem = reinterpret_cast<double*>(smem_raw);
+  BT* s_blam = reinterpret_cast<BT*>(smem_raw);
+  const int set = kSets ? static_cast<int>(threadIdx.z) : 0;
+  const int sets = kSets ? static_cast<int>(blockDim.z) : 1;
+  double* smem = reinterpret_cast<double*>(smem_raw + kBlamBufs * kBlamBuf *
+                                                          sizeof(BT))
+                 + set * 2 * kBuf;
   __shared__ double2 s_tab[64];
 
   constexpr int nthreads = 32 * kMmaStrips;
   const int lane = threadIdx.x;
   const int strip = threadIdx.y;
   const int tid = strip * 32 + lane;
+  // The block's threads, all sets: they stage the slab together.
+  const int btid = set * nthreads + tid;
+  const int bthreads = sets * nthreads;
   const int gq = lane >> 2;   // the fragments' groupID
   const int tq = lane & 3;    // and threadID_in_group
   const int i0 = blockIdx.x * kMmaTileRows + strip * kMmaRows;
-  // The block's scenarios: block y of group blockIdx.y / gblocks, whose
-  // scenarios read that group's blam slab and end with it.
+  // The warp's scenarios: set `set` of block y of group blockIdx.y /
+  // gblocks, whose scenarios read that group's blam slab and end with it.
   const int grp = static_cast<int>(blockIdx.y) / gblocks;
-  const int b0 = grp * group + (static_cast<int>(blockIdx.y) - grp * gblocks) * S;
+  const int b0 = grp * group +
+                 ((static_cast<int>(blockIdx.y) - grp * gblocks) * sets + set) * S;
   const int b_end = min(b_total, (grp + 1) * group);
   blam += static_cast<size_t>(grp) * E * n_c * n_out;
   const int w1 = d + 1;
+  // The slab's rows go by 16 bytes where n_out and the slab allow.
+  constexpr int kVec = 16 / kBB;
+  const bool blam_vec = n_out % kVec == 0 &&
+                        reinterpret_cast<size_t>(blam) % 16 == 0;
 
   // exp_fast's table; first read after the first chunk's barrier.
-  for (int q = tid; q < 64; q += nthreads)
+  for (int q = btid; q < 64; q += bthreads)
     s_tab[q] = make_double2(kExp2Table[q][0], kExp2Table[q][1]);
+
+  // The grouped form: stage contraction rows [j0, j0 + kMmaChunk) of the
+  // slab on the block's rows, (E, kMmaChunk, kBlamStride) of BT, at its
+  // width, by all the block's threads; every element past n_c or n_out is
+  // written 0.
+  auto stage_blam = [&](int j0, BT* dst) {
+    const int r0 = blockIdx.x * kMmaTileRows;
+    if (blam_vec) {
+      constexpr int kPerRow = kMmaTileRows / kVec;
+      for (int q = btid; q < E * kMmaChunk * kPerRow; q += bthreads) {
+        const int ej = q / kPerRow;   // e kMmaChunk + jj
+        const int ii = (q - ej * kPerRow) * kVec;
+        const int e = ej / kMmaChunk;
+        const int j = j0 + ej - e * kMmaChunk;
+        const bool ok = j < n_c && r0 + ii < n_out;
+        cp_async16(dst + ej * kBlamStride + ii,
+                   ok ? blam + (static_cast<size_t>(e) * n_c + j) * n_out + r0 + ii
+                      : blam,
+                   ok);
+      }
+    } else {
+      for (int q = btid; q < E * kMmaChunk * kMmaTileRows; q += bthreads) {
+        const int ej = q / kMmaTileRows;
+        const int ii = q - ej * kMmaTileRows;
+        const int e = ej / kMmaChunk;
+        const int j = j0 + ej - e * kMmaChunk;
+        const bool ok = j < n_c && r0 + ii < n_out;
+        cp_async(dst + ej * kBlamStride + ii,
+                 ok ? blam + (static_cast<size_t>(e) * n_c + j) * n_out + r0 + ii
+                    : blam,
+                 ok);
+      }
+    }
+  };
 
   // Stage contraction rows [j0, j0 + kMmaChunk) of a and aod for the
   // block's scenarios, (S, kMmaChunk, KP) and (S, kMmaChunk, AP), and, with
@@ -592,7 +714,10 @@ rw_tied_mma_kernel(const double* __restrict__ g, const double* __restrict__ dv,
   };
 
   const int n_chunks = (n_c + kMmaChunk - 1) / kMmaChunk;
-  if (n_chunks > 0) stage(0, smem);
+  if (n_chunks > 0) {
+    stage(0, smem);
+    if constexpr (kSets) stage_blam(0, s_blam);
+  }
   cp_async_commit();
   double bl[E][4], bn[E][4];
   if constexpr (C::BL == Blam::kAhead) load_blam(0, bl);
@@ -600,8 +725,13 @@ rw_tied_mma_kernel(const double* __restrict__ g, const double* __restrict__ dv,
     const double* s_a = smem + (t & 1) * kBuf;
     const double* s_aod = s_a + kStageA;
     const double* s_bl = s_aod + kStageAod;
+    const BT* s_blb = s_blam + (kBlamBufs == 2 ? (t & 1) * kBlamBuf : 0);
     // The other buffer was last read in chunk t - 1, before its barrier.
-    if (t + 1 < n_chunks) stage((t + 1) * kMmaChunk, smem + ((t + 1) & 1) * kBuf);
+    if (t + 1 < n_chunks) {
+      stage((t + 1) * kMmaChunk, smem + ((t + 1) & 1) * kBuf);
+      if constexpr (kSets && kBlamBufs == 2)
+        stage_blam((t + 1) * kMmaChunk, s_blam + ((t + 1) & 1) * kBlamBuf);
+    }
     cp_async_commit();
     cp_async_wait<1>();  // chunk t has landed (this thread's copies)
     __syncthreads();     // ... and every thread's
@@ -615,14 +745,20 @@ rw_tied_mma_kernel(const double* __restrict__ g, const double* __restrict__ dv,
 #pragma unroll
           for (int q = 0; q < 4; ++q) bl[e][q] = bn[e][q];
       } else if constexpr (C::BL == Blam::kStaged) {
-        // q = 2 h + p: row g + 8 h of the strip, column 2t + p of the step.
+        // q = 2 h + p: row g + 8 h of the strip, column 2t + p of the step;
+        // the grouped form's slab widened to double here.
 #pragma unroll
         for (int e = 0; e < E; ++e)
 #pragma unroll
-          for (int q = 0; q < 4; ++q)
-            bl[e][q] = s_bl[(e * kMmaChunk + st * kMmaStep + 2 * tq + (q & 1))
-                                * kMmaBlamStride
-                            + strip * kMmaRows + gq + 8 * (q >> 1)];
+          for (int q = 0; q < 4; ++q) {
+            const int at = (e * kMmaChunk + st * kMmaStep + 2 * tq + (q & 1))
+                               * (kSets ? kBlamStride : kMmaBlamStride)
+                           + strip * kMmaRows + gq + 8 * (q >> 1);
+            if constexpr (kSets)
+              bl[e][q] = static_cast<double>(s_blb[at]);
+            else
+              bl[e][q] = s_bl[at];
+          }
         step(s_a, s_aod, st * kMmaStep, bl);
       } else {
         load_blam(jg, bl);
@@ -630,6 +766,12 @@ rw_tied_mma_kernel(const double* __restrict__ g, const double* __restrict__ dv,
       }
     }
     __syncthreads();  // chunk t is consumed: its buffer may be refilled
+    // One slab buffer: chunk t + 1's lands before the next chunk's wait
+    // (the group committed here is older than the next chunk's a and aod).
+    if constexpr (kSets && kBlamBufs == 1) {
+      if (t + 1 < n_chunks) stage_blam((t + 1) * kMmaChunk, s_blam);
+      cp_async_commit();
+    }
   }
 
 #pragma unroll
@@ -665,13 +807,11 @@ cudaError_t launch_mma_at(const RwArgs<double>& a, int d, const MmaPlan& p) {
       p.grid.y > static_cast<unsigned>(kMmaMaxGridY))
     return cudaErrorInvalidValue;
   // An ungrouped launch is one group of all B over all of grid.y.
-  const int group = a.group > 0 ? a.group : a.b;
-  const int gblocks = a.group > 0 ? p.gblocks : static_cast<int>(p.grid.y);
   cudaError_t err = allow_smem(kernel, p.smem);
   if (err == cudaSuccess)
     kernel<<<p.grid, dim3(32, kMmaStrips), p.smem, a.stream>>>(
-        a.g, a.dv, a.a, a.aod, a.blam, a.rw, a.b, a.n_out, a.n_c, d, group,
-        gblocks);
+        a.g, a.dv, a.a, a.aod, a.blam, a.rw, a.b, a.n_out, a.n_c, d, a.b,
+        static_cast<int>(p.grid.y));
   // A refused launch leaves its error as the thread's last error too: read
   // it here, so that the next launch starts clean.
   const cudaError_t last = cudaGetLastError();
@@ -704,9 +844,9 @@ R with_mma_shape(int d, int e, R bad, F f) {
 template <typename T>
 cudaError_t dispatch_mma(int d, int e, const RwArgs<T>& p, int sms) {
   static_assert(std::is_same_v<T, double>, "the tensor-core body is f64");
-  if (p.b <= 0 || p.n_out <= 0 || p.n_c < 0 || sms <= 0 || p.group < 0)
+  if (p.b <= 0 || p.n_out <= 0 || p.n_c < 0 || sms <= 0)
     return cudaErrorInvalidValue;
-  const MmaPlan plan = mma_plan(p.b, p.n_out, e, d, p.group);
+  const MmaPlan plan = mma_plan(p.b, p.n_out, e, d);
   return with_mma_shape(d, e, cudaErrorInvalidValue,
                         [&](auto ee, auto kk, auto nn) {
                           return launch_mma_planned<decltype(ee)::value,
@@ -725,10 +865,77 @@ cudaError_t dispatch_routed(int d, int e, const RwArgs<T>& p, int sms,
   if (body < -1 || body > 1) return cudaErrorInvalidValue;
   if (body == -1)
     body = (p.b > 0 && p.n_out > 0 && sms > 0)
-               ? tied_route(p.b, p.n_out, p.n_c, d, e, sms, p.group)
+               ? tied_route(p.b, p.n_out, p.n_c, d, e, sms)
                : 0;
   if (body == 1) return dispatch_mma(d, e, p, sms);
   return dispatch<T>(d, e, p, sms, max_split);
+}
+
+// K1's grouped form in this body at plan p (mma_group_plan), its slab of
+// BT.
+template <int E, int KS, int NT, typename BT>
+cudaError_t launch_mma_grouped(const GroupArgs<double>& a, int d,
+                               const GroupPlan& p) {
+  const auto kernel = rw_tied_mma_kernel<E, KS, NT, GroupCfg<BT>>;
+  if (mma_ks(d) != KS || mma_nt(d) != NT || p.sets < 1 ||
+      p.sets > group_sets_nt(E, NT) ||
+      p.grid.y > static_cast<unsigned>(kMmaMaxGridY))
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(kernel, p.smem);
+  if (err == cudaSuccess)
+    kernel<<<p.grid, p.block, p.smem, a.stream>>>(
+        a.g, a.dv, a.a, a.aod, static_cast<const BT*>(a.blam), a.rw, a.b,
+        a.n_out, a.n_c, d, a.group, p.gblocks);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
+template <typename BT>
+cudaError_t dispatch_mma_grouped(int d, int e, const GroupArgs<double>& a) {
+  if (!group_ok(a.b, a.n_out, a.n_c, a.group)) return cudaErrorInvalidValue;
+  const GroupPlan plan = mma_group_plan(a.b, a.n_out, e, d, a.group,
+                                        static_cast<int>(sizeof(BT)));
+  return with_mma_shape(d, e, cudaErrorInvalidValue,
+                        [&](auto ee, auto kk, auto nn) {
+                          return launch_mma_grouped<decltype(ee)::value,
+                                                    decltype(kk)::value,
+                                                    decltype(nn)::value, BT>(
+                              a, d, plan);
+                        });
+}
+
+// The grouped f64 launch, its slab float (blam_bytes 4) or double (8):
+// body -1 takes the route (tied_route at the group), 0 the scalar body's
+// grouped form, 1 this body's. (A template, as every function here that
+// instantiates kernels, so that only the source that calls it builds them.)
+template <typename T>
+cudaError_t dispatch_grouped(int d, int e, const GroupArgs<T>& p,
+                             int blam_bytes, int sms, int body) {
+  static_assert(std::is_same_v<T, double>, "the grouped form is f64");
+  if (body < -1 || body > 1 || (blam_bytes != 4 && blam_bytes != 8) ||
+      !group_ok(p.b, p.n_out, p.n_c, p.group))
+    return cudaErrorInvalidValue;
+  if (body == -1)
+    body = sms > 0 ? tied_route(p.b, p.n_out, p.n_c, d, e, sms, p.group) : 0;
+  if (body == 1)
+    return blam_bytes == 4 ? dispatch_mma_grouped<float>(d, e, p)
+                           : dispatch_mma_grouped<double>(d, e, p);
+  return blam_bytes == 4 ? dispatch_grouped_scalar<T, float>(d, e, p)
+                         : dispatch_grouped_scalar<T, double>(d, e, p);
+}
+
+// A grouped plan of either body for the wrapper's check (put_group_plan);
+// -1 on what no plan exists for.
+template <typename T>
+int group_plan_export(int body, int b, int n_out, int d, int e, int group,
+                      int blam_bytes, long long* out) {
+  if (body < 0 || body > 1 || (blam_bytes != 4 && blam_bytes != 8) ||
+      d < 1 || d > 8 || e < 1 || e > 8 || !group_ok(b, n_out, 0, group))
+    return -1;
+  if (body == 1)
+    return put_group_plan(mma_group_plan(b, n_out, e, d, group, blam_bytes),
+                          out);
+  return group_plan_export_scalar<T>(b, n_out, d, e, group, out);
 }
 
 // Blocks of this body's instance at (d, E, S) that an SM holds at once; -1
@@ -763,7 +970,8 @@ long long mma_blocks_per_sm(int d, int e, int s) {
 // The plain C interface of this body in the f64 library, for ctypes: its
 // constants, its plan for the wrapper's check at load (out = S, grid x, y,
 // shared bytes; 0, or -1 outside d, E in 1 .. 8), the
-// route (1: this body, 0: the scalar body) and the blocks an SM holds.
+// route (1: this body, 0: the scalar body; `group` > 0 a grouped launch's)
+// and the blocks an SM holds.
 #define GPMPC_RW_TIED_MMA_EXPORTS                                             \
   extern "C" long long gpmpc_rw_tied_mma_rows_f64() { return kMmaTileRows; }  \
   extern "C" long long gpmpc_rw_tied_mma_chunk_f64() { return kMmaChunk; }    \
@@ -772,12 +980,12 @@ long long mma_blocks_per_sm(int d, int e, int s) {
     return mma_scenarios(e, mma_nt(d));                                       \
   }                                                                           \
   extern "C" int gpmpc_rw_tied_mma_plan_f64(int b, int n_out, int d, int e,   \
-                                            int group, long long* out) {      \
+                                            long long* out) {                 \
     if (d < 1 || d > 8 || e < 1 || e > 8) return -1;                          \
-    const MmaPlan p = mma_plan(b, n_out, e, d, group);                        \
-    const long long v[5] = {p.s, p.grid.x, p.grid.y,                          \
-                            static_cast<long long>(p.smem), p.gblocks};       \
-    for (int q = 0; q < 5; ++q) out[q] = v[q];                                \
+    const MmaPlan p = mma_plan(b, n_out, e, d);                               \
+    const long long v[4] = {p.s, p.grid.x, p.grid.y,                          \
+                            static_cast<long long>(p.smem)};                  \
+    for (int q = 0; q < 4; ++q) out[q] = v[q];                                \
     return 0;                                                                 \
   }                                                                           \
   extern "C" long long gpmpc_rw_tied_route_f64(int b, int n_out, int n_c,     \
@@ -788,4 +996,39 @@ long long mma_blocks_per_sm(int d, int e, int s) {
   extern "C" long long gpmpc_rw_tied_mma_blocks_per_sm_f64(int d, int e,      \
                                                            int s) {           \
     return mma_blocks_per_sm<double>(d, e, s);                                \
+  }
+
+// The plain C interface of K1's grouped form (its own library,
+// variance_trace_grouped.cu; f64 operands, the precision policy's): the
+// launch (blam (b / group, E, n_c, n_out) of blam_bytes 4 or 8; body -1
+// the route, 0 the scalar body, 1 this body; returns the cudaError_t,
+// asynchronous on `stream`), its plan for the wrapper's check at load (out
+// = sets, blocks a group, grid x, y, block x, y, z, shared bytes; -1 on
+// what has no plan), kGroupRows, kMaxSets, group_sets per (d, E), and the
+// error string.
+#define GPMPC_RW_TIED_GROUPED_EXPORTS                                          \
+  extern "C" int gpmpc_rw_tied_grouped_f64(                                   \
+      const double* g, const double* dv, const double* a, const double* aod,  \
+      const void* blam, int blam_bytes, double* rw, int b, int n_out,         \
+      int n_c, int d, int e, int group, int sms, int body, void* stream) {    \
+    const GroupArgs<double> p{g,   dv,    a,     aod,   blam, rw,             \
+                              b,   n_out, n_c,   group,                       \
+                              static_cast<cudaStream_t>(stream)};             \
+    return static_cast<int>(                                                  \
+        dispatch_grouped<double>(d, e, p, blam_bytes, sms, body));            \
+  }                                                                           \
+  extern "C" int gpmpc_rw_tied_grouped_plan_f64(                              \
+      int body, int b, int n_out, int d, int e, int group, int blam_bytes,    \
+      long long* out) {                                                       \
+    return group_plan_export<double>(body, b, n_out, d, e, group, blam_bytes, \
+                                     out);                                    \
+  }                                                                           \
+  extern "C" long long gpmpc_rw_tied_group_sets_f64(int d, int e) {           \
+    if (d < 1 || d > 8 || e < 1 || e > 8) return 0;                           \
+    return group_sets(d, e);                                                  \
+  }                                                                           \
+  extern "C" long long gpmpc_rw_tied_group_rows_f64() { return kGroupRows; }  \
+  extern "C" long long gpmpc_rw_tied_max_sets_f64() { return kMaxSets; }      \
+  extern "C" const char* gpmpc_rw_tied_grouped_error_string_f64(int err) {    \
+    return cudaGetErrorString(static_cast<cudaError_t>(err));                 \
   }

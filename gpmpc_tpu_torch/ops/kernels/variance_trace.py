@@ -38,6 +38,15 @@ exponent and the contraction as f64 mma.sync, plan `rw_tied_mma_plan`, the
 order of its sums emulated by `rw_tied_mma_reference`), else the body
 above.
 
+K1's grouped form (blam (G, E, Nc, Nout), one slab a group of B / G
+consecutive scenarios: the trace under torch.func.vmap over one GP a lane;
+csrc/variance_trace_grouped.cu, f64 operands) takes the slab at the width
+it is stored at, f32 or f64, and widens each element in a register
+(`rw_tied_grouped_plan`): a block is up to `group_sets(d, E)` scenario sets
+of one scenario each, so that the recipe's five a group fill one block,
+the slab read once a launch; in the tensor-core body staged once a block
+by 16-byte copies.
+
 The symmetric-pair kernel (K4, csrc/variance_trace_sym.cu, `rw_sym`) is the
 JAX package's opt-in GPMPC_SYM_KERNEL=1: the exponent in the whitened form
 z = a chol(M2), so that W is bit-symmetric, and only the tile pairs I <= J
@@ -169,7 +178,6 @@ class RwPlan(NamedTuple):
     cluster: tuple      # the thread-block cluster: (split, 1, 1)
     chunk: int          # contraction rows a rank takes (n_c at split 1)
     sub: int            # contraction rows a slice takes from each tile
-    gblocks: int        # blocks of grid.y a group of scenarios takes
 
 
 def _itemsize(dtype) -> int:
@@ -193,37 +201,35 @@ def rw_scenarios(d: int, e: int, dtype) -> int:
     return _scenarios(_itemsize(dtype) // 4 * (d + e * (d + 1)))
 
 
-def _rw_smem(d, e, dtype, s, untied=False) -> int:
+def _rw_smem(d, e, dtype, s, untied=False, rows=ROWS) -> int:
     """`smem_bytes` of csrc/rw_tied_body.cuh: two staging buffers of a tile
     of a and aod (rows padded to 4; untied also the rows' dv) or the
     slices' partials, whichever is larger."""
     stage = 2 * s * SLICES * SUB_ROWS * (_pad4(d) + _pad4(d + 1) + int(untied))
-    red = SLICES * s * e * (d + 1) * (ROWS + 1)
+    red = SLICES * s * e * (d + 1) * (rows + 1)
     return _itemsize(dtype) * max(stage, red)
 
 
-def _groups(b, group, s) -> tuple:
-    """(blocks of grid.y, blocks a group): B scenarios in groups of `group`
-    (None: one group of all B), each group's in ceil(group / S) blocks of S,
-    so that no block spans two groups."""
+def _groups(b, group, s) -> int:
+    """Blocks of grid.y of B scenarios at S a block in groups of `group`
+    (None: one group of all B), no block spanning two groups
+    (`scenario_blocks`: the route's count of a grouped launch)."""
     group = group or b
-    gblocks = -(-group // s) if group else 0
-    return (-(-b // group) * gblocks if group else 0), gblocks
+    return -(-b // group) * -(-group // s) if group else 0
 
 
 def _plan(b, n_out, n_c, d, e, outs, dtype, sms, untied,
-          max_split=MAX_SPLIT, group=None) -> RwPlan:
+          max_split=MAX_SPLIT) -> RwPlan:
     """`plan_of` of csrc/rw_tied_body.cuh, for e outputs a block and `outs`
-    on the grid, the B scenarios in groups of `group` (K1's grouped form;
-    None: one group): S = S_max where a group holds at least S_max, else 1;
-    where the (row tiles x scenario blocks x outs) blocks fill at most
-    1 / SPLIT_FILL of the `sms` SMs, the contraction split over up to
-    max_split ranks of at least SPLIT_ROWS rows, each rank's rows a multiple
-    of SLICES, staged in tiles of SLICES * sub rows."""
+    on the grid: S = S_max where B >= S_max, else 1; where the (row tiles x
+    scenario blocks x outs) blocks fill at most 1 / SPLIT_FILL of the `sms`
+    SMs, the contraction split over up to max_split ranks of at least
+    SPLIT_ROWS rows, each rank's rows a multiple of SLICES, staged in tiles
+    of SLICES * sub rows."""
     s_max = rw_scenarios(d, e, dtype)
-    s = s_max if (group or b) >= s_max else 1
+    s = s_max if b >= s_max else 1
     tiles = -(-n_out // ROWS)
-    groups, gblocks = _groups(b, group, s)
+    groups = _groups(b, None, s)
     blocks = tiles * groups * outs
     split = 1
     if 0 < blocks and blocks * SPLIT_FILL <= sms:
@@ -236,7 +242,7 @@ def _plan(b, n_out, n_c, d, e, outs, dtype, sms, untied,
     grid = (tiles * split, groups) + ((outs,) if untied else ())
     return RwPlan(ROWS, SLICES, s, ROWS * SLICES, SLICES * sub,
                   _rw_smem(d, e, dtype, s, untied), grid, split, (split, 1, 1),
-                  chunk, sub, gblocks)
+                  chunk, sub)
 
 
 def _check_dims(d, e, dtype):
@@ -256,18 +262,15 @@ def _check_grid(plan: RwPlan, b) -> RwPlan:
     return plan
 
 
-def rw_tied_plan(b, n_out, n_c, d, e, dtype, sms=H100_SMS,
-                 group=None) -> RwPlan:
+def rw_tied_plan(b, n_out, n_c, d, e, dtype, sms=H100_SMS) -> RwPlan:
     """The launch of K1's body for K1 and K3: B scenarios, n_out output rows
-    and n_c contraction rows on a card of `sms` SMs; with `group`, K1's
-    grouped form (scenarios b of one group, b // group, share that group's
-    blam). Every (scenario, row) falls in exactly one block's (S scenarios
-    of one group) x (rows rows) for each of `split` ranks, and every
-    contraction row in exactly one rank's chunk, the ragged edges masked.
-    Raises on what the kernel cannot take, never adjusts."""
+    and n_c contraction rows on a card of `sms` SMs. Every (scenario, row)
+    falls in exactly one block's (S scenarios) x (rows rows) for each of
+    `split` ranks, and every contraction row in exactly one rank's chunk,
+    the ragged edges masked. Raises on what the kernel cannot take, never
+    adjusts."""
     _check_dims(d, e, dtype)
-    return _check_grid(_plan(b, n_out, n_c, d, e, 1, dtype, sms, False,
-                             group=group), b)
+    return _check_grid(_plan(b, n_out, n_c, d, e, 1, dtype, sms, False), b)
 
 
 def rw_untied_plan(b, n, d, e, dtype, sms=H100_SMS) -> RwPlan:
@@ -288,12 +291,10 @@ MMA_THREADS = 32 * MMA_STRIPS
 class MmaPlan(NamedTuple):
     scenarios: int      # S: scenarios a block, sharing each blam load
     grid: tuple         # (ceil(n_out / MMA_ROWS), ceil(B / S)), blocks of
-                        # MMA_THREADS threads; grouped, ceil(B / group)
-                        # groups of gblocks blocks on y
+                        # MMA_THREADS threads
     smem_bytes: int     # dynamic shared memory of a block
     ks: int             # k steps of the exponent: d padded to 4 or 8
     nt: int             # n tiles of the contraction: 1 + d padded to 8, 16
-    gblocks: int        # blocks of grid.y a group of scenarios takes
 
 
 def _mma_ks(d: int) -> int:
@@ -317,20 +318,17 @@ def _mma_smem(s, d) -> int:
                                     + 8 * _mma_nt(d) + 2)
 
 
-def rw_tied_mma_plan(b, n_out, d, e, group=None) -> MmaPlan:
+def rw_tied_mma_plan(b, n_out, d, e) -> MmaPlan:
     """The launch of the f64 tensor-core body (csrc/rw_tied_f64_body.cuh,
     `mma_plan`) for B scenarios and n_out output rows (any n_c: each warp
-    walks the whole contraction in chunks of MMA_CHUNK rows, steps of 8), in
-    groups of `group` scenarios (the grouped form; None: one group): S =
-    S_max where a group holds at least S_max, else 1. Every (scenario, row)
-    falls in one block's S (of one group) x MMA_ROWS. Raises on what the
-    kernel cannot take."""
+    walks the whole contraction in chunks of MMA_CHUNK rows, steps of 8):
+    S = S_max where B >= S_max, else 1. Every (scenario, row) falls in one
+    block's S x MMA_ROWS. Raises on what the kernel cannot take."""
     _check_dims(d, e, torch.float64)
     s_max = rw_tied_mma_scenarios(d, e)
-    s = s_max if (group or b) >= s_max else 1
-    groups, gblocks = _groups(b, group, s)
-    plan = MmaPlan(s, (-(-n_out // MMA_ROWS), groups), _mma_smem(s, d),
-                   _mma_ks(d), _mma_nt(d), gblocks)
+    s = s_max if b >= s_max else 1
+    plan = MmaPlan(s, (-(-n_out // MMA_ROWS), -(-b // s)), _mma_smem(s, d),
+                   _mma_ks(d), _mma_nt(d))
     if plan.smem_bytes > MAX_SMEM or plan.grid[1] > _MAX_GRID_Y:
         raise ValueError(f'rw kernel (f64 tensor cores): B={b} at '
                          f'{plan.scenarios} scenarios a block needs grid.y '
@@ -351,9 +349,83 @@ def rw_tied_body(b, n_out, n_c, d, e, dtype, sms=H100_SMS,
     faster)."""
     s_max = rw_tied_mma_scenarios(d, e)
     if dtype == torch.float64 and -(-n_out // MMA_ROWS) * _groups(
-            b, group, s_max)[0] >= sms:
+            b, group, s_max) >= sms:
         return 'mma'
     return 'scalar'
+
+
+# ------------------------------------------------------ K1's grouped form --
+# The constexprs of csrc/rw_tied_body.cuh's grouped form, checked against
+# its exports.
+GROUP_ROWS = 32         # kGroupRows: output rows a grouped block, scalar
+MAX_SETS = 5            # kMaxSets: scenario sets a grouped block, at most
+
+
+def group_sets(d: int, e: int) -> int:
+    """Scenario sets a grouped block may hold at (d, E) (`group_sets`):
+    one scenario a set, E NT 4 accumulator doubles a set within 40, 1 to
+    MAX_SETS (5 at d = 3, E = 2)."""
+    return max(1, min(MAX_SETS, 10 // (e * _mma_nt(d))))
+
+
+class GroupPlan(NamedTuple):
+    body: str           # 'mma' or 'scalar'
+    sets: int           # scenario sets a block, one scenario each
+    gblocks: int        # blocks a group takes on grid.y
+    grid: tuple         # (row tiles, groups x gblocks)
+    block: tuple        # (x, y, sets) threads
+    smem_bytes: int     # dynamic shared memory of a block
+    live: int           # scenarios of a group: live slots of its blocks
+    slots: int          # gblocks x sets: slots of its blocks
+    blam_bytes: int     # slab bytes read a launch (each element once)
+
+
+def rw_tied_grouped_plan(b, n_out, n_c, d, e, group, dtype=torch.float64,
+                         blam_dtype=None, body=None,
+                         sms=H100_SMS) -> GroupPlan:
+    """K1's grouped form (`mma_group_plan`, `group_plan_scalar`; f64
+    operands, csrc/variance_trace_grouped.cu): B
+    scenarios in groups of `group`, each group's in gblocks =
+    ceil(group / group_sets(d, E)) blocks of sets = ceil(group / gblocks)
+    scenario sets of one scenario, the group's slab (of blam_dtype, by
+    default dtype) read once by each row tile of its blocks. In the body of
+    `rw_tied_body` (body None) or the one named: the tensor-core body (f64
+    operands) at MMA_ROWS rows and 4 warps a set, the slab staged in shared
+    memory (two chunks, or one where two do not fit: an f64 slab at E >= 7;
+    row stride 66 doubles or 68 floats), or the scalar
+    body at GROUP_ROWS rows x SLICES a set, each set its S = 1 buffers.
+    Raises on what the kernel cannot take."""
+    _check_dims(d, e, dtype)
+    if dtype != torch.float64:
+        raise TypeError(f'rw kernel: the grouped form takes f64 operands '
+                        f'(the precision policy), got {dtype}')
+    if not (group >= 1 and b >= 1 and b % group == 0 and n_out >= 1):
+        raise ValueError(f'rw kernel: B = {b} in groups of {group}')
+    body = body or rw_tied_body(b, n_out, n_c, d, e, dtype, sms, group=group)
+    gblocks = -(-group // group_sets(d, e))
+    sets = -(-group // gblocks)
+    bsz = _itemsize(blam_dtype or dtype)
+    if body == 'mma':
+        rows, block = MMA_ROWS, (32, MMA_STRIPS, sets)
+        # Two staged chunks of the slab where they fit beside the most sets'
+        # buffers and the exp table (1 KB), else one (`mma_blam_bufs`).
+        chunk = e * MMA_CHUNK * (MMA_ROWS + (2 if bsz == 8 else 4)) * bsz
+        bufs = 2 if (2 * chunk + group_sets(d, e) * _mma_smem(1, d) + 1024
+                     <= MAX_SMEM) else 1
+        smem = bufs * chunk + sets * _mma_smem(1, d)
+    else:
+        rows, block = GROUP_ROWS, (GROUP_ROWS, SLICES, sets)
+        smem = sets * _rw_smem(d, e, dtype, 1, rows=GROUP_ROWS)
+    plan = GroupPlan(body, sets, gblocks, (-(-n_out // rows),
+                                           b // group * gblocks),
+                     block, smem, group, gblocks * sets,
+                     b // group * e * n_c * n_out * bsz)
+    if plan.smem_bytes > MAX_SMEM or plan.grid[1] > _MAX_GRID_Y:
+        raise ValueError(f'rw kernel (grouped): B={b} in groups of {group} '
+                         f'needs grid.y {plan.grid[1]} (at most {_MAX_GRID_Y})'
+                         f' and {plan.smem_bytes} shared bytes (at most '
+                         f'{MAX_SMEM})')
+    return plan
 
 
 # The shapes whose plans are compared with the library's at load: the
@@ -383,31 +455,29 @@ def _check_plan(lib, prefix, want):
 
 def _plan_values(plan: RwPlan) -> list:
     """A plan as `gpmpc_rw_tied_plan_*` writes it: S, split, chunk, sub,
-    grid x, y, z, the shared bytes and the blocks a group."""
+    grid x, y, z and the shared bytes."""
     grid = tuple(plan.grid) + (1,) * (3 - len(plan.grid))
     return [plan.scenarios, plan.split, plan.chunk, plan.sub, *grid,
-            plan.smem_bytes, plan.gblocks]
+            plan.smem_bytes]
 
 
 def _check_launch_plans(lib, sfx, dtype):
     """Raise unless the library's `plan_of` equals `_plan` at the
-    _PLAN_CHECK_* shapes, for K1 (one group, and grouped) and K2."""
+    _PLAN_CHECK_* shapes, for K1 and K2."""
     fn = getattr(lib, f'gpmpc_rw_tied_plan_{sfx}')
-    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_longlong * 9)()
+    out = (ctypes.c_longlong * 8)()
     for b in _PLAN_CHECK_B:
         for n in _PLAN_CHECK_N:
             for d, e in _PLAN_CHECK_DE:
                 for sms in _PLAN_CHECK_SMS:
-                    for untied, group in ((False, 0), (True, 0), *(
-                            (False, k) for k in _PLAN_CHECK_GROUP)):
+                    for untied in (False, True):
                         want = _plan_values(
                             _plan(b, n, n, d, 1, e, dtype, sms, True)
                             if untied else
-                            _plan(b, n, n, d, e, 1, dtype, sms, False,
-                                  group=group or None))
-                        args = (b, n, n, d, e, int(untied), sms, group)
+                            _plan(b, n, n, d, e, 1, dtype, sms, False))
+                        args = (b, n, n, d, e, int(untied), sms)
                         if fn(*args, out) != 0 or list(out) != want:
                             raise RuntimeError(
                                 f'gpmpc_rw_tied_plan_{sfx}{args} is '
@@ -415,28 +485,62 @@ def _check_launch_plans(lib, sfx, dtype):
                                 'in the wrapper')
 
 
+def _group_plan_values(plan: GroupPlan) -> list:
+    """A grouped plan as `gpmpc_rw_tied_grouped_plan_*` writes it: sets,
+    blocks a group, grid x, y, block x, y, z and the shared bytes."""
+    return [plan.sets, plan.gblocks, *plan.grid, *plan.block,
+            plan.smem_bytes]
+
+
+def _check_grouped_plans(lib):
+    """Raise unless the grouped library's plans (each body, each slab
+    width) equal `rw_tied_grouped_plan` at groups of _PLAN_CHECK_GROUP, 1,
+    3 and 256 groups, the _PLAN_CHECK_N rows and every (d, E)."""
+    fn = lib.gpmpc_rw_tied_grouped_plan_f64
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 8)()
+    cases = [(body, bdt) for body in ('scalar', 'mma')
+             for bdt in (torch.float32, torch.float64)]
+    for k in _PLAN_CHECK_GROUP:
+        for b in (k, 3 * k, 256 * k):
+            for n in _PLAN_CHECK_N:
+                for d in range(1, MAX_D + 1):
+                    for e in range(1, MAX_E + 1):
+                        for body, bdt in cases:
+                            want = _group_plan_values(rw_tied_grouped_plan(
+                                b, n, n, d, e, k, torch.float64, bdt, body))
+                            args = (_BODY[body], b, n, d, e, k,
+                                    _itemsize(bdt))
+                            if fn(*args, out) != 0 or list(out) != want:
+                                raise RuntimeError(
+                                    'gpmpc_rw_tied_grouped_plan_f64'
+                                    f'{args} is {list(out)} in the compiled '
+                                    f'kernel, {want} in the wrapper')
+
+
 def _check_mma_plans(lib):
     """Raise unless the f64 library's tensor-core plan and route equal
-    `rw_tied_mma_plan` and `rw_tied_body` at the _PLAN_CHECK_* shapes, one
-    group and grouped (and, at N = 512 and 1,024, at every (d, E))."""
+    `rw_tied_mma_plan` and `rw_tied_body` at the _PLAN_CHECK_* shapes (and,
+    at N = 512 and 1,024, at every (d, E)), the route also grouped."""
     fn = lib.gpmpc_rw_tied_mma_plan_f64
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
     fn.restype = ctypes.c_int
     route = lib.gpmpc_rw_tied_route_f64
     route.restype = ctypes.c_longlong
-    out = (ctypes.c_longlong * 5)()
+    out = (ctypes.c_longlong * 4)()
     des = [(d, e) for d in range(1, MAX_D + 1) for e in range(1, MAX_E + 1)]
     for b in _PLAN_CHECK_B:
         for n in _PLAN_CHECK_N:
             for d, e in (des if n >= 512 else _PLAN_CHECK_DE):
+                p = rw_tied_mma_plan(b, n, d, e)
+                want = [p.scenarios, *p.grid, p.smem_bytes]
+                if fn(b, n, d, e, out) != 0 or list(out) != want:
+                    raise RuntimeError(
+                        f'gpmpc_rw_tied_mma_plan_f64{(b, n, d, e)} is '
+                        f'{list(out)} in the compiled kernel, {want} in the '
+                        'wrapper')
                 for group in (0, *_PLAN_CHECK_GROUP):
-                    p = rw_tied_mma_plan(b, n, d, e, group=group or None)
-                    want = [p.scenarios, *p.grid, p.smem_bytes, p.gblocks]
-                    if fn(b, n, d, e, group, out) != 0 or list(out) != want:
-                        raise RuntimeError(
-                            f'gpmpc_rw_tied_mma_plan_f64{(b, n, d, e, group)}'
-                            f' is {list(out)} in the compiled kernel, {want} '
-                            'in the wrapper')
                     for sms in _PLAN_CHECK_SMS:
                         got = route(b, n, n, d, e, sms, group)
                         body = rw_tied_body(b, n, n, d, e, torch.float64, sms,
@@ -485,11 +589,37 @@ def _kernel_fn(dtype, untied=False):
         fn_u.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                          + [ctypes.c_void_p])
         fn_u.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return (fn_u if untied else fn,
             getattr(lib, f'gpmpc_rw_tied_error_string_{sfx}'))
+
+
+_GROUPED_LIB = 'variance_trace_grouped'
+
+
+def _grouped_fn():
+    """(launch, error string) of K1's grouped form (its own library,
+    csrc/variance_trace_grouped.cu), its constants and plans checked
+    against this module's when the library is first loaded."""
+    lib = _build.load(_GROUPED_LIB)
+    fn = lib.gpmpc_rw_tied_grouped_f64
+    if fn.argtypes is None:
+        want = {('group_rows_f64',): GROUP_ROWS, ('max_sets_f64',): MAX_SETS}
+        for d in range(1, MAX_D + 1):
+            for e in range(1, MAX_E + 1):
+                want[('group_sets_f64', d, e)] = group_sets(d, e)
+        _check_plan(lib, 'gpmpc_rw_tied', want)
+        _check_grouped_plans(lib)
+        err_fn = lib.gpmpc_rw_tied_grouped_error_string_f64
+        err_fn.argtypes = [ctypes.c_int]
+        err_fn.restype = ctypes.c_char_p
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
+                       + [ctypes.c_void_p] + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn, lib.gpmpc_rw_tied_grouped_error_string_f64
 
 
 _sms: dict = {}
@@ -528,11 +658,12 @@ def rw_tied_reference(g_out, dv_out, a, aod, blam):
 def rw_tied_grouped_reference(g_out, dv_out, a, aod, blam):
     """Plain version of K1's grouped form: `rw_tied_reference` with one
     blam a group of scenarios, scenario b reading blam[b // (B / G)].
-    Shapes as rw_tied_reference but blam (G, E, Nc, Nout), G dividing B."""
+    Shapes as rw_tied_reference but blam (G, E, Nc, Nout), G dividing B,
+    at its storage width (f32 or the operands'), widened first (exact)."""
     if blam.ndim != 4:
         raise ValueError(f'grouped blam is (G, E, Nc, Nout), got '
                          f'{tuple(blam.shape)}')
-    return rw_tied_reference(g_out, dv_out, a, aod, blam)
+    return rw_tied_reference(g_out, dv_out, a, aod, blam.to(g_out.dtype))
 
 
 def _split_parts(plan: RwPlan, n_c: int) -> list:
@@ -565,6 +696,7 @@ def rw_tied_mma_reference(g_out, dv_out, a, aod, blam):
     within a step is the hardware's."""
     b, n_out, d = g_out.shape
     e, n_c, _ = blam.shape[-3:]
+    blam = blam.to(g_out.dtype)        # a grouped slab at f32: exact
     gq = -0.25 * g_out
     p = 0
     for k0 in range(0, d, 4):
@@ -617,7 +749,8 @@ def rw_tied_blocks_per_sm(d, e, dtype, untied=False, s=None, split=1) -> int:
 
 def _check(g_out, dv_out, a, aod, blam):
     """K1's shapes: blam (E, Nc, Nout), or (G, E, Nc, Nout) grouped, G a
-    divisor of B."""
+    divisor of B, its dtype the operands' or, grouped, f32 under f64
+    operands (the slab at the width the fit stored it)."""
     b, n_out, d = g_out.shape
     e, n_c = blam.shape[-3:-1]
     lead = blam.shape[:-3]
@@ -627,7 +760,7 @@ def _check(g_out, dv_out, a, aod, blam):
     _check_tensors({'dv_out': (b, n_out), 'a': (b, n_c, d),
                     'aod': (b, n_c, d + 1), 'blam': (*lead, e, n_c, n_out)},
                    {'dv_out': dv_out, 'a': a, 'aod': aod, 'blam': blam},
-                   d, e, g_out)
+                   d, e, g_out, narrow=('blam',) if lead else ())
 
 
 def _check_untied(g, dv, a, ao, blam):
@@ -637,9 +770,10 @@ def _check_untied(g, dv, a, ao, blam):
                    {'dv': dv, 'a': a, 'ao': ao, 'blam': blam}, d, e, g)
 
 
-def _check_tensors(want, got, d, e, g):
+def _check_tensors(want, got, d, e, g, narrow=()):
     """Shapes `want` of the tensors `got` beside g; d, E within the built
-    instances; one float dtype, one device, contiguous."""
+    instances; one float dtype (those named in `narrow` may be float32
+    under float64), one device, contiguous."""
     for k, shape in want.items():
         if tuple(got[k].shape) != shape:
             raise ValueError(f'rw kernel: {k} has shape '
@@ -648,7 +782,10 @@ def _check_tensors(want, got, d, e, g):
         raise ValueError(f'rw kernel supports d <= {MAX_D} and E <= {MAX_E}; '
                          f'got d={d}, E={e}')
     ts = (g, *got.values())
-    if g.dtype not in _FN or any(t.dtype != g.dtype for t in ts):
+    if g.dtype not in _FN or any(
+            t.dtype != g.dtype
+            and not (k in narrow and t.dtype == torch.float32)
+            for k, t in (('g', g), *got.items())):
         raise TypeError('rw kernel takes float32 or float64 tensors of one '
                         f'dtype; got {[t.dtype for t in ts]}')
     if any(t.device != g.device for t in ts):
@@ -676,30 +813,40 @@ def _launch(g_out, dv_out, a, aod, blam, max_split=MAX_SPLIT, body=None):
     ('scalar', 'mma': chip_smoke.py times the two side by side): the
     tensor-core body at `rw_tied_mma_plan`, or the scalar body at
     `rw_tied_plan`, its split capped at max_split (MAX_SPLIT on every path).
-    A blam of rank 4 (G, E, Nc, Nout) launches the grouped form, groups of
-    B / G scenarios. Returns (rw, launched)."""
+    A blam of rank 4 (G, E, Nc, Nout), f32 or the operands' dtype, launches
+    the grouped form at `rw_tied_grouped_plan`, groups of B / G scenarios.
+    Returns (rw, launched)."""
     _check(g_out, dv_out, a, aod, blam)
     b, n_out, d = g_out.shape
     e, n_c, _ = blam.shape[-3:]
-    group = b // blam.shape[0] if blam.ndim == 4 else None
     if body not in _BODY or (body == 'mma' and g_out.dtype != torch.float64):
         raise ValueError(f'rw kernel: no body {body!r} for {g_out.dtype}')
     if g_out.device.type != 'cuda':
         raise ValueError(f'rw kernel runs on CUDA tensors, got {g_out.device}')
     sms = device_sms(g_out.device)
-    if (body or rw_tied_body(b, n_out, n_c, d, e, g_out.dtype, sms,
-                             group=group)) == 'mma':
-        rw_tied_mma_plan(b, n_out, d, e, group=group)     # raises past the grid
+    if blam.ndim == 4:
+        group = b // blam.shape[0]
+        rw_tied_grouped_plan(b, n_out, n_c, d, e, group, g_out.dtype,
+                             blam.dtype, body, sms)    # raises past the grid
+        args = (blam.data_ptr(), _itemsize(blam.dtype))
+        tail = (group, sms, _BODY[body])
+        fn, err_str = _grouped_fn()
     else:
-        rw_tied_plan(b, n_out, n_c, d, e, g_out.dtype, group=group)
+        if (body or rw_tied_body(b, n_out, n_c, d, e, g_out.dtype,
+                                 sms)) == 'mma':
+            rw_tied_mma_plan(b, n_out, d, e)          # raises past the grid
+        else:
+            rw_tied_plan(b, n_out, n_c, d, e, g_out.dtype)
+        args = (blam.data_ptr(),)
+        tail = (sms, max_split, _BODY[body])
+        fn, err_str = _kernel_fn(g_out.dtype)
     rw = torch.empty((b, e, n_out, d + 1), dtype=g_out.dtype,
                      device=g_out.device)
     if rw.numel() == 0:
         return rw, False
-    fn, err_str = _kernel_fn(g_out.dtype)
     _run(fn, err_str, g_out.device, g_out.data_ptr(), dv_out.data_ptr(),
-         a.data_ptr(), aod.data_ptr(), blam.data_ptr(), rw.data_ptr(), b,
-         n_out, n_c, d, e, sms, max_split, _BODY[body], group or 0)
+         a.data_ptr(), aod.data_ptr(), *args, rw.data_ptr(), b, n_out, n_c,
+         d, e, *tail)
     return rw, True
 
 
@@ -1097,7 +1244,11 @@ class _VarianceTraceTied(torch.autograd.Function):
     @staticmethod
     def forward(u, m2, x, blam, native):
         dtype = u.dtype
-        u, m2, x, blam = _upcast(native, u, m2, x, blam)
+        u, m2, x = _upcast(native, u, m2, x)
+        if blam.ndim == 3:
+            blam, = _upcast(native, blam)
+        # A grouped slab stays at the width it is stored at (f32 or f64):
+        # K1's grouped form widens each element where it multiplies it.
         rw = _rw_dispatch(u, m2, x, blam, tied=True)
         return rw[..., 0].sum(dim=-1).to(dtype), rw
 

@@ -49,7 +49,6 @@ from gpmpc_tpu_torch.mpc.cost import (CostParams, is_lane_leaf,
                                       risk_sensitive_cost)
 from gpmpc_tpu_torch.mpc.solver import (Objective, SolverConfig, SolveResult,
                                         solve_trajectory_batched)
-from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
 from gpmpc_tpu_torch.parallel.mesh import BATCH_AXIS, gather_lanes, lane_slice
 
 
@@ -103,16 +102,11 @@ def _check_device(gp: GPState, x0s: torch.Tensor) -> None:
 def _setup(gp: GPState, x0s: torch.Tensor, state_dim: int,
            action_dim: int) -> RolloutCache:
     """The checks every batch solve makes (_check_device) and the
-    rollout cache. A cache of one GP a lane (gp stacked) holds its b_lam
-    in the trace's dtype (variance_trace.TRACE_DTYPE): the precision
-    policy's upcast, made once a solve rather than on every grouped trace
-    of it (~1 GB at 256 lanes of capacity 512); the same bits."""
+    rollout cache. A cache of one GP a lane (gp stacked) keeps its b_lam
+    at the width the fit stored it: K1's grouped form reads each lane's
+    slab at that width and widens it where it multiplies (no f64 copy)."""
     _check_device(gp, x0s)
-    cache = build_rollout_cache(gp, state_dim, action_dim)
-    if cache.x.ndim == 3:
-        cache = dataclasses.replace(cache,
-                                    b_lam=cache.b_lam.to(vt.TRACE_DTYPE))
-    return cache
+    return build_rollout_cache(gp, state_dim, action_dim)
 
 
 def lanes_objective(cache: RolloutCache, x0s: torch.Tensor,

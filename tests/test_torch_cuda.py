@@ -1739,19 +1739,28 @@ def test_cuda_device_loop_counts_stay_bounded():
     solver.clear_programs()
 
 
+# The batched episode's two shapes (chip_smoke.GROUPED_SHAPES) and small
+# ones: groups of five, one, three and nine (two blocks a group), and E = 7,
+# where an f64 slab's two staged chunks do not fit (one is kept).
+_GROUPED_SHAPES = [(10, 130, 3, 2, 5), (6, 64, 3, 2, 1), (12, 200, 5, 4, 3),
+                   (18, 100, 3, 2, 9), (6, 100, 3, 7, 2),
+                   (1280, 512, 3, 2, 5), (256, 512, 3, 2, 1)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize('slab', ['f32', 'f64'])
 @pytest.mark.parametrize('body', ['scalar', 'mma'])
-@pytest.mark.parametrize('shape', [(10, 130, 3, 2, 5), (6, 64, 3, 2, 1),
-                                   (12, 200, 5, 4, 3)])
-def test_cuda_grouped_k1_matches_plain_version(shape, body):
-    """K1's grouped form (one blam a group of scenarios) in each body
-    against the plain version of that body's order, chip_smoke's bar
-    (1e-12 |rw| + 16 ulps of the terms' magnitude), on groups of five, one
-    and three; one counted launch a call."""
+@pytest.mark.parametrize('shape', _GROUPED_SHAPES)
+def test_cuda_grouped_k1_matches_plain_version(shape, body, slab):
+    """K1's grouped form (one blam slab a group of scenarios, at f32 or f64)
+    in each body against the plain version of that body's order and
+    against the former grouped launch on the widened slab, chip_smoke's bar
+    (1e-12 |rw| + 16 ulps of the terms' magnitude); one counted launch a
+    call."""
     dev = _cuda()
     b, n, d, e, k = shape
     args, _ = chip_smoke.grouped_args(np.random.default_rng(3), b, n, d, e,
-                                      k, dev)
+                                      k, dev, slab)
     chip_smoke.check_grouped(f'grouped {shape}', args, body, dev)
     before = tvt.LAUNCHES_GROUPED
     tvt.rw_tied(*args)
@@ -1760,20 +1769,32 @@ def test_cuda_grouped_k1_matches_plain_version(shape, body):
 
 
 @pytest.mark.cuda
-def test_cuda_grouped_k1_is_k1_on_each_group():
-    """A grouped launch in the tensor-core body equals, to the bit, K1
-    launched on each group alone with that group's blam (the same S a
-    block: five scenarios a group, S = 4)."""
+@pytest.mark.parametrize('slab', ['f32', 'f64'])
+@pytest.mark.parametrize('body', ['scalar', 'mma'])
+@pytest.mark.parametrize('shape', [(20, 128, 3, 2, 5), (1280, 512, 3, 2, 5),
+                                   (256, 512, 3, 2, 1)])
+def test_cuda_grouped_k1_is_k1_on_each_group(shape, body, slab):
+    """A grouped launch equals, to the bit, K1's ungrouped launch (unsplit)
+    on each group alone with that group's slab widened to f64 (the
+    scenarios' order of accumulation does not depend on the grouping), in
+    each body, the slab at f32 and at f64, at the episode's shapes."""
     dev = _cuda()
-    b, n, d, e, k = 20, 128, 3, 2, 5
+    b, n, d, e, k = shape
     args, _ = chip_smoke.grouped_args(np.random.default_rng(4), b, n, d, e,
-                                      k, dev)
-    got, _ = tvt._launch(*args, body='mma')
-    for grp in range(b // k):
-        sl = slice(grp * k, (grp + 1) * k)
-        one, _ = tvt._launch(*(t[sl].contiguous() for t in args[:4]),
-                             args[4][grp].contiguous(), body='mma')
-        assert torch.equal(got[sl], one)
+                                      k, dev, slab)
+    got, _ = tvt._launch(*args, body=body)
+    assert torch.equal(got, chip_smoke.per_group_launch(args, body))
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_k1_refuses_a_wider_slab():
+    """A grouped launch takes an f64 slab only under f64 operands: f32
+    operands with an f64 slab raise rather than narrow."""
+    dev = _cuda()
+    args, _ = chip_smoke.grouped_args(np.random.default_rng(5), 10, 64, 3,
+                                      2, 5, dev)
+    with pytest.raises(TypeError):
+        tvt._launch(*(t.float() for t in args[:4]), args[4])
 
 
 @pytest.mark.cuda

@@ -143,3 +143,38 @@ def test_multistart_four_starts_matches_one_x0_episodes():
         for k in ('x', 'beta', 'kinv', 'count'):
             torch.testing.assert_close(getattr(tgp_f, k)[b], getattr(g1, k),
                                        rtol=0, atol=0)
+
+
+def test_stacked_cache_keeps_slab_at_storage_width():
+    """A stacked f32 GP's cache out of batch._setup keeps b_lam in f32 (no
+    f64 copy), and the multistart route's objective over it (lane-major
+    candidates, the trace's vmap rule: K1's grouped form, its plain version
+    here) and its gradient equal, to the bit, those over the cache with
+    b_lam widened to f64, the route of a cache that held a widened copy."""
+    import dataclasses
+    from gpmpc_tpu_torch.parallel import batch
+    rng = np.random.default_rng(7)
+    hp = dict(log_lambdas=np.log(np.full((2, 3), 3.0)),
+              log_sigma_n=np.log(np.full(2, 0.05)))
+    gps = [ts.make_gp(ts.GPConfig(capacity=CAP, x_dim=3, out_dim=2),
+                      rng.uniform(-1, 1, (12, 3)), rng.normal(size=(12, 2)),
+                      dtype=torch.float32, device='cpu', **hp)
+           for _ in range(B)]
+    x0s = torch.tensor(X0S, dtype=torch.float32)
+    cache = batch._setup(batch.stack_gps(gps), x0s, 2, 1)
+    assert cache.b_lam.dtype == torch.float32 and cache.b_lam.shape == (
+        B, 2, CAP, CAP)
+    k = 5
+    tp = CostParams(**{n: torch.tensor(v, dtype=torch.float32)
+                       for n, v in LEAVES.items() if n != 'R_delta'})
+    u = torch.tensor(rng.uniform(-1, 1, (B * k, H, 1)), dtype=torch.float32)
+    res = []
+    for c in (cache, dataclasses.replace(cache, b_lam=cache.b_lam.double())):
+        obj = batch.batch_objective(c, x0s.repeat_interleave(k, 0), tp,
+                                    delta=True)
+        uu = u.clone().requires_grad_()
+        j = obj.build(*obj.inputs)(uu)
+        res.append((j, torch.autograd.grad(j.sum(), uu)[0]))
+    (j32, g32), (j64, g64) = res
+    assert torch.isfinite(j32).all()
+    assert torch.equal(j32, j64) and torch.equal(g32, g64)

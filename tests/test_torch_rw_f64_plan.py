@@ -289,6 +289,25 @@ def test_corrected_f64_bound():
         rel=1e-12)
 
 
+def test_grouped_bound_counts_the_slab_at_its_width():
+    """K1's grouped form reads each group's slab once, at the width the fit
+    stored it: at the batched episode's (256, 512, 3, 2), groups of one,
+    the bound is bytes, 0.1662 ms with f32 slabs (0.54 GB) against 0.3265
+    ms counted at f64 (a widened copy's); at (1,280, 512), groups of five, it
+    is operations either way (0.3569 ms)."""
+    one = dict(f64=True, groups=256)
+    f32 = chip_smoke.bound_ms(256, 512, 512, 3, 2, 1, blam_bytes=4, **one)
+    f64 = chip_smoke.bound_ms(256, 512, 512, 3, 2, 1, **one)
+    assert f32[1] == f64[1] == 'bytes'
+    assert f32[0] == pytest.approx(0.1662, abs=5e-5)
+    assert f64[0] == pytest.approx(0.3265, abs=5e-5)
+    assert f64[0] - f32[0] == pytest.approx(
+        256 * 2 * 512 * 512 * 4 / 3.35e12 * 1e3, rel=1e-9)
+    five = [chip_smoke.bound_ms(1280, 512, 512, 3, 2, 1, f64=True, groups=256,
+                                blam_bytes=w) for w in (4, 8)]
+    assert five[0] == five[1] and five[0][1] == 'operations'
+
+
 def test_exp_table_constants():
     """The table-driven exp's 2^(j / 64) (hi, lo) pairs in
     csrc/rw_tied_f64_body.cuh, recomputed with Python's decimal at 60

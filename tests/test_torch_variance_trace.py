@@ -38,7 +38,8 @@ def test_trace_value_and_grad_match_jax(tied, shape):
     tfn = tvt.variance_trace_batched_tied if tied else tvt.variance_trace_batched
 
     def jloss(u_, m2_):
-        return jnp.sum(jfn(u_, m2_, jnp.asarray(x), jnp.asarray(blam)) * ct)
+        return jnp.sum(jfn(u_, m2_, jnp.asarray(x),
+                           jnp.asarray(blam, jnp.float64)) * ct)
 
     tj = jfn(jnp.asarray(u), jnp.asarray(m2), jnp.asarray(x), jnp.asarray(blam))
     gu_j, gm_j = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(u), jnp.asarray(m2))
@@ -161,50 +162,119 @@ def test_grouped_rw_reference_matches_per_group():
 def test_grouped_trace_and_grad_match_jax_vmap():
     """The grouped trace (x and blam one a group of five scenarios) and its
     analytic gradient, called flat and through torch.func.vmap over the
-    groups (the trace's vmap rule), against jax.vmap of JAX's tied trace at
-    f64 (its plain twin, as test_trace_value_and_grad_match_jax runs it:
-    the Pallas kernel interprets only f32): rtol 1e-8."""
+    groups (the trace's vmap rule), the port fed the slab at its storage
+    width (f32, as the fit stores it; values that f32 holds exactly, so
+    JAX's f64 twin gets the same numbers), against jax.vmap of JAX's tied
+    trace at f64 (its plain twin, as test_trace_value_and_grad_match_jax
+    runs it: the Pallas kernel interprets only f32): rtol 1e-8."""
     u, m2, x, blam, ct = _grouped()
+    blam = blam.astype(np.float32)
     g, k, d = u.shape
     jfn = jax.vmap(jvt.variance_trace_batched_tied_reference)
 
     def jloss(u_, m2_):
-        return jnp.sum(jfn(u_, m2_, jnp.asarray(x), jnp.asarray(blam)) * ct)
+        return jnp.sum(jfn(u_, m2_, jnp.asarray(x),
+                           jnp.asarray(blam, jnp.float64)) * ct)
 
-    tj = jfn(
-        jnp.asarray(u), jnp.asarray(m2), jnp.asarray(x), jnp.asarray(blam))
+    tj = jfn(jnp.asarray(u), jnp.asarray(m2), jnp.asarray(x),
+             jnp.asarray(blam, jnp.float64))
     gu_j, gm_j = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(u), jnp.asarray(m2))
     for mapped in (False, True):
         ut, m2t = t64(u).requires_grad_(), t64(m2).requires_grad_()
+        slab = torch.from_numpy(blam)
         if mapped:
             tt = torch.func.vmap(tvt.variance_trace_batched_tied)(
-                ut, m2t, t64(x), t64(blam))
+                ut, m2t, t64(x), slab)
         else:
             tt = tvt.variance_trace_batched_tied(
                 ut.reshape(g * k, d), m2t.reshape(g * k, d, d), t64(x),
-                t64(blam)).reshape(g, k, -1)
+                slab).reshape(g, k, -1)
         gu_t, gm_t = torch.autograd.grad(torch.sum(tt * t64(ct)), (ut, m2t))
         for got, want in ((tt, tj), (gu_t, gu_j), (gm_t, gm_j)):
             np.testing.assert_allclose(np_(got), np.asarray(want), rtol=RTOL,
                                        atol=1e-14)
 
 
+@pytest.mark.parametrize('mapped', [False, True])
+def test_grouped_f32_slab_equals_widened_slab(mapped):
+    """On the CPU the grouped trace and its gradient with the slab in f32
+    (its storage width: no widened copy) equal those with the same slab
+    widened to f64, to the bit, called flat and under torch.func.vmap;
+    with f32 operands the trace comes back in f32."""
+    u, m2, x, blam, ct = _grouped(seed=9)
+    g, k, d = u.shape
+    slab32 = torch.from_numpy(blam.astype(np.float32))
+    out = []
+    for slab in (slab32, slab32.double()):
+        ut, m2t = t64(u).requires_grad_(), t64(m2).requires_grad_()
+        if mapped:
+            tt = torch.func.vmap(tvt.variance_trace_batched_tied)(
+                ut, m2t, t64(x), slab)
+        else:
+            tt = tvt.variance_trace_batched_tied(
+                ut.reshape(g * k, d), m2t.reshape(g * k, d, d), t64(x),
+                slab).reshape(g, k, -1)
+        out.append((tt, *torch.autograd.grad(torch.sum(tt * t64(ct)),
+                                             (ut, m2t))))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+    f32 = tvt.variance_trace_batched_tied(
+        t64(u).reshape(g * k, d).float(), t64(m2).reshape(g * k, d, d).float(),
+        t64(x).float(), slab32)
+    assert f32.dtype == torch.float32 and torch.isfinite(f32).all()
+
+
 def test_grouped_plan_keeps_blocks_within_a_group():
-    """The grouped plans: a group's scenarios in ceil(K / S) blocks of its
-    own (five a group at S = 4 in the tensor-core body: two blocks, the
-    second one scenario), S = 1 below S_max, the route by the grid; a
-    blam whose groups do not divide B is refused."""
-    f64 = torch.float64
-    p = tvt.rw_tied_mma_plan(1280, 512, 3, 2, group=5)
-    assert (p.scenarios, p.gblocks, p.grid) == (4, 2, (8, 512))
-    assert tvt.rw_tied_mma_plan(256, 512, 3, 2, group=1).grid == (8, 256)
-    assert tvt.rw_tied_mma_plan(256, 512, 3, 2) == tvt.rw_tied_mma_plan(
-        256, 512, 3, 2, group=256)._replace(gblocks=64)
-    s = tvt.rw_tied_plan(1280, 512, 512, 3, 2, f64, group=5)
-    assert (s.scenarios, s.gblocks, s.grid[1]) == (2, 3, 768)
-    assert tvt.rw_tied_plan(64, 128, 128, 3, 2, f64, group=1).scenarios == 1
+    """The grouped plans (rw_tied_grouped_plan): a group's scenarios in
+    ceil(K / group_sets) blocks of its own, each of ceil(K / blocks)
+    scenario sets of one scenario: five a group at d = 3, E = 2 fill one
+    block's five slots in either body, nine take two blocks of five; the
+    slab's bytes a launch at its storage width; the route by the grid at
+    S_max; a blam whose groups do not divide B is refused."""
+    f64, f32 = torch.float64, torch.float32
+    p = tvt.rw_tied_grouped_plan(1280, 512, 512, 3, 2, 5)
+    assert (p.body, p.sets, p.gblocks, p.grid, p.block) == (
+        'mma', 5, 1, (8, 256), (32, 4, 5))
+    assert (p.live, p.slots, p.blam_bytes) == (5, 5, 256 * 2 * 512 * 512 * 8)
+    q = tvt.rw_tied_grouped_plan(256, 512, 512, 3, 2, 1, blam_dtype=f32)
+    assert (q.sets, q.grid, q.blam_bytes) == (1, (8, 256),
+                                              256 * 2 * 512 * 512 * 4)
+    s = tvt.rw_tied_grouped_plan(1280, 512, 512, 3, 2, 5, body='scalar')
+    assert (s.sets, s.gblocks, s.grid, s.block) == (5, 1, (16, 256),
+                                                    (32, 4, 5))
+    n = tvt.rw_tied_grouped_plan(18, 64, 64, 3, 2, 9)
+    assert (n.sets, n.gblocks, n.live, n.slots) == (5, 2, 9, 10)
+    assert tvt.group_sets(5, 4) == 2 and tvt.group_sets(8, 8) == 1
     assert tvt.rw_tied_body(1280, 512, 512, 3, 2, f64, group=5) == 'mma'
     assert tvt.rw_tied_body(5, 512, 512, 3, 2, f64, group=5) == 'scalar'
+    with pytest.raises(TypeError):
+        tvt.rw_tied_grouped_plan(10, 64, 64, 3, 2, 5, f32, blam_dtype=f64)
     args = _rw_args(b=6, dtype=f64)
     with pytest.raises(ValueError, match='dividing'):
         tvt.rw_tied(*args[:4], torch.zeros((4, 2, 8, 8), dtype=f64))
+
+
+@pytest.mark.parametrize('body', ['mma', 'scalar'])
+@pytest.mark.parametrize('group', [1, 2, 5, 9])
+def test_grouped_plan_covers_each_scenario_once(group, body):
+    """At each group of the load check (_PLAN_CHECK_GROUP), every scenario
+    falls in exactly one (block, set) slot, as the kernels index it (set s
+    of block y of group y // gblocks: scenario group * grp + (y - grp *
+    gblocks) * sets + s), within its own group; the slots past a group's
+    end are the plan's slots less its live ones; every output row in one
+    row tile."""
+    assert group in tvt._PLAN_CHECK_GROUP
+    b, n = 3 * group, 100
+    p = tvt.rw_tied_grouped_plan(b, n, n, 3, 2, group, body=body)
+    seen = []
+    for y in range(p.grid[1]):
+        grp = y // p.gblocks
+        for st in range(p.sets):
+            sc = grp * group + ((y - grp * p.gblocks) * p.sets + st)
+            if sc < (grp + 1) * group:
+                seen.append((sc, grp))
+    assert sorted(seen) == [(sc, sc // group) for sc in range(b)]
+    assert len(seen) == b and p.grid[1] * p.sets - b == 3 * (p.slots - p.live)
+    assert (p.slots - p.live) < p.gblocks
+    rows = tvt.MMA_ROWS if body == 'mma' else tvt.GROUP_ROWS
+    assert p.grid[0] * rows >= n > (p.grid[0] - 1) * rows
