@@ -148,13 +148,14 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 benchmarks/recipe_quality.py's row), counted and scored the
                 same way: the path whose launches the `kernels` line gives
                 K1's f32 instance. Then the untied path
-                (K2) on the same problem with per-output lengthscales, and a
-                profiler pass (of a 4-iteration solve, as every profiler
-                pass here but phase 5e's, of one value-and-grad, phase 5f's
-                graphed one, of ITERS, and phase 7's, of one control step).
+                (K2) on the same problem with per-output lengthscales. Its
+                profiler pass is phase 5f's reused one (a 4-iteration solve,
+                as every profiler pass here but phase 5e's, of one
+                value-and-grad, and phase 7's, of one control step).
                 Every solve here and below runs as its caller runs it, full
-                covariance (5e, 7b, 8b) included, except the sharded
-                value-and-grad (6), which runs eagerly: through the solver's
+                covariance (5e, 7b, 8b) and the sharded solve over NCCL (6a)
+                included, except the gloo ranks' solve (6b), which runs
+                eagerly by rule: through the solver's
                 kept program (mpc/solver.py), whose first call runs the
                 first value-and-grad and iteration 1 eagerly and captures
                 two CUDA graphs, the init and the step, and whose later
@@ -177,9 +178,10 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 replay; solves/s of the three over 3 fresh-x0 batches in
                 turns, all equal to the bit, the reused calls capturing
                 nothing; host launch calls and the device's busy share of
-                the eager and the reused solve under the profiler (eager 4
-                iterations, reused 40), and in each device trace exactly H
-                K1 kernels a value-and-grad, the graphs' replays included.
+                the eager and the reused solve under the profiler (4
+                iterations each, PROFILE_ITERS), and in each device trace
+                exactly H K1 kernels a value-and-grad, the graphs' replays
+                included.
   5g. device loop  each kept route's loop on the device against its
                 host-read loop (check_device_loop: a miss on the device
                 loop, a miss on the host-read loop, a hit on the device
@@ -229,15 +231,31 @@ Phases (each one fails the script with a non-zero exit; nothing is caught):
                 scored, timed and profiled the same way, and the untied solve
                 with one K4 launch a trace for all outputs.
   6. sharded    solve_batch_2d at the headline width: (a) a (1, 1) mesh on
-                NCCL in this process: finite costs, none above its start,
-                exactly H * (1 + iterations) K3 launches, solves/s (one
-                timed batch), cost excess and a profiler pass; (b) a (1, 2) mesh on gloo, two processes on the same
+                NCCL in this process, the solve a kept program with its
+                loop on the card (its all_reduces captured in the step
+                graph): one all_reduce (sum, average, all_gather) in a
+                torch graph and in a two-pass device loop, by node type;
+                the device loop against the host-read loop (bits, 0 host
+                reads, a hit under the sync guard); eager, graphed and
+                reused counted, each with finite costs, none above its
+                start, exactly H * (1 + iterations) K3 launches, equal to
+                the bit, each graph H K3 launches a replay; the kept step
+                graph's nodes (H K3, NCCL's) and the all_reduce calls of a
+                value-and-grad; solves/s of the three over SHARDED_REPS
+                fresh batches in turns, the reused calls capturing nothing,
+                beside phase 5f's fused rate; cost excess beside phase 5's;
+                a profile of the host-read loop; the group left by
+                destroy_group, no program of it kept; (b) a (1, 2) mesh on
+                gloo, two processes on the same
                 card started from here with a timeout: their f64 objective at
                 the reference controls against headline_ref.npz (rtol 1e-8)
                 and their gradient against this process's unsharded f64
                 gradient (rtol 1e-10, atol 1e-10 of its largest entry, so it
                 is not counted twice), both ranks equal to the bit, and
-                exactly H K3 launches on each rank (one forward rollout).
+                exactly H K3 launches on each rank (one forward rollout);
+                then a SHARD_WORKER_ITERS-iteration solve_batch_2d, its loop
+                eager by rule (gloo), no program kept, equal on both
+                ranks.
   7. closed loop  the online learn-and-control loop, each part with the
                 counts set to 0 just before it, every step's wall, K1 and K2
                 launches logged, and every K1 / K2 call at a shape phase 3c
@@ -365,6 +383,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -2225,49 +2244,237 @@ def phase_profile(dev, b, out_dir, tag='K1 solve', kernel='rw_tied'):
     return profile_solve(tag, solve, p.x0s, kernel, out_dir)
 
 
-def phase_sharded_11(dev, b, j64, j_uref, reps, out_dir):
-    """Phase 6a: solve_batch_2d on a (1, 1) mesh in this process (NCCL on the
-    card), counted (K3), scored and timed."""
+SHARDED_REPS = 2
+
+
+def graph_census(graph) -> dict:
+    """A CUDA graph's nodes (a cudaGraph_t) by type, its kernel nodes, and
+    of those K3's (K1's kernel, rw_tied*) and NCCL's (nccl*, oneRank*)."""
+    from gpmpc_tpu_torch.utils import replay_counts
+    names = replay_counts.graph_kernel_names(graph)
+    return dict(types=dict(replay_counts.graph_node_types(graph)),
+                kernels=len(names),
+                k3=sum('rw_tied' in n for n in names),
+                nccl=sum(('nccl' in n.lower() or 'onerank' in n.lower())
+                         for n in names))
+
+
+COLLECTIVES = ('all_reduce sum', 'all_reduce avg', 'all_gather')
+
+
+def collective_graphs(group, dev) -> dict:
+    """What one collective over `group` leaves in a graph, for each of
+    COLLECTIVES on a (256, 2) f64 tensor: the in-place sum the sharded
+    step runs, an average (on one rank NCCL scales by a kernel of its own)
+    and an all_gather into another tensor (on one rank a copy). Each is
+    captured by torch into a CUDA graph, and into the body of a device loop
+    (loop_cond.DeviceLoop, the body also adding 1 to t) that is then
+    launched for two passes. Returns each graph's census (graph_census);
+    raises unless every loop ran its two passes and left the values the
+    collective gives."""
+    import torch
     import torch.distributed as dist
-    from gpmpc_tpu_torch.mpc.solver import SolverConfig
-    from gpmpc_tpu_torch.parallel.distributed import free_port, initialize
-    from gpmpc_tpu_torch.parallel.mesh import make_mesh
-    from gpmpc_tpu_torch.parallel.model_sharded import solve_batch_2d
+    from gpmpc_tpu_torch.ops.kernels import loop_cond
+    world = dist.get_world_size(group)
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    out = {}
+    for name in COLLECTIVES:
+        x = torch.ones((256, 2), dtype=torch.float64, device=dev)
+        out_g = torch.zeros((256 * world, 2), dtype=torch.float64,
+                            device=dev)
+        t = torch.zeros((), dtype=torch.long, device=dev)
+        done = torch.zeros(1, dtype=torch.bool, device=dev)
+
+        def record(name=name, x=x, out_g=out_g, t=None):
+            if name == 'all_reduce sum':
+                dist.all_reduce(x, group=group)
+            elif name == 'all_reduce avg':
+                dist.all_reduce(x, op=dist.ReduceOp.AVG, group=group)
+            else:
+                dist.all_gather_into_tensor(out_g, x, group=group)
+            if t is not None:
+                t.add_(1)
+
+        with torch.cuda.stream(side):
+            record()
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            graph.capture_begin()
+            record()
+            graph.capture_end()
+            torch_graph = graph_census(graph.raw_cuda_graph())
+            graph.instantiate()
+            graph.replay()
+
+            loop = loop_cond.DeviceLoop(functools.partial(record, t=t), t,
+                                        done, 2,
+                                        torch.cuda.graph_pool_handle())
+            body = graph_census(loop.body)
+            loop.launch()
+        torch.cuda.synchronize(dev)
+        passes = int(t)
+        loop.reset()
+        graph.reset()
+        ok = bool((x == float(world) ** (4 * (name == 'all_reduce sum'))
+                   ).all()) and (name != 'all_gather' or bool(
+                       (out_g == x.repeat(world, 1)).all()))
+        if passes != 2 or not ok:
+            raise AssertionError(f'a device loop holding one {name} ran '
+                                 f'{passes} passes (expected 2), values '
+                                 f'{"ok" if ok else "wrong"}')
+        out[name] = {'torch graph': torch_graph, 'loop body': body,
+                     'loop_passes': passes}
+    return out
+
+
+def allreduce_calls(fn) -> int:
+    """The torch.distributed.all_reduce calls that fn() makes."""
+    import torch.distributed as dist
+    orig, n = dist.all_reduce, [0]
+
+    def counted(*args, **kw):
+        n[0] += 1
+        return orig(*args, **kw)
+
+    dist.all_reduce = counted
+    try:
+        fn()
+    finally:
+        dist.all_reduce = orig
+    return n[0]
+
+
+def program_census(prog) -> dict:
+    """A kept program's step graph (on the device loop, its WHILE node's
+    body) and init graph (graph_census)."""
+    step = (prog.loop.body if prog.loop is not None
+            else prog.step.raw_cuda_graph())
+    return dict(step=graph_census(step),
+                init=graph_census(prog.init.raw_cuda_graph()))
+
+
+def phase_sharded_11(dev, b, j64, j_uref, reps, out_dir, card, fused,
+                     fused_quality):
+    """Phase 6a: solve_batch_2d on a (1, 1) mesh in this process over NCCL,
+    the headline at its width (B = 256, N = 200 in 256, H = 20, f32, K3
+    f64), as a kept program with its loop on the card. What one
+    all_reduce leaves in a torch graph and in a device loop's body
+    (collective_graphs); the device loop against the host-read loop
+    (check_device_loop: bits, 0 host reads, a guarded hit); eager, graphed
+    and reused counted (exactly H * (1 + iters) K3 launches, each graph H
+    K3 a replay, the three equal to the bit; counted_modes); the kept
+    program's step and init graphs by node (program_census) and the
+    all_reduce calls of a value-and-grad; solves/s of the three over
+    SHARDED_REPS fresh-x0 batches in turns, the reused calls capturing
+    nothing, beside `fused` (the fused solve_batch's reused solves/s of
+    phase 5f); the cost excess, beside `fused_quality` (phase 5's); a
+    profile of the host-read loop. The group goes by destroy_group, which
+    releases its programs first."""
+    import torch
+    import torch.distributed as dist
+    from gpmpc_tpu_torch.mpc import solver
+    from gpmpc_tpu_torch.parallel.distributed import (destroy_group,
+                                                      free_port, initialize)
+    from gpmpc_tpu_torch.parallel.mesh import MODEL_AXIS, make_mesh
+    from gpmpc_tpu_torch.parallel.model_sharded import (
+        shard_problem, sharded_value_and_grad, solve_batch_2d)
+    from gpmpc_tpu_torch.problems import cost_excess
     initialize(f'tcp://localhost:{free_port()}', world_size=1, rank=0,
                device=dev, timeout_s=PG_TIMEOUT_S)
     backend = dist.get_backend()
     mesh = make_mesh(1, 1, device=dev)
     p, cfg, cost0 = headline_solve_setup(dev, b)
-
-    def solve(x0s):
-        return solve_batch_2d(mesh, p.gp, 2, 1, x0s, p.params, p.horizon,
-                              p.lb, p.ub, cfg)
-
+    h = p.horizon
     tag = 'sharded 1x1'
-    res, launches, loop_iters = solve_checked(
-        tag, f'{backend} B={b} max_iters={ITERS}', solve, p.x0s, 'K3', 1,
-        p.horizon, cost0)
-    out = dict(backend=backend, launches=launches, loop_iters=loop_iters,
-               **score_and_time(tag, b, solve, res, j64, j_uref, reps, dev))
-    cfg_prof = SolverConfig(max_iters=PROFILE_ITERS, tol=1e-4)
-    out['profile'] = profile_solve(
-        tag, lambda x0s: solve_batch_2d(mesh, p.gp, 2, 1, x0s, p.params,
-                                        p.horizon, p.lb, p.ub, cfg_prof),
-        p.x0s, 'rw_tied', out_dir)
-    dist.destroy_process_group()
-    return out
+
+    def solve(x0s, iters=ITERS):
+        return solve_batch_2d(mesh, p.gp, 2, 1, x0s, p.params, h, p.lb, p.ub,
+                              cfg.replace(max_iters=iters))
+
+    coll = collective_graphs(mesh.get_group(MODEL_AXIS), dev)
+    for name, c in coll.items():
+        log(f'[{tag}] one {backend} {name}: a torch graph holds '
+            f'{c["torch graph"]["types"]} ({c["torch graph"]["nccl"]} NCCL '
+            f'kernels), a device loop\'s body {c["loop body"]["types"]} '
+            f'({c["loop body"]["nccl"]} NCCL kernels; the body adds t += 1 '
+            f'and the condition kernel); the loop ran its '
+            f'{c["loop_passes"]} passes, values ok')
+    parts = shard_problem(mesh, p.gp, 2, 1, p.x0s, p.params)
+    u0 = torch.zeros((b, h, 1), dtype=torch.float32, device=dev)
+    calls = allreduce_calls(lambda: sharded_value_and_grad(mesh, *parts)(u0))
+    loops = check_device_loop(tag, lambda: solve(p.x0s), dev)
+    want = {'LAUNCHES_BLOCK': h, 'LAUNCHES_BLOCK_F64': h}
+    res, launches, iters, capture = counted_modes(
+        tag, f'{backend} B={b} H={h} max_iters={ITERS}', solve, p.x0s, 'K3',
+        h, cost0, want)
+    (prog,) = [prog for prog in solver._PROGRAMS.values()
+               if prog.p.group is not None]
+    census = program_census(prog)
+    for name, c in census.items():
+        if c['k3'] != h:
+            raise AssertionError(f'{tag}: the {name} graph holds {c["k3"]} '
+                                 f'K3 kernel nodes, expected H = {h}')
+    log(f'[{tag}] the kept program on the {solver._loop_of(dev)} loop: its '
+        f'step graph {census["step"]["types"]}, {census["step"]["k3"]} K3 '
+        f'(= H ok) and {census["step"]["nccl"]} NCCL kernel nodes of '
+        f'{census["step"]["kernels"]}; its init graph '
+        f'{census["init"]["types"]}; a value-and-grad makes {calls} '
+        'all_reduce calls')
+    quality = cost_excess(j64, res['reused'].u, j_uref)
+    timed = time_solves(tag, b, solve, reps, dev, modes=MODES)
+    n, secs = reused_captures(timed['reused'])
+    if n:
+        raise AssertionError(f'{tag}: the timed reused calls captured {n} '
+                             'graphs, expected none')
+    cache = cache_note(tag, 2 + n, capture['reused']['capture_s'] + secs)
+    rate = timed['reused']['solves_per_s']
+    log(f'[{tag}] on {card}: reused solves/s {rate:.2f} (eager '
+        f'{timed["eager"]["solves_per_s"]:.2f}, graphed '
+        f'{timed["graphed"]["solves_per_s"]:.2f}) beside the fused '
+        f'solve_batch\'s reused {fused:.2f} (phase 5f): {rate / fused:.3f} '
+        f'of it; cost excess vs f64 u_ref (J64): p50 {quality["p50"]:.4%} '
+        f'p90 {quality["p90"]:.4%} max {quality["max"]:.4%}, lanes >1% '
+        f'{quality["lanes_above_1pct"]}/{b} (the fused solve_batch\'s, '
+        f'phase 5: p50 {fused_quality["p50"]:.4%} p90 '
+        f'{fused_quality["p90"]:.4%} max {fused_quality["max"]:.4%}, lanes '
+        f'>1% {fused_quality["lanes_above_1pct"]}/{b}); first call '
+        f'{capture["reused"]["captures"]} captures in '
+        f'{capture["reused"]["capture_s"]:.3f} s, reused calls '
+        f'{timed["reused"]["captures"]}')
+    prof = profile_solve(tag, lambda x: solve(x, PROFILE_ITERS), p.x0s,
+                         'rw_tied', out_dir, per_eval=h)
+    destroy_group()
+    if any(prog.p.group is not None for prog in solver._PROGRAMS.values()):
+        raise AssertionError(f'{tag}: destroy_group left a program of the '
+                             'group behind')
+    return dict(backend=backend, launches=launches, loop_iters=iters,
+                quality=quality, fused_quality=fused_quality,
+                collective=coll, allreduce_calls=calls,
+                census=census, device_loop=loops, capture=capture,
+                cache=cache, profile=prof, fused_reused_solves_per_s=fused,
+                **timed['reused'], eager=timed['eager'],
+                graphed=timed['graphed'])
+
+
+SHARD_WORKER_ITERS = 2
 
 
 def shard_worker(out_dir):
     """One rank of phase 6b, started by launch_ranks: the (1, world) mesh on
     gloo on the card, the f64 headline objective and gradient at the
-    reference controls through K3; writes sharded_rank<r>.npz to out_dir."""
+    reference controls through K3, then a SHARD_WORKER_ITERS-iteration
+    solve_batch_2d (its loop eager by the solver's rule: gloo's
+    collectives are not captured); writes sharded_rank<r>.npz to
+    out_dir."""
     import torch
     import torch.distributed as dist
+    from gpmpc_tpu_torch.mpc import solver
+    from gpmpc_tpu_torch.mpc.solver import SolverConfig
     from gpmpc_tpu_torch.parallel.distributed import finish_rank, initialize
     from gpmpc_tpu_torch.parallel.mesh import make_mesh
     from gpmpc_tpu_torch.parallel.model_sharded import (sharded_value_and_grad,
-                                                        shard_problem)
+                                                        shard_problem,
+                                                        solve_batch_2d)
     from gpmpc_tpu_torch.problems import REF_FILE, make_headline_problem
     initialize(backend='gloo', device='cuda', timeout_s=PG_TIMEOUT_S)
     rank, world = dist.get_rank(), dist.get_world_size()
@@ -2281,16 +2488,24 @@ def shard_worker(out_dir):
     f, g = sharded_value_and_grad(mesh, *parts)(
         torch.tensor(ref['u_ref'], dtype=torch.float64, device=dev))
     sync(dev)
+    k3 = read_counts()['K3']
+    res = solve_batch_2d(mesh, p.gp, 2, 1, p.x0s, p.params, p.horizon, p.lb,
+                         p.ub, SolverConfig(max_iters=SHARD_WORKER_ITERS,
+                                            tol=1e-4))
     np.savez(os.path.join(out_dir, f'sharded_rank{rank}.npz'),
              f=f.cpu().numpy(), g=g.cpu().numpy(),
-             n_loc=parts[1].shape[2], k3=read_counts()['K3'])
+             n_loc=parts[1].shape[2], k3=k3, solve_u=res.u.cpu().numpy(),
+             solve_iters=res.iters.cpu().numpy(),
+             programs=len(solver._PROGRAMS))
     finish_rank()
 
 
 def phase_sharded_12(dev, b, ref, out_dir, world=2):
     """Phase 6b: solve_batch_2d's value-and-grad on a (1, 2) mesh in two
     processes on gloo on the same card; their f64 J against the JAX values
-    and their gradient against the unsharded one here."""
+    and their gradient against the unsharded one here; a short
+    solve_batch_2d, its loop eager by rule (no program kept), equal to the
+    bit on both ranks."""
     import torch
     from gpmpc_tpu_torch.parallel.distributed import launch_ranks
     from gpmpc_tpu_torch.problems import headline_j64
@@ -2307,8 +2522,12 @@ def phase_sharded_12(dev, b, ref, out_dir, world=2):
             raise AssertionError(f'sharded 1x{world}: rank {r} launched K3 '
                                  f'{int(outs[r]["k3"])} times, expected H = '
                                  f'{horizon} (one forward rollout)')
+        if int(outs[r]['programs']):
+            raise AssertionError(f'sharded 1x{world}: rank {r} kept '
+                                 f'{int(outs[r]["programs"])} programs over '
+                                 'gloo, expected its loop eager by rule')
     for r in range(1, world):
-        for k in ('f', 'g'):
+        for k in ('f', 'g', 'solve_u', 'solve_iters'):
             if not np.array_equal(outs[r][k], outs[0][k]):
                 raise AssertionError(f'sharded 1x{world}: rank {r} {k} '
                                      'differs from rank 0')
@@ -2331,8 +2550,11 @@ def phase_sharded_12(dev, b, ref, out_dir, world=2):
         f'launches a rank (= H) ok: f64 J at u_ref max rel err vs JAX {rel_f:.2e} '
         f'(rtol {OBJ_RTOL}); dJ/du vs unsharded: max abs err {rel_g:.2e} of '
         f'max |g| '
-        f'(rtol {GRAD_RTOL}, atol {GRAD_RTOL} max|g|); ranks equal to the bit '
-        f'ok')
+        f'(rtol {GRAD_RTOL}, atol {GRAD_RTOL} max|g|); a '
+        f'{SHARD_WORKER_ITERS}-iteration solve_batch_2d runs its loop '
+        'eagerly by rule (gloo\'s all_reduce of a CUDA tensor goes through '
+        'the host: solver.CAPTURED_BACKENDS), no program kept ok; ranks '
+        'equal to the bit ok')
     return dict(rel_f=rel_f, rel_g=rel_g, k3_per_rank=int(outs[0]['k3']))
 
 
@@ -5076,7 +5298,9 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     graph = phase_graph(dev, b, card, out_dir)
     device_loop = phase_device_loop(dev)
-    prof = phase_profile(dev, b, out_dir)
+    # The plain headline solve's profile is phase 5f's reused one (the same
+    # solve_batch at PROFILE_ITERS on the host-read loop).
+    prof = graph['profile_reused']
     recipe = phase_recipe(dev, b, j64, j_uref, card)
     full_cov = phase_full_cov(dev, b, ref, card, out_dir)
     with sym_opt_in():
@@ -5085,7 +5309,9 @@ def main() -> int:
         sym_untied_launches = phase_untied(dev, b, key='K4')
         sym_solve['profile'] = phase_profile(dev, b, out_dir, 'sym solve',
                                              'rw_sym')
-    sharded_11 = phase_sharded_11(dev, b, j64, j_uref, reps=1, out_dir=out_dir)
+    sharded_11 = phase_sharded_11(dev, b, j64, j_uref, SHARDED_REPS, out_dir,
+                                  card, graph['reused']['solves_per_s'],
+                                  solve['quality'])
     sharded_12 = phase_sharded_12(dev, b, ref, out_dir)
     loop = phase_closed_loop(dev, loop_checked, CLOSED_LOOP_REF, out_dir)
     # Phase 8c (b)'s yardstick, the fused solve_batch on the headline,

@@ -24,12 +24,18 @@ card's CUDA is older than 12.4 (`loop_form()` 'host'), and inside
 `_host_read_loop()` (the reference), the host replays the step graph and
 reads `all(done)` once an iteration (`_go_on`), the iteration count the
 same. An
-objective given as an `Objective` (key, inputs, build) has its program
-kept; a plain closure gets one for its call only. On the CPU, with an
-external value-and-grad, and where the caller says `_graph=False`
-(`solve_trajectory`), each iteration runs its torch ops from Python
-(`_run_eager`) and the host reads `all(done)` once an iteration. All run
-the same kernels on the same inputs, so the same bits.
+objective given as an `Objective` (key, inputs, build), or an external
+value-and-grad given as a `ValueAndGrad` (the model-sharded solve's, with
+its collectives inside), has its program kept; a plain closure gets one
+for its call only. A program whose value-and-grad runs collectives is
+captured where the group's backend puts them on the card's streams (NCCL,
+`CAPTURED_BACKENDS`), and its life is bound to the group
+(`release_group_programs`). On the CPU, with a bare external
+value-and-grad or a group whose collectives go through the host (gloo),
+and where the caller says `_graph=False` (`solve_trajectory`), each
+iteration runs its torch ops from Python (`_run_eager`) and the host reads
+`all(done)` once an iteration. All run the same kernels on the same
+inputs, so the same bits.
 
 Projected Adam (method='adam') takes a fixed step and an optional polish of
 normalized-gradient steps, with JAX's vmapped-while semantics: a lane's carry freezes once its
@@ -48,7 +54,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import os
+import weakref
 from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Callable, Hashable, NamedTuple, Optional
@@ -164,6 +172,8 @@ class _Problem(NamedTuple):
     program: Optional[tuple] = None
     # The method (a key of _METHODS) whose init, step and polish run.
     method: str = 'lbfgs'
+    # The process group whose collectives val_and_grad runs, or None.
+    group: Optional[object] = None
 
 
 def _proj(p: _Problem, u):
@@ -579,6 +589,44 @@ def _loop_of(device) -> str:
     return 'host'
 
 
+# The backends whose collectives a kept program captures, by device type.
+# NCCL runs its collectives as work on the card's streams, which a capture
+# records; gloo moves a CUDA tensor through the host, which no capture can
+# record. A solve over a group of another backend runs its loop eagerly.
+CAPTURED_BACKENDS = {'cuda': ('nccl',)}
+
+
+def _collectives_captured(group, device) -> bool:
+    """Whether a program on `device` may capture the collectives of
+    `group` (None: a value-and-grad that runs none): the group's backend
+    is one of CAPTURED_BACKENDS for the device's type. A rule fixed in
+    advance, never a capture tried and caught."""
+    if group is None:
+        return True
+    import torch.distributed as dist
+    return dist.get_backend(group) in CAPTURED_BACKENDS.get(device.type, ())
+
+
+# A serial number for each process group a program is built over, never
+# reused in the process: a program's key holds it, so a new group (a new
+# initialize()) never finds a program of a group destroyed before it. A
+# program holds its group, so the group's entry lives as long as it does.
+_GROUP_SERIALS: 'weakref.WeakKeyDictionary' = weakref.WeakKeyDictionary()
+_NEXT_SERIAL = itertools.count(1)
+
+
+def _group_key(group) -> Hashable:
+    """What names `group` in a program's key: its backend, size, this
+    process's rank in it and its serial number (None without a group)."""
+    if group is None:
+        return None
+    import torch.distributed as dist
+    if group not in _GROUP_SERIALS:
+        _GROUP_SERIALS[group] = next(_NEXT_SERIAL)
+    return (dist.get_backend(group), group.size(), group.rank(),
+            _GROUP_SERIALS[group])
+
+
 def _nbytes(ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -740,19 +788,31 @@ def _program_key(p: _Problem, u0) -> Hashable:
     """The key of p's program: the caller's key and the method, each
     input's shape, strides, dtype and device, u0's, lb's and ub's broadcast
     shapes (in p.program's key), the solver config, the K4 opt-in that
-    the trace reads on every call (ops/kernels/variance_trace.py), and the
-    loop (`_loop_of`)."""
+    the trace reads on every call (ops/kernels/variance_trace.py), the
+    process group of its collectives (`_group_key`) and, last, the loop
+    (`_loop_of`)."""
     key, inputs, _ = p.program
     sig = tuple(None if x is None else (tuple(x.shape), x.stride(), x.dtype,
                                         x.device) for x in inputs)
     return ((p.method, *key), sig, tuple(u0.shape), u0.dtype, u0.device,
-            p.config, os.environ.get('GPMPC_SYM_KERNEL'), _loop_of(u0.device))
+            p.config, os.environ.get('GPMPC_SYM_KERNEL'), _group_key(p.group),
+            _loop_of(u0.device))
 
 
 def clear_programs() -> None:
     """Drop every kept program (the counterpart of jax.clear_caches())."""
     while _PROGRAMS:
         _PROGRAMS.popitem(last=False)[1].release()
+
+
+def release_group_programs() -> None:
+    """Release every kept program whose value-and-grad runs collectives
+    over a process group. The programs go before the groups do
+    (parallel/distributed.destroy_group): a captured collective must never
+    run on, or outlive, a destroyed communicator."""
+    for key in [k for k, prog in _PROGRAMS.items()
+                if prog.p.group is not None]:
+        _PROGRAMS.pop(key).release()
 
 
 def program_stats() -> dict:
@@ -765,7 +825,9 @@ def program_stats() -> dict:
 
 def _evict() -> None:
     """The least recently used programs go while the cache holds more than
-    MAX_PROGRAM_BYTES; the newest stays."""
+    MAX_PROGRAM_BYTES; the newest stays. The cache is per process: the
+    ranks of a model group make the same calls, so they keep and evict
+    the same programs."""
     while (len(_PROGRAMS) > 1
            and program_stats()['bytes'] > MAX_PROGRAM_BYTES):
         _PROGRAMS.popitem(last=False)[1].release()
@@ -823,6 +885,26 @@ class Objective(NamedTuple):
         return self.build(*self.inputs)(u)
 
 
+class ValueAndGrad(NamedTuple):
+    """An external value-and-grad u (B, H, da) -> (f (B,), g (B, H, da))
+    given by what it is built from, as an `Objective` is, so that a solve
+    can keep its captured program: build(*inputs) returns the oracle;
+    `key` and `inputs` follow Objective's rule (build reads its inputs
+    only inside the oracle it returns). `group` is the process group whose
+    collectives the oracle runs, or None: it names the program
+    (`_group_key`), decides whether the solve is captured
+    (CAPTURED_BACKENDS) and binds the program's life to the group
+    (`release_group_programs`). Called on u, it builds on its own inputs
+    and evaluates."""
+    key: Hashable
+    inputs: tuple
+    build: Callable[..., Callable]
+    group: Optional[object] = None
+
+    def __call__(self, u):
+        return self.build(*self.inputs)(u)
+
+
 def solve_trajectory_batched(objective_b, u_init: torch.Tensor, lb, ub,
                              config: SolverConfig = SolverConfig(),
                              val_and_grad: Optional[Callable] = None,
@@ -836,18 +918,23 @@ def solve_trajectory_batched(objective_b, u_init: torch.Tensor, lb, ub,
 
     val_and_grad, if given, replaces autograd of objective_b (which may then
     be None): an external (f, g) oracle taking u (B, H, da) and returning
-    f (B,) and g (B, H, da), e.g. the collective program of
-    parallel/model_sharded.py; L-BFGS only (Adam raises ValueError, as
-    does an unknown method).
+    f (B,) and g (B, H, da); L-BFGS only (Adam raises ValueError, as does
+    an unknown method). A `ValueAndGrad` (the model-sharded value-and-grad
+    of parallel/model_sharded.py, with its collectives inside) has its
+    program kept as an Objective's is; a bare callable runs eagerly.
 
     On CUDA the solve runs as a kept program of captured CUDA graphs whose
-    loop runs on the device (`_run_graphed`, `loop_form()`), unless
-    val_and_grad is given (an external oracle, with collectives inside),
-    the caller passes _graph=False (internal: `solve_trajectory`'s loop for
-    an objective not held to capture), or config.max_iters is 0 (no loop:
-    the first value-and-grad only). The
-    objective must then read nothing on the host: the full-covariance
-    rollout's PSD clip runs the sync-free eigensolver
+    loop runs on the device (`_run_graphed`, `loop_form()`), unless the
+    caller passes _graph=False (internal: `solve_trajectory`'s loop for an
+    objective not held to capture), config.max_iters is 0 (no loop: the
+    first value-and-grad only), val_and_grad is a bare callable, or it is a
+    ValueAndGrad whose group's collectives cannot be captured. That last is
+    a rule fixed in advance (`_collectives_captured`): a group of a backend
+    in CAPTURED_BACKENDS for the device (NCCL on CUDA) is captured, its
+    collectives inside the step graph; any other (gloo, whose all_reduce
+    of a CUDA tensor goes through the host) runs eagerly; the CPU runs
+    eagerly in any case. The objective must then read nothing on the host:
+    the full-covariance rollout's PSD clip runs the sync-free eigensolver
     (ops/kernels/eigh_small.py) for that. Elsewhere, and on the CPU, the
     loop runs eagerly (`_run_eager`). A capture that fails raises; it never
     turns into the eager loop."""
@@ -871,25 +958,34 @@ def solve_trajectory_batched(objective_b, u_init: torch.Tensor, lb, ub,
             return _value_and_grad(obj, u, shape)
         return vg
 
-    program = None
-    if val_and_grad is not None:
+    def vg_flat(oracle):
         def vg(u):
-            f, g = val_and_grad(u.reshape(shape))
+            f, g = oracle(u.reshape(shape))
             return f.detach(), g.detach().reshape(b, n)
-    elif isinstance(objective_b, Objective):
+        return vg
+
+    program, group, kept = None, None, None
+    if isinstance(val_and_grad, ValueAndGrad):
+        kept, wrap, group = val_and_grad, vg_flat, val_and_grad.group
+    elif val_and_grad is None and isinstance(objective_b, Objective):
+        kept, wrap = objective_b, vg_of
+    if kept is not None:
         def build(*inputs):
-            return vg_of(objective_b.build(*inputs))
-        program = ((objective_b.key, tuple(shape), tuple(lb_t.shape),
-                    tuple(ub_t.shape)), objective_b.inputs, build)
-        vg = build(*objective_b.inputs)
+            return wrap(kept.build(*inputs))
+        program = ((kept.key, tuple(shape), tuple(lb_t.shape),
+                    tuple(ub_t.shape)), kept.inputs, build)
+        vg = build(*kept.inputs)
+    elif val_and_grad is not None:
+        vg = vg_flat(val_and_grad)
     else:
         vg = vg_of(objective_b)
 
     p = _Problem(val_and_grad=vg, lb=lb_f, ub=ub_f,
                  zero=torch.zeros((), dtype=dt, device=dev), config=config,
-                 program=program, method=method)
-    graphed = (_graph and val_and_grad is None and _can_graph(dev)
-               and config.max_iters > 0)
+                 program=program, method=method, group=group)
+    graphed = (_graph and (val_and_grad is None or program is not None)
+               and _can_graph(dev) and config.max_iters > 0
+               and _collectives_captured(group, dev))
     s = (_run_graphed if graphed else _run_eager)(p, u_init.reshape(b, n))
     pg_norm = _pg_res(p, s.u, s.g)
     if method == 'adam':

@@ -91,8 +91,11 @@ LAUNCHES_F64 = 0
 LAUNCHES_UNTIED = 0
 LAUNCHES_BLOCK = 0
 LAUNCHES_SYM = 0
+# Of K3's launches, those of K1's f64 instance (a graph's nodes count them
+# as K1 f64's: `_as_nodes`).
+LAUNCHES_BLOCK_F64 = 0
 _COUNTERS = ('LAUNCHES', 'LAUNCHES_F64', 'LAUNCHES_UNTIED', 'LAUNCHES_BLOCK',
-             'LAUNCHES_SYM')
+             'LAUNCHES_SYM', 'LAUNCHES_BLOCK_F64')
 # Of K1's launches, those of its grouped form (one blam a group of
 # scenarios). The grouped form is K1's own kernel, so a graph's nodes count
 # its launches in LAUNCHES and LAUNCHES_F64; this count is a tally of the
@@ -117,9 +120,9 @@ def graph_counters(name: str) -> tuple:
     (rw_tied_mma_kernel); K2, the same template with Untied = true (its
     first bool argument), LAUNCHES_UNTIED; K4's pair kernel LAUNCHES_SYM;
     any other kernel (). K1's grouped form is K1's kernel and counts as K1.
-    K3 launches K1's kernel, so a graph holding it counts it as K1, against
-    what its wrapper counts: the check of utils/replay_counts.Replays then
-    raises."""
+    K3 launches K1's kernel, so its nodes count as K1's too; `_as_nodes`
+    counts its wrapper's launches so for the capture's check, and a replay
+    adds to LAUNCHES_BLOCK what the wrapper counted."""
     if 'rw_tied_mma_kernel' in name:
         return ('LAUNCHES', 'LAUNCHES_F64')
     m = _TIED_FN.search(name)
@@ -135,11 +138,23 @@ def graph_counters(name: str) -> tuple:
     return ()
 
 
-# A launch captured in a CUDA graph counts once per replay, by the graph's
-# own kernel nodes (utils/replay_counts.py).
+def _as_nodes(counts) -> dict:
+    """The wrappers' launch counts as a graph's kernel nodes count them
+    (graph_counters): K3's (LAUNCHES_BLOCK) as K1's, its f64 ones
+    (LAUNCHES_BLOCK_F64) also as K1 f64's."""
+    out = {k: n for k, n in counts.items()
+           if k not in ('LAUNCHES_BLOCK', 'LAUNCHES_BLOCK_F64')}
+    for k, n in (('LAUNCHES', counts.get('LAUNCHES_BLOCK', 0)),
+                 ('LAUNCHES_F64', counts.get('LAUNCHES_BLOCK_F64', 0))):
+        out[k] = out.get(k, 0) + n
+    return out
+
+
+# A launch captured in a CUDA graph counts once per replay, checked against
+# the graph's own kernel nodes (utils/replay_counts.py).
 replay_counts.register_kernels(
     lambda: {name: globals()[name] for name in _COUNTERS}, _add_launches,
-    graph_counters)
+    graph_counters, _as_nodes)
 replay_counts.register(lambda: {'LAUNCHES_GROUPED': LAUNCHES_GROUPED},
                        _add_launches)
 
@@ -920,7 +935,7 @@ def rw_tied_block(g_blk, dv_blk, a, aod, blam_t_blk):
     """K3: K1 on a rectangle, this shard's Nl output rows contracted over all
     N rows (Nl <= N). CUDA tensors launch the kernel; CPU tensors take
     `rw_tied_block_reference`."""
-    global LAUNCHES_BLOCK
+    global LAUNCHES_BLOCK, LAUNCHES_BLOCK_F64
     if g_blk.shape[1] > a.shape[1]:
         raise ValueError(f'row block of {g_blk.shape[1]} rows exceeds the '
                          f'{a.shape[1]} contraction rows')
@@ -928,6 +943,8 @@ def rw_tied_block(g_blk, dv_blk, a, aod, blam_t_blk):
         return rw_tied_block_reference(g_blk, dv_blk, a, aod, blam_t_blk)
     rw, launched = _launch(g_blk, dv_blk, a, aod, blam_t_blk)
     LAUNCHES_BLOCK += launched
+    if g_blk.dtype == torch.float64:
+        LAUNCHES_BLOCK_F64 += launched
     return rw
 
 

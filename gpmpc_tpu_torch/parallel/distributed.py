@@ -14,7 +14,9 @@ solves every rank's lanes with no collective inside the solve.
 
 `launch_ranks` does what torchrun does for a few ranks on one host, for a
 caller that must time them out and read their output (the tests and
-chip_smoke.py); each rank ends with `finish_rank`.
+chip_smoke.py); each rank ends with `finish_rank`. A process that leaves
+its group calls `destroy_group`, which releases the kept solve programs
+bound to the group (mpc/solver.py) before the group goes.
 """
 
 from __future__ import annotations
@@ -120,12 +122,24 @@ def launch_ranks(argv, world: int, timeout_s: float, env=None,
     return outs
 
 
+def destroy_group() -> None:
+    """Destroy the default process group, and with it every group of this
+    process, after releasing each kept solve program whose collectives run
+    over one of them (mpc/solver.release_group_programs): a captured
+    collective must never outlive its communicator. A program of a later
+    group never matches one of these (its key holds the group's serial
+    number)."""
+    from gpmpc_tpu_torch.mpc import solver
+    solver.release_group_programs()
+    dist.destroy_process_group()
+
+
 def finish_rank() -> None:
-    """A launched rank's last step: wait for every rank, leave the group and
-    print the marker that `launch_ranks` looks for."""
+    """A launched rank's last step: wait for every rank, leave the group
+    (destroy_group) and print the marker that `launch_ranks` looks for."""
     rank = dist.get_rank()
     dist.barrier()
-    dist.destroy_process_group()
+    destroy_group()
     print(_marker(rank), flush=True)
 
 

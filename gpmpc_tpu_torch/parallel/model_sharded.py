@@ -27,6 +27,18 @@ cost from the summed trace, so the gradient would count n_model times):
 The tied branch runs the row-block kernel K3
 (ops/kernels/variance_trace.variance_trace_tied_block); the untied branch the
 einsum form as torch ops.
+
+The value-and-grad is a `ValueAndGrad` (mpc/solver.py): built on its inputs,
+keyed by the mesh and the model group, so the solve is a kept program as
+JAX's one compiled while_loop around the shard_map value-and-grad is. Over
+NCCL on CUDA the step graph holds the rollout, K3's launches, the cost, the
+backward and both all_reduces, and the loop runs on the card; over gloo
+(whose all_reduce of a CUDA tensor goes through the host) and on the CPU
+the loop runs eagerly (the solver's CAPTURED_BACKENDS). The ranks of a
+model group stay in lockstep on a device loop too, since f, g and `done`
+agree to the bit; there a divergence would hang a collective rather than
+raise. A group's programs are released before the group is destroyed
+(parallel/distributed.destroy_group).
 """
 
 from __future__ import annotations
@@ -38,10 +50,13 @@ import torch
 import torch.distributed as dist
 
 from gpmpc_tpu_torch.device import ensure_true_f32
-from gpmpc_tpu_torch.dynamics import _MIN_VAR, RolloutCache, build_rollout_cache
+from gpmpc_tpu_torch.dynamics import (_MIN_VAR, CACHE_TENSORS, RolloutCache,
+                                      build_rollout_cache, cache_from)
 from gpmpc_tpu_torch.gp.state import GPState
-from gpmpc_tpu_torch.mpc.cost import CostParams, risk_sensitive_cost
+from gpmpc_tpu_torch.mpc.cost import (CostParams, params_from, params_key,
+                                      params_tensors, risk_sensitive_cost)
 from gpmpc_tpu_torch.mpc.solver import (SolverConfig, SolveResult,
+                                        ValueAndGrad,
                                         solve_trajectory_batched)
 from gpmpc_tpu_torch.ops import moments
 from gpmpc_tpu_torch.ops.kernels import variance_trace as vt
@@ -180,22 +195,46 @@ def rollout_batched_rows(cache: RolloutCache, blam_t_rows, row_off, x0s,
 
 
 def sharded_value_and_grad(mesh, cache: RolloutCache, blam_t_rows, row_off,
-                           x0s, params: CostParams, delta: bool = False):
+                           x0s, params: CostParams,
+                           delta: bool = False) -> ValueAndGrad:
     """The per-lane objective's (f, g) on this rank's lanes, its trace split
     over the mesh's model axis: u (B_l, H, da) -> (f (B_l,), g (B_l, H, da)).
-    Every rank of a model group must call it with the same u."""
+    Every rank of a model group must call it with the same u.
+
+    A `ValueAndGrad` (mpc/solver.py): its inputs are the cache's tensors
+    (b_lam the placeholder of shard_problem), this rank's transposed row
+    block, its lanes of x0s and its cost leaves; its key the mesh's shape,
+    axis names and this rank's coordinates, the cache's static key, row_off,
+    delta and which cost leaves are None; its group the model axis's (the
+    solver adds the group's backend and serial number to the program's
+    key). Everything derived from the inputs is computed inside the built
+    oracle, so a kept program replayed on the next call's inputs reads
+    them fresh. Called on u, it evaluates."""
     group = mesh.get_group(MODEL_AXIS)
+    static, p_key = cache.static_key(), params_key(params)
+    n_c = len(CACHE_TENSORS)
 
-    def val_and_grad(u):
-        u = u.detach().requires_grad_(True)
-        with torch.enable_grad():
-            means, covs = rollout_batched_rows(cache, blam_t_rows, row_off, x0s,
-                                               u, delta=delta, group=group)
-            f = risk_sensitive_cost(params, means, covs, u)
-            (g,) = torch.autograd.grad(f.sum(), u)
-        return f.detach(), g
+    def build(*inputs):
+        c = cache_from(static, inputs[:n_c])
+        rows, x0 = inputs[n_c:n_c + 2]
+        p = params_from(p_key, inputs[n_c + 2:])
 
-    return val_and_grad
+        def val_and_grad(u):
+            u = u.detach().requires_grad_(True)
+            with torch.enable_grad():
+                means, covs = rollout_batched_rows(c, rows, row_off, x0, u,
+                                                   delta=delta, group=group)
+                f = risk_sensitive_cost(p, means, covs, u)
+                (g,) = torch.autograd.grad(f.sum(), u)
+            return f.detach(), g
+        return val_and_grad
+
+    key = ('sharded_value_and_grad', tuple(mesh.mesh.shape),
+           tuple(mesh.mesh_dim_names), tuple(mesh.get_coordinate()), static,
+           row_off, delta, p_key)
+    return ValueAndGrad(key, (*cache.tensors(), blam_t_rows, x0s,
+                              *params_tensors(params, x0s.device)),
+                        build, group)
 
 
 def shard_problem(mesh, gp: GPState, state_dim: int, action_dim: int,
@@ -225,8 +264,15 @@ def solve_batch_2d(mesh, gp: GPState, state_dim: int, action_dim: int,
     only its (E, cap / n_model, cap) row block of b_lam (stored transposed,
     mesh.row_block). B must divide by the
     batch-axis size and the GP capacity by the model-axis size. Returns the
-    whole (B, ...) result on every rank. The solver's loop runs eagerly:
-    the value-and-grad is an external oracle with collectives inside."""
+    whole (B, ...) result on every rank, gathered over the batch axis after
+    the solve (as JAX's out_specs gather).
+
+    The solve is a kept program (sharded_value_and_grad is a ValueAndGrad):
+    over NCCL on CUDA the first call of a key runs iteration 1 eagerly,
+    which also creates the communicator, then captures the step, its
+    all_reduces included, into the loop graph on the card; a later call is
+    its init graph and one loop launch. Over gloo and on the CPU the loop
+    runs eagerly, by the solver's rule (CAPTURED_BACKENDS)."""
     if x0s.device != gp.x.device:
         raise ValueError(f'x0s lies on {x0s.device}, the GP on {gp.x.device}')
     ensure_true_f32()

@@ -10,12 +10,14 @@ after the capture, reads what the graph itself will launch, and builds a
 `Replays`. That object takes back what the capture counted, checks the
 graph against it, and adds the graph's launches once per replay.
 
-- Kernel counters (`register_kernels`: the wrappers' launch counts). Their
-  launches a replay are read from the graph's kernel nodes, through the
-  CUDA driver (`graph_kernel_names`), and each node's function name is
-  sorted into the counters it counts in. The count must equal what the
-  wrappers counted during the capture, or the capture raises: a launch
-  that left no node, or a node that no wrapper counted.
+- Kernel counters (`register_kernels`: the wrappers' launch counts). The
+  graph's kernel nodes are read through the CUDA driver
+  (`graph_kernel_names`), and each node's function name is sorted into
+  the counters it counts in. That count must equal what the wrappers
+  counted during the capture, as a node sees it (`as_nodes`: two wrappers
+  that launch one kernel function, K1 and K3, count apart, their nodes
+  alike), or the capture raises: a launch that left no node, or a node
+  that no wrapper counted. A replay then adds what the wrappers counted.
 - Tallies (`register`: a script's own counts of Python calls, e.g. of the
   rollouts a solve runs). A replay runs no Python, so for them the
   capture's difference is what each replay repeats.
@@ -63,6 +65,9 @@ class _Source(NamedTuple):
     # Kernel counters: a kernel's function name -> the keys its launch
     # counts in (() for a kernel the source does not count).
     classify: Optional[Callable[[str], tuple]]
+    # Kernel counters: the wrappers' counts -> the same launches as
+    # `classify` counts them from the nodes.
+    as_nodes: Optional[Callable[[Counts], Counts]] = None
 
 
 _SOURCES: List[_Source] = []
@@ -104,11 +109,14 @@ def register(read: Callable[[], Counts], add: Callable[[Counts], None]):
 
 
 def register_kernels(read: Callable[[], Counts], add: Callable[[Counts], None],
-                     classify: Callable[[str], tuple]):
+                     classify: Callable[[str], tuple],
+                     as_nodes: Callable[[Counts], Counts] = dict):
     """Make kernel launch counters visible to replays: read and add as in
     `register`; classify(name) gives the keys that a launch of the kernel
-    named `name` (mangled or not) counts in."""
-    entry = _Source(read, add, classify)
+    named `name` (mangled or not) counts in; as_nodes(counts) gives the
+    wrappers' counts as classify counts the same launches (by default
+    themselves)."""
+    entry = _Source(read, add, classify, as_nodes)
     _SOURCES.append(entry)
     return entry
 
@@ -144,7 +152,7 @@ class Replays:
     after its capture and the function names of its kernel nodes: takes
     back what the capture counted (it launched nothing), after checking
     that the graph's kernel nodes are the launches the kernel counters saw.
-    `replayed()` then counts one replay."""
+    `replayed()` then counts one replay: what the capture counted."""
 
     def __init__(self, before: list, after: list, kernel_names: List[str]):
         if [e for e, _ in before] != [e for e, _ in after]:
@@ -154,18 +162,19 @@ class Replays:
         self.names = Counter(kernel_names)
         for (entry, b), (_, a) in zip(before, after):
             captured = _delta(b, a)
-            if entry.classify is None:
-                each = captured
-            else:
+            each = captured
+            if entry.classify is not None:
                 nodes = Counter()
                 for name in kernel_names:
                     nodes.update(entry.classify(name))
-                each = {k: n for k, n in nodes.items() if n}
-                if each != captured:
+                seen = {k: n for k, n in nodes.items() if n}
+                want = {k: n for k, n in entry.as_nodes(captured).items()
+                        if n}
+                if seen != want:
                     raise RuntimeError(
-                        f'the captured graph holds kernel launches {each}, '
+                        f'the captured graph holds kernel launches {seen}, '
                         f'the wrappers launched {captured} during its '
-                        'capture')
+                        f'capture ({want} as its nodes count them)')
             if captured:
                 entry.add({k: -n for k, n in captured.items()})
             self.per_replay.append((entry, each))
@@ -199,8 +208,14 @@ def replays_run() -> Dict['Replays', int]:
 
 
 # ------------------------------------------- a graph's nodes, by the driver --
-_CU_GRAPH_NODE_TYPE_KERNEL = 0
-_CU_GRAPH_NODE_TYPE_GRAPH = 5
+# CUgraphNodeType of cuda.h, in its order (CU_GRAPH_NODE_TYPE_KERNEL = 0,
+# ..._GRAPH = 4, ..._EMPTY = 5, ..._CONDITIONAL = 13).
+NODE_TYPES = ('kernel', 'memcpy', 'memset', 'host', 'graph', 'empty',
+              'wait_event', 'event_record', 'ext_semas_signal',
+              'ext_semas_wait', 'mem_alloc', 'mem_free', 'batch_mem_op',
+              'conditional')
+_CU_GRAPH_NODE_TYPE_KERNEL = NODE_TYPES.index('kernel')
+_CU_GRAPH_NODE_TYPE_GRAPH = NODE_TYPES.index('graph')
 
 
 class _KernelNodeParams(ctypes.Structure):
@@ -227,30 +242,47 @@ def _check(err: int, call: str) -> None:
         raise RuntimeError(f'{call} failed: CUresult {err}')
 
 
+def _graph_nodes(graph: int):
+    """(node, CUgraphNodeType) of every node of a CUDA graph (a
+    cudaGraph_t), each child graph's nodes after its own node."""
+    cu = _cu()
+    n = ctypes.c_size_t(0)
+    _check(cu.cuGraphGetNodes(ctypes.c_void_p(graph), None, ctypes.byref(n)),
+           'cuGraphGetNodes')
+    if not n.value:
+        return
+    nodes = (ctypes.c_void_p * n.value)()
+    _check(cu.cuGraphGetNodes(ctypes.c_void_p(graph), nodes, ctypes.byref(n)),
+           'cuGraphGetNodes')
+    for node in nodes:
+        node = ctypes.c_void_p(node)
+        kind = ctypes.c_int(-1)
+        _check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)),
+               'cuGraphNodeGetType')
+        yield node, kind.value
+        if kind.value == _CU_GRAPH_NODE_TYPE_GRAPH:
+            child = ctypes.c_void_p()
+            _check(cu.cuGraphChildGraphNodeGetGraph(node, ctypes.byref(child)),
+                   'cuGraphChildGraphNodeGetGraph')
+            yield from _graph_nodes(child.value)
+
+
+def graph_node_types(graph: int) -> Counter:
+    """The nodes of a CUDA graph (a cudaGraph_t), child graphs included, by
+    type (NODE_TYPES' names)."""
+    return Counter(NODE_TYPES[k] if 0 <= k < len(NODE_TYPES) else f'type {k}'
+                   for _, k in _graph_nodes(graph))
+
+
 def graph_kernel_names(graph: int) -> List[str]:
     """The function name of every kernel node of a CUDA graph (a
     cudaGraph_t, as torch.cuda.CUDAGraph(keep_graph=True).raw_cuda_graph()
     gives it), child graphs included: one name for each launch that a
     replay runs."""
     cu = _cu()
-    n = ctypes.c_size_t(0)
-    _check(cu.cuGraphGetNodes(ctypes.c_void_p(graph), None, ctypes.byref(n)),
-           'cuGraphGetNodes')
-    nodes = (ctypes.c_void_p * n.value)()
-    _check(cu.cuGraphGetNodes(ctypes.c_void_p(graph), nodes, ctypes.byref(n)),
-           'cuGraphGetNodes')
     names = []
-    for node in nodes:
-        node = ctypes.c_void_p(node)
-        kind = ctypes.c_int(-1)
-        _check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)),
-               'cuGraphNodeGetType')
-        if kind.value == _CU_GRAPH_NODE_TYPE_GRAPH:
-            child = ctypes.c_void_p()
-            _check(cu.cuGraphChildGraphNodeGetGraph(node, ctypes.byref(child)),
-                   'cuGraphChildGraphNodeGetGraph')
-            names.extend(graph_kernel_names(child.value))
-        if kind.value != _CU_GRAPH_NODE_TYPE_KERNEL:
+    for node, kind in _graph_nodes(graph):
+        if kind != _CU_GRAPH_NODE_TYPE_KERNEL:
             continue
         params = _KernelNodeParams()
         _check(cu.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(params)),

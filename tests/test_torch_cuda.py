@@ -1851,3 +1851,102 @@ def test_cuda_batched_episode_capture_equals_eager(recipe):
     for k in ('x', 'count', 'kinv', 'beta', 'jitter_used'):
         assert torch.equal(getattr(ga, k), getattr(gb, k)), k
     assert torch.equal(ga.count.cpu(), torch.full((6,), 43, dtype=torch.int32))
+
+
+# ------------------------------------ the model-sharded solve, kept (NCCL) --
+@pytest.mark.cuda
+def test_cuda_graph_node_types_follow_the_driver_enum():
+    """utils/replay_counts names a node by cuda.h's CUgraphNodeType: a
+    graph of an empty node and a child graph (itself one empty node) reads
+    {'empty': 2, 'graph': 1}."""
+    import ctypes
+    _cuda()
+    torch.zeros(1, device='cuda')
+    cu = replay_counts._cu()
+    vp = ctypes.c_void_p
+    graph, child, node = vp(), vp(), vp()
+    assert cu.cuGraphCreate(ctypes.byref(graph), 0) == 0
+    assert cu.cuGraphCreate(ctypes.byref(child), 0) == 0
+    try:
+        assert cu.cuGraphAddEmptyNode(ctypes.byref(node), child, None, 0) == 0
+        assert cu.cuGraphAddEmptyNode(ctypes.byref(node), graph, None, 0) == 0
+        assert cu.cuGraphAddChildGraphNode(ctypes.byref(node), graph, None, 0,
+                                           child) == 0
+        assert replay_counts.graph_node_types(graph.value) == {
+            'empty': 2, 'graph': 1}
+        assert replay_counts.graph_kernel_names(graph.value) == []
+    finally:
+        cu.cuGraphDestroy(graph)
+        cu.cuGraphDestroy(child)
+
+
+@pytest.fixture(scope='module')
+def nccl_mesh():
+    """A (1, 1) mesh over an NCCL group of this process alone, left by
+    destroy_group (which releases its programs first)."""
+    from gpmpc_tpu_torch.parallel.distributed import (destroy_group,
+                                                      free_port, initialize)
+    from gpmpc_tpu_torch.parallel.mesh import make_mesh
+    dev = _cuda()
+    initialize(f'tcp://localhost:{free_port()}', world_size=1, rank=0,
+               device=dev, timeout_s=120.0)
+    try:
+        yield make_mesh(1, 1, device=dev)
+    finally:
+        destroy_group()
+
+
+def _sharded_solve(mesh, b=256, iters=10):
+    """solve_batch_2d of the headline (f32, K3 f64) on `mesh`: (solve(),
+    H)."""
+    from gpmpc_tpu_torch.mpc.solver import SolverConfig
+    from gpmpc_tpu_torch.parallel.model_sharded import solve_batch_2d
+    from gpmpc_tpu_torch.problems import make_headline_problem
+    p = make_headline_problem(b=b, dtype=torch.float32, device='cuda')
+    cfg = SolverConfig(max_iters=iters, tol=1e-4)
+    return (lambda: solve_batch_2d(mesh, p.gp, 2, 1, p.x0s, p.params,
+                                   p.horizon, p.lb, p.ub, cfg)), p.horizon
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_all_reduce_runs_in_a_loop_body(nccl_mesh):
+    """One NCCL collective of each of chip_smoke.COLLECTIVES captured by
+    torch and into a device loop's body (chip_smoke.collective_graphs):
+    each loop runs its two passes and leaves the collective's values."""
+    from gpmpc_tpu_torch.parallel.mesh import MODEL_AXIS
+    r = chip_smoke.collective_graphs(nccl_mesh.get_group(MODEL_AXIS),
+                                     torch.device('cuda'))
+    assert [r[k]['loop_passes'] for k in chip_smoke.COLLECTIVES] == [2] * 3
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_program_equals_host_read_loop(nccl_mesh):
+    """The (1, 1) NCCL solve_batch_2d as a kept program
+    (chip_smoke.check_device_loop): a device-loop miss, a host-read miss
+    and a device-loop hit equal to the bit; the hit captures nothing and
+    syncs nothing with the host; the device loop makes 0 host reads."""
+    solve, _ = _sharded_solve(nccl_mesh)
+    r = chip_smoke.check_device_loop('sharded 1x1', solve,
+                                     torch.device('cuda'))
+    assert r['guarded_runs'] >= 1 and r['captures']['device hit'] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_program_counts_k3_and_equals_eager(nccl_mesh,
+                                                         monkeypatch):
+    """Eager and kept, counted: equal to the bit, exactly H * (1 + iters)
+    K3 launches (replays included) and no other kernel; each graph of the
+    program (step and init) H K3 launches a replay, and its step graph H
+    K3 kernel nodes (chip_smoke.program_census)."""
+    from gpmpc_tpu_torch.mpc import solver
+    solve, h = _sharded_solve(nccl_mesh)
+    graphs = _noted_captures(monkeypatch)
+    (eager, n_e), (kept, n_k) = _eager_then_graphed(monkeypatch, solve)
+    chip_smoke.same_bits('sharded eager vs kept', eager, kept)
+    want = h * (1 + int(kept.iters.max()))
+    for n in (n_e, n_k):
+        assert n == dict(K1=0, **{'K1 f64': 0}, K2=0, K3=want, K4=0, eigh=0)
+    assert graphs == [{'LAUNCHES_BLOCK': h, 'LAUNCHES_BLOCK_F64': h}] * 2
+    (prog,) = solver._PROGRAMS.values()
+    census = chip_smoke.program_census(prog)
+    assert census['step']['k3'] == census['init']['k3'] == h

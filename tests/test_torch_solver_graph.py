@@ -286,19 +286,24 @@ def test_replay_counts_tally_repeats_the_capture():
 def _spy(module):
     """(asks for a captured loop, objective kind, method, lanes) of each
     solve_trajectory_batched call made through `module`: the kind is an
-    Objective's key[0] ('batch_objective', 'lanes_objective'), else
-    None."""
+    Objective's or a ValueAndGrad's key[0] ('batch_objective',
+    'lanes_objective', 'sharded_value_and_grad'), else None."""
     seen = []
     orig = module.solve_trajectory_batched
 
     def spy(objective_b, u_init, lb, ub, config=SolverConfig(),
             val_and_grad=None, _graph=True):
         # solve_trajectory_batched's rule, CUDA aside: graphed unless
-        # _graph=False or an external val_and_grad.
+        # _graph=False, a bare external val_and_grad, or a ValueAndGrad
+        # whose group's collectives the rule does not capture.
+        kept = isinstance(val_and_grad, solver.ValueAndGrad)
         kind = (objective_b.key[0]
-                if isinstance(objective_b, solver.Objective) else None)
-        seen.append((_graph and val_and_grad is None, kind, config.method,
-                     u_init.shape[0]))
+                if isinstance(objective_b, solver.Objective)
+                else val_and_grad.key[0] if kept else None)
+        asks = _graph and (val_and_grad is None or (
+            kept and solver._collectives_captured(val_and_grad.group,
+                                                  u_init.device)))
+        seen.append((asks, kind, config.method, u_init.shape[0]))
         return orig(objective_b, u_init, lb, ub, config, val_and_grad,
                     _graph=_graph)
 
@@ -393,10 +398,12 @@ def test_route_rule_controller_route_c(case):
 
 def test_route_rule_external_val_and_grad():
     """(d) The model-sharded solve (solve_batch_2d on a (1, 1) gloo mesh in
-    this process) hands the solver an external value-and-grad, with its
-    collectives inside, and does not ask for capture."""
-    import torch.distributed as dist
-    from gpmpc_tpu_torch.parallel.distributed import free_port, initialize
+    this process) hands the solver a keyable external value-and-grad
+    (solver.ValueAndGrad), with its collectives inside, whose gloo group
+    the capture rule keeps eager (an NCCL group on CUDA is captured:
+    tests/test_torch_sharded_program.py)."""
+    from gpmpc_tpu_torch.parallel.distributed import (destroy_group,
+                                                      free_port, initialize)
     from gpmpc_tpu_torch.parallel.mesh import make_mesh
     p = make_headline_problem(b=2, n_train=24, capacity=32, horizon=3,
                               dtype=torch.float64, device='cpu')
@@ -408,5 +415,5 @@ def test_route_rule_external_val_and_grad():
                 make_mesh(1, 1, device='cpu'), p.gp, 2, 1, p.x0s, p.params,
                 p.horizon, p.lb, p.ub, SolverConfig(max_iters=2))
     finally:
-        dist.destroy_process_group()
-    assert seen == [(False, None, 'lbfgs', 2)]
+        destroy_group()
+    assert seen == [(False, 'sharded_value_and_grad', 'lbfgs', 2)]

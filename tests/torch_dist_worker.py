@@ -18,6 +18,10 @@ Cases:
          headline GP (problems.make_headline_problem), its value and
          gradient, the dtype of the partial traces it sums over the ranks,
          and the unsharded f32 op on the same inputs.
+  kept   (1, 2) mesh: solve_batch_2d as a kept program (the stand-in graphs
+         of torch_stand_in.py, gloo's collectives captured) on x0s, then on
+         x0s_2, each beside the eager solve (gloo's rule); each call's
+         captures and step replays.
 """
 
 import os
@@ -36,6 +40,8 @@ from gpmpc_tpu_torch.parallel import distributed as pdist  # noqa: E402
 from gpmpc_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from gpmpc_tpu_torch.parallel import model_sharded as ms  # noqa: E402
 from gpmpc_tpu_torch.parallel.batch import solve_batch_sharded  # noqa: E402
+from torch_stand_in import (capture_gloo, stand_in_capture,  # noqa: E402
+                            use_stand_in_graphs)
 
 F64 = torch.float64
 PG_TIMEOUT_S = 60.0
@@ -149,6 +155,50 @@ def case_rows32(inp, world):
     return out
 
 
+def case_kept(inp, world):
+    import pytest
+    from gpmpc_tpu_torch.mpc import solver
+    from gpmpc_tpu_torch.utils import replay_counts
+    mesh = pmesh.make_mesh(1, 2, device='cpu')
+    gp = gp_from(inp, 'gp_', True)
+    params = params_from(inp)
+    cfg = SolverConfig(max_iters=int(inp['iters']), tol=1e-6, history=4)
+
+    def solve(x0s):
+        return ms.solve_batch_2d(mesh, gp, 2, 1, t64(x0s), params,
+                                 int(inp['horizon']), -1.0, 1.0, cfg)
+
+    out = {}
+    for name in ('x0s', 'x0s_2'):
+        res = solve(inp[name])
+        out.update({f'eager_{name}_{k}': getattr(res, k).numpy()
+                    for k in ('u', 'cost', 'iters', 'converged')})
+    out['eager_programs'] = np.int64(len(solver._PROGRAMS))
+    with pytest.MonkeyPatch.context() as mp:
+        use_stand_in_graphs(mp)
+        capture_gloo(mp)
+        seen = []
+
+        def counted(record, s, pool=None, loop_iters=None):
+            seen.append(record)
+            return stand_in_capture(record, s, pool, loop_iters)
+
+        mp.setattr(solver, '_capture', counted)
+        for name in ('x0s', 'x0s_2'):
+            n0, before = len(seen), replay_counts.replays_run()
+            res = solve(inp[name])
+            (prog,) = solver._PROGRAMS.values()
+            after = replay_counts.replays_run()
+            out.update({f'kept_{name}_{k}': getattr(res, k).numpy()
+                        for k in ('u', 'cost', 'iters', 'converged')})
+            out[f'kept_{name}_captures'] = np.int64(len(seen) - n0)
+            out[f'kept_{name}_passes'] = np.int64(
+                after.get(prog.step_counts, 0)
+                - before.get(prog.step_counts, 0))
+        solver.clear_programs()
+    return out
+
+
 def main():
     case, inp_path, out_prefix = sys.argv[1:4]
     torch.set_num_threads(1)
@@ -156,7 +206,7 @@ def main():
     rank, world = torch.distributed.get_rank(), torch.distributed.get_world_size()
     inp = np.load(inp_path)
     out = {'rows': case_rows, 'model': case_model, 'batch': case_batch,
-           'rows32': case_rows32}[case](inp, world)
+           'rows32': case_rows32, 'kept': case_kept}[case](inp, world)
     np.savez(f'{out_prefix}_rank{rank}.npz', **out)
     pdist.finish_rank()
 
